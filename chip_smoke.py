@@ -1,0 +1,660 @@
+#!/usr/bin/env python3
+"""On-card smoke run of ``repro_torch``, the PyTorch/CUDA port, on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failed check raises, so the run exits non-zero:
+
+1. ``env``: the card (``nvidia-smi`` name and power limit), torch and CUDA
+   versions, and the seconds the kernels took to build from
+   ``src/repro_torch/kernels/*/csrc`` (nvcc, one process per source).
+2. ``kernel_check``: every CUDA kernel against its plain PyTorch version on the
+   card, at the main path's full-width llama3-8b shapes. ``pim_gemv`` must be
+   bit-exact; the attention kernels must agree within the f32 tolerance below.
+   ``kernel_time`` lines give each kernel's time beside its bound, its plain
+   version's time and one PyTorch library call's time (a yardstick the port
+   never calls).
+3. ``serve``: full-width llama3-8b (bf16, W8A8 ``quantized_decode``, random
+   weights from a seeded generator) serves ragged greedy requests through
+   ``ServingModel.prepare(...).engine(mode=...).serve(requests)`` in BLOCKED,
+   HBCEM and LBIM with ``decode_kv_splits=1``, and in LBIM once more with
+   ``decode_kv_splits=4``. Every request must finish, the pool's invariants
+   must hold, and greedy tokens must be identical across the three modes.
+   The launch counts are set to 0 just before each serve and read just after
+   it; they must equal what that serve's schedule implies (7 ``pim_gemv``
+   and one attention call per layer and one-token forward; single pass only
+   at 1 split, split and merge only at 4), and every kernel must have
+   launched in the phase.
+4. A ``kernels`` line (launches summed over the four serves), the
+   ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Without a CUDA device it exits with code 2 and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
+L2_BYTES = 50 * 2**20
+
+# attention tolerance: kernel and plain version both accumulate in f32, but the
+# kernel rescales its running sums tile by tile (online softmax), merges the
+# partials of its warps and blocks, and so adds the products in another order:
+# the two differ by a few f32 ulps per tile
+ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5
+
+GEMV_LAYER = [  # (N, K, launches per layer) of llama3-8b's seven decode GEMVs
+    (4096, 4096, 2),     # wq, wo
+    (1024, 4096, 2),     # wk, wv
+    (14336, 4096, 2),    # w_gate, w_up
+    (4096, 14336, 1),    # w_down
+]
+GEMV_RAGGED = (3001, 4100)   # N odd, K % 16 != 0: the kernel's masked edge path
+SLOTS = 4
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def copies_for(nbytes: int) -> int:
+    """Distinct input sets to cycle through so repeated launches find L2 cold."""
+    return max(2, min(16, math.ceil(4 * L2_BYTES / max(nbytes, 1))))
+
+
+def cuda_ms(fns, iters: int) -> float:
+    """Device milliseconds per call, cycling ``fns`` (each over its own inputs).
+
+    The calls are captured into one CUDA graph and the replay is timed with
+    CUDA events, so the host's cost of launching from Python (more than many
+    of these kernels take on the card) is not counted. A call that torch
+    cannot capture raises: no number here is ever an eager launch loop."""
+    for f in fns[:2]:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+# ---------------------------------------------------------------------------
+# pim_gemv
+# ---------------------------------------------------------------------------
+
+
+def gemv_inputs(n, k, b, gen, dev):
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    x = torch.randint(-127, 128, (b, k), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+    xs = torch.rand((b,), generator=gen, device=dev) * 0.1 + 0.05
+    return w, x, ws, xs
+
+
+def bound(nbytes: int, ops: int, peak_ops: float) -> tuple[float, str]:
+    """Least time for the work (ms) and what sets it: the bytes that must move
+    (each input read once, each output written once) or the operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gemv_bound(n, k, b) -> tuple[float, str]:
+    return bound(n * k + b * k + 4 * n + 4 * b + 4 * b * n, 2 * b * n * k, PEAK_INT8_OPS)
+
+
+def library_ms(name: str, fns, iters: int):
+    """Time of the PyTorch library yardstick, or None where torch refuses it."""
+    try:
+        return cuda_ms(fns, iters)
+    except RuntimeError as e:
+        emit({"phase": "library_unavailable", "kernel": name, "error": str(e)[:300]})
+        return None
+
+
+def check_pim_gemv(gen, dev) -> dict:
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    worst = 0.0
+    for n, k in [(n, k) for n, k, _ in GEMV_LAYER] + [GEMV_RAGGED]:
+        for b in (1, 4, 8):
+            w, x, ws, xs = gemv_inputs(n, k, b, gen, dev)
+            out = pim_gemv(w, x, ws, xs)
+            ref = pim_gemv_ref(w, x, ws, xs)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"pim_gemv ({n},{k}) B={b} is not bit-exact: "
+                                     f"max |err| {err}")
+    emit({"phase": "kernel_check", "kernel": "pim_gemv", "exact": True,
+          "shapes": [[n, k] for n, k, _ in GEMV_LAYER] + [list(GEMV_RAGGED)],
+          "batches": [1, 4, 8], "max_abs_err": worst})
+    return {"max_abs_err": worst}
+
+
+def time_pim_gemv(gen, dev) -> dict:
+    """Per-shape times, and the sum over one layer's seven GEMVs at B=SLOTS."""
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+             "bound_by": "bytes"}
+    for n, k, per_layer in GEMV_LAYER:
+        for b in (1, SLOTS, 8):
+            sets = [gemv_inputs(n, k, b, gen, dev) for _ in range(copies_for(n * k))]
+            ms = cuda_ms([lambda s=s: pim_gemv(*s) for s in sets], 60)
+            plain = cuda_ms([lambda s=s: pim_gemv_ref(*s) for s in sets[:2]], 6)
+            # library yardstick: int8 x int8 -> int32 GEMM (cuBLAS via torch._int_mm;
+            # M padded to 32 rows, which it requires), without the scale epilogue
+            xpad = [torch.zeros((32, k), dtype=torch.int8, device=dev) for _ in sets]
+            for xp, s in zip(xpad, sets):
+                xp[:b] = s[1]
+            lib = library_ms("pim_gemv", [lambda xp=xp, s=s: torch._int_mm(xp, s[0].t())
+                                          for xp, s in zip(xpad, sets)], 60)
+            bnd, by = gemv_bound(n, k, b)
+            emit({"phase": "kernel_time", "kernel": "pim_gemv", "n": n, "k": k, "b": b,
+                  "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+                  "bound_by": by, "weight_GBps": n * k / ms / 1e6,
+                  "roofline_share": bnd / ms})
+            if b == SLOTS:
+                layer["ms"] += per_layer * ms
+                layer["plain_ms"] += per_layer * plain
+                layer["bound_ms"] += per_layer * bnd
+                if by != "bytes":
+                    layer["bound_by"] = by
+                layer["library_ms"] = (None if lib is None or layer["library_ms"] is None
+                                       else layer["library_ms"] + per_layer * lib)
+            del sets, xpad
+    return layer
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+ATTN_B, ATTN_HKV, ATTN_G, ATTN_HD = 4, 8, 4, 128   # llama3-8b decode, 4 slots
+ATTN_NB = 256                                        # 2048-token lanes
+ATTN_END = [2048, 777, 0, 300]    # full, ragged, empty, short (splits left dead)
+ATTN_START = [0, 0, 0, 100]       # a lane with start > 0
+SERVE_TABLE_BLOCKS, SERVE_END = 37, [48, 47, 46, 45]   # the serve's tables, short fills
+
+
+def attn_inputs(gen, dev, bsz=8, nb=None, copies=1, g=ATTN_G, hd=ATTN_HD):
+    b, hkv = ATTN_B, ATTN_HKV
+    nb = ATTN_NB if nb is None else nb
+    p = b * nb + 1                   # page 0 stays the unused dummy, as in the pool
+    q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    table = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(b, nb)
+    pools = []
+    for _ in range(copies):
+        kp = (torch.randn((p, hkv, hd, bsz), generator=gen, device=dev) * 0.3
+              ).to(torch.bfloat16)
+        vp = (torch.randn((p, hkv, bsz, hd), generator=gen, device=dev) * 0.3
+              ).to(torch.bfloat16)
+        pools.append((kp, vp))
+    scale = hd ** -0.5
+    lim = nb * bsz
+    end = torch.tensor([min(e, lim) for e in ATTN_END], dtype=torch.int32, device=dev)
+    start = torch.tensor(ATTN_START, dtype=torch.int32, device=dev)
+    return q, pools, table.to(torch.int32), end, start, scale
+
+
+def live_tokens(end, start) -> int:
+    return int((end - start).clamp_min(0).sum())
+
+
+def attn_bound(end, start, n_out_bytes: int) -> tuple[float, str]:
+    hkv, g, hd = ATTN_HKV, ATTN_G, ATTN_HD
+    toks = live_tokens(end, start)
+    nbytes = (toks * hkv * hd * 2 * 2                 # live K and V, bf16
+              + ATTN_B * hkv * g * hd * 2 + n_out_bytes
+              + ATTN_B * 4 * 2)                       # start / end
+    flops = 4 * toks * hkv * g * hd                   # q.K and p.V
+    return bound(nbytes, flops, PEAK_BF16_FLOPS)
+
+
+def _allclose(name, out, ref) -> float:
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    if not torch.allclose(out, ref, rtol=ATTN_RTOL, atol=ATTN_ATOL):
+        raise AssertionError(f"{name}: max |err| {err} outside rtol={ATTN_RTOL} "
+                             f"atol={ATTN_ATOL}")
+    return err
+
+
+def check_attention(gen, dev) -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    errs = {"decode_attention_paged": 0.0, "decode_attention_paged_split": 0.0,
+            "merge_splits": 0.0}
+    # (page size, blocks per lane, softcap, G, hd): the main path's shape, large
+    # pages, a softcap, and the kernel's wide instantiation (G > 4, hd > 128)
+    cases = ((8, ATTN_NB, None, ATTN_G, ATTN_HD), (64, 32, None, ATTN_G, ATTN_HD),
+             (8, 64, 30.0, ATTN_G, ATTN_HD), (8, 64, None, 6, 256))
+    for bsz, nb, cap, g, hd in cases:
+        q, pools, table, end, start, scale = attn_inputs(gen, dev, bsz=bsz, nb=nb, g=g, hd=hd)
+        kp, vp = pools[0]
+        out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale,
+                                        softcap=cap)
+        want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, cap,
+                                              start=start)
+        torch.cuda.synchronize()
+        errs["decode_attention_paged"] = max(
+            errs["decode_attention_paged"],
+            _allclose(f"decode_attention_paged bsz={bsz}", out, want))
+        if not bool((out[2] == 0).all()):
+            raise AssertionError("empty range (end=0) must give exact zeros")
+        for s in (2, 4, 8):
+            acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=s,
+                                          scale=scale, softcap=cap)
+            racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, s, scale, cap,
+                                                  start=start)
+            torch.cuda.synchronize()
+            e = max(_allclose(f"split acc S={s}", acc, racc),
+                    _allclose(f"split m S={s}", m, rm),
+                    _allclose(f"split l S={s}", l, rl))
+            errs["decode_attention_paged_split"] = max(
+                errs["decode_attention_paged_split"], e)
+            dead = rl == 0
+            if not (bool((m[dead] == ref.NEG_INF).all())
+                    and bool((acc[dead] == 0).all())):
+                raise AssertionError(f"dead split S={s} is not the identity partial")
+            if not bool(dead.any()):
+                raise AssertionError(f"S={s}: the fills were meant to leave splits dead")
+            merged = da.merge_splits(acc, m, l)
+            errs["merge_splits"] = max(
+                errs["merge_splits"],
+                _allclose(f"merge_splits S={s}", merged, ref.merge_splits(acc, m, l)))
+            _allclose(f"split vs single pass S={s}", merged, want)
+            if not bool((merged[2] == 0).all()):
+                raise AssertionError("all-dead lane must merge to zeros, not NaN")
+    emit({"phase": "kernel_check", "kernel": "decode_attention_paged (+split, merge)",
+          "q": [ATTN_B, ATTN_HKV, ATTN_G, ATTN_HD], "pages": "bf16",
+          "end": ATTN_END, "start": ATTN_START, "cases": [list(c) for c in cases],
+          "splits": [2, 4, 8],
+          "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
+    return errs
+
+
+def time_attention(gen, dev) -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv, g, hd = ATTN_B, ATTN_HKV, ATTN_G, ATTN_HD
+    pool_bytes = (b * ATTN_NB + 1) * hkv * hd * 8 * 2 * 2     # K and V pages, bf16
+    q, pools, table, end, start, scale = attn_inputs(gen, dev, copies=copies_for(pool_bytes))
+    out_bytes = b * hkv * g * hd * 4
+    res = {}
+
+    def single(kp, vp):
+        return da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale)
+
+    def single_ref(kp, vp):
+        return ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, start=start)
+
+    # library yardstick: SDPA over lanes materialized and expanded to the query
+    # heads beforehand (boolean live-range mask); that preparation is not timed
+    lmax = ATTN_NB * 8
+    idx = torch.arange(lmax, device=dev)
+    mask = ((idx[None, :] >= start[:, None]) & (idx[None, :] < end[:, None]))[:, None, None, :]
+    lanes = []
+    for kp, vp in pools[:2]:
+        k, v = ref.materialize_pages(kp, vp, table)
+        lanes.append((k.transpose(-1, -2).repeat_interleave(g, dim=1).contiguous(),
+                      v.repeat_interleave(g, dim=1).contiguous()))
+    qh = q.reshape(b, hkv * g, 1, hd)
+
+    def sdpa(k, v):
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, scale=scale)
+
+    bnd, by = attn_bound(end, start, out_bytes)
+    res["decode_attention_paged"] = {
+        "ms": cuda_ms([lambda p=p: single(*p) for p in pools], 100),
+        "plain_ms": cuda_ms([lambda p=p: single_ref(*p) for p in pools[:2]], 10),
+        "library_ms": library_ms("decode_attention_paged",
+                                 [lambda kv=kv: sdpa(*kv) for kv in lanes], 100),
+        "bound_ms": bnd, "bound_by": by}
+    del lanes
+
+    s = 4
+    _, n_real = ref.realized_splits(ATTN_NB, s)
+    part_bytes = b * hkv * n_real * g * (hd + 2) * 4
+
+    def split1(kp, vp):
+        return da.split_partials(q, kp, vp, table, end, start, num_splits=s, scale=scale)
+
+    def split1_ref(kp, vp):
+        return ref.split_partials_ref(q, kp, vp, table, end, s, scale, start=start)
+
+    bnd, by = attn_bound(end, start, part_bytes)
+    res["decode_attention_paged_split"] = {
+        "ms": cuda_ms([lambda p=p: split1(*p) for p in pools], 100),
+        "plain_ms": cuda_ms([lambda p=p: split1_ref(*p) for p in pools[:2]], 10),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    parts = [split1(*p) for p in pools[:8]]
+    bnd, by = bound(part_bytes + out_bytes, 3 * b * hkv * n_real * g * hd, PEAK_BF16_FLOPS)
+    res["merge_splits"] = {
+        "ms": cuda_ms([lambda pt=pt: da.merge_splits(*pt) for pt in parts], 200),
+        "plain_ms": cuda_ms([lambda pt=pt: ref.merge_splits(*pt) for pt in parts], 50),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    for name, r in res.items():
+        emit({"phase": "kernel_time", "kernel": name, "splits": s if name != "decode_attention_paged" else 1,
+              "table_blocks": ATTN_NB, "live_tokens": live_tokens(end, start), **r,
+              "roofline_share": r["bound_ms"] / r["ms"]})
+
+    # the serve's own regime: block tables as wide as its max_len (296 tokens)
+    # holding under 50 tokens a lane, as in the profiled decode-heavy serve
+    # (``single`` and ``single_ref`` read the rebound names below when called)
+    nb = SERVE_TABLE_BLOCKS
+    q, pools, table, _, _, scale = attn_inputs(
+        gen, dev, nb=nb, copies=copies_for((b * nb + 1) * hkv * hd * 8 * 2 * 2))
+    end = torch.tensor(SERVE_END, dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    bnd, by = attn_bound(end, start, out_bytes)
+    ms = cuda_ms([lambda p=p: single(*p) for p in pools], 100)
+    emit({"phase": "kernel_time", "kernel": "decode_attention_paged", "splits": 1,
+          "table_blocks": nb, "live_tokens": live_tokens(end, start), "ms": ms,
+          "plain_ms": cuda_ms([lambda p=p: single_ref(*p) for p in pools[:2]], 10),
+          "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+
+def make_requests(vocab: int, seed: int = 0):
+    from repro_torch.serve.api import GenerationRequest
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(24, 320, size=8)
+    lens[[0, 5]] = np.maximum(lens[[0, 5]], 96)
+    budgets = rng.integers(8, 49, size=8)
+    prompts = [rng.integers(1, vocab, size=int(n)).tolist() for n in lens]
+    prompts[5][:64] = prompts[0][:64]   # a shared 64-token (8-block) prefix
+    return [GenerationRequest(prompt=p, max_new_tokens=int(m))
+            for p, m in zip(prompts, budgets)]
+
+
+def expected_launches(eng, cfg) -> dict[str, int]:
+    """Launches one serve must make. Every forward of one token per lane (each
+    decode step, and an admission chunk of a single token) runs the seven
+    decode GEMVs and one attention call per layer: the single-pass kernel, or
+    the split kernel and the merge when ``decode_kv_splits`` (clamped to the
+    block table's width) is above 1. Longer chunks, and the batch admission
+    (never one token here: every prompt is longer), take GEMMs and dense
+    attention and launch none of the port's kernels."""
+    fwd = sum(1 for e in eng.events if e.plan.decode or e.prefill_tokens == 1)
+    n = cfg.n_layers * fwd
+    table_width = -(-eng.pool.max_len // eng.pool.block_size)
+    split = min(cfg.decode_kv_splits, table_width) > 1
+    return {"pim_gemv": 7 * n, "decode_attention_paged": 0 if split else n,
+            "decode_attention_paged_split": n if split else 0,
+            "merge_splits": n if split else 0}
+
+
+def serve_run(sm, mode, reqs) -> tuple[list, dict]:
+    """One serve, with the launch counts of this serve alone (set to 0 just
+    before it, read just after) held to what its schedule implies."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.api import FINISH_EOS, FINISH_LENGTH, RequestState
+
+    eng = sm.engine(mode=mode, slots=SLOTS)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eng.serve(reqs)     # nan_guard: a non-finite logit raises KernelFault
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for i, r in enumerate(results):
+        if r.state is not RequestState.FINISHED or r.finish_reason not in (
+                FINISH_LENGTH, FINISH_EOS):
+            raise AssertionError(f"request {i}: {r.state} {r.finish_reason} {r.error}")
+        if len(r.tokens) != reqs[i].max_new_tokens:
+            raise AssertionError(f"request {i}: {len(r.tokens)} tokens, budget "
+                                 f"{reqs[i].max_new_tokens}")
+    bad = eng.pool.check_invariants()
+    if bad:
+        raise AssertionError(f"pool invariants: {bad}")
+    rep = eng.schedule_report()
+    if rep["reused_prefix_tokens"] <= 0:
+        raise AssertionError("the shared prefix was not reused")
+    want = expected_launches(eng, sm.cfg)
+    if counts != want:
+        raise AssertionError(f"{mode.value} splits={sm.cfg.decode_kv_splits}: launches "
+                             f"{counts}, the schedule implies {want}")
+    decode = [e.step_s for e in eng.events if e.plan.decode and not e.plan.prefill_chunk]
+    ntok = sum(len(r.tokens) for r in results)
+    line = {"phase": "serve", "mode": mode.value, "kv_splits": sm.cfg.decode_kv_splits,
+            "requests": len(reqs), "tokens": ntok, "wall_s": wall,
+            "tokens_per_s": ntok / wall, "decode_step_ms_median": 1e3 * statistics.median(decode),
+            "pure_decode_steps": len(decode), "steps": rep["steps"],
+            "fused_steps": rep["fused_steps"], "prefill_tokens": rep["prefill_tokens"],
+            "reused_prefix_tokens": rep["reused_prefix_tokens"], "launches": counts}
+    del eng
+    return [r.tokens for r in results], line
+
+
+def serve_phase(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg = get_config("llama3-8b").replace(quantized_decode=True)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    reqs = make_requests(cfg.vocab_size)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_len = -(-max_len // 8) * 8
+    sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_setup", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "quantized_decode": True,
+          "max_len": max_len, "slots": SLOTS,
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "max_new_tokens": [r.max_new_tokens for r in reqs],
+          "setup_s": time.perf_counter() - t0,
+          "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9})
+
+    total: dict[str, int] = {}
+    tokens = {}
+    for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
+        tokens[mode], line = serve_run(sm, mode, reqs)
+        emit(line)
+        for k, v in line["launches"].items():
+            total[k] = total.get(k, 0) + v
+    ref_toks = tokens[Mode.BLOCKED]
+    for mode in (Mode.HBCEM, Mode.LBIM):
+        if tokens[mode] != ref_toks:
+            diff = [i for i, (a, b) in enumerate(zip(ref_toks, tokens[mode])) if a != b]
+            raise AssertionError(f"greedy tokens differ between BLOCKED and {mode.value} "
+                                 f"in requests {diff}")
+    del sm
+    sm4 = ServingModel.prepare(cfg.replace(decode_kv_splits=4), params, max_len=max_len,
+                               slots=SLOTS, device=dev)
+    split_toks, line = serve_run(sm4, Mode.LBIM, reqs)
+    line["requests_equal_to_single_pass"] = sum(a == b for a, b in zip(ref_toks, split_toks))
+    emit(line)
+    for k, v in line["launches"].items():
+        total[k] = total.get(k, 0) + v
+    emit({"phase": "serve_launches", "runs": 4, **total})
+    missing = [k for k, v in total.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serve path: {missing}")
+    del sm4
+    sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
+    profile_decode(sm, Mode.HBCEM, reqs)
+    return total
+
+
+KERNEL_GROUPS = (   # kernel-name fragment -> what it computes on the serve path
+    ("pim_gemv", "pim_gemv (W8A8 decode GEMVs)"),
+    ("paged_decode", "paged decode attention"),
+    ("merge_splits", "merge_splits"),
+    ("gemm", "GEMM (prefill chunks, lm_head)"), ("gemv", "GEMM (prefill chunks, lm_head)"),
+    ("nvjet", "GEMM (prefill chunks, lm_head)"), ("cutlass", "GEMM (prefill chunks, lm_head)"),
+    ("index", "page scatter / gather / embedding"),
+    ("scatter", "page scatter / gather / embedding"),
+    ("gather", "page scatter / gather / embedding"),
+    ("reduce", "reductions (norms, argmax, quantizer amax)"),
+)
+
+
+def profile_decode(sm, mode, reqs) -> None:
+    """Device time by kernel over a decode-heavy serve (the first SLOTS
+    requests cut to 32-token prompts and 16 new tokens: one batch admission,
+    then 15 full-batch decode steps), traced with torch.profiler (CUDA
+    activity only, which keeps the trace small). The busy share divides the
+    kernel time by the same serve's wall time measured untraced first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.api import GenerationRequest
+
+    short = [GenerationRequest(prompt=r.prompt[:32], max_new_tokens=16) for r in reqs[:SLOTS]]
+    eng = sm.engine(mode=mode, slots=SLOTS, prefix_cache=False)   # same schedule each serve
+    eng.serve(short)                       # warm: allocator, cuBLAS handles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.serve(short)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    decode = [e.step_s for e in eng.events if e.plan.decode and not e.plan.prefill_chunk]
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.serve(short)
+        torch.cuda.synchronize()
+    traced_wall = time.perf_counter() - t0
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
+    total = sum(by_kernel.values())
+    if total <= 0:
+        emit({"phase": "profile", "mode": mode.value, "device_time": "not measured",
+              "why": "torch.profiler recorded no device time",
+              "wall_ms_untraced": 1e3 * wall_s})
+        return
+    groups: dict[str, float] = {}
+    for name, ms in by_kernel.items():
+        low = name.lower()
+        group = next((g for frag, g in KERNEL_GROUPS if frag in low),
+                     "elementwise and other")
+        groups[group] = groups.get(group, 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "profile", "mode": mode.value, "requests": len(short),
+          "prompt_tokens": 32, "new_tokens": 16, "pure_decode_steps": len(decode),
+          "decode_step_ms_median": 1e3 * statistics.median(decode),
+          "kernel_ms_total": total,
+          "wall_ms_untraced": 1e3 * wall_s, "wall_ms_traced": 1e3 * traced_wall,
+          "device_busy_share": total / (1e3 * wall_s),
+          "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+          "top_kernels_ms": {k[:80]: v for k, v in top}})
+
+
+# ---------------------------------------------------------------------------
+
+
+KERNELS = {   # name -> (source, TPU kernel it replaces)
+    "pim_gemv": ("src/repro_torch/kernels/pim_gemv/csrc/pim_gemv.cu",
+                 "src/repro/kernels/pim_gemv/pim_gemv.py:55"),
+    "decode_attention_paged": (
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention_paged.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:165"),
+    "decode_attention_paged_split": (
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention_paged.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:309"),
+    "merge_splits": (
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention_paged.cu",
+        "src/repro/kernels/decode_attention/ref.py:72"),
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the card only",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    build_s = _build.build_all()
+    ptxas = (_build.BUILD_DIR / "ptxas.log")
+    print(ptxas.read_text() if ptxas.exists() else "", file=sys.stderr)
+    emit({"phase": "env", "gpu": smi, "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_s": build_s})
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"], **check_attention(gen, dev)}
+    times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev)}
+    torch.cuda.empty_cache()
+
+    counts = serve_phase(dev)
+
+    work = {"pim_gemv": f"the 7 decode GEMVs of one llama3-8b layer at B={SLOTS}",
+            "decode_attention_paged": "one layer, q (4,8,4,128), bf16 pages of 8 tokens, "
+                                      f"end {ATTN_END}, start {ATTN_START}",
+            "decode_attention_paged_split": "as above, 4 splits (stage 1)",
+            "merge_splits": "as above, 4 splits (stage 2)"}
+    rows = []
+    for name, (src, replaces) in KERNELS.items():
+        t = times[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": counts[name], "max_abs_err": errs[name], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "work": work[name]})
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,95 @@
+"""Backend dispatch for the decode hot path (port of ``repro.core.dispatch``).
+
+``ModelConfig.attn_backend`` governs every kernel of the decode path:
+
+* ``"auto"``      — follows the tensor's device: the CUDA kernel for CUDA
+  tensors, the plain PyTorch version for CPU tensors;
+* ``"reference"`` — the plain version; accepted only on the CPU, because on
+  CUDA the port never serves from the plain version in place of a kernel;
+* ``"pallas"`` / ``"interpret"`` — TPU backends of the JAX package; they raise.
+
+There is no silent kernel -> reference rung: a kernel that fails on a CUDA
+tensor raises. The JAX package's ``DegradationLadder`` is not ported yet.
+
+``quantized_decode`` routes decode-time linear projections (qkv / o / MLP)
+through the W8A8 PIM GEMV whenever the activation is a low-batch
+single-token GEMV shape (``T == 1 and B <= quant_decode_max_batch``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant import PreparedLinear, raw_weight
+from repro_torch.kernels.decode_attention.ops import decode_attention_paged_op
+from repro_torch.kernels.pim_gemv.ops import linear_w8a8, linear_w8a8_prequant
+
+BACKENDS = ("auto", "reference")
+_TPU_BACKENDS = ("pallas", "interpret")
+
+
+def resolve_backend(cfg, device) -> str:
+    """Concrete backend for tensors on ``device``: ``"kernel"`` (CUDA) or
+    ``"reference"`` (CPU). Unknown names raise; so does ``reference`` on CUDA
+    and any TPU backend. The wrappers themselves follow the tensor's device;
+    this validates ``cfg.attn_backend`` against it."""
+    name = cfg.attn_backend
+    if name in _TPU_BACKENDS:
+        raise ValueError(f"backend {name!r} is a TPU (Pallas) backend; the PyTorch "
+                         f"port takes {BACKENDS}")
+    if name not in BACKENDS:
+        raise ValueError(f"attn_backend={name!r} unknown; expected one of {BACKENDS}")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if name == "reference":
+            raise ValueError("backend 'reference' is CPU-only: CUDA tensors always "
+                             "run the CUDA kernels")
+        return "kernel"
+    if dev.type == "cpu":
+        return "reference"
+    raise ValueError(f"unsupported device {dev}")
+
+
+def decode_attention_paged(q, k_pages, v_pages, block_table, end, *, start=None,
+                           scale: float, softcap=None, cfg) -> torch.Tensor:
+    """Dispatched block-paged decode attention. ``cfg.decode_kv_splits > 1``
+    selects the two-stage split-KV reduction. Returns (B, Hq, hd) float32."""
+    resolve_backend(cfg, q.device)   # validates; the wrapper follows the device
+    return decode_attention_paged_op(
+        q, k_pages, v_pages, block_table, end, start=start, scale=scale,
+        softcap=softcap, num_splits=getattr(cfg, "decode_kv_splits", 1))
+
+
+def _gemv_shaped(cfg, x: torch.Tensor) -> bool:
+    """Low-batch single-token decode activation (B, 1, d)."""
+    return (cfg.quantized_decode and x.dim() == 3 and x.shape[1] == 1
+            and x.shape[0] <= cfg.quant_decode_max_batch)
+
+
+def quantizes_at(cfg, batch: int, t: int) -> bool:
+    """Would :func:`linear` route a ``(batch, t, d)`` activation through the
+    W8A8 PIM-GEMV path under ``cfg``?"""
+    return bool(cfg.quantized_decode and t == 1
+                and batch <= cfg.quant_decode_max_batch)
+
+
+def linear(w, x: torch.Tensor, cfg) -> torch.Tensor:
+    """``x @ w`` with the W8A8 PIM-GEMV path at quantized-decode GEMV shapes.
+
+    ``w`` is a raw (K, N) float tensor or a :class:`PreparedLinear` built at
+    load time (only the activation is quantized per step); raw leaves
+    quantize the weight on the fly, token-identically."""
+    if not _gemv_shaped(cfg, x):
+        return x @ raw_weight(w)
+    resolve_backend(cfg, x.device)
+    b, t, k = x.shape
+    if isinstance(w, PreparedLinear):
+        y = linear_w8a8_prequant(w.w_q, w.w_scale, x.reshape(b * t, k))
+    else:
+        y = linear_w8a8(w.T, x.reshape(b * t, k))
+    return y.reshape(b, t, -1).to(x.dtype)
+
+
+def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Gated MLP through the dispatched (possibly W8A8) linears."""
+    from repro_torch.models import layers as L  # local import: avoid a cycle at init
+    return L.mlp(p, x, linear_fn=lambda w, xx: linear(w, xx, cfg))

@@ -1,0 +1,121 @@
+"""KV-cache data mapping — the paper's §III-C, block-paged half (port of
+``repro.core.kv_mapping``).
+
+K pages are column-wise ``(hd, Bsz)``, V pages row-wise ``(Bsz, hd)``; pools
+stack layers first: K ``(nL, P, H, hd, Bsz)``, V ``(nL, P, H, Bsz, hd)``. Where
+the JAX package updated pages functionally (``.at[].set``), the port writes
+IN PLACE: a decode step must not copy a multi-gigabyte page pool per layer.
+Every in-place write is marked as such below.
+"""
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+Layout = Literal["cdpim", "row_row", "col_col"]
+
+
+def init_paged_cache(n_layers: int, n_pages: int, n_kv_heads: int, head_dim: int,
+                     block: int, dtype=torch.bfloat16, device=None) -> dict:
+    """Allocate an empty physical page pool (cdpim per-block layout)."""
+    return {
+        "k_pages": torch.zeros((n_layers, n_pages, n_kv_heads, head_dim, block),
+                               dtype=dtype, device=device),
+        "v_pages": torch.zeros((n_layers, n_pages, n_kv_heads, block, head_dim),
+                               dtype=dtype, device=device),
+    }
+
+
+def extract_block(k_lane: torch.Tensor, v_lane: torch.Tensor, block_idx: int,
+                  block: int):
+    """Cut logical block ``block_idx`` out of one contiguous lane: K lane
+    (nL, H, hd, Lmax) -> K page (nL, H, hd, Bsz); V lane (nL, H, Lmax, hd) ->
+    V page (nL, H, Bsz, hd). Slicing only (views)."""
+    lo = block_idx * block
+    return k_lane[..., lo:lo + block], v_lane[..., lo:lo + block, :]
+
+
+def append_layer_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor, pos: torch.Tensor,
+                       table: torch.Tensor, block: int) -> None:
+    """Write T new tokens' K/V into their pages IN PLACE.
+
+    ``k_pages`` (P, H, hd, Bsz) / ``v_pages`` (P, H, Bsz, hd) are one layer's
+    pages; ``k_new``/``v_new`` (B, H, T, hd); ``pos`` (B,) fill levels;
+    ``table`` (B, NB) physical page ids. Token ``pos + t`` of lane ``b`` lands
+    at offset ``(pos+t) % block`` of page ``table[b, (pos+t) // block]``: a K
+    column write and a V row write inside the page. The pool guarantees
+    residency before the step; free lanes all alias one dummy page.
+    """
+    b, _, t, _ = k_new.shape
+    k_new = k_new.to(k_pages.dtype)
+    v_new = v_new.to(v_pages.dtype)
+    pos = pos.long()
+    table = table.long()
+    if t == 1:
+        page = table[torch.arange(b, device=table.device), pos // block]   # (B,)
+        off = pos % block                                                  # (B,)
+        k_pages[page, :, :, off] = k_new[:, :, 0, :]     # in place
+        v_pages[page, :, off, :] = v_new[:, :, 0, :]     # in place
+        return
+    t_idx = pos[:, None] + torch.arange(t, device=pos.device)              # (B, T)
+    page = torch.gather(table, 1, t_idx // block)
+    off = t_idx % block
+    # separated advanced indices put the (B, T) index dims in front
+    k_pages[page, :, :, off] = k_new.transpose(1, 2)     # in place, (B, T, H, hd)
+    v_pages[page, :, off, :] = v_new.transpose(1, 2)     # in place
+
+
+def materialize_lanes(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      table: torch.Tensor):
+    """Gather every lane's pages into contiguous dual-layout caches:
+    K (B, H, hd, NB*Bsz), V (B, H, NB*Bsz, hd). Garbage beyond each lane's
+    fill level is masked by the caller."""
+    idx = table.long()
+    kg = k_pages[idx]                                   # (B, NB, H, hd, Bsz)
+    vg = v_pages[idx]                                   # (B, NB, H, Bsz, hd)
+    b, nb, h, hd, bsz = kg.shape
+    k = kg.permute(0, 2, 3, 1, 4).reshape(b, h, hd, nb * bsz)
+    v = vg.permute(0, 2, 1, 3, 4).reshape(b, h, nb * bsz, hd)
+    return k, v
+
+
+def gather_pages(k_pages: torch.Tensor, v_pages: torch.Tensor, table):
+    """Materialize a contiguous prefix from layer-stacked pages: ``table``
+    (n,) physical page ids in logical order -> K (nL, H, hd, n*Bsz),
+    V (nL, H, n*Bsz, hd). Gather + permute only."""
+    idx = torch.as_tensor(table, dtype=torch.long, device=k_pages.device)
+    kg = k_pages[:, idx]                                # (nL, n, H, hd, Bsz)
+    vg = v_pages[:, idx]                                # (nL, n, H, Bsz, hd)
+    nl, n, h, hd, bsz = kg.shape
+    k = kg.permute(0, 2, 3, 1, 4).reshape(nl, h, hd, n * bsz)
+    v = vg.permute(0, 2, 1, 3, 4).reshape(nl, h, n * bsz, hd)
+    return k, v
+
+
+def store_block(pages: dict, phys: int, k_block: torch.Tensor,
+                v_block: torch.Tensor) -> dict:
+    """Write one (K page, V page) pair into physical slot ``phys`` IN PLACE;
+    returns ``pages`` (the same tensors)."""
+    pages["k_pages"][:, phys].copy_(k_block)    # in place
+    pages["v_pages"][:, phys].copy_(v_block)    # in place
+    return pages
+
+
+def read_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                layout: Layout = "cdpim") -> torch.Tensor:
+    """Score GEMV: q (B,Hkv,G,T,hd) × K-cache -> (B,Hkv,G,T,Lmax). The cdpim
+    layout contracts the minor ``hd`` axis against K columns."""
+    if layout != "cdpim":
+        raise NotImplementedError(f"layout {layout!r} is not ported (cdpim only)")
+    return torch.matmul(q, k_cache.to(q.dtype)[:, :, None])
+
+
+def read_output(p: torch.Tensor, v_cache: torch.Tensor,
+                layout: Layout = "cdpim") -> torch.Tensor:
+    """Output GEMV: probs (B,Hkv,G,T,Lmax) × V-cache -> (B,Hkv,G,T,hd). The
+    cdpim layout contracts the major ``L`` axis against V rows."""
+    if layout != "cdpim":
+        raise NotImplementedError(f"layout {layout!r} is not ported (cdpim only)")
+    return torch.matmul(p, v_cache.to(p.dtype)[:, :, None])

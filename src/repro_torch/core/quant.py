@@ -1,0 +1,67 @@
+"""INT8 W8A8 weight preparation (port of ``repro.core.quant``).
+
+Weights are quantized per output channel once, at load, into the
+weight-stationary ``(N, K)`` int8 image the PIM GEMV kernel streams;
+activations are quantized per row at run time (``kernels.pim_gemv.ops``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.pim_gemv.ref import quantize_ref
+
+
+class QuantizedLinear(NamedTuple):
+    w_q: torch.Tensor      # (N, K) int8
+    w_scale: torch.Tensor  # (N,) f32
+
+
+class PreparedLinear(NamedTuple):
+    """A weight leaf prepared at load time for the serving decode path: the
+    float weight (the GEMM / prefill operand) beside its weight-stationary
+    int8 image and per-output-channel scales."""
+
+    w: torch.Tensor        # (K, N) float — GEMM/prefill operand
+    w_q: torch.Tensor      # (N, K) int8 — weight-stationary GEMV operand
+    w_scale: torch.Tensor  # (N,) f32 per-output-channel scales
+
+
+# Leaves routed through the serving decode's dispatched linears.
+DECODE_LINEAR_SUFFIXES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
+    """w: (K, N) float (row-major weight convention) → (N, K) int8 + scales."""
+    wq, ws = quantize_ref(w.T, axis=1)
+    return QuantizedLinear(w_q=wq.contiguous(), w_scale=ws.contiguous())
+
+
+def prepare_decode_params(params, path_suffixes=DECODE_LINEAR_SUFFIXES):
+    """Return ``params`` with every decode-linear leaf swapped for a
+    :class:`PreparedLinear`. The port's params keep one dict per layer
+    (``params["layers"]`` is a list), so stacked layers quantize per layer
+    by construction. Unmatched leaves are shared, not copied."""
+
+    def prep(tree):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if (k in path_suffixes and isinstance(v, torch.Tensor)
+                        and v.dim() == 2):
+                    ql = quantize_weight(v)
+                    out[k] = PreparedLinear(w=v, w_q=ql.w_q, w_scale=ql.w_scale)
+                else:
+                    out[k] = prep(v)
+            return out
+        if isinstance(tree, list):
+            return [prep(v) for v in tree]
+        return tree
+
+    return prep(params)
+
+
+def raw_weight(w) -> torch.Tensor:
+    """Float view of a maybe-prepared weight leaf (GEMM/prefill operand)."""
+    return w.w if isinstance(w, PreparedLinear) else w

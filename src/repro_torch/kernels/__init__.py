@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the port and their launch counters.
+
+Each kernel's wrapper counts its launches in a plain int attribute
+(``<wrapper>.launches``); :func:`launch_counts` reads them all and
+:func:`reset_launches` sets them to 0, so a run can show that its main path
+went through every kernel.
+"""
+from __future__ import annotations
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.pim_gemv import pim_gemv as pg
+
+    return {
+        "pim_gemv": pg.pim_gemv,
+        "decode_attention_paged": da.decode_attention_paged,
+        "decode_attention_paged_split": da.split_partials,
+        "merge_splits": da.merge_splits,
+    }
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

@@ -1,0 +1,158 @@
+"""Wrappers of the CUDA paged decode-attention kernels
+(``csrc/decode_attention_paged.cu``).
+
+Three kernels, each with a wrapper that takes the plain version from
+:mod:`ref` only for CPU tensors and launches the kernel (or raises) for CUDA
+tensors, and counts its launches in ``<wrapper>.launches``:
+
+* :func:`decode_attention_paged` — single-pass flash decode (JAX ``decode_attention_paged``);
+* :func:`split_partials` — stage 1 of the split-KV reduction
+  (JAX ``decode_attention_paged_split``'s Pallas call);
+* :func:`merge_splits` — stage 2, the associative merge (JAX ``ref.merge_splits``).
+
+:func:`decode_attention_paged_split` chains the last two.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import ref
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.library("decode_attention_paged")
+    VP, I32, F32 = _build.VP, _build.I32, _build.F32
+    lib.paged_decode_launch.argtypes = [VP] * 7 + [I32] * 6 + [F32, F32] + [I32] * 3 + [VP]
+    lib.paged_decode_launch.restype = I32
+    lib.paged_split_launch.argtypes = ([VP] * 9 + [I32] * 8 + [F32, F32]
+                                       + [I32] * 3 + [VP])
+    lib.paged_split_launch.restype = I32
+    lib.merge_splits_launch.argtypes = [VP] * 4 + [I32] * 5 + [VP]
+    lib.merge_splits_launch.restype = I32
+    return lib
+
+
+def _check_inputs(q, k_pages, v_pages, block_table, end, start):
+    """Shape/type/device checks for the CUDA path; returns contiguous int32
+    (table, start, end)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention kernels take CUDA tensors, got {q.device}")
+    b, hkv, g, hd = q.shape
+    if k_pages.dim() != 4 or k_pages.shape[1] != hkv or k_pages.shape[2] != hd:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} is not (P, {hkv}, {hd}, Bsz)")
+    p, _, _, bsz = k_pages.shape
+    if tuple(v_pages.shape) != (p, hkv, bsz, hd):
+        raise ValueError(f"v_pages {tuple(v_pages.shape)} is not {(p, hkv, bsz, hd)}")
+    if block_table.dim() != 2 or block_table.shape[0] != b:
+        raise ValueError(f"block_table {tuple(block_table.shape)} is not ({b}, NB)")
+    if q.dtype not in _FLOATS or k_pages.dtype not in _FLOATS or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"unsupported dtypes q {q.dtype}, pages {k_pages.dtype}/{v_pages.dtype}")
+    if hd > 256 or g > 16:
+        raise ValueError(f"kernel supports hd <= 256 and G <= 16 (got {hd}, {g})")
+    dev = q.device
+    for t in (k_pages, v_pages, block_table):
+        if t.device != dev:
+            raise ValueError("decode attention operands must share one CUDA device")
+    end_b = ref._per_lane(end, b, dev, 0).contiguous()
+    start_b = ref._per_lane(start, b, dev, 0).contiguous()
+    return (block_table.to(torch.int32).contiguous(), start_b, end_b,
+            q.contiguous(), k_pages.contiguous(), v_pages.contiguous())
+
+
+def _cap(softcap: Optional[float]) -> tuple[float, int]:
+    return (float(softcap), 1) if softcap is not None else (1.0, 0)
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           block_table: torch.Tensor, end, start=None, *, scale: float,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """Single-pass paged flash decode. q (B, Hkv, G, hd); K pages (P, Hkv, hd,
+    Bsz) column-wise; V pages (P, Hkv, Bsz, hd) row-wise; block table (B, NB);
+    live range ``[start, end)`` per lane. Returns (B, Hkv, G, hd) float32."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_paged_ref(q, k_pages, v_pages, block_table, end,
+                                              scale, softcap, start=start)
+    table, start_b, end_b, q, k_pages, v_pages = _check_inputs(
+        q, k_pages, v_pages, block_table, end, start)
+    b, hkv, g, hd = q.shape
+    out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
+    cap, has_cap = _cap(softcap)
+    code = _lib().paged_decode_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
+        start_b.data_ptr(), end_b.data_ptr(), out.data_ptr(), b, hkv, g, hd,
+        k_pages.shape[-1], table.shape[1], float(scale), cap, has_cap,
+        int(q.dtype == torch.float32), int(k_pages.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "decode_attention_paged")
+    decode_attention_paged.launches += 1
+    return out
+
+
+def split_partials(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                   block_table: torch.Tensor, end, start=None, *, num_splits: int,
+                   scale: float, softcap: Optional[float] = None):
+    """Stage 1 of the split-KV reduction over ``S_real`` realized splits.
+    Returns acc (B, Hkv, S, G, hd), m and l (B, Hkv, S, G), all float32."""
+    if q.device.type == "cpu":
+        return ref.split_partials_ref(q, k_pages, v_pages, block_table, end, num_splits,
+                                      scale, softcap, start=start)
+    table, start_b, end_b, q, k_pages, v_pages = _check_inputs(
+        q, k_pages, v_pages, block_table, end, start)
+    b, hkv, g, hd = q.shape
+    bps, n_splits = ref.realized_splits(table.shape[1], num_splits)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((b, hkv, n_splits, g, hd), **f32)
+    m = torch.empty((b, hkv, n_splits, g), **f32)
+    l = torch.empty((b, hkv, n_splits, g), **f32)
+    cap, has_cap = _cap(softcap)
+    code = _lib().paged_split_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
+        start_b.data_ptr(), end_b.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, hkv, g, hd, k_pages.shape[-1], table.shape[1], bps, n_splits, float(scale),
+        cap, has_cap, int(q.dtype == torch.float32), int(k_pages.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "decode_attention_paged_split")
+    split_partials.launches += 1
+    return acc, m, l
+
+
+def merge_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Stage 2: merge (B, Hkv, S, G, hd) partials into (B, Hkv, G, hd) float32."""
+    if acc.device.type == "cpu":
+        return ref.merge_splits(acc, m, l)
+    if acc.device.type != "cuda":
+        raise ValueError(f"merge_splits kernel takes CUDA tensors, got {acc.device}")
+    b, hkv, s, g, hd = acc.shape
+    if tuple(m.shape) != (b, hkv, s, g) or tuple(l.shape) != (b, hkv, s, g):
+        raise ValueError("merge_splits: m/l must be (B, Hkv, S, G)")
+    if not all(t.dtype == torch.float32 and t.device == acc.device for t in (acc, m, l)):
+        raise TypeError("merge_splits takes float32 partials on one device")
+    acc, m, l = acc.contiguous(), m.contiguous(), l.contiguous()
+    out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=acc.device)
+    code = _lib().merge_splits_launch(
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), b, hkv, s, g, hd,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    _build.check(code, "merge_splits")
+    merge_splits.launches += 1
+    return out
+
+
+def decode_attention_paged_split(q, k_pages, v_pages, block_table, end, start=None, *,
+                                 num_splits: int, scale: float,
+                                 softcap: Optional[float] = None) -> torch.Tensor:
+    """Paged flash decode with the two-stage split-KV reduction."""
+    acc, m, l = split_partials(q, k_pages, v_pages, block_table, end, start,
+                               num_splits=num_splits, scale=scale, softcap=softcap)
+    return merge_splits(acc, m, l)
+
+
+decode_attention_paged.launches = 0
+split_partials.launches = 0
+merge_splits.launches = 0

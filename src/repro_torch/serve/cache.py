@@ -1,0 +1,499 @@
+"""Typed ``CachePool`` over fully paged dense KV (port of the paged part of
+``repro.serve.cache``).
+
+:class:`PagedKVState` owns ONE physical page pool in the paper's §III-C dual
+layout — K pages column-wise ``(hd, Bsz)``, V pages row-wise ``(Bsz, hd)``,
+layer-stacked — shared by the live lanes, the in-flight admission stream and
+the content-hashed prefix index. Block tables and refcounts are host numpy;
+the page tensors live on the pool's device. Pages are refcounted: an active
+lane's table row, the staging stream's handle and the prefix index each hold
+one reference per page, and a page returns to the free list exactly when its
+count reaches zero (:meth:`CachePool.check_invariants` audits this).
+
+Differences from the JAX package, none of which changes a token:
+
+* Page writes are IN PLACE. The JAX admission stream forked the pool arrays
+  and its fresh pages were copied back at insert; here the stream writes its
+  fresh pages directly into the pool tensors. The stream and the decode lanes
+  write disjoint pages (fresh pages belong to the stream alone, shared prefix
+  pages are full blocks below every owner's append point), so the two are
+  equivalent and insert only transfers the table row.
+* Batch admission (an empty pool) fills pages through the same staging
+  stream, one request at a time, instead of pagifying a contiguous prefill
+  cache: :meth:`CachePool.begin_batch_admission`.
+* Only the paged dense state exists. Contiguous, ring and recurrent states
+  and fork/rollback (speculative decoding) wait for their slices.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass, field, replace
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kv_mapping
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.serve.errors import EngineStateError, PoolExhausted, PoolOccupancy
+
+FREE, ACTIVE = "free", "active"
+
+# Physical page 0 is a permanently pinned dummy: free lanes' block tables
+# resolve to it so their masked garbage decodes have somewhere harmless to land.
+DUMMY_PAGE = 0
+
+
+class _PagesExhausted(Exception):
+    """Internal: the physical page pool ran dry (re-raised as PoolExhausted)."""
+
+
+@dataclass
+class _StagingHandle:
+    """The (single) in-flight admission stream's page residency: its
+    logical->physical table and the pages allocated for its own writes."""
+
+    table: np.ndarray
+    fresh: list = field(default_factory=list)
+
+
+class PagedKVState:
+    """Fully paged dense KV: one refcounted physical page pool shared by live
+    lanes, the admission stream and the prefix index."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, block_size: int, *,
+                 store_pages: int, prefix_cache: bool, dtype, device):
+        self.block_size = int(block_size)
+        self.n_blocks = -(-int(max_len) // self.block_size)
+        self.n_slots = int(n_slots)
+        self.prefix_cache = bool(prefix_cache)
+        self.store_capacity = int(store_pages) if self.prefix_cache else 0
+        # worst-case distinct pages: every slot full + the staging stream full
+        # + a saturated prefix index, all disjoint, + the dummy
+        self.capacity = (self.n_slots + 1) * self.n_blocks + self.store_capacity + 1
+        self.device = device
+        self.pages = kv_mapping.init_paged_cache(
+            cfg.n_layers, self.capacity, cfg.n_kv_heads, cfg.head_dim,
+            self.block_size, dtype, device)
+        self.refcount = np.zeros((self.capacity,), np.int64)
+        self.refcount[DUMMY_PAGE] = 1
+        self._free = list(range(self.capacity - 1, DUMMY_PAGE, -1))
+        self.block_tables = np.full((self.n_slots, self.n_blocks), -1, np.int64)
+        self._index: OrderedDict[bytes, int] = OrderedDict()
+        self.staging: Optional[_StagingHandle] = None
+
+    def __len__(self) -> int:
+        """Indexed prefix entries (``prefix_report``'s ``stored_blocks``)."""
+        return len(self._index)
+
+    def pages_used(self) -> int:
+        """Referenced pages, dummy excluded."""
+        return int((self.refcount > 0).sum()) - 1
+
+    # -------------------------------------------------------- page refcounts
+
+    def _ref(self, p: int) -> None:
+        self.refcount[p] += 1
+
+    def _unref(self, p: int) -> None:
+        self.refcount[p] -= 1
+        if self.refcount[p] == 0:
+            self._free.append(int(p))
+
+    def _alloc_page(self) -> int:
+        """A fresh page (refcount 1), evicting LRU store-only entries under pressure."""
+        if self._free:
+            p = self._free.pop()
+            self.refcount[p] = 1
+            return int(p)
+        for key in list(self._index):  # LRU order
+            p = self._index[key]
+            if self.refcount[p] == 1:  # only the index pin holds it
+                del self._index[key]
+                self.refcount[p] = 1   # the pin transfers to the caller
+                return int(p)
+        raise _PagesExhausted(
+            f"no free page among {self.capacity} (all lane- or prefix-referenced)")
+
+    def _drop_row(self, slot: int) -> None:
+        for p in self.block_tables[slot]:
+            if p >= 0:
+                self._unref(int(p))
+        self.block_tables[slot] = -1
+
+    # ----------------------------------------------------------- prefix index
+
+    def _key(self, prompt, i: int) -> bytes:
+        return np.asarray(prompt[: (i + 1) * self.block_size], np.int32).tobytes()
+
+    def match_prefix(self, prompt) -> list[int]:
+        """Longest indexed block-chain prefix of ``prompt``, capped one token
+        short of the full prompt. Returns physical page ids in logical order."""
+        if not self.prefix_cache:
+            return []
+        max_blocks = max(len(prompt) - 1, 0) // self.block_size
+        pages: list[int] = []
+        for i in range(max_blocks):
+            phys = self._index.get(self._key(prompt, i))
+            if phys is None:
+                break
+            self._index.move_to_end(self._key(prompt, i))  # LRU touch
+            pages.append(phys)
+        return pages
+
+    def harvest(self, slot: int, prompt) -> None:
+        """Index every full prompt block resident in ``slot``'s table in place
+        (refcount pin, no copy); a key collision keeps the indexed page."""
+        if not self.prefix_cache:
+            return
+        for i in range(len(prompt) // self.block_size):
+            p = int(self.block_tables[slot, i])
+            if p < 0:
+                break
+            key = self._key(prompt, i)
+            if key in self._index:
+                self._index.move_to_end(key)
+            elif len(self._index) < self.store_capacity or self._evict_one():
+                self._index[key] = p
+                self._ref(p)
+
+    def _evict_one(self) -> bool:
+        for key in list(self._index):  # LRU order
+            p = self._index[key]
+            if self.refcount[p] == 1:
+                del self._index[key]
+                self._unref(p)
+                return True
+        return False
+
+    # ------------------------------------------------------------- residency
+
+    def ensure_residency(self, slot: int, pos: int, n_tokens: int = 1) -> None:
+        """Page-in ``slot``'s write blocks for the next ``n_tokens`` appends
+        starting at ``pos``; copy-on-write any such block that is shared."""
+        last = min(pos + max(int(n_tokens), 1), self.n_blocks * self.block_size) - 1
+        if last < pos:
+            return  # at capacity: the engine retires before appending
+        for wb in range(pos // self.block_size, last // self.block_size + 1):
+            p = int(self.block_tables[slot, wb])
+            if p < 0:
+                self.block_tables[slot, wb] = self._alloc_page()
+            elif self.refcount[p] > 1:
+                q = self._alloc_page()
+                self.pages["k_pages"][:, q].copy_(self.pages["k_pages"][:, p])  # in place
+                self.pages["v_pages"][:, q].copy_(self.pages["v_pages"][:, p])  # in place
+                self.block_tables[slot, wb] = q
+                self._unref(p)
+
+    # --------------------------------------------------------------- staging
+
+    def begin_staging(self, pages: list[int]) -> dict:
+        """Open the admission stream: matched prefix pages enter its table
+        read-only. Returns its batch-1 cache dict over the pool tensors."""
+        self.release_staging()  # defensive: a stale handle leaks pages
+        table = np.full((self.n_blocks,), -1, np.int64)
+        for i, p in enumerate(pages):
+            table[i] = p
+            self._ref(p)
+        self.staging = _StagingHandle(table=table)
+        return {"k_pages": self.pages["k_pages"], "v_pages": self.pages["v_pages"],
+                "block_table": self._staging_table(),
+                "pos": torch.tensor([len(pages) * self.block_size], dtype=torch.int32,
+                                    device=self.device)}
+
+    def _staging_table(self) -> torch.Tensor:
+        eff = np.where(self.staging.table >= 0, self.staging.table, DUMMY_PAGE)
+        return torch.as_tensor(eff[None, :].astype(np.int32), device=self.device)
+
+    def ensure_staging(self, cache: dict, n_tokens: int, off: int) -> dict:
+        """Page-in the stream's next ``n_tokens`` write blocks from fill
+        ``off``; returns the stream cache with its block table refreshed."""
+        h = self.staging
+        if h is None:
+            raise EngineStateError("ensure_staging with no admission stream open")
+        last = min(off + max(int(n_tokens), 1), self.n_blocks * self.block_size) - 1
+        for b in range(off // self.block_size, last // self.block_size + 1):
+            if h.table[b] < 0:
+                p = self._alloc_page()
+                h.table[b] = p
+                h.fresh.append(p)
+        out = dict(cache)
+        out["block_table"] = self._staging_table()
+        return out
+
+    def release_staging(self) -> None:
+        """Abort the admission stream, unpinning every page it references."""
+        h = self.staging
+        if h is None:
+            return
+        for p in h.table:
+            if p >= 0:
+                self._unref(int(p))
+        self.staging = None
+
+    # -------------------------------------------------------------- protocol
+
+    def park_staging(self) -> _StagingHandle:
+        """Detach the drained stream's handle (batch admission prefills every
+        request of a group before inserting any); it keeps its references."""
+        h = self.staging
+        if h is None:
+            raise EngineStateError("park_staging with no admission stream open")
+        self.staging = None
+        return h
+
+    def insert(self, slot: int, handle: Optional[_StagingHandle] = None) -> None:
+        """Hand a drained stream's table row (and its refcounts) to ``slot``:
+        the open stream's, or a parked ``handle``. The stream wrote its fresh
+        pages in place, so nothing is copied."""
+        h = self.staging if handle is None else handle
+        if h is None:
+            raise EngineStateError("paged insert with no staging handle")
+        self._drop_row(slot)
+        self.block_tables[slot] = h.table
+        if handle is None:
+            self.staging = None
+
+    def retire(self, slot: int) -> None:
+        self._drop_row(slot)
+
+    def views(self) -> dict:
+        eff = np.where(self.block_tables >= 0, self.block_tables, DUMMY_PAGE)
+        return {"k_pages": self.pages["k_pages"], "v_pages": self.pages["v_pages"],
+                "block_table": torch.as_tensor(eff.astype(np.int32), device=self.device)}
+
+    def reset_lanes(self) -> None:
+        """Drop every lane row and any staging stream; the prefix index and
+        page content survive."""
+        self.release_staging()
+        for slot in range(self.n_slots):
+            self._drop_row(slot)
+
+    # ------------------------------------------------------------------ audit
+
+    def audit(self) -> list[str]:
+        """Refcounts must be reconstructible from the references themselves."""
+        bad: list[str] = []
+        expect = np.zeros_like(self.refcount)
+        expect[DUMMY_PAGE] += 1
+        for row in self.block_tables:
+            for p in row:
+                if p >= 0:
+                    expect[p] += 1
+        if self.staging is not None:
+            for p in self.staging.table:
+                if p >= 0:
+                    expect[p] += 1
+        for p in self._index.values():
+            expect[p] += 1
+        if not (expect == self.refcount).all():
+            drift = np.nonzero(expect != self.refcount)[0].tolist()
+            bad.append(f"page refcount drift on pages {drift[:8]} "
+                       f"(expected from refs != stored)")
+        if len(self._free) != len(set(self._free)):
+            bad.append("free list contains duplicate pages")
+        free = sorted(int(p) for p in self._free)
+        zero = sorted(np.nonzero(self.refcount == 0)[0].tolist())
+        if free != zero:
+            bad.append(f"free list does not equal zero-refcount pages "
+                       f"(free={len(free)}, zero-ref={len(zero)})")
+        return bad
+
+
+# ===========================================================================
+# the pool
+# ===========================================================================
+
+
+@dataclass
+class SlotInfo:
+    """One decode lane's bookkeeping (owned by the pool, read by the engine)."""
+
+    state: str = FREE
+    req: int = -1
+    budget: int = 0         # this request's max_new_tokens
+    emitted: int = 0
+    ctx: int = 0            # prompt length + generated tokens in cache
+    reused_tokens: int = 0  # prompt tokens served from the prefix store
+
+
+class CachePool:
+    """The slot pool over :class:`PagedKVState`: ``alloc``/``insert``/
+    ``retire`` do the lane bookkeeping, ``views()`` hands the decode step its
+    cache dict (active lanes' write blocks paged in), ``commit()`` takes the
+    step's fill levels back (free lanes pinned to 0). ``stage_admission``
+    opens the chunk-prefill stream; the prefix index survives :meth:`reset`.
+    """
+
+    def __init__(self, cfg: ModelConfig, max_len: int, n_slots: int, *,
+                 prefix_cache: bool = True, block_size: int = 8,
+                 prefix_pages: Optional[int] = None, device=None):
+        M._check_family(cfg)
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.cfg = cfg
+        self.max_len = max_len
+        self.n_slots = n_slots
+        self.block_size = block_size
+        self.prefix_pages = prefix_pages
+        self.device = resolve_device(device)
+        self.prefix_cache = bool(prefix_cache)
+        nb = -(-max_len // block_size)
+        store_pages = prefix_pages if prefix_pages is not None else 4 * n_slots * nb
+        self._kv = PagedKVState(cfg, n_slots, max_len, block_size,
+                                store_pages=store_pages, prefix_cache=self.prefix_cache,
+                                dtype=M.kv_cache_dtype(cfg), device=self.device)
+        self.stats = {"prefix_lookups": 0, "prefix_hits": 0, "reused_prefix_tokens": 0}
+        self._build()
+
+    def _build(self) -> None:
+        self._kv.reset_lanes()
+        self._pos = np.zeros((self.n_slots,), np.int32)
+        self.slots: list[SlotInfo] = [SlotInfo() for _ in range(self.n_slots)]
+
+    def reset(self) -> None:
+        """Fresh lanes, slot table and per-drain stats; the prefix index and
+        its page content are retained."""
+        self._build()
+        self.stats = {"prefix_lookups": 0, "prefix_hits": 0, "reused_prefix_tokens": 0}
+
+    # ------------------------------------------------------------ slot table
+
+    def get(self, slot: int) -> SlotInfo:
+        return self.slots[slot]
+
+    def free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s.state == FREE]
+
+    def active_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s.state == ACTIVE]
+
+    def has_work(self) -> bool:
+        return any(s.state == ACTIVE for s in self.slots)
+
+    # ----------------------------------------------------------- accounting
+
+    def occupancy(self) -> PoolOccupancy:
+        kv = self._kv
+        indexed = set(kv._index.values())
+        pinned = {p for p in indexed if kv.refcount[p] > 1}
+        return PoolOccupancy(slots_total=self.n_slots, slots_used=len(self.active_slots()),
+                             pages_total=kv.capacity - 1, pages_used=kv.pages_used(),
+                             prefix_pins=len(pinned))
+
+    def check_invariants(self) -> list[str]:
+        """Audit cache accounting; returns violation descriptions (empty = healthy)."""
+        bad: list[str] = []
+        for i, s in enumerate(self.slots):
+            if s.state == FREE and int(self._pos[i]) != 0:
+                bad.append(f"free slot {i} has pos={int(self._pos[i])} (expected 0)")
+        kv = self._kv
+        bad += kv.audit()
+        for i, s in enumerate(self.slots):
+            if s.state == FREE and (kv.block_tables[i] >= 0).any():
+                bad.append(f"free slot {i} still holds pages "
+                           f"{sorted(int(p) for p in kv.block_tables[i] if p >= 0)}")
+        return bad
+
+    # -------------------------------------------------------------- protocol
+
+    def alloc(self, request: Any, rid: int, *, reused_tokens: int = 0,
+              ctx: Optional[int] = None, emitted: int = 0) -> int:
+        """Claim the first free lane for ``request`` (a GenerationRequest)."""
+        free = self.free_slots()
+        if not free:
+            raise PoolExhausted("CachePool.alloc: no free slot", self.occupancy())
+        si = free[0]
+        self.slots[si] = SlotInfo(
+            state=ACTIVE, req=rid, budget=request.max_new_tokens, emitted=emitted,
+            ctx=len(request.prompt) if ctx is None else ctx,
+            reused_tokens=reused_tokens)
+        return si
+
+    def insert(self, slot: int, prefilled: dict, *, prompt=None, handle=None) -> None:
+        """Drop the drained admission stream ``prefilled`` (the open one, or a
+        parked ``handle``) into lane ``slot``; with ``prompt``, harvest its
+        full blocks into the prefix index."""
+        self._kv.insert(slot, handle)
+        self._pos[slot] = int(prefilled["pos"].reshape(-1)[0])
+        if self.prefix_cache and prompt is not None:
+            self._kv.harvest(slot, prompt)
+
+    def retire(self, slot: int) -> None:
+        """Free lane ``slot``: release its pages, pin its fill to 0."""
+        self._kv.retire(slot)
+        self._pos[slot] = 0
+        self.slots[slot] = replace(self.slots[slot], state=FREE)
+
+    def views(self) -> dict:
+        """The decode-step cache dict; pages-in every active lane's write block."""
+        kv = self._kv
+        try:
+            for i, s in enumerate(self.slots):
+                if s.state == ACTIVE:
+                    kv.ensure_residency(i, int(self._pos[i]), 1)
+        except _PagesExhausted as e:
+            raise PoolExhausted(str(e), self.occupancy()) from None
+        out = kv.views()
+        out["pos"] = torch.as_tensor(self._pos.copy(), device=self.device)
+        return out
+
+    def commit(self, new_cache: dict) -> None:
+        """Absorb a decode step's fill levels (pages were written in place).
+        Free lanes are pinned back to 0 so their dummy writes stay in the
+        dummy page."""
+        pos = new_cache["pos"].to("cpu").numpy().astype(np.int32)
+        for i in self.free_slots():
+            pos[i] = 0
+        self._pos = pos
+
+    # ----------------------------------------------------------- admission
+
+    def peek_prefix(self, prompt) -> int:
+        """Reusable prefix length in tokens — no staging, no stats."""
+        if not self.prefix_cache:
+            return 0
+        return len(self._kv.match_prefix(prompt)) * self._kv.block_size
+
+    def stage_admission(self, prompt) -> tuple[dict, int]:
+        """Open the batch-1 admission stream for chunk-prefilling ``prompt``;
+        on a prefix hit the matched pages enter its table read-only and the
+        returned ``skip`` tokens are not prefilled."""
+        kv = self._kv
+        if not self.prefix_cache:
+            return kv.begin_staging([]), 0
+        self.stats["prefix_lookups"] += 1
+        pages = kv.match_prefix(prompt)
+        skip = len(pages) * kv.block_size
+        if pages:
+            self.stats["prefix_hits"] += 1
+            self.stats["reused_prefix_tokens"] += skip
+        return kv.begin_staging(pages), skip
+
+    def begin_batch_admission(self) -> dict:
+        """Open a staging stream for batch admission (no prefix lookup, no
+        stats — the requests it takes had no prefix hit)."""
+        return self._kv.begin_staging([])
+
+    def park_staging(self):
+        """Detach the drained stream's handle for a later :meth:`insert`."""
+        return self._kv.park_staging()
+
+    def staging_step_prep(self, cache: dict, n_tokens: int) -> dict:
+        """Page-in the admission stream's next ``n_tokens`` write blocks."""
+        try:
+            off = int(cache["pos"].reshape(-1)[0])
+            return self._kv.ensure_staging(cache, n_tokens, off)
+        except _PagesExhausted as e:
+            raise PoolExhausted(str(e), self.occupancy()) from None
+
+    def release_staging(self) -> None:
+        """Abort the in-flight admission stream, releasing its pages."""
+        self._kv.release_staging()
+
+    def prefix_report(self) -> dict:
+        return {"enabled": self.prefix_cache,
+                "block_size": self.block_size if self.prefix_cache else 0,
+                "stored_blocks": len(self._kv), **self.stats}

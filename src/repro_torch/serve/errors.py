@@ -1,0 +1,73 @@
+"""Typed serving errors (the port's own copy of ``repro.serve.errors``).
+
+:class:`PoolExhausted` carries a :class:`PoolOccupancy` snapshot;
+:class:`EngineStateError` is an invariant violation; :class:`KernelFault`
+names the op of a non-finite step; all inherit :class:`ServingError`. The
+JAX package's admission-queue and fault-injection errors wait for the
+scheduler and fault-plan slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class PoolOccupancy:
+    """Point-in-time capacity snapshot of a :class:`~repro_torch.serve.cache.CachePool`.
+
+    ``pages_*`` describe the prefix store's physical page pool (zero when the
+    store is disabled or the family is not prefix-capable); ``prefix_pins``
+    counts distinct store pages currently referenced by ACTIVE slots' block
+    tables — pages an eviction policy must treat as hot.
+    """
+
+    slots_total: int
+    slots_used: int
+    pages_total: int
+    pages_used: int
+    prefix_pins: int
+
+    @property
+    def slots_free(self) -> int:
+        return self.slots_total - self.slots_used
+
+    @property
+    def pages_free(self) -> int:
+        return self.pages_total - self.pages_used
+
+    def to_json(self) -> dict:
+        return {
+            "slots_total": self.slots_total, "slots_used": self.slots_used,
+            "slots_free": self.slots_free, "pages_total": self.pages_total,
+            "pages_used": self.pages_used, "pages_free": self.pages_free,
+            "prefix_pins": self.prefix_pins,
+        }
+
+
+class ServingError(RuntimeError):
+    """Base of every typed serving failure."""
+
+
+class PoolExhausted(ServingError):
+    """No lane (or page) could be claimed; carries the occupancy snapshot."""
+
+    def __init__(self, message: str, occupancy: PoolOccupancy):
+        super().__init__(f"{message} [occupancy: slots {occupancy.slots_used}/"
+                         f"{occupancy.slots_total} used, pages "
+                         f"{occupancy.pages_used}/{occupancy.pages_total} used,"
+                         f" {occupancy.prefix_pins} pinned]")
+        self.occupancy = occupancy
+
+
+class EngineStateError(ServingError):
+    """The engine was driven in an order its state machine does not allow."""
+
+
+class KernelFault(ServingError):
+    """A kernel-level failure attributed to one dispatched op (``op``) —
+    raised when a step produces non-finite logits. The port has no
+    degradation ladder yet, so the engine raises it to the caller."""
+
+    def __init__(self, op: str, message: str = ""):
+        super().__init__(message or f"kernel fault in {op!r}")
+        self.op = op

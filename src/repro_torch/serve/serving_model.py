@@ -1,0 +1,83 @@
+"""``ServingModel`` — the load-time serving artifact (port of
+``repro.serve.serving_model``).
+
+``ServingModel.prepare`` fixes every load-time decision once: the device
+(``None`` means CUDA; without a card the caller must pass ``device="cpu"``),
+the backend check, and, under ``cfg.quantized_decode``, the weight-stationary
+int8 images of the qkv/o/MLP weights (``core.quant.prepare_decode_params``),
+so decode steps feed the PIM GEMV kernel without re-quantizing weights.
+Engines are cheap views: ``sm.engine(mode=...)`` — prepare once, serve many.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch, quant
+from repro_torch.core.pim_modes import Mode
+from repro_torch.device import DeviceLike, resolve_device, tensor_device
+from repro_torch.models import model as M
+from repro_torch.serve.api import GenerationRequest, GenerationResult
+
+
+@dataclass
+class ServingModel:
+    """Load-time artifact: config, float params (GEMM operand), the prepared
+    decode tree (``PreparedLinear`` leaves when pre-quantized), and the
+    device everything lives on."""
+
+    cfg: ModelConfig
+    params: dict
+    decode_params: dict
+    max_len: int
+    slots: int
+    prequantized: bool
+    device: torch.device
+
+    @classmethod
+    def prepare(cls, cfg: ModelConfig, params: dict, *, max_len: int = 256,
+                slots: int = 4, prequantize: Optional[bool] = None,
+                device: DeviceLike = None) -> "ServingModel":
+        """Resolve every load-time decision once; returns the artifact.
+        ``params`` must already live on ``device``."""
+        dev = resolve_device(device)
+        M._check_family(cfg)
+        dispatch.resolve_backend(cfg, dev)   # validates the backend for this device
+        pdev = tensor_device(params)
+        if pdev is None or pdev.type != dev.type:
+            raise ValueError(f"params live on {pdev}, the artifact on {dev}: build them "
+                             f"with init_params(..., device=) or params_from_numpy(..., device=)")
+        if prequantize is None:
+            prequantize = cfg.quantized_decode
+        decode_params = quant.prepare_decode_params(params) if prequantize else params
+        return cls(cfg=cfg, params=params, decode_params=decode_params, max_len=max_len,
+                   slots=slots, prequantized=bool(prequantize), device=dev)
+
+    def cache_pool(self, *, slots: Optional[int] = None, prefix_cache: bool = True,
+                   block_size: int = 8, prefix_pages: Optional[int] = None):
+        """A fully paged :class:`repro_torch.serve.cache.CachePool` on this
+        artifact's device."""
+        from repro_torch.serve.cache import CachePool
+
+        return CachePool(self.cfg, self.max_len, self.slots if slots is None else slots,
+                         prefix_cache=prefix_cache, block_size=block_size,
+                         prefix_pages=prefix_pages, device=self.device)
+
+    def engine(self, *, slots: Optional[int] = None, mode: Mode = Mode.HBCEM,
+               chunk: int = 8, prefix_cache: bool = True):
+        """A continuous-batching engine view over this artifact."""
+        from repro_torch.serve.engine import Engine  # deferred: engine imports us
+
+        return Engine(self.cfg, self.params, max_len=self.max_len,
+                      slots=self.slots if slots is None else slots, mode=mode,
+                      chunk=chunk, serving=self, prefix_cache=prefix_cache)
+
+    def generate(self, requests: Sequence[GenerationRequest], *, mode: Mode = Mode.HBCEM,
+                 slots: Optional[int] = None, chunk: int = 8,
+                 prefix_cache: bool = True) -> list[GenerationResult]:
+        """One-shot convenience: serve ``requests`` through a fresh engine."""
+        return self.engine(slots=slots, mode=mode, chunk=chunk,
+                           prefix_cache=prefix_cache).serve(requests)

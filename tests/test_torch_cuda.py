@@ -1,0 +1,154 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Marked ``cuda``: each test asks for a CUDA device and skips without one. On a
+machine with a card::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def gen(dev):
+    return torch.Generator(device=dev).manual_seed(0)
+
+
+def gemv_operands(n, k, b, gen, dev):
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    x = torch.randint(-127, 128, (b, k), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((n,), generator=gen, device=dev) + 0.01
+    xs = torch.rand((b,), generator=gen, device=dev) + 0.01
+    return w, x, ws, xs
+
+
+@pytest.mark.parametrize("n,k,b", [(1, 16, 1), (37, 64, 3), (256, 1000, 8), (1024, 4096, 4),
+                                   (300, 14336, 8), (5, 7, 2)])
+def test_pim_gemv_bit_exact(dev, gen, n, k, b):
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    ops = gemv_operands(n, k, b, gen, dev)
+    before = pim_gemv.launches
+    out = pim_gemv(*ops)
+    torch.cuda.synchronize()
+    assert pim_gemv.launches == before + 1
+    assert torch.equal(out, pim_gemv_ref(*ops))
+
+
+def test_pim_gemv_unaligned_activation_takes_the_byte_path(dev, gen):
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    w, _, ws, xs = gemv_operands(64, 128, 2, gen, dev)
+    buf = torch.randint(-127, 128, (2 * 128 + 1,), generator=gen, device=dev,
+                        dtype=torch.int8)
+    x = buf[1:].view(2, 128)            # 1 byte off a 16-byte boundary
+    out = pim_gemv(w, x, ws, xs)
+    assert torch.equal(out, pim_gemv_ref(w, x, ws, xs))
+
+
+def test_pim_gemv_refuses_bad_operands(dev, gen):
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+
+    w, x, ws, xs = gemv_operands(8, 32, 2, gen, dev)
+    with pytest.raises(TypeError):
+        pim_gemv(w.float(), x, ws, xs)
+    w9, x9, ws9, xs9 = gemv_operands(8, 32, 9, gen, dev)
+    with pytest.raises(ValueError):
+        pim_gemv(w9, x9, ws9, xs9)
+
+
+def paged(gen, dev, b, hkv, g, hd, bsz, nb, dtype):
+    p = b * nb + 1
+    q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(dtype)
+    kp = (torch.randn((p, hkv, hd, bsz), generator=gen, device=dev) * 0.3).to(dtype)
+    vp = (torch.randn((p, hkv, bsz, hd), generator=gen, device=dev) * 0.3).to(dtype)
+    table = (torch.randperm(b * nb, generator=gen, device=dev) + 1).reshape(b, nb)
+    return q, kp, vp, table.to(torch.int32)
+
+
+# f32 accumulation on both sides, summed in other orders (online softmax)
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("g,hd,bsz,dtype,cap", [
+    (4, 128, 8, torch.bfloat16, None), (1, 64, 16, torch.float32, None),
+    (16, 256, 48, torch.bfloat16, 30.0), (3, 32, 1, torch.float32, None),
+    (2, 128, 64, torch.float32, 5.0)])
+def test_paged_decode_matches_plain(dev, gen, g, hd, bsz, dtype, cap):
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv, nb = 4, 2, 12
+    q, kp, vp, table = paged(gen, dev, b, hkv, g, hd, bsz, nb, dtype)
+    lmax = nb * bsz
+    end = torch.tensor([lmax, lmax // 3 + 1, 0, lmax - 1], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 0, max(1, lmax // 2)], dtype=torch.int32, device=dev)
+    out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=hd ** -0.5,
+                                    softcap=cap)
+    want = ref.decode_attention_paged_ref(q, kp, vp, table, end, hd ** -0.5, cap,
+                                          start=start)
+    torch.testing.assert_close(out, want, **TOL)
+    assert not out[2].any()
+    for s in (2, 5, 64):
+        acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=s,
+                                      scale=hd ** -0.5, softcap=cap)
+        racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, s, hd ** -0.5, cap,
+                                              start=start)
+        for a, r in ((acc, racc), (m, rm), (l, rl)):
+            torch.testing.assert_close(a, r, **TOL)
+        merged = da.merge_splits(acc, m, l)
+        torch.testing.assert_close(merged, ref.merge_splits(acc, m, l), **TOL)
+        torch.testing.assert_close(merged, want, **TOL)
+        assert not merged[2].any()
+
+
+def test_attention_refuses_unsupported_shapes(dev, gen):
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    q, kp, vp, table = paged(gen, dev, 1, 1, 17, 32, 8, 2, torch.float32)
+    with pytest.raises(ValueError):
+        da.decode_attention_paged(q, kp, vp, table, 4, scale=0.1)
+    q, kp, vp, table = paged(gen, dev, 1, 1, 2, 32, 8, 2, torch.float16)
+    with pytest.raises(TypeError):
+        da.decode_attention_paged(q, kp, vp, table, 4, scale=0.1)
+
+
+def test_serve_on_the_card_goes_through_every_kernel(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.api import GenerationRequest
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg = get_config("llama3-8b", smoke=True).replace(quantized_decode=True)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    reqs = [GenerationRequest(prompt=list(range(1, 2 + 3 * i)), max_new_tokens=4 + i)
+            for i in range(5)]
+    reset_launches()
+    outs = {}
+    for splits in (1, 2):
+        sm = ServingModel.prepare(cfg.replace(decode_kv_splits=splits), params, max_len=64,
+                                  slots=2)
+        for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
+            eng = sm.engine(mode=mode, chunk=4)
+            outs[(splits, mode)] = [r.tokens for r in eng.serve(reqs)]
+            assert eng.pool.check_invariants() == []
+    for splits in (1, 2):
+        assert outs[(splits, Mode.HBCEM)] == outs[(splits, Mode.BLOCKED)]
+        assert outs[(splits, Mode.LBIM)] == outs[(splits, Mode.BLOCKED)]
+    assert all(v > 0 for v in launch_counts().values())
