@@ -9,25 +9,34 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    versions, and the seconds the kernels took to build from
    ``src/repro_torch/kernels/*/csrc`` (nvcc, one process per source).
 2. ``kernel_check``: every CUDA kernel against its plain PyTorch version on the
-   card, at the main path's full-width llama3-8b shapes. ``pim_gemv`` must be
-   bit-exact; the attention kernels must agree within the f32 tolerance below.
-   ``kernel_time`` lines give each kernel's time beside its bound, its plain
-   version's time and one PyTorch library call's time (a yardstick the port
-   never calls).
+   card, at the main paths' full-width shapes: ``pim_gemv`` bit-exact; the
+   paged attention kernels (llama3-8b), the contiguous attention kernel
+   (llama3-8b, G 4 / hd 128, and zamba2-7b, G 1 / hd 112) and the SSD scan
+   (zamba2-7b's H 112, P 64, N 64, chunk 256, also against the model's own
+   ``ssd_chunked``) within the f32 tolerances below. ``kernel_time`` lines give
+   each kernel's time beside its bound, its plain version's time and one
+   PyTorch library call's time (a yardstick the port never calls).
 3. ``serve``: full-width llama3-8b (bf16, W8A8 ``quantized_decode``, random
    weights from a seeded generator) serves ragged greedy requests through
    ``ServingModel.prepare(...).engine(mode=...).serve(requests)`` in BLOCKED,
-   HBCEM and LBIM with ``decode_kv_splits=1``, and in LBIM once more with
-   ``decode_kv_splits=4``. Every request must finish, the pool's invariants
-   must hold, and greedy tokens must be identical across the three modes.
-   The launch counts are set to 0 just before each serve and read just after
-   it; they must equal what that serve's schedule implies (7 ``pim_gemv``
-   and one attention call per layer and one-token forward; single pass only
-   at 1 split, split and merge only at 4), and every kernel must have
-   launched in the phase.
-4. A ``kernels`` line (launches summed over the four serves), the
-   ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+   HBCEM and LBIM with ``decode_kv_splits=1``, in LBIM once more with
+   ``decode_kv_splits=4``, and in LBIM through a contiguous pool
+   (``cache_pool(paged=False)``). Every request must finish, the pool's
+   invariants must hold, and greedy tokens must be identical across the three
+   paged modes. The launch counts are set to 0 just before each serve and read
+   just after it; they must equal what that serve's schedule implies (per
+   one-token forward 7 ``pim_gemv`` and one attention call per attention
+   layer: paged single pass at 1 split, split and merge at 4, the contiguous
+   kernel for the contiguous pool, and no other kernel).
+4. ``zamba2``: full-width zamba2-7b (81 Mamba2 layers, one shared attention +
+   MLP block applied 13 times, bf16, W8A8) serves ragged greedy requests in
+   BLOCKED, HBCEM and LBIM with the same checks: identical tokens across
+   modes, exactly 7 x 13 ``pim_gemv`` and 13 contiguous attention launches per
+   one-token forward. The SSD scan kernel is not on this path, as in the JAX
+   package (the model scans with ``ssd_chunked``): the kernel phase launches it.
+5. A ``profile`` line per model (device time by kernel group, busy share), a
+   ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
 """
@@ -52,6 +61,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 L2_BYTES = 50 * 2**20
 
 # attention tolerance: kernel and plain version both accumulate in f32, but the
@@ -59,6 +69,10 @@ L2_BYTES = 50 * 2**20
 # partials of its warps and blocks, and so adds the products in another order:
 # the two differ by a few f32 ulps per tile
 ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5
+# SSD scan tolerance: f32 on both sides; the chunked kernel sums each output's
+# terms in another order than the sequential recurrence and takes exp of
+# cumulative log decays where the recurrence multiplies the step decays
+SSD_RTOL, SSD_ATOL = 1e-4, 1e-4
 
 GEMV_LAYER = [  # (N, K, launches per layer) of llama3-8b's seven decode GEMVs
     (4096, 4096, 2),     # wq, wo
@@ -237,12 +251,13 @@ def live_tokens(end, start) -> int:
     return int((end - start).clamp_min(0).sum())
 
 
-def attn_bound(end, start, n_out_bytes: int) -> tuple[float, str]:
-    hkv, g, hd = ATTN_HKV, ATTN_G, ATTN_HD
+def attn_bound(end, start, n_out_bytes: int, hkv=ATTN_HKV, g=ATTN_G,
+               hd=ATTN_HD) -> tuple[float, str]:
+    b = int(end.numel())
     toks = live_tokens(end, start)
     nbytes = (toks * hkv * hd * 2 * 2                 # live K and V, bf16
-              + ATTN_B * hkv * g * hd * 2 + n_out_bytes
-              + ATTN_B * 4 * 2)                       # start / end
+              + b * hkv * g * hd * 2 + n_out_bytes
+              + b * 4 * 2)                            # start / end
     flops = 4 * toks * hkv * g * hd                   # q.K and p.V
     return bound(nbytes, flops, PEAK_BF16_FLOPS)
 
@@ -361,10 +376,14 @@ def time_attention(gen, dev) -> dict:
         return ref.split_partials_ref(q, kp, vp, table, end, s, scale, start=start)
 
     bnd, by = attn_bound(end, start, part_bytes)
+    # stage 1 and the merge together compute the function SDPA computes on
+    # these inputs: the split row carries the same SDPA yardstick
     res["decode_attention_paged_split"] = {
         "ms": cuda_ms([lambda p=p: split1(*p) for p in pools], 100),
         "plain_ms": cuda_ms([lambda p=p: split1_ref(*p) for p in pools[:2]], 10),
-        "library_ms": None, "bound_ms": bnd, "bound_by": by}
+        "library_ms": res["decode_attention_paged"]["library_ms"],
+        "library_note": "SDPA, against stage 1 + merge together",
+        "bound_ms": bnd, "bound_by": by}
     parts = [split1(*p) for p in pools[:8]]
     bnd, by = bound(part_bytes + out_bytes, 3 * b * hkv * n_real * g * hd, PEAK_BF16_FLOPS)
     res["merge_splits"] = {
@@ -394,19 +413,211 @@ def time_attention(gen, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# contiguous decode attention (B4)
+# ---------------------------------------------------------------------------
+
+CONTIG_LMAX = 2048
+# (name, Hkv, G, hd): llama3-8b through the contiguous pool, zamba2-7b's
+# shared block (32 kv heads of 112, one query head each)
+CONTIG_SHAPES = (("llama3-8b", 8, 4, 128), ("zamba2-7b", 32, 1, 112))
+
+
+def contig_inputs(gen, dev, hkv, g, hd, lmax=None, copies=1):
+    b = ATTN_B
+    lmax = CONTIG_LMAX if lmax is None else lmax
+    q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    lanes = []
+    for _ in range(copies):
+        k = (torch.randn((b, hkv, hd, lmax), generator=gen, device=dev) * 0.3
+             ).to(torch.bfloat16)
+        v = (torch.randn((b, hkv, lmax, hd), generator=gen, device=dev) * 0.3
+             ).to(torch.bfloat16)
+        lanes.append((k, v))
+    end = torch.tensor([min(e, lmax) for e in ATTN_END], dtype=torch.int32, device=dev)
+    start = torch.tensor(ATTN_START, dtype=torch.int32, device=dev)
+    return q, lanes, end, start, hd ** -0.5
+
+
+def check_contig_attention(gen, dev) -> float:
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    worst = 0.0
+    cases = []
+    for name, hkv, g, hd in CONTIG_SHAPES:
+        for lmax, cap in ((CONTIG_LMAX, None), (300, 30.0)):
+            q, lanes, end, start, scale = contig_inputs(gen, dev, hkv, g, hd, lmax)
+            k, v = lanes[0]
+            out = da.decode_attention(q, k, v, end, start, scale=scale, softcap=cap)
+            want = ref.decode_attention_ref(q, k, v, end, scale, cap, start=start)
+            torch.cuda.synchronize()
+            worst = max(worst, _allclose(f"decode_attention {name} lmax={lmax}", out, want))
+            if not bool((out[2] == 0).all()):
+                raise AssertionError("empty range (end=0) must give exact zeros")
+            cases.append([name, hkv, g, hd, lmax, cap])
+    emit({"phase": "kernel_check", "kernel": "decode_attention (contiguous)", "batch": ATTN_B,
+          "cases": cases, "end": ATTN_END, "start": ATTN_START, "cache": "bf16",
+          "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": worst})
+    return worst
+
+
+def time_contig_attention(gen, dev) -> dict:
+    """Both shapes at 2048-token lanes; the kernels line takes zamba2's, the
+    shape the hybrid serve launches most."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    rows = {}
+    for name, hkv, g, hd in CONTIG_SHAPES:
+        lane_bytes = ATTN_B * hkv * hd * CONTIG_LMAX * 2 * 2
+        q, lanes, end, start, scale = contig_inputs(gen, dev, hkv, g, hd,
+                                                    copies=copies_for(lane_bytes))
+        idx = torch.arange(CONTIG_LMAX, device=dev)
+        mask = ((idx[None, :] >= start[:, None]) & (idx[None, :] < end[:, None]))[:, None, None]
+        qh = q.reshape(ATTN_B, hkv * g, 1, hd)
+        sdpa_lanes = [(k.transpose(-1, -2).repeat_interleave(g, dim=1).contiguous(),
+                       v.repeat_interleave(g, dim=1).contiguous()) for k, v in lanes[:2]]
+        bnd, by = attn_bound(end, start, ATTN_B * hkv * g * hd * 4, hkv=hkv, g=g, hd=hd)
+        row = {
+            "ms": cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, start, scale=scale)
+                           for kv in lanes], 100),
+            "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(
+                q, *kv, end, scale, start=start) for kv in lanes[:2]], 10),
+            "library_ms": library_ms("decode_attention", [
+                lambda kv=kv: F.scaled_dot_product_attention(qh, *kv, attn_mask=mask,
+                                                             scale=scale)
+                for kv in sdpa_lanes], 100),
+            "bound_ms": bnd, "bound_by": by}
+        emit({"phase": "kernel_time", "kernel": "decode_attention", "shape": name,
+              "q": [ATTN_B, hkv, g, hd], "lmax": CONTIG_LMAX,
+              "live_tokens": live_tokens(end, start), **row,
+              "roofline_share": row["bound_ms"] / row["ms"]})
+        rows[name] = row
+        del lanes, sdpa_lanes
+    return rows["zamba2-7b"]
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan (B5)
+# ---------------------------------------------------------------------------
+
+SSD_H, SSD_P, SSD_N, SSD_Q = 112, 64, 64, 256   # zamba2-7b: d_inner 7168 / 64, chunk 256
+SSD_T = 2048
+
+
+def ssd_inputs(gen, dev, b, t):
+    """Scan operands at zamba2's widths, drawn as the JAX package's own scan
+    test draws them (tests/test_kernels.py): log decays -|N(0, 1)| * 0.3."""
+    x = torch.randn((b, t, SSD_H, SSD_P), generator=gen, device=dev) * 0.5
+    a = -torch.randn((b, t, SSD_H), generator=gen, device=dev).abs() * 0.3
+    bm = torch.randn((b, t, SSD_N), generator=gen, device=dev) * 0.5
+    cm = torch.randn((b, t, SSD_N), generator=gen, device=dev) * 0.5
+    s0 = torch.randn((b, SSD_H, SSD_P, SSD_N), generator=gen, device=dev) * 0.1
+    return x, a, bm, cm, s0
+
+
+def ssd_work(b, t) -> dict:
+    """Work of one scan. ``bytes``: each input read once, y and the final
+    state written once. ``flops``: what the function needs, the smaller of
+    two ways to compute it, named in ``flops_by``. The recurrence (its
+    definition, ``ssd_scan_ref``) takes per step and head P*N decay
+    multiplies, P*N multiply-adds for the outer-product update and P*N for
+    the output: 5*P*N flops. The chunked algorithm (what the kernel runs)
+    takes the scores and intra-chunk product over the visible lower
+    triangle, the carried-state product and the state update, two flops per
+    multiply-add: ``chunked_flops``."""
+    q = min(SSD_Q, t)
+    n_chunks = -(-t // q)
+    tri = q * (q + 1) // 2
+    chunked = 2 * n_chunks * b * SSD_H * (tri * SSD_N + tri * SSD_P + 2 * q * SSD_P * SSD_N)
+    recurrence = 5 * b * t * SSD_H * SSD_P * SSD_N
+    nbytes = 4 * (b * t * SSD_H * SSD_P * 2 + b * t * SSD_H + 2 * b * t * SSD_N
+                  + 2 * b * SSD_H * SSD_P * SSD_N)
+    return {"bytes": nbytes, "flops": min(recurrence, chunked),
+            "flops_by": "recurrence" if recurrence <= chunked else "chunked",
+            "recurrence_flops": recurrence, "chunked_flops": chunked}
+
+
+def check_ssd_scan(gen, dev) -> float:
+    """The kernel against the sequential recurrence (the definition) and the
+    model's ``ssd_chunked`` over the same chunks. A T that is not a multiple
+    of the chunk is padded to it on the kernel's path (zero-decay steps),
+    while ``ssd_chunked`` scans such a T as ONE chunk (ssm.py's fallback), a
+    different chunking whose f32 exp of cumulative log decays over a
+    thousand steps loses digits of its own; so the ragged case holds the
+    kernel against ``ssd_chunked`` over the padded sequence, and the line
+    reports the one-chunk fallback's own distance from the recurrence."""
+    from repro_torch.kernels.ssd_scan.ops import pad_to_chunk, ssd_scan_op
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    worst = 0.0
+    errs = {}
+    for b, t in ((1, SSD_T), (4, SSD_T), (2, 1000)):     # 1000 % 256 != 0: the pad path
+        x, a, bm, cm, s0 = ssd_inputs(gen, dev, b, t)
+        y, s = ssd_scan_op(x, a, bm, cm, s0, chunk=SSD_Q)
+        yr, sr = ssd_scan_ref(x, a, bm, cm, s0)
+        yc, sc = ssd_chunked(*pad_to_chunk(x, a, bm, cm, SSD_Q), SSD_Q, s0)
+        yc = yc[:, :t]
+        torch.cuda.synchronize()
+        for what, got, want in (("y vs ssd_scan_ref", y, yr), ("state vs ssd_scan_ref", s, sr),
+                                ("y vs ssd_chunked", y, yc), ("state vs ssd_chunked", s, sc)):
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            errs[f"B={b} T={t} {what}"] = err
+            if not torch.allclose(got, want, rtol=SSD_RTOL, atol=SSD_ATOL):
+                raise AssertionError(f"ssd_scan B={b} T={t} {what}: max |err| {err} outside "
+                                     f"rtol={SSD_RTOL} atol={SSD_ATOL}")
+        if t % SSD_Q:
+            y1, _ = ssd_chunked(x, a, bm, cm, SSD_Q, s0)     # one chunk of T
+            errs[f"B={b} T={t} ssd_chunked one-chunk fallback vs ssd_scan_ref (not held)"] = \
+                float((y1 - yr).abs().max())
+            del y1
+        del x, a, bm, cm, s0, y, s, yr, sr, yc, sc
+    emit({"phase": "kernel_check", "kernel": "ssd_scan", "h": SSD_H, "p": SSD_P, "n": SSD_N,
+          "chunk": SSD_Q, "cases": [[1, SSD_T], [4, SSD_T], [2, 1000]],
+          "against": ["ssd_scan_ref", "ssd_chunked"], "rtol": SSD_RTOL, "atol": SSD_ATOL,
+          "max_abs_err": worst, "errors": errs})
+    return worst
+
+
+def time_ssd_scan(gen, dev) -> dict:
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    b = SLOTS
+    work = ssd_work(b, SSD_T)
+    sets = [ssd_inputs(gen, dev, b, SSD_T) for _ in range(copies_for(work["bytes"]))]
+    bnd, by = bound(work["bytes"], work["flops"], PEAK_F32_FLOPS)
+    row = {"ms": cuda_ms([lambda st=st: ssd_scan(*st, chunk=SSD_Q) for st in sets], 20),
+           "plain_ms": cuda_ms([lambda st=st: ssd_scan_ref(*st) for st in sets[:2]], 2),
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes the SSD scan",
+           "bound_ms": bnd, "bound_by": by}
+    emit({"phase": "kernel_time", "kernel": "ssd_scan", "b": b, "t": SSD_T, "h": SSD_H,
+          "p": SSD_P, "n": SSD_N, "chunk": SSD_Q, **work, **row,
+          "roofline_share": bnd / row["ms"],
+          "algorithm_f32_TFLOPs": work["chunked_flops"] / row["ms"] / 1e9})
+    return row
+
+
+# ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
 
 
-def make_requests(vocab: int, seed: int = 0):
+def make_requests(vocab: int, seed: int = 0, n: int = 8, lens=(24, 320), budgets=(8, 49),
+                  shared_prefix: bool = True):
     from repro_torch.serve.api import GenerationRequest
 
     rng = np.random.default_rng(seed)
-    lens = rng.integers(24, 320, size=8)
-    lens[[0, 5]] = np.maximum(lens[[0, 5]], 96)
-    budgets = rng.integers(8, 49, size=8)
-    prompts = [rng.integers(1, vocab, size=int(n)).tolist() for n in lens]
-    prompts[5][:64] = prompts[0][:64]   # a shared 64-token (8-block) prefix
+    lens = rng.integers(lens[0], lens[1], size=n)
+    budgets = rng.integers(budgets[0], budgets[1], size=n)
+    if shared_prefix:
+        lens[[0, 5]] = np.maximum(lens[[0, 5]], 96)
+    prompts = [rng.integers(1, vocab, size=int(k)).tolist() for k in lens]
+    if shared_prefix:
+        prompts[5][:64] = prompts[0][:64]   # a shared 64-token (8-block) prefix
     return [GenerationRequest(prompt=p, max_new_tokens=int(m))
             for p, m in zip(prompts, budgets)]
 
@@ -414,27 +625,89 @@ def make_requests(vocab: int, seed: int = 0):
 def expected_launches(eng, cfg) -> dict[str, int]:
     """Launches one serve must make. Every forward of one token per lane (each
     decode step, and an admission chunk of a single token) runs the seven
-    decode GEMVs and one attention call per layer: the single-pass kernel, or
+    decode GEMVs and one attention call per attention layer (llama3-8b's 32
+    layers; zamba2-7b's 13 applications of its shared block): the contiguous
+    kernel for a contiguous pool; for a paged pool the single-pass kernel, or
     the split kernel and the merge when ``decode_kv_splits`` (clamped to the
     block table's width) is above 1. Longer chunks, and the batch admission
     (never one token here: every prompt is longer), take GEMMs and dense
-    attention and launch none of the port's kernels."""
-    fwd = sum(1 for e in eng.events if e.plan.decode or e.prefill_tokens == 1)
-    n = cfg.n_layers * fwd
+    attention and launch none of the port's kernels; nothing launches the SSD
+    scan, which no model path runs."""
+    from repro_torch.kernels import launch_counts
+
+    from repro_torch.models.model import _hybrid_groups
+
+    fwd = sum(int(e.plan.decode) + int(e.prefill_tokens == 1) for e in eng.events)
+    n_attn = _hybrid_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
+    n = n_attn * fwd
+    want = {k: 0 for k in launch_counts()}
+    want["pim_gemv"] = 7 * n
     table_width = -(-eng.pool.max_len // eng.pool.block_size)
-    split = min(cfg.decode_kv_splits, table_width) > 1
-    return {"pim_gemv": 7 * n, "decode_attention_paged": 0 if split else n,
-            "decode_attention_paged_split": n if split else 0,
-            "merge_splits": n if split else 0}
+    if not eng.pool.paged:
+        want["decode_attention"] = n
+    elif min(cfg.decode_kv_splits, table_width) > 1:
+        want["decode_attention_paged_split"] = want["merge_splits"] = n
+    else:
+        want["decode_attention_paged"] = n
+    return want
 
 
-def serve_run(sm, mode, reqs) -> tuple[list, dict]:
+def decode_weight_bytes(sm) -> int:
+    """Weight bytes one decode step must read: int8 images (and scales) of
+    the W8A8 projections, every other weight in its own type, the hybrid's
+    shared block once per application, and the lm_head. Embedding rows (one
+    per lane) are left out."""
+    from repro_torch.core.quant import PreparedLinear
+    from repro_torch.models.model import _hybrid_groups
+
+    def nbytes(tree) -> int:
+        if isinstance(tree, PreparedLinear):
+            return tree.w_q.numel() + 4 * tree.w_scale.numel()
+        if isinstance(tree, torch.Tensor):
+            return tree.numel() * tree.element_size()
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        return sum(nbytes(v) for v in tree)
+
+    cfg, dp = sm.cfg, sm.decode_params
+    rest = nbytes(dp["final_norm"]) + nbytes(dp["lm_head"])
+    if cfg.family == "hybrid":
+        return (nbytes(dp["mamba_layers"]) + _hybrid_groups(cfg) * nbytes(dp["shared_attn"])
+                + rest)
+    return nbytes(dp["layers"]) + rest
+
+
+def serve_setup_line(sm, reqs, t0) -> dict:
+    cfg = sm.cfg
+    wbytes = decode_weight_bytes(sm)
+    return {"phase": "serve_setup", "arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype, "quantized_decode": True,
+            "max_len": sm.max_len, "slots": SLOTS,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "max_new_tokens": [r.max_new_tokens for r in reqs],
+            "setup_s": time.perf_counter() - t0,
+            "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9,
+            "decode_weight_GB": wbytes / 1e9,
+            "decode_step_bound_ms": 1e3 * wbytes / HBM_BYTES_PER_S}
+
+
+def serve_run(sm, mode, reqs, *, paged: bool = True) -> tuple[list, dict]:
     """One serve, with the launch counts of this serve alone (set to 0 just
-    before it, read just after) held to what its schedule implies."""
+    before it, read just after) held to what its schedule implies. A paged
+    pool must reuse the shared prefix; ``paged=False`` serves through a
+    contiguous pool without prefix reuse."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve.api import FINISH_EOS, FINISH_LENGTH, RequestState
+    from repro_torch.serve.engine import Engine
 
-    eng = sm.engine(mode=mode, slots=SLOTS)
+    if paged:
+        eng = sm.engine(mode=mode, slots=SLOTS)
+    else:
+        pool = sm.cache_pool(slots=SLOTS, prefix_cache=False, paged=False)
+        eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=mode,
+                     serving=sm, prefix_cache=False, pool=pool)
+    if eng.pool.paged != (paged and sm.cfg.family == "dense"):
+        raise AssertionError(f"{sm.cfg.name}: pool paged={eng.pool.paged}")
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -453,25 +726,54 @@ def serve_run(sm, mode, reqs) -> tuple[list, dict]:
     if bad:
         raise AssertionError(f"pool invariants: {bad}")
     rep = eng.schedule_report()
-    if rep["reused_prefix_tokens"] <= 0:
+    if eng.pool.paged and rep["reused_prefix_tokens"] <= 0:
         raise AssertionError("the shared prefix was not reused")
     want = expected_launches(eng, sm.cfg)
     if counts != want:
-        raise AssertionError(f"{mode.value} splits={sm.cfg.decode_kv_splits}: launches "
-                             f"{counts}, the schedule implies {want}")
+        raise AssertionError(f"{sm.cfg.name} {mode.value} splits={sm.cfg.decode_kv_splits} "
+                             f"paged={eng.pool.paged}: launches {counts}, the schedule "
+                             f"implies {want}")
     decode = [e.step_s for e in eng.events if e.plan.decode and not e.plan.prefill_chunk]
     ntok = sum(len(r.tokens) for r in results)
-    line = {"phase": "serve", "mode": mode.value, "kv_splits": sm.cfg.decode_kv_splits,
+    line = {"phase": "serve", "arch": sm.cfg.name, "mode": mode.value,
+            "pool": "paged" if eng.pool.paged else "contiguous",
+            "kv_splits": sm.cfg.decode_kv_splits,
             "requests": len(reqs), "tokens": ntok, "wall_s": wall,
             "tokens_per_s": ntok / wall, "decode_step_ms_median": 1e3 * statistics.median(decode),
             "pure_decode_steps": len(decode), "steps": rep["steps"],
             "fused_steps": rep["fused_steps"], "prefill_tokens": rep["prefill_tokens"],
-            "reused_prefix_tokens": rep["reused_prefix_tokens"], "launches": counts}
+            "reused_prefix_tokens": rep["reused_prefix_tokens"],
+            "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9, "launches": counts}
     del eng
     return [r.tokens for r in results], line
 
 
+def add_launches(total: dict, line: dict) -> None:
+    for k, v in line["launches"].items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_launched(total: dict, names, what: str) -> None:
+    missing = [k for k in names if total.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {what} path: {missing}")
+
+
+def modes_agree(tokens: dict, what: str) -> list:
+    from repro_torch.core.pim_modes import Mode
+
+    ref_toks = tokens[Mode.BLOCKED]
+    for mode in (Mode.HBCEM, Mode.LBIM):
+        if tokens[mode] != ref_toks:
+            diff = [i for i, (a, b) in enumerate(zip(ref_toks, tokens[mode])) if a != b]
+            raise AssertionError(f"{what}: greedy tokens differ between BLOCKED and "
+                                 f"{mode.value} in requests {diff}")
+    return ref_toks
+
+
 def serve_phase(dev) -> dict:
+    """llama3-8b: paged in the three modes, paged with 4 KV splits, and the
+    contiguous pool in LBIM."""
     from repro_torch.configs import get_config
     from repro_torch.core.pim_modes import Mode
     from repro_torch.models.model import init_params
@@ -485,47 +787,69 @@ def serve_phase(dev) -> dict:
     max_len = -(-max_len // 8) * 8
     sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
     torch.cuda.synchronize()
-    emit({"phase": "serve_setup", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "dtype": cfg.dtype, "quantized_decode": True,
-          "max_len": max_len, "slots": SLOTS,
-          "prompt_lens": [len(r.prompt) for r in reqs],
-          "max_new_tokens": [r.max_new_tokens for r in reqs],
-          "setup_s": time.perf_counter() - t0,
-          "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9})
+    emit(serve_setup_line(sm, reqs, t0))
 
     total: dict[str, int] = {}
     tokens = {}
     for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
         tokens[mode], line = serve_run(sm, mode, reqs)
         emit(line)
-        for k, v in line["launches"].items():
-            total[k] = total.get(k, 0) + v
-    ref_toks = tokens[Mode.BLOCKED]
-    for mode in (Mode.HBCEM, Mode.LBIM):
-        if tokens[mode] != ref_toks:
-            diff = [i for i, (a, b) in enumerate(zip(ref_toks, tokens[mode])) if a != b]
-            raise AssertionError(f"greedy tokens differ between BLOCKED and {mode.value} "
-                                 f"in requests {diff}")
+        add_launches(total, line)
+    ref_toks = modes_agree(tokens, cfg.name)
+
+    contig_toks, line = serve_run(sm, Mode.LBIM, reqs, paged=False)
+    line["requests_equal_to_paged_lbim"] = sum(
+        a == b for a, b in zip(tokens[Mode.LBIM], contig_toks))
+    emit(line)
+    add_launches(total, line)
     del sm
     sm4 = ServingModel.prepare(cfg.replace(decode_kv_splits=4), params, max_len=max_len,
                                slots=SLOTS, device=dev)
     split_toks, line = serve_run(sm4, Mode.LBIM, reqs)
     line["requests_equal_to_single_pass"] = sum(a == b for a, b in zip(ref_toks, split_toks))
     emit(line)
-    for k, v in line["launches"].items():
-        total[k] = total.get(k, 0) + v
-    emit({"phase": "serve_launches", "runs": 4, **total})
-    missing = [k for k, v in total.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the serve path: {missing}")
+    add_launches(total, line)
+    emit({"phase": "serve_launches", "arch": cfg.name, "runs": 5, **total})
+    check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged",
+                           "decode_attention_paged_split", "merge_splits"), cfg.name)
     del sm4
     sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
     profile_decode(sm, Mode.HBCEM, reqs)
     return total
 
 
+def zamba2_phase(dev) -> dict:
+    """zamba2-7b at full width: ragged greedy requests in the three modes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg = get_config("zamba2-7b").replace(quantized_decode=True)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    reqs = make_requests(cfg.vocab_size, seed=1, n=6, lens=(32, 120), budgets=(8, 25),
+                         shared_prefix=False)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
+    torch.cuda.synchronize()
+    emit(serve_setup_line(sm, reqs, t0))
+    total: dict[str, int] = {}
+    tokens = {}
+    for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
+        tokens[mode], line = serve_run(sm, mode, reqs)
+        emit(line)
+        add_launches(total, line)
+    modes_agree(tokens, cfg.name)
+    emit({"phase": "serve_launches", "arch": cfg.name, "runs": 3, **total})
+    check_launched(total, ("pim_gemv", "decode_attention"), cfg.name)
+    profile_decode(sm, Mode.HBCEM, reqs)
+    return total
+
+
 KERNEL_GROUPS = (   # kernel-name fragment -> what it computes on the serve path
     ("pim_gemv", "pim_gemv (W8A8 decode GEMVs)"),
+    ("contig_decode", "contiguous decode attention"),
     ("paged_decode", "paged decode attention"),
     ("merge_splits", "merge_splits"),
     ("gemm", "GEMM (prefill chunks, lm_head)"), ("gemv", "GEMM (prefill chunks, lm_head)"),
@@ -572,7 +896,8 @@ def profile_decode(sm, mode, reqs) -> None:
         by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
     total = sum(by_kernel.values())
     if total <= 0:
-        emit({"phase": "profile", "mode": mode.value, "device_time": "not measured",
+        emit({"phase": "profile", "arch": sm.cfg.name, "mode": mode.value,
+              "device_time": "not measured",
               "why": "torch.profiler recorded no device time",
               "wall_ms_untraced": 1e3 * wall_s})
         return
@@ -583,7 +908,7 @@ def profile_decode(sm, mode, reqs) -> None:
                      "elementwise and other")
         groups[group] = groups.get(group, 0.0) + ms
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "profile", "mode": mode.value, "requests": len(short),
+    emit({"phase": "profile", "arch": sm.cfg.name, "mode": mode.value, "requests": len(short),
           "prompt_tokens": 32, "new_tokens": 16, "pure_decode_steps": len(decode),
           "decode_step_ms_median": 1e3 * statistics.median(decode),
           "kernel_ms_total": total,
@@ -599,6 +924,9 @@ def profile_decode(sm, mode, reqs) -> None:
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "pim_gemv": ("src/repro_torch/kernels/pim_gemv/csrc/pim_gemv.cu",
                  "src/repro/kernels/pim_gemv/pim_gemv.py:55"),
+    "decode_attention": (
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention_paged.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:102"),
     "decode_attention_paged": (
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention_paged.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:165"),
@@ -608,6 +936,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "merge_splits": (
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention_paged.cu",
         "src/repro/kernels/decode_attention/ref.py:72"),
+    "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/ssd_scan.py:63"),
 }
 
 
@@ -630,17 +960,33 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s})
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"], **check_attention(gen, dev)}
-    times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev)}
+    errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"], **check_attention(gen, dev),
+            "decode_attention": check_contig_attention(gen, dev),
+            "ssd_scan": check_ssd_scan(gen, dev)}
+    times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev),
+             "decode_attention": time_contig_attention(gen, dev),
+             "ssd_scan": time_ssd_scan(gen, dev)}
     torch.cuda.empty_cache()
 
     counts = serve_phase(dev)
+    torch.cuda.empty_cache()
+    for k, v in zamba2_phase(dev).items():
+        counts[k] = counts.get(k, 0) + v
 
     work = {"pim_gemv": f"the 7 decode GEMVs of one llama3-8b layer at B={SLOTS}",
+            "decode_attention": f"one zamba2-7b shared-block layer, q ({ATTN_B},32,1,112), "
+                                f"bf16 lanes of {CONTIG_LMAX}, end {ATTN_END}, "
+                                f"start {ATTN_START}",
             "decode_attention_paged": "one layer, q (4,8,4,128), bf16 pages of 8 tokens, "
                                       f"end {ATTN_END}, start {ATTN_START}",
-            "decode_attention_paged_split": "as above, 4 splits (stage 1)",
-            "merge_splits": "as above, 4 splits (stage 2)"}
+            "decode_attention_paged_split": "as above, 4 splits (stage 1); library_ms is "
+                                            "SDPA against stage 1 + merge together",
+            "merge_splits": "as above, 4 splits (stage 2)",
+            "ssd_scan": f"zamba2-7b's scan, B={SLOTS}, T={SSD_T}, H={SSD_H}, P={SSD_P}, "
+                        f"N={SSD_N}, chunk {SSD_Q}, f32; on no model path (as in the JAX "
+                        f"package), so 0 launches there; bound_ms from the 5*P*N flops per "
+                        f"step and head the recurrence needs, fewer than the chunked "
+                        f"algorithm's; no PyTorch library call computes it"}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         t = times[name]

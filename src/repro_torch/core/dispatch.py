@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import PreparedLinear, raw_weight
-from repro_torch.kernels.decode_attention.ops import decode_attention_paged_op
+from repro_torch.kernels.decode_attention.ops import (decode_attention_op,
+                                                      decode_attention_paged_op)
 from repro_torch.kernels.pim_gemv.ops import linear_w8a8, linear_w8a8_prequant
 
 BACKENDS = ("auto", "reference")
@@ -47,6 +48,15 @@ def resolve_backend(cfg, device) -> str:
     if dev.type == "cpu":
         return "reference"
     raise ValueError(f"unsupported device {dev}")
+
+
+def decode_attention(q, k_cache, v_cache, end, *, scale: float, softcap=None,
+                     cfg) -> torch.Tensor:
+    """Dispatched decode attention over contiguous lanes, K (B, Hkv, hd, Lmax)
+    column-wise and V (B, Hkv, Lmax, hd) row-wise, each lane over ``[0, end)``.
+    Returns (B, Hq, hd) float32."""
+    resolve_backend(cfg, q.device)   # validates; the wrapper follows the device
+    return decode_attention_op(q, k_cache, v_cache, end, scale=scale, softcap=softcap)
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_table, end, *, start=None,

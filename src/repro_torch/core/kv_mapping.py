@@ -1,11 +1,13 @@
-"""KV-cache data mapping — the paper's §III-C, block-paged half (port of
-``repro.core.kv_mapping``).
+"""KV-cache data mapping — the paper's §III-C (port of ``repro.core.kv_mapping``).
 
-K pages are column-wise ``(hd, Bsz)``, V pages row-wise ``(Bsz, hd)``; pools
-stack layers first: K ``(nL, P, H, hd, Bsz)``, V ``(nL, P, H, Bsz, hd)``. Where
-the JAX package updated pages functionally (``.at[].set``), the port writes
-IN PLACE: a decode step must not copy a multi-gigabyte page pool per layer.
-Every in-place write is marked as such below.
+Contiguous lanes keep K column-wise ``(B, H, hd, Lmax)`` and V row-wise
+``(B, H, Lmax, hd)``, layer-stacked in front. K pages are column-wise
+``(hd, Bsz)``, V pages row-wise ``(Bsz, hd)``; pools stack layers first: K
+``(nL, P, H, hd, Bsz)``, V ``(nL, P, H, Bsz, hd)``. Where the JAX package
+updated caches functionally (``.at[].set``, ``dynamic_update_slice``), the port
+writes IN PLACE: a decode step must not copy a multi-gigabyte cache per layer.
+Every in-place write is marked as such below. Only the cdpim layout is ported;
+the fixed-mapping ablation layouts stay in the JAX package.
 """
 from __future__ import annotations
 
@@ -14,6 +16,40 @@ from typing import Literal
 import torch
 
 Layout = Literal["cdpim", "row_row", "col_col"]
+
+
+def init_cache(n_layers: int, batch: int, n_kv_heads: int, head_dim: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """An empty layer-stacked cdpim cache: K (nL, B, H, hd, Lmax) column-wise,
+    V (nL, B, H, Lmax, hd) row-wise, fill level ``pos`` 0."""
+    return {
+        "k": torch.zeros((n_layers, batch, n_kv_heads, head_dim, max_len), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((n_layers, batch, n_kv_heads, max_len, head_dim), dtype=dtype,
+                         device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def append_layer(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor, pos) -> None:
+    """Write T new tokens' K/V at fill ``pos`` of one layer's lanes IN PLACE.
+
+    ``k_cache`` (B, H, hd, Lmax) takes columns ``pos .. pos+T-1`` (a column
+    write per token), ``v_cache`` (B, H, Lmax, hd) rows; ``k_new``/``v_new``
+    (B, H, T, hd); ``pos`` a scalar or (B,) per-lane fill. As in the JAX
+    package's ``dynamic_update_slice``, a window running past Lmax is moved
+    back to end at Lmax.
+    """
+    b, _, t, _ = k_new.shape
+    lmax = k_cache.shape[-1]
+    pos = torch.as_tensor(pos, device=k_cache.device).long().reshape(-1).expand(b)
+    start = pos.clamp(0, lmax - t)                                        # (B,)
+    idx = start[:, None] + torch.arange(t, device=k_cache.device)         # (B, T)
+    lanes = torch.arange(b, device=k_cache.device)[:, None]
+    # separated advanced indices put the (B, T) index dims in front
+    k_cache[lanes, :, :, idx] = k_new.to(k_cache.dtype).transpose(1, 2)   # in place
+    v_cache[lanes, :, idx, :] = v_new.to(v_cache.dtype).transpose(1, 2)   # in place
 
 
 def init_paged_cache(n_layers: int, n_pages: int, n_kv_heads: int, head_dim: int,

@@ -11,12 +11,15 @@ from __future__ import annotations
 def _wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.pim_gemv import pim_gemv as pg
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     return {
         "pim_gemv": pg.pim_gemv,
+        "decode_attention": da.decode_attention,
         "decode_attention_paged": da.decode_attention_paged,
         "decode_attention_paged_split": da.split_partials,
         "merge_splits": da.merge_splits,
+        "ssd_scan": ss.ssd_scan,
     }
 
 

@@ -1,13 +1,18 @@
-// Paged flash decode over the CD-PIM dual-layout KV pages, for Hopper (sm_90a).
+// Flash decode over the CD-PIM dual-layout KV cache, paged or contiguous, for
+// Hopper (sm_90a).
 //
-// Replaces three pieces of the JAX package:
+// Replaces four pieces of the JAX package:
 //   * the Pallas kernel `decode_attention_paged`
 //     (src/repro/kernels/decode_attention/decode_attention.py:165; body `_paged_kernel`
 //     :153 -> `_decode_attn_kernel` :46): single-pass online-softmax decode;
 //   * the Pallas kernel `decode_attention_paged_split` (:309; `_split_kernel` :244,
 //     `_clamp_split` :296): stage 1 of the split-KV reduction, one unnormalized
 //     (acc, m, l) partial per split;
-//   * `merge_splits` (src/repro/kernels/decode_attention/ref.py:72), stage 2.
+//   * `merge_splits` (src/repro/kernels/decode_attention/ref.py:72), stage 2;
+//   * the Pallas kernel `decode_attention` (:102, the same `_decode_attn_kernel` body):
+//     single-pass decode over contiguous lanes, K (B, Hkv, hd, Lmax) column-wise and
+//     V (B, Hkv, Lmax, hd) row-wise, as the contiguous CachePool and the hybrid
+//     (zamba2) shared block hold them.
 //
 // Bound on the H100: the live K/V bytes. Every live cache element is read once and
 // used for G (=4 for llama3-8b) multiply-adds in each of the two GEMVs, so the
@@ -45,8 +50,19 @@
 //   * The split axis is grid.z, each split with a cluster of its own. The
 //     realized-split rule bps = ceil(NB/S), S_real = ceil(NB/bps) (:336-337) is
 //     applied by the caller.
-// Limits: hd <= 256, G <= 16, any page size Bsz. G <= 4 with hd <= 128 (llama3-8b)
-// takes a narrow instantiation with 8 warps per block; the rest a wide one with 4.
+//   * Contiguous lanes (kPaged = false, entry contig_decode_kernel) take the
+//     same body with lane strides in place of the block table: token t of lane
+//     b sits at column t of lane b's K (stride Lmax between d rows) and row t
+//     of its V, i.e. one "page" of Lmax tokens whose id is the lane itself. No
+//     table is read.
+// Limits: hd <= 256, G <= 16, any page size Bsz or Lmax. With hd <= 128, G == 1
+// (zamba2: hd 112) and G <= 4 (llama3-8b) take narrow instantiations with 8
+// warps per block, the rest a wide one with 4. The G == 1 one holds a quarter
+// of the G <= 4 one's softmax state (48 registers against 80), so more blocks
+// stay resident: at zamba2's shape the kernel took 0.070 ms with it and
+// 0.108 ms without (chip_smoke.py, two runs on an H100). A query head beyond G
+// holds zeros and is never stored; a d-lane beyond hd (hd 112: lanes 16-31 of
+// the fourth 32-wide chunk) loads nothing and stores nothing.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,17 +101,23 @@ inline size_t smem_floats(int kG, int kWarps, int hd) {
          + 2 * kG;                                // block m, l
 }
 
-// kG: query heads per kv head held in registers (>= G); kDC: 32-wide d chunks
-// per lane (>= hd / 32); kFinal: normalized output (single pass) or partials.
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kFinal>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-                    const TKV* __restrict__ v_pages, const int* __restrict__ table,
-                    const int* __restrict__ start, const int* __restrict__ end,
-                    float* __restrict__ out, float* __restrict__ acc_out,
-                    float* __restrict__ m_out, float* __restrict__ l_out,
-                    int hkv, int g, int hd, int bsz, int nb, int bps,
-                    float scale, float softcap, int has_cap) {
+#define REPRO_DECODE_PARAMS                                                                \
+  const TQ* __restrict__ q, const TKV* __restrict__ k_pages,                               \
+      const TKV* __restrict__ v_pages, const int* __restrict__ table,                      \
+      const int* __restrict__ start, const int* __restrict__ end, float* __restrict__ out, \
+      float* __restrict__ acc_out, float* __restrict__ m_out, float* __restrict__ l_out,   \
+      int hkv, int g, int hd, int bsz, int nb, int bps, float scale, float softcap,        \
+      int has_cap
+#define REPRO_DECODE_ARGS                                                                  \
+  q, k_pages, v_pages, table, start, end, out, acc_out, m_out, l_out, hkv, g, hd, bsz, nb, \
+      bps, scale, softcap, has_cap
+
+// The body every decode-attention kernel runs. kG: query heads per kv head
+// held in registers (>= G); kDC: 32-wide d chunks per lane (>= hd / 32);
+// kFinal: normalized output (single pass) or partials; kPaged: pages through a
+// block table, or contiguous lanes.
+template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kFinal, bool kPaged>
+__device__ __forceinline__ void decode_body(REPRO_DECODE_PARAMS) {
   constexpr int kPV = kDC <= 4 ? 4 : 2;   // tokens whose V rows are loaded together
   constexpr unsigned kFull = 0xffffffffu;
   extern __shared__ float smem[];
@@ -147,8 +169,9 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const bool valid = tok < hi;
     int64_t kb = 0, vb = 0;
     if (valid) {
-      const int64_t page = table[static_cast<int64_t>(b) * nb + tok / bsz];
-      const int off = tok % bsz;
+      // paged: the block table names the page; contiguous: the lane is the page
+      const int64_t page = kPaged ? table[static_cast<int64_t>(b) * nb + tok / bsz] : b;
+      const int off = kPaged ? tok % bsz : tok;
       kb = ((page * hkv + h) * hd) * bsz + off;    // K[page, h, 0, off]
       vb = ((page * hkv + h) * bsz + off) * hd;    // V[page, h, off, 0]
     }
@@ -271,6 +294,19 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   cluster.sync();   // keep every block's shared memory alive until rank 0 has read it
 }
 
+// B1 and B2 stage 1: pages through a block table.
+template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kFinal>
+__global__ void __launch_bounds__(kWarps * 32) paged_decode_kernel(REPRO_DECODE_PARAMS) {
+  decode_body<TQ, TKV, kG, kDC, kWarps, kFinal, true>(REPRO_DECODE_ARGS);
+}
+
+// B4: contiguous lanes (``table`` is not read). A kernel of its own name, so a
+// profile tells it from the paged one.
+template <typename TQ, typename TKV, int kG, int kDC, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32) contig_decode_kernel(REPRO_DECODE_PARAMS) {
+  decode_body<TQ, TKV, kG, kDC, kWarps, true, false>(REPRO_DECODE_ARGS);
+}
+
 // Stage 2: associative merge of per-split partials. One block per (lane, head,
 // query head), one thread per d.
 __global__ void merge_splits_kernel(const float* __restrict__ acc, const float* __restrict__ m,
@@ -292,13 +328,15 @@ __global__ void merge_splits_kernel(const float* __restrict__ acc, const float* 
   if (d < hd) out[row * static_cast<int64_t>(hd) + d] = o / (l_tot > 0.f ? l_tot : 1.f);
 }
 
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kFinal>
+template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kFinal, bool kPaged>
 int launch_typed(const void* q, const void* kp, const void* vp, const void* table,
                  const void* start, const void* end, void* out, void* acc, void* m,
                  void* l, int batch, int hkv, int g, int hd, int bsz, int nb, int bps,
                  int n_splits, float scale, float softcap, int has_cap, cudaStream_t s) {
   const size_t smem = sizeof(float) * smem_floats(kG, kWarps, hd);
+  static_assert(kFinal || kPaged, "contiguous lanes take the single pass only");
   auto kern = paged_decode_kernel<TQ, TKV, kG, kDC, kWarps, kFinal>;
+  if constexpr (!kPaged) kern = contig_decode_kernel<TQ, TKV, kG, kDC, kWarps>;
   static size_t smem_set = 0;   // per instantiation: raise the opt-in limit once
   if (smem > 48 * 1024 && smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -334,21 +372,22 @@ int launch_typed(const void* q, const void* kp, const void* vp, const void* tabl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, typename TKV, bool kFinal>
+template <typename TQ, typename TKV, bool kFinal, bool kPaged>
 int launch_shaped(const void* q, const void* kp, const void* vp, const void* table,
                   const void* start, const void* end, void* out, void* acc, void* m, void* l,
                   int batch, int hkv, int g, int hd, int bsz, int nb, int bps, int n_splits,
                   float scale, float softcap, int has_cap, cudaStream_t s) {
-  if (g <= 4 && hd <= 128)
-    return launch_typed<TQ, TKV, 4, 4, 8, kFinal>(q, kp, vp, table, start, end, out, acc, m,
-                                                  l, batch, hkv, g, hd, bsz, nb, bps,
-                                                  n_splits, scale, softcap, has_cap, s);
-  return launch_typed<TQ, TKV, 16, 8, 4, kFinal>(q, kp, vp, table, start, end, out, acc, m,
-                                                 l, batch, hkv, g, hd, bsz, nb, bps,
-                                                 n_splits, scale, softcap, has_cap, s);
+#define REPRO_SHAPE(KG, KDC, KW)                                                           \
+  return launch_typed<TQ, TKV, KG, KDC, KW, kFinal, kPaged>(                               \
+      q, kp, vp, table, start, end, out, acc, m, l, batch, hkv, g, hd, bsz, nb, bps,      \
+      n_splits, scale, softcap, has_cap, s)
+  if (g == 1 && hd <= 128) REPRO_SHAPE(1, 4, 8);
+  if (g <= 4 && hd <= 128) REPRO_SHAPE(4, 4, 8);
+  REPRO_SHAPE(16, 8, 4);
+#undef REPRO_SHAPE
 }
 
-template <bool kFinal>
+template <bool kFinal, bool kPaged>
 int launch(const void* q, const void* kp, const void* vp, const void* table,
            const void* start, const void* end, void* out, void* acc, void* m, void* l,
            int batch, int hkv, int g, int hd, int bsz, int nb, int bps, int n_splits,
@@ -357,9 +396,9 @@ int launch(const void* q, const void* kp, const void* vp, const void* table,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(TQ, TKV)                                                              \
-  return launch_shaped<TQ, TKV, kFinal>(q, kp, vp, table, start, end, out, acc, m, l,      \
-                                        batch, hkv, g, hd, bsz, nb, bps, n_splits, scale,  \
-                                        softcap, has_cap, s)
+  return launch_shaped<TQ, TKV, kFinal, kPaged>(q, kp, vp, table, start, end, out, acc, m, \
+                                                l, batch, hkv, g, hd, bsz, nb, bps,        \
+                                                n_splits, scale, softcap, has_cap, s)
   if (q_f32 && kv_f32) REPRO_LAUNCH(float, float);
   if (q_f32) REPRO_LAUNCH(float, __nv_bfloat16);
   if (kv_f32) REPRO_LAUNCH(__nv_bfloat16, float);
@@ -375,7 +414,7 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
                                    void* out, int batch, int hkv, int g, int hd, int bsz,
                                    int nb, float scale, float softcap, int has_cap, int q_f32,
                                    int kv_f32, void* stream) {
-  return launch<true>(q, kp, vp, table, start, end, out, nullptr, nullptr, nullptr, batch,
+  return launch<true, true>(q, kp, vp, table, start, end, out, nullptr, nullptr, nullptr, batch,
                       hkv, g, hd, bsz, nb, nb, 1, scale, softcap, has_cap, q_f32, kv_f32,
                       stream);
 }
@@ -387,8 +426,20 @@ extern "C" int paged_split_launch(const void* q, const void* kp, const void* vp,
                                   int hd, int bsz, int nb, int bps, int n_splits, float scale,
                                   float softcap, int has_cap, int q_f32, int kv_f32,
                                   void* stream) {
-  return launch<false>(q, kp, vp, table, start, end, nullptr, acc, m, l, batch, hkv, g, hd,
+  return launch<false, true>(q, kp, vp, table, start, end, nullptr, acc, m, l, batch, hkv, g, hd,
                        bsz, nb, bps, n_splits, scale, softcap, has_cap, q_f32, kv_f32, stream);
+}
+
+// B4: single pass over contiguous lanes, K (B, Hkv, hd, Lmax) and V (B, Hkv, Lmax, hd);
+// normalized f32 output (B, Hkv, G, hd). The lane is its own page of Lmax tokens.
+extern "C" int contig_decode_launch(const void* q, const void* k, const void* v,
+                                    const void* start, const void* end, void* out, int batch,
+                                    int hkv, int g, int hd, int lmax, float scale,
+                                    float softcap, int has_cap, int q_f32, int kv_f32,
+                                    void* stream) {
+  return launch<true, false>(q, k, v, nullptr, start, end, out, nullptr, nullptr, nullptr,
+                             batch, hkv, g, hd, lmax, 1, 1, 1, scale, softcap, has_cap, q_f32,
+                             kv_f32, stream);
 }
 
 // B2 stage 2: merged, normalized f32 output (B, Hkv, G, hd).

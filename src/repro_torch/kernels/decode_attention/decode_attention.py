@@ -1,11 +1,14 @@
-"""Wrappers of the CUDA paged decode-attention kernels
+"""Wrappers of the CUDA decode-attention kernels
 (``csrc/decode_attention_paged.cu``).
 
-Three kernels, each with a wrapper that takes the plain version from
+Four kernels, each with a wrapper that takes the plain version from
 :mod:`ref` only for CPU tensors and launches the kernel (or raises) for CUDA
 tensors, and counts its launches in ``<wrapper>.launches``:
 
-* :func:`decode_attention_paged` — single-pass flash decode (JAX ``decode_attention_paged``);
+* :func:`decode_attention` — single-pass flash decode over contiguous lanes
+  (JAX ``decode_attention``);
+* :func:`decode_attention_paged` — single-pass flash decode over pages (JAX
+  ``decode_attention_paged``);
 * :func:`split_partials` — stage 1 of the split-KV reduction
   (JAX ``decode_attention_paged_split``'s Pallas call);
 * :func:`merge_splits` — stage 2, the associative merge (JAX ``ref.merge_splits``).
@@ -36,38 +39,67 @@ def _lib():
     lib.paged_split_launch.restype = I32
     lib.merge_splits_launch.argtypes = [VP] * 4 + [I32] * 5 + [VP]
     lib.merge_splits_launch.restype = I32
+    lib.contig_decode_launch.argtypes = [VP] * 6 + [I32] * 5 + [F32, F32] + [I32] * 3 + [VP]
+    lib.contig_decode_launch.restype = I32
     return lib
 
 
-def _check_inputs(q, k_pages, v_pages, block_table, end, start):
-    """Shape/type/device checks for the CUDA path; returns contiguous int32
-    (table, start, end)."""
+def _check_inputs(q, k, v, end, start, block_table=None):
+    """Shape/type/device checks for the CUDA path, shared by the layouts: paged
+    K (P, Hkv, hd, Bsz) / V (P, Hkv, Bsz, hd) with a block table (B, NB), or
+    contiguous K (B, Hkv, hd, Lmax) / V (B, Hkv, Lmax, hd) without one.
+    Returns (int32 table or None, int32 start, int32 end, q, k, v), contiguous."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention kernels take CUDA tensors, got {q.device}")
     b, hkv, g, hd = q.shape
-    if k_pages.dim() != 4 or k_pages.shape[1] != hkv or k_pages.shape[2] != hd:
-        raise ValueError(f"k_pages {tuple(k_pages.shape)} is not (P, {hkv}, {hd}, Bsz)")
-    p, _, _, bsz = k_pages.shape
-    if tuple(v_pages.shape) != (p, hkv, bsz, hd):
-        raise ValueError(f"v_pages {tuple(v_pages.shape)} is not {(p, hkv, bsz, hd)}")
-    if block_table.dim() != 2 or block_table.shape[0] != b:
+    paged = block_table is not None
+    name, rows, cols = ("pages", "P", "Bsz") if paged else ("cache", b, "Lmax")
+    if k.dim() != 4 or k.shape[1] != hkv or k.shape[2] != hd or (not paged and k.shape[0] != b):
+        raise ValueError(f"k_{name} {tuple(k.shape)} is not ({rows}, {hkv}, {hd}, {cols})")
+    p, _, _, bsz = k.shape
+    if tuple(v.shape) != (p, hkv, bsz, hd):
+        raise ValueError(f"v_{name} {tuple(v.shape)} is not {(p, hkv, bsz, hd)}")
+    if paged and (block_table.dim() != 2 or block_table.shape[0] != b):
         raise ValueError(f"block_table {tuple(block_table.shape)} is not ({b}, NB)")
-    if q.dtype not in _FLOATS or k_pages.dtype not in _FLOATS or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"unsupported dtypes q {q.dtype}, pages {k_pages.dtype}/{v_pages.dtype}")
+    if q.dtype not in _FLOATS or k.dtype not in _FLOATS or v.dtype != k.dtype:
+        raise TypeError(f"unsupported dtypes q {q.dtype}, K/V {k.dtype}/{v.dtype}")
     if hd > 256 or g > 16:
         raise ValueError(f"kernel supports hd <= 256 and G <= 16 (got {hd}, {g})")
     dev = q.device
-    for t in (k_pages, v_pages, block_table):
-        if t.device != dev:
-            raise ValueError("decode attention operands must share one CUDA device")
+    if any(t.device != dev for t in (k, v) + ((block_table,) if paged else ())):
+        raise ValueError("decode attention operands must share one CUDA device")
     end_b = ref._per_lane(end, b, dev, 0).contiguous()
     start_b = ref._per_lane(start, b, dev, 0).contiguous()
-    return (block_table.to(torch.int32).contiguous(), start_b, end_b,
-            q.contiguous(), k_pages.contiguous(), v_pages.contiguous())
+    table = block_table.to(torch.int32).contiguous() if paged else None
+    return table, start_b, end_b, q.contiguous(), k.contiguous(), v.contiguous()
 
 
 def _cap(softcap: Optional[float]) -> tuple[float, int]:
     return (float(softcap), 1) if softcap is not None else (1.0, 0)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     end, start=None, *, scale: float,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """Single-pass flash decode over contiguous lanes. q (B, Hkv, G, hd); K
+    (B, Hkv, hd, Lmax) column-wise; V (B, Hkv, Lmax, hd) row-wise; live range
+    ``[start, end)`` per lane. Returns (B, Hkv, G, hd) float32."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, end, scale, softcap,
+                                        start=start)
+    _, start_b, end_b, q, k_cache, v_cache = _check_inputs(q, k_cache, v_cache, end, start)
+    b, hkv, g, hd = q.shape
+    lmax = k_cache.shape[-1]
+    out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
+    cap, has_cap = _cap(softcap)
+    code = _lib().contig_decode_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start_b.data_ptr(),
+        end_b.data_ptr(), out.data_ptr(), b, hkv, g, hd, lmax, float(scale), cap, has_cap,
+        int(q.dtype == torch.float32), int(k_cache.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "decode_attention")
+    decode_attention.launches += 1
+    return out
 
 
 def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -80,7 +112,7 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         return ref.decode_attention_paged_ref(q, k_pages, v_pages, block_table, end,
                                               scale, softcap, start=start)
     table, start_b, end_b, q, k_pages, v_pages = _check_inputs(
-        q, k_pages, v_pages, block_table, end, start)
+        q, k_pages, v_pages, end, start, block_table)
     b, hkv, g, hd = q.shape
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
     cap, has_cap = _cap(softcap)
@@ -104,7 +136,7 @@ def split_partials(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor
         return ref.split_partials_ref(q, k_pages, v_pages, block_table, end, num_splits,
                                       scale, softcap, start=start)
     table, start_b, end_b, q, k_pages, v_pages = _check_inputs(
-        q, k_pages, v_pages, block_table, end, start)
+        q, k_pages, v_pages, end, start, block_table)
     b, hkv, g, hd = q.shape
     bps, n_splits = ref.realized_splits(table.shape[1], num_splits)
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -153,6 +185,7 @@ def decode_attention_paged_split(q, k_pages, v_pages, block_table, end, start=No
     return merge_splits(acc, m, l)
 
 
+decode_attention.launches = 0
 decode_attention_paged.launches = 0
 split_partials.launches = 0
 merge_splits.launches = 0

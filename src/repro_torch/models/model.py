@@ -1,11 +1,16 @@
-"""Model zoo, dense family: init / paged decode step (port of the dense,
-fully paged part of ``repro.models.model``).
+"""Model zoo, dense and hybrid families: init / decode step (port of the dense
+and hybrid parts of ``repro.models.model``).
 
 Layers are a Python list of per-layer dicts and are walked with a Python
-loop. The JAX package carried the layer-stacked page pool through
-``lax.scan`` and rebuilt it per layer with ``dynamic_update_index_in_dim``;
-here each layer's pages are views of the pool (``k_pages[i]``) written in
-place, so a decode step never copies the pool.
+loop. The JAX package carried the layer-stacked caches (page pool, contiguous
+lanes, SSD states) through ``lax.scan`` and rebuilt them per layer with
+``dynamic_update_index_in_dim``; here each layer's slice is a view of the
+stacked tensor (``k_pages[i]``, ``k[i]``, ``ssd[i]``) written in place, so a
+decode step never copies a stacked cache.
+
+Families: ``dense`` (llama3-8b; paged or contiguous KV) and ``hybrid``
+(zamba2-7b: groups of ``attn_every`` Mamba2 layers, each group followed by
+ONE weight-shared attention + MLP block whose KV lives in contiguous lanes).
 """
 from __future__ import annotations
 
@@ -15,10 +20,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import dispatch
+from repro_torch.core import dispatch, kv_mapping
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
+
+FAMILIES = ("dense", "hybrid")
+# param subtrees whose leaves the JAX package stacks layer-first for lax.scan
+STACKED = ("layers", "mamba_layers")
+# hybrid recurrent-state leaves, stacked over all n_layers Mamba2 layers
+SSM_STATE_KEYS = ("ssd", "conv_x", "conv_bc")
 
 # ===========================================================================
 # init / weight carry-over
@@ -26,10 +38,10 @@ from repro_torch.models import layers as L
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP A.9); the port "
-            f"serves the dense family")
+            f"serves the families {FAMILIES}")
     if (cfg.sliding_window is not None or cfg.local_global_pattern
             or cfg.post_block_norm or cfg.tie_embeddings
             or cfg.name.startswith("gemma")):
@@ -54,12 +66,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    return {
-        "embed": L.init_embed(generator, cfg.vocab_size, cfg.d_model, dtype, dev),
-        "layers": [_init_dense_layer(generator, cfg, dev) for _ in range(cfg.n_layers)],
-        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
-        "lm_head": L.init_lm_head(generator, cfg.d_model, cfg.vocab_size, dtype, dev),
-    }
+    params = {"embed": L.init_embed(generator, cfg.vocab_size, cfg.d_model, dtype, dev)}
+    if cfg.family == "hybrid":   # zamba2
+        params["mamba_layers"] = [
+            {"norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
+             "ssm": ssm_lib.init_ssm(generator, cfg, dev)} for _ in range(cfg.n_layers)]
+        params["shared_attn"] = _init_dense_layer(generator, cfg.replace(family="dense"), dev)
+    else:
+        params["layers"] = [_init_dense_layer(generator, cfg, dev)
+                            for _ in range(cfg.n_layers)]
+    params["final_norm"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
+    params["lm_head"] = L.init_lm_head(generator, cfg.d_model, cfg.vocab_size, dtype, dev)
+    return params
 
 
 def _leaf_to_torch(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -76,8 +94,9 @@ def _leaf_to_torch(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: Any, device=None) -> Any:
     """Carry the JAX package's ``init_params`` tree over (after
     ``jax.tree_util.tree_map(np.asarray, ...)``): every leaf becomes a torch
-    tensor on ``device`` and the layer-stacked ``(nL, ...)`` subtree under
-    ``"layers"`` is split into a list of per-layer dicts."""
+    tensor on ``device`` and each layer-stacked ``(nL, ...)`` subtree
+    (``"layers"``, the hybrid's ``"mamba_layers"``) is split into a list of
+    per-layer dicts."""
     dev = resolve_device(device)
 
     def conv(t, layer=None):
@@ -86,12 +105,13 @@ def params_from_numpy(tree: Any, device=None) -> Any:
         arr = np.asarray(t)
         return _leaf_to_torch(arr if layer is None else arr[layer], dev)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    if "layers" in tree:
-        leaf = tree["layers"]
-        while isinstance(leaf, dict):
-            leaf = next(iter(leaf.values()))
-        out["layers"] = [conv(tree["layers"], i) for i in range(np.asarray(leaf).shape[0])]
+    out = {k: conv(v) for k, v in tree.items() if k not in STACKED}
+    for key in STACKED:
+        if key in tree:
+            leaf = tree[key]
+            while isinstance(leaf, dict):
+                leaf = next(iter(leaf.values()))
+            out[key] = [conv(tree[key], i) for i in range(np.asarray(leaf).shape[0])]
     return out
 
 
@@ -100,7 +120,43 @@ def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # ===========================================================================
-# decode step (fully paged dense family)
+# decode cache: init / specs
+# ===========================================================================
+
+
+def _hybrid_groups(cfg: ModelConfig) -> int:
+    """Shared-block applications: one after every ``attn_every`` Mamba2
+    layers (the layers after the last one run without it)."""
+    return cfg.n_layers // cfg.attn_every
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """A fresh contiguous decode cache: K (nL, B, Hkv, hd, Lmax) column-wise and
+    V (nL, B, Hkv, Lmax, hd) row-wise (the hybrid keeps one KV layer per
+    shared-block application and adds the stacked Mamba2 states), fill
+    ``pos`` 0 (a scalar, as in the JAX package)."""
+    _check_family(cfg)
+    kvd = kv_cache_dtype(cfg)
+    n_kv = cfg.n_layers
+    cache: dict = {}
+    if cfg.family == "hybrid":
+        n_kv = _hybrid_groups(cfg)
+        st = ssm_lib.init_ssm_state(batch, cfg, device=device)
+        cache = {k: v.expand(cfg.n_layers, *v.shape).clone() for k, v in st.items()}
+    cache.update(kv_mapping.init_cache(n_kv, batch, cfg.n_kv_heads, cfg.head_dim, max_len,
+                                       kvd, device))
+    return cache
+
+
+def decode_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """Shape and dtype of every leaf of :func:`init_decode_cache`, without
+    allocating (built on the ``meta`` device)."""
+    return {k: (tuple(v.shape), v.dtype)
+            for k, v in init_decode_cache(cfg, batch, max_len, device="meta").items()}
+
+
+# ===========================================================================
+# decode step
 # ===========================================================================
 
 
@@ -117,6 +173,12 @@ def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False) -
     return x + m
 
 
+def _dense_block_decode(lp, x, kc, vc, pos, cfg: ModelConfig, gemm: bool = False):
+    h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    a = attn_lib.attention_decode(lp["attn"], h, kc, vc, pos, cfg, gemm=gemm)
+    return _mlp_tail(lp, x + a, cfg, gemm=gemm)
+
+
 def _dense_block_decode_paged(lp, x, kp, vp, table, pos, cfg: ModelConfig,
                               gemm: bool = False):
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
@@ -128,24 +190,64 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
                 *, gemm: bool = False):
     """T tokens per lane: tokens (B, T) -> (logits (B, T, V), cache').
 
-    ``cache`` holds ``k_pages``/``v_pages`` (nL, P, H, ...), ``block_table``
-    (B, NB) and ``pos`` (B,); the pages are written IN PLACE and the returned
-    cache shares them, with ``pos`` advanced by T. ``gemm=True`` runs the
+    ``cache`` is either fully paged (``k_pages``/``v_pages`` (nL, P, H, ...),
+    ``block_table`` (B, NB)) or contiguous (``k``/``v`` (nL, B, H, ...), plus
+    the hybrid's Mamba2 states), with ``pos`` the per-lane fill (B,) or a
+    scalar. Every cache tensor is written IN PLACE and the returned cache
+    shares them, with ``pos`` advanced by T. ``gemm=True`` runs the
     batch-prefill form (float GEMMs, dense attention at any T).
     """
-    if "k_pages" not in cache:
-        raise NotImplementedError(
-            "only the fully paged decode cache is ported (contiguous lanes wait "
-            "for kernel B4; ROADMAP A.7)")
     _check_family(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_decode_step(params, cache, tokens, cfg, gemm=gemm)
     pos = cache["pos"]
-    table = cache["block_table"]
-    kp_all, vp_all = cache["k_pages"], cache["v_pages"]
     x = L.embed(params["embed"], tokens)
-    for i, lp in enumerate(params["layers"]):
-        x = _dense_block_decode_paged(lp, x, kp_all[i], vp_all[i], table, pos, cfg,
-                                      gemm=gemm)
-    new_cache = {"k_pages": kp_all, "v_pages": vp_all, "block_table": table,
-                 "pos": pos + tokens.shape[1]}
+    if "k_pages" in cache:
+        table = cache["block_table"]
+        kp_all, vp_all = cache["k_pages"], cache["v_pages"]
+        for i, lp in enumerate(params["layers"]):
+            x = _dense_block_decode_paged(lp, x, kp_all[i], vp_all[i], table, pos, cfg,
+                                          gemm=gemm)
+        new_cache = {"k_pages": kp_all, "v_pages": vp_all, "block_table": table,
+                     "pos": pos + tokens.shape[1]}
+    else:
+        k_all, v_all = cache["k"], cache["v"]
+        for i, lp in enumerate(params["layers"]):
+            x = _dense_block_decode(lp, x, k_all[i], v_all[i], pos, cfg, gemm=gemm)
+        new_cache = {"k": k_all, "v": v_all, "pos": pos + tokens.shape[1]}
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, x, cfg), new_cache
+
+
+def _hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                        *, gemm: bool = False):
+    """zamba2: ``attn_every`` Mamba2 layers, then the shared attention + MLP
+    block against that application's KV layer; the trailing layers after the
+    last application run Mamba2 only. Mamba2 states are written back IN
+    PLACE into their layer's slice of the stacked state."""
+    pos = cache["pos"]
+    n_groups = _hybrid_groups(cfg)
+    acfg = cfg.replace(family="dense")
+    shared = params["shared_attn"]
+    x = L.embed(params["embed"], tokens)
+
+    def mamba(li: int, h: torch.Tensor) -> torch.Tensor:
+        lp = params["mamba_layers"][li]
+        st = {k: cache[k][li] for k in SSM_STATE_KEYS}
+        y, st2 = ssm_lib.ssm_decode_step(lp["ssm"], L.rmsnorm(lp["norm"], h, cfg.norm_eps),
+                                         st, cfg)
+        for k in SSM_STATE_KEYS:
+            st[k].copy_(st2[k])                          # in place
+        return h + y
+
+    for gi in range(n_groups):
+        for li in range(gi * cfg.attn_every, (gi + 1) * cfg.attn_every):
+            x = mamba(li, x)
+        x = _dense_block_decode(shared, x, cache["k"][gi], cache["v"][gi], pos, acfg,
+                                gemm=gemm)
+    for li in range(n_groups * cfg.attn_every, cfg.n_layers):
+        x = mamba(li, x)
+    new_cache = {k: cache[k] for k in (*SSM_STATE_KEYS, "k", "v")}
+    new_cache["pos"] = pos + tokens.shape[1]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, x, cfg), new_cache

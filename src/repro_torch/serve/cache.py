@@ -1,5 +1,11 @@
-"""Typed ``CachePool`` over fully paged dense KV (port of the paged part of
-``repro.serve.cache``).
+"""Typed ``CachePool``: slot table + per-family cache state + paged residency
+(port of ``repro.serve.cache``).
+
+Which states a pool holds is derived from the config's decode-cache structure
+(:func:`derive_state_specs`), and so is the admission policy
+(:func:`derive_policy`): dense KV alone pages; a hybrid (zamba2) keeps its
+shared block's KV in contiguous lanes beside recurrent Mamba2 states that are
+zeroed on retire, and admits ragged batches one request at a time.
 
 :class:`PagedKVState` owns ONE physical page pool in the paper's §III-C dual
 layout — K pages column-wise ``(hd, Bsz)``, V pages row-wise ``(Bsz, hd)``,
@@ -21,8 +27,11 @@ Differences from the JAX package, none of which changes a token:
 * Batch admission (an empty pool) fills pages through the same staging
   stream, one request at a time, instead of pagifying a contiguous prefill
   cache: :meth:`CachePool.begin_batch_admission`.
-* Only the paged dense state exists. Contiguous, ring and recurrent states
-  and fork/rollback (speculative decoding) wait for their slices.
+* Contiguous lanes (:class:`LaneState`, one per :class:`StateSpec`) are
+  written in place too: insert copies one lane, retire zeroes one lane of
+  the recurrent leaves, and the decode step writes each layer's slice.
+* Ring and static states (gemma2, audio) and fork/rollback (speculative
+  decoding) wait for their slices.
 """
 from __future__ import annotations
 
@@ -41,9 +50,111 @@ from repro_torch.serve.errors import EngineStateError, PoolExhausted, PoolOccupa
 
 FREE, ACTIVE = "free", "active"
 
+# KV lanes are masked by position; every OTHER leaf of a decode cache (but
+# ``pos``) is recurrent state that must be zeroed when a lane is retired, so a
+# new family's novel keys are zero-on-retire by default.
+KV_KEYS = ("k", "v")
+
 # Physical page 0 is a permanently pinned dummy: free lanes' block tables
 # resolve to it so their masked garbage decodes have somewhere harmless to land.
 DUMMY_PAGE = 0
+
+
+# ===========================================================================
+# lane surgery primitives (in place)
+# ===========================================================================
+
+
+def _copy_lane(dst: torch.Tensor, src: torch.Tensor, slot: int) -> None:
+    """Lane 0 of a batch-1 stacked (nL, 1, ...) leaf into lane ``slot`` of
+    ``dst``, IN PLACE."""
+    dst[:, slot].copy_(src[:, 0])
+
+
+def _zero_lane(arr: torch.Tensor, slot: int) -> None:
+    arr[:, slot].zero_()    # in place
+
+
+# ===========================================================================
+# cache-state specs: derived, not declared per family
+# ===========================================================================
+
+
+@dataclass(frozen=True)
+class StateSpec:
+    """One cache family present in a config's decode cache."""
+
+    kind: str                 # "paged_kv" | "recurrent"
+    keys: tuple[str, ...]
+    zero_on_retire: bool
+
+
+def derive_state_specs(cfg: ModelConfig) -> tuple[StateSpec, ...]:
+    """Decompose a config's decode-cache structure into typed state specs:
+    the KV pair, then every leftover leaf as recurrent state (zeroed on
+    retire). Built from the cache's shapes alone (no allocation)."""
+    keys = {k for k in M.decode_cache_specs(cfg, 1, 8) if k != "pos"}
+    specs: list[StateSpec] = []
+    if set(KV_KEYS) <= keys:
+        specs.append(StateSpec("paged_kv", KV_KEYS, False))
+    recurrent = tuple(sorted(keys - set(KV_KEYS)))
+    if recurrent:
+        specs.append(StateSpec("recurrent", recurrent, True))
+    return tuple(specs)
+
+
+@dataclass(frozen=True)
+class AdmissionPolicy:
+    """What the engine may do at admission, derived from the state specs, so
+    the engine itself never branches on a cache family."""
+
+    ragged_batch_ok: bool  # False: recurrent states reject padded ragged batches
+    prefix_capable: bool   # True: KV is the whole state -> prefix reuse is sound
+
+
+def derive_policy(specs: tuple[StateSpec, ...]) -> AdmissionPolicy:
+    kinds = {s.kind for s in specs}
+    return AdmissionPolicy(ragged_batch_ok=kinds == {"paged_kv"},
+                           prefix_capable=kinds == {"paged_kv"})
+
+
+# ===========================================================================
+# typed contiguous states
+# ===========================================================================
+
+
+class LaneState:
+    """One contiguous state of the pool: a dict of stacked (nL, B, ...) lane
+    leaves, as its spec names them. Dense KV (hybrid configs, where KV is not
+    the whole cache state, and pools built with ``paged=False``) is masked by
+    position; the Mamba2 ``ssd``/``conv_x``/``conv_bc`` leaves are not, so
+    their spec has ``zero_on_retire`` and a retired lane is zeroed before it
+    is reused."""
+
+    def __init__(self, spec: StateSpec, leaves: dict):
+        self.spec = spec
+        self.leaves = {k: leaves[k] for k in spec.keys}
+
+    def insert(self, src_cache: dict, slot: int) -> None:
+        for k in self.spec.keys:
+            _copy_lane(self.leaves[k], src_cache[k], slot)
+
+    def retire(self, slot: int) -> None:
+        if self.spec.zero_on_retire:
+            for k in self.spec.keys:
+                _zero_lane(self.leaves[k], slot)
+
+    def views(self) -> dict:
+        return dict(self.leaves)
+
+    def commit(self, new_cache: dict) -> None:
+        # the decode step wrote the leaves in place; take its tensors as they are
+        for k in self.spec.keys:
+            self.leaves[k] = new_cache[k]
+
+    def reset(self) -> None:
+        for leaf in self.leaves.values():
+            leaf.zero_()    # in place: fresh lanes without a second allocation
 
 
 class _PagesExhausted(Exception):
@@ -320,16 +431,21 @@ class SlotInfo:
 
 
 class CachePool:
-    """The slot pool over :class:`PagedKVState`: ``alloc``/``insert``/
-    ``retire`` do the lane bookkeeping, ``views()`` hands the decode step its
-    cache dict (active lanes' write blocks paged in), ``commit()`` takes the
-    step's fill levels back (free lanes pinned to 0). ``stage_admission``
-    opens the chunk-prefill stream; the prefix index survives :meth:`reset`.
+    """The slot pool: slot table + typed per-family states + admission policy.
+
+    ``alloc``/``insert``/``retire`` do the lane bookkeeping, ``views()`` hands
+    the decode step its cache dict (for paged pools: pages + block tables,
+    with active lanes' write blocks paged in), ``commit()`` takes the step's
+    fill levels back (free lanes pinned to 0). ``stage_admission`` opens the
+    chunk-prefill stream; the prefix index survives :meth:`reset`. Dense KV
+    pages unless ``paged=False``; other cache structures (the hybrid's
+    Mamba2 states) keep contiguous lanes.
     """
 
     def __init__(self, cfg: ModelConfig, max_len: int, n_slots: int, *,
                  prefix_cache: bool = True, block_size: int = 8,
-                 prefix_pages: Optional[int] = None, device=None):
+                 prefix_pages: Optional[int] = None, paged: Optional[bool] = None,
+                 device=None):
         M._check_family(cfg)
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -339,17 +455,32 @@ class CachePool:
         self.block_size = block_size
         self.prefix_pages = prefix_pages
         self.device = resolve_device(device)
-        self.prefix_cache = bool(prefix_cache)
-        nb = -(-max_len // block_size)
-        store_pages = prefix_pages if prefix_pages is not None else 4 * n_slots * nb
-        self._kv = PagedKVState(cfg, n_slots, max_len, block_size,
-                                store_pages=store_pages, prefix_cache=self.prefix_cache,
-                                dtype=M.kv_cache_dtype(cfg), device=self.device)
+        self.specs = derive_state_specs(cfg)
+        self.policy = derive_policy(self.specs)
+        # fully paged residency requires KV to be the whole cache state;
+        # `paged=False` forces the contiguous A/B path
+        pageable = self.policy.prefix_capable
+        self.paged = pageable if paged is None else bool(paged) and pageable
+        self.prefix_cache = bool(prefix_cache and self.paged)
+        self._kv: Optional[PagedKVState] = None
+        self.states: list[LaneState] = []
+        if self.paged:
+            nb = -(-max_len // block_size)
+            store_pages = prefix_pages if prefix_pages is not None else 4 * n_slots * nb
+            self._kv = PagedKVState(cfg, n_slots, max_len, block_size,
+                                    store_pages=store_pages, prefix_cache=self.prefix_cache,
+                                    dtype=M.kv_cache_dtype(cfg), device=self.device)
+        else:
+            cache = M.init_decode_cache(cfg, n_slots, max_len, device=self.device)
+            self.states = [LaneState(sp, cache) for sp in self.specs]
         self.stats = {"prefix_lookups": 0, "prefix_hits": 0, "reused_prefix_tokens": 0}
         self._build()
 
     def _build(self) -> None:
-        self._kv.reset_lanes()
+        if self._kv is not None:
+            self._kv.reset_lanes()
+        for st in self.states:
+            st.reset()
         self._pos = np.zeros((self.n_slots,), np.int32)
         self.slots: list[SlotInfo] = [SlotInfo() for _ in range(self.n_slots)]
 
@@ -377,6 +508,10 @@ class CachePool:
 
     def occupancy(self) -> PoolOccupancy:
         kv = self._kv
+        if kv is None:
+            return PoolOccupancy(slots_total=self.n_slots,
+                                 slots_used=len(self.active_slots()),
+                                 pages_total=0, pages_used=0, prefix_pins=0)
         indexed = set(kv._index.values())
         pinned = {p for p in indexed if kv.refcount[p] > 1}
         return PoolOccupancy(slots_total=self.n_slots, slots_used=len(self.active_slots()),
@@ -390,6 +525,8 @@ class CachePool:
             if s.state == FREE and int(self._pos[i]) != 0:
                 bad.append(f"free slot {i} has pos={int(self._pos[i])} (expected 0)")
         kv = self._kv
+        if kv is None:
+            return bad
         bad += kv.audit()
         for i, s in enumerate(self.slots):
             if s.state == FREE and (kv.block_tables[i] >= 0).any():
@@ -413,43 +550,66 @@ class CachePool:
         return si
 
     def insert(self, slot: int, prefilled: dict, *, prompt=None, handle=None) -> None:
-        """Drop the drained admission stream ``prefilled`` (the open one, or a
-        parked ``handle``) into lane ``slot``; with ``prompt``, harvest its
-        full blocks into the prefix index."""
-        self._kv.insert(slot, handle)
+        """Drop a prefilled batch-1 cache into lane ``slot``. Paged pools take
+        the drained admission stream's table row (the open one, or a parked
+        ``handle``) and, with ``prompt``, harvest its full blocks into the
+        prefix index; contiguous pools copy the staging cache's lane."""
         self._pos[slot] = int(prefilled["pos"].reshape(-1)[0])
+        if self._kv is None:
+            for st in self.states:
+                st.insert(prefilled, slot)
+            return
+        self._kv.insert(slot, handle)
         if self.prefix_cache and prompt is not None:
             self._kv.harvest(slot, prompt)
 
     def retire(self, slot: int) -> None:
-        """Free lane ``slot``: release its pages, pin its fill to 0."""
-        self._kv.retire(slot)
+        """Free lane ``slot``: release its pages (paged), zero its recurrent
+        state, pin its fill to 0."""
+        if self._kv is not None:
+            self._kv.retire(slot)
+        for st in self.states:
+            st.retire(slot)
         self._pos[slot] = 0
         self.slots[slot] = replace(self.slots[slot], state=FREE)
 
     def views(self) -> dict:
-        """The decode-step cache dict; pages-in every active lane's write block."""
+        """The decode-step cache dict; paged pools page-in every active lane's
+        write block."""
         kv = self._kv
-        try:
-            for i, s in enumerate(self.slots):
-                if s.state == ACTIVE:
-                    kv.ensure_residency(i, int(self._pos[i]), 1)
-        except _PagesExhausted as e:
-            raise PoolExhausted(str(e), self.occupancy()) from None
-        out = kv.views()
+        out: dict = {}
+        if kv is not None:
+            try:
+                for i, s in enumerate(self.slots):
+                    if s.state == ACTIVE:
+                        kv.ensure_residency(i, int(self._pos[i]), 1)
+            except _PagesExhausted as e:
+                raise PoolExhausted(str(e), self.occupancy()) from None
+            out = kv.views()
+        for st in self.states:
+            out.update(st.views())
         out["pos"] = torch.as_tensor(self._pos.copy(), device=self.device)
         return out
 
     def commit(self, new_cache: dict) -> None:
-        """Absorb a decode step's fill levels (pages were written in place).
-        Free lanes are pinned back to 0 so their dummy writes stay in the
-        dummy page."""
+        """Absorb a decode step's fill levels (every cache tensor was written
+        in place). Free lanes are pinned back to 0 so their dummy writes stay
+        in the dummy page or at column 0."""
+        for st in self.states:
+            st.commit(new_cache)
         pos = new_cache["pos"].to("cpu").numpy().astype(np.int32)
         for i in self.free_slots():
             pos[i] = 0
         self._pos = pos
 
     # ----------------------------------------------------------- admission
+
+    def init_staging(self) -> dict:
+        """A fresh batch-1 CONTIGUOUS admission staging cache with a (1,) fill
+        (non-paged pools; paged streams open via :meth:`stage_admission`)."""
+        cache = M.init_decode_cache(self.cfg, 1, self.max_len, device=self.device)
+        cache["pos"] = cache["pos"].reshape(1)
+        return cache
 
     def peek_prefix(self, prompt) -> int:
         """Reusable prefix length in tokens — no staging, no stats."""
@@ -458,10 +618,14 @@ class CachePool:
         return len(self._kv.match_prefix(prompt)) * self._kv.block_size
 
     def stage_admission(self, prompt) -> tuple[dict, int]:
-        """Open the batch-1 admission stream for chunk-prefilling ``prompt``;
-        on a prefix hit the matched pages enter its table read-only and the
-        returned ``skip`` tokens are not prefilled."""
+        """Open the batch-1 admission stream for chunk-prefilling ``prompt``:
+        a fresh contiguous staging cache for contiguous pools; for paged pools
+        a stream over the pool's pages where, on a prefix hit, the matched
+        pages enter its table read-only and the returned ``skip`` tokens are
+        not prefilled."""
         kv = self._kv
+        if kv is None:
+            return self.init_staging(), 0
         if not self.prefix_cache:
             return kv.begin_staging([]), 0
         self.stats["prefix_lookups"] += 1
@@ -475,14 +639,20 @@ class CachePool:
     def begin_batch_admission(self) -> dict:
         """Open a staging stream for batch admission (no prefix lookup, no
         stats — the requests it takes had no prefix hit)."""
+        if self._kv is None:
+            return self.init_staging()
         return self._kv.begin_staging([])
 
     def park_staging(self):
-        """Detach the drained stream's handle for a later :meth:`insert`."""
-        return self._kv.park_staging()
+        """Detach the drained stream's handle for a later :meth:`insert`
+        (None for contiguous pools: their staging cache is the whole handle)."""
+        return None if self._kv is None else self._kv.park_staging()
 
     def staging_step_prep(self, cache: dict, n_tokens: int) -> dict:
-        """Page-in the admission stream's next ``n_tokens`` write blocks."""
+        """Page-in the admission stream's next ``n_tokens`` write blocks
+        (paged pools; a contiguous staging cache passes through)."""
+        if self._kv is None:
+            return cache
         try:
             off = int(cache["pos"].reshape(-1)[0])
             return self._kv.ensure_staging(cache, n_tokens, off)
@@ -490,10 +660,13 @@ class CachePool:
             raise PoolExhausted(str(e), self.occupancy()) from None
 
     def release_staging(self) -> None:
-        """Abort the in-flight admission stream, releasing its pages."""
-        self._kv.release_staging()
+        """Abort the in-flight admission stream, releasing its pages (no-op
+        for contiguous pools)."""
+        if self._kv is not None:
+            self._kv.release_staging()
 
     def prefix_report(self) -> dict:
         return {"enabled": self.prefix_cache,
                 "block_size": self.block_size if self.prefix_cache else 0,
-                "stored_blocks": len(self._kv), **self.stats}
+                "stored_blocks": len(self._kv) if self._kv is not None else 0,
+                **self.stats}

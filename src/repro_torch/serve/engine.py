@@ -2,10 +2,11 @@
 (port of ``repro.serve.engine``, greedy main path).
 
 ``Engine.serve(requests)`` takes ``GenerationRequest`` objects and returns
-index-aligned ``GenerationResult`` objects. The decode cache is a fully paged
-:class:`~repro_torch.serve.cache.CachePool`; the head of the queue is
-chunk-prefilled ahead into a staging stream and dropped into the next freed
-lane:
+index-aligned ``GenerationResult`` objects. The decode cache is a
+:class:`~repro_torch.serve.cache.CachePool` (fully paged for the dense
+family, contiguous lanes for the hybrid or with ``paged=False``); the head of
+the queue is chunk-prefilled ahead into a staging stream and dropped into the
+next freed lane:
 
 * **LBIM**    — the admission chunk rides in the same step as the decode
   (``core.interleave.fused_step``; the paper's MACT_LDB/MACB_LDT split);
@@ -356,7 +357,8 @@ class Engine:
                 plan, len(active), c if plan.prefill_chunk else 0,
                 max((pool.get(i).ctx for i in active), default=0),
                 self._take_reuse(), mode=self.mode.value,
-                kv_splits=(max(1, self.cfg.decode_kv_splits) if plan.decode else 1))
+                kv_splits=(max(1, self.cfg.decode_kv_splits)
+                           if plan.decode and pool.paged else 1))
             self._push_event(ev)
 
             if new_cache is not None:
@@ -406,12 +408,15 @@ class Engine:
     def _admit_batch(self, queue, cur_tok, emit) -> bool:
         """Fill free lanes with one admission pass when nothing is decoding.
 
-        The JAX engine runs one ragged ``M.prefill`` here; the port prefills
-        each taken request through a staging stream in ``chunk``-token
-        sub-steps of the batch-prefill form (float GEMMs, dense attention),
-        so a token's arithmetic is the same however requests are grouped.
-        Requests whose prompt hits the prefix store are not taken — they admit
-        through the chunk stream, which maps the shared blocks."""
+        The JAX engine runs one ragged ``M.prefill`` per group here; the port
+        prefills each taken request through a staging stream in
+        ``chunk``-token sub-steps of the batch-prefill form (float GEMMs,
+        dense attention), so a token's arithmetic is the same however
+        requests are grouped. Groups and their events follow the JAX engine:
+        one group, unless the pool's states cannot ride a right-padded ragged
+        batch (recurrent state) and the lengths differ — then one group per
+        request. Requests whose prompt hits the prefix store are not taken —
+        they admit through the chunk stream, which maps the shared blocks."""
         reqs, results, pool = self._reqs, self._results, self.pool
         free = pool.free_slots()
         ext = {r: list(reqs[r].prompt) + results[r].tokens for r in queue}
@@ -422,30 +427,36 @@ class Engine:
             take.append(queue.pop(0))
         if not take:
             return False
-        for r in take:
-            results[r].state = RequestState.ADMITTED
-            if results[r].admit_step is None:
-                results[r].admit_step = self._clock
-        t_step = time.perf_counter()
-        staged = []
-        for r in take:
-            toks = self._tokens([ext[r]])
-            cache = pool.staging_step_prep(pool.begin_batch_admission(), len(ext[r]))
-            logits, cache = interleave.prefill_chunk_step(
-                self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk, gemm=True)
-            if self.nan_guard and not _finite(None, [], logits):
-                raise KernelFault("decode_attention", "non-finite prefill logits")
-            staged.append((r, cache, pool.park_staging(),
-                           int(sampling.greedy(logits[:, -1:, :])[0])))
-        glens = [len(ext[r]) for r in take]
-        self._push_event(ScheduleEvent(plan_step(self.mode, False, True, sum(glens)),
-                                       0, sum(glens), step_s=time.perf_counter() - t_step))
-        for r, cache, handle, first in staged:
-            si = pool.alloc(reqs[r], r, ctx=len(ext[r]), emitted=len(results[r].tokens))
-            pool.insert(si, cache, prompt=ext[r], handle=handle)
-            results[r].state = RequestState.RUNNING
-            cur_tok[si] = first
-            emit(si, first)
+        lens = [len(ext[r]) for r in take]
+        groups = ([[r] for r in take]
+                  if not pool.policy.ragged_batch_ok and len(set(lens)) > 1 else [take])
+        for group in groups:
+            for r in group:
+                results[r].state = RequestState.ADMITTED
+                if results[r].admit_step is None:
+                    results[r].admit_step = self._clock
+            t_step = time.perf_counter()
+            staged = []
+            for r in group:
+                toks = self._tokens([ext[r]])
+                cache = pool.staging_step_prep(pool.begin_batch_admission(), len(ext[r]))
+                logits, cache = interleave.prefill_chunk_step(
+                    self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk,
+                    gemm=True)
+                if self.nan_guard and not _finite(None, [], logits):
+                    raise KernelFault("decode_attention", "non-finite prefill logits")
+                staged.append((r, cache, pool.park_staging(),
+                               int(sampling.greedy(logits[:, -1:, :])[0])))
+            glens = [len(ext[r]) for r in group]
+            self._push_event(ScheduleEvent(plan_step(self.mode, False, True, sum(glens)),
+                                           0, sum(glens),
+                                           step_s=time.perf_counter() - t_step))
+            for r, cache, handle, first in staged:
+                si = pool.alloc(reqs[r], r, ctx=len(ext[r]), emitted=len(results[r].tokens))
+                pool.insert(si, cache, prompt=ext[r], handle=handle)
+                results[r].state = RequestState.RUNNING
+                cur_tok[si] = first
+                emit(si, first)
         return True
 
     # ------------------------------------------------------------- reporting

@@ -57,14 +57,17 @@ class ServingModel:
                    slots=slots, prequantized=bool(prequantize), device=dev)
 
     def cache_pool(self, *, slots: Optional[int] = None, prefix_cache: bool = True,
-                   block_size: int = 8, prefix_pages: Optional[int] = None):
-        """A fully paged :class:`repro_torch.serve.cache.CachePool` on this
-        artifact's device."""
+                   block_size: int = 8, prefix_pages: Optional[int] = None,
+                   paged: Optional[bool] = None):
+        """A :class:`repro_torch.serve.cache.CachePool` on this artifact's
+        device. ``paged=None`` pages whenever KV is the whole cache state
+        (the dense family); ``paged=False`` forces contiguous lanes for A/B
+        comparison; a hybrid's pool is contiguous either way."""
         from repro_torch.serve.cache import CachePool
 
         return CachePool(self.cfg, self.max_len, self.slots if slots is None else slots,
                          prefix_cache=prefix_cache, block_size=block_size,
-                         prefix_pages=prefix_pages, device=self.device)
+                         prefix_pages=prefix_pages, paged=paged, device=self.device)
 
     def engine(self, *, slots: Optional[int] = None, mode: Mode = Mode.HBCEM,
                chunk: int = 8, prefix_cache: bool = True):

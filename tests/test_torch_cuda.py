@@ -151,4 +151,120 @@ def test_serve_on_the_card_goes_through_every_kernel(dev):
     for splits in (1, 2):
         assert outs[(splits, Mode.HBCEM)] == outs[(splits, Mode.BLOCKED)]
         assert outs[(splits, Mode.LBIM)] == outs[(splits, Mode.BLOCKED)]
-    assert all(v > 0 for v in launch_counts().values())
+    paged_path = ("pim_gemv", "decode_attention_paged", "decode_attention_paged_split",
+                  "merge_splits")
+    assert all(launch_counts()[k] > 0 for k in paged_path)
+
+
+def contiguous(gen, dev, b, hkv, g, hd, lmax, dtype):
+    q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(dtype)
+    k = (torch.randn((b, hkv, hd, lmax), generator=gen, device=dev) * 0.3).to(dtype)
+    v = (torch.randn((b, hkv, lmax, hd), generator=gen, device=dev) * 0.3).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("g,hd,lmax,dtype,cap", [
+    (4, 128, 2048, torch.bfloat16, None), (1, 112, 300, torch.bfloat16, None),
+    (1, 112, 77, torch.float32, 50.0), (16, 256, 130, torch.bfloat16, 30.0),
+    (3, 32, 9, torch.float32, None)])
+def test_contiguous_decode_matches_plain(dev, gen, g, hd, lmax, dtype, cap):
+    """B4: llama3-8b (G 4, hd 128) and zamba2 (G 1, hd 112) shapes, an empty
+    range, a start > 0, a softcap and the wide instantiation."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv = 4, 2
+    q, k, v = contiguous(gen, dev, b, hkv, g, hd, lmax, dtype)
+    end = torch.tensor([lmax, lmax // 3 + 1, 0, lmax - 1], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 0, max(1, lmax // 2)], dtype=torch.int32, device=dev)
+    before = da.decode_attention.launches
+    out = da.decode_attention(q, k, v, end, start, scale=hd ** -0.5, softcap=cap)
+    want = ref.decode_attention_ref(q, k, v, end, hd ** -0.5, cap, start=start)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    torch.testing.assert_close(out, want, **TOL)
+    assert not out[2].any()
+
+
+def test_contiguous_decode_refuses_bad_operands(dev, gen):
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    q, k, v = contiguous(gen, dev, 1, 1, 2, 32, 16, torch.float32)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, v[:, :, :8], 4, scale=0.1)
+    with pytest.raises(TypeError):
+        da.decode_attention(q.half(), k.half(), v.half(), 4, scale=0.1)
+
+
+def ssd_inputs(gen, dev, b, t, h, p, n):
+    x = torch.randn((b, t, h, p), generator=gen, device=dev) * 0.5
+    a = -torch.randn((b, t, h), generator=gen, device=dev).abs() * 0.3
+    bm = torch.randn((b, t, n), generator=gen, device=dev) * 0.5
+    cm = torch.randn((b, t, n), generator=gen, device=dev) * 0.5
+    s0 = torch.randn((b, h, p, n), generator=gen, device=dev) * 0.1
+    return x, a, bm, cm, s0
+
+
+# f32 on both sides; the chunked form sums the same terms in another order and
+# takes exp of cumulative log decays where the recurrence multiplies step decays
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t,h,p,n,q", [(2, 64, 3, 16, 8, 16), (1, 100, 2, 32, 16, 32),
+                                         (2, 512, 4, 64, 64, 256), (1, 24, 1, 64, 64, 8)])
+def test_ssd_scan_matches_plain(dev, gen, b, t, h, p, n, q):
+    """B5 against the sequential recurrence, the pad path (T 100, Q 32) included."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    ops = ssd_inputs(gen, dev, b, t, h, p, n)
+    before = ss.ssd_scan.launches
+    y, s = ssd_scan_op(*ops, chunk=q)
+    yr, sr = ssd_scan_ref(*ops)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    torch.testing.assert_close(y, yr, **SSD_TOL)
+    torch.testing.assert_close(s, sr, **SSD_TOL)
+
+
+def test_ssd_scan_refuses_bad_operands(dev, gen):
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+
+    x, a, bm, cm, s0 = ssd_inputs(gen, dev, 1, 48, 2, 16, 8)
+    with pytest.raises(ValueError):
+        ssd_scan(x, a, bm, cm, s0, chunk=32)          # 48 % 32 != 0: the op pads, not the kernel
+    with pytest.raises(TypeError):
+        ssd_scan(x.double(), a, bm, cm, s0, chunk=16)
+
+
+def test_contiguous_and_hybrid_serves_on_the_card_go_through_b4(dev):
+    """llama3-8b smoke through a contiguous pool and zamba2-7b smoke: tokens
+    identical across modes, the contiguous kernel launched, no paged kernel
+    and no scan launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.api import GenerationRequest
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.serving_model import ServingModel
+
+    reqs = [GenerationRequest(prompt=list(range(1, 2 + 3 * i)), max_new_tokens=4 + i)
+            for i in range(5)]
+    for name in ("llama3-8b", "zamba2-7b"):
+        cfg = get_config(name, smoke=True).replace(quantized_decode=True)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        sm = ServingModel.prepare(cfg, params, max_len=64, slots=2)
+        outs = {}
+        reset_launches()
+        for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
+            pool = sm.cache_pool(slots=2, prefix_cache=False, block_size=4, paged=False)
+            eng = Engine(sm.cfg, sm.params, max_len=64, slots=2, mode=mode, chunk=4,
+                         serving=sm, prefix_cache=False, pool=pool)
+            outs[mode] = [r.tokens for r in eng.serve(reqs)]
+            assert not eng.pool.paged and eng.pool.check_invariants() == []
+        assert outs[Mode.HBCEM] == outs[Mode.BLOCKED] == outs[Mode.LBIM]
+        counts = launch_counts()
+        assert counts["decode_attention"] > 0 and counts["pim_gemv"] > 0
+        assert counts["decode_attention_paged"] == counts["ssd_scan"] == 0
