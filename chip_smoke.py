@@ -13,9 +13,14 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    paged attention kernels (llama3-8b), the contiguous attention kernel
    (llama3-8b, G 4 / hd 128, and zamba2-7b, G 1 / hd 112) and the SSD scan
    (zamba2-7b's H 112, P 64, N 64, chunk 256, also against the model's own
-   ``ssd_chunked``) within the f32 tolerances below. ``kernel_time`` lines give
-   each kernel's time beside its bound, its plain version's time and one
-   PyTorch library call's time (a yardstick the port never calls).
+   ``ssd_chunked``) within the f32 tolerances below; the single-pass kernels
+   (paged and contiguous) must also give each lane of a batch the same bits as
+   that lane computed alone. ``kernel_time`` lines give each kernel's time beside
+   its bound, its plain version's time and one PyTorch library call's time (a
+   yardstick the port never calls), and the single-pass kernels' times at the
+   serves' own regimes (short fills in 37-block tables; zamba2's Lmax).
+   ``host_cost`` lines give what one attention call costs the host at the
+   serves' shapes, alone and over one decode step.
 3. ``serve``: full-width llama3-8b (bf16, W8A8 ``quantized_decode``, random
    weights from a seeded generator) serves ragged greedy requests through
    ``ServingModel.prepare(...).engine(mode=...).serve(requests)`` in BLOCKED,
@@ -39,6 +44,13 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
+
+    python3 chip_smoke.py --ab
+
+builds the kernels and prints only the ``host_cost`` lines and one LBIM
+serve line per configuration and pool (llama3-8b paged and contiguous,
+zamba2-7b), with the serves' checks. Run from two checkouts in turn
+(A, B, B, A) on one machine, it compares their host side.
 """
 from __future__ import annotations
 
@@ -270,6 +282,18 @@ def _allclose(name, out, ref) -> float:
     return err
 
 
+def check_batch_invariant(name, fn, out, b: int) -> None:
+    """``fn(i)`` computes lanes ``i`` (a slice) alone; each lane of the batch
+    output ``out`` must have the same bits as that lane computed with B = 1."""
+    for i in range(b):
+        alone = fn(slice(i, i + 1))
+        torch.cuda.synchronize()
+        if not torch.equal(alone, out[i:i + 1]):
+            err = float((alone - out[i:i + 1]).abs().max())
+            raise AssertionError(f"{name}: lane {i} alone differs from the batch "
+                                 f"(max |diff| {err}); a lane must not depend on the batch")
+
+
 def check_attention(gen, dev) -> dict:
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
@@ -277,9 +301,11 @@ def check_attention(gen, dev) -> dict:
     errs = {"decode_attention_paged": 0.0, "decode_attention_paged_split": 0.0,
             "merge_splits": 0.0}
     # (page size, blocks per lane, softcap, G, hd): the main path's shape, large
-    # pages, a softcap, and the kernel's wide instantiation (G > 4, hd > 128)
+    # pages, a softcap, the kernel's wide instantiation (G > 4, hd > 128), and
+    # the paged llama3-8b serve's own 37-block tables
     cases = ((8, ATTN_NB, None, ATTN_G, ATTN_HD), (64, 32, None, ATTN_G, ATTN_HD),
-             (8, 64, 30.0, ATTN_G, ATTN_HD), (8, 64, None, 6, 256))
+             (8, 64, 30.0, ATTN_G, ATTN_HD), (8, 64, None, 6, 256),
+             (8, SERVE_TABLE_BLOCKS, None, ATTN_G, ATTN_HD))
     for bsz, nb, cap, g, hd in cases:
         q, pools, table, end, start, scale = attn_inputs(gen, dev, bsz=bsz, nb=nb, g=g, hd=hd)
         kp, vp = pools[0]
@@ -293,6 +319,11 @@ def check_attention(gen, dev) -> dict:
             _allclose(f"decode_attention_paged bsz={bsz}", out, want))
         if not bool((out[2] == 0).all()):
             raise AssertionError("empty range (end=0) must give exact zeros")
+        if (bsz, nb, cap, g, hd) == cases[0]:   # the main path's shape
+            check_batch_invariant(
+                "decode_attention_paged",
+                lambda i: da.decode_attention_paged(q[i], kp, vp, table[i], end[i], start[i],
+                                                    scale=scale), out, ATTN_B)
         for s in (2, 4, 8):
             acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=s,
                                           scale=scale, softcap=cap)
@@ -320,7 +351,7 @@ def check_attention(gen, dev) -> dict:
     emit({"phase": "kernel_check", "kernel": "decode_attention_paged (+split, merge)",
           "q": [ATTN_B, ATTN_HKV, ATTN_G, ATTN_HD], "pages": "bf16",
           "end": ATTN_END, "start": ATTN_START, "cases": [list(c) for c in cases],
-          "splits": [2, 4, 8],
+          "splits": [2, 4, 8], "batch_invariant": [list(cases[0])],
           "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
     return errs
 
@@ -438,23 +469,57 @@ def contig_inputs(gen, dev, hkv, g, hd, lmax=None, copies=1):
     return q, lanes, end, start, hd ** -0.5
 
 
+def zamba2_serve_fills(reqs) -> dict[str, list[int]]:
+    """Lane fills of the zamba2 serve's first four requests: half way through
+    their decode, and at their last decode step."""
+    return {"half way": [len(r.prompt) + r.max_new_tokens // 2 for r in reqs[:ATTN_B]],
+            "last step": [len(r.prompt) + r.max_new_tokens - 1 for r in reqs[:ATTN_B]]}
+
+
 def check_contig_attention(gen, dev) -> float:
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
+    def check(what, q, k, v, end, start, scale, cap, invariant):
+        out = da.decode_attention(q, k, v, end, start, scale=scale, softcap=cap)
+        want = ref.decode_attention_ref(q, k, v, end, scale, cap, start=start)
+        torch.cuda.synchronize()
+        err = _allclose(f"decode_attention {what}", out, want)
+        if not bool((out[end <= start] == 0).all()):
+            raise AssertionError("empty range (end <= start) must give exact zeros")
+        if invariant:
+            check_batch_invariant(
+                f"decode_attention {what}",
+                lambda i: da.decode_attention(q[i], k[i], v[i], end[i], start[i],
+                                              scale=scale, softcap=cap), out, ATTN_B)
+        return err
+
     worst = 0.0
     cases = []
+    # per shape: the kernel-bench lanes (8 chunks), Lmax 296 (the contiguous
+    # llama3-8b serve's, two chunks on the tensor cores) with a softcap, and a
+    # ragged Lmax 300 (not a multiple of 8: the CUDA-core walk over plain loads)
     for name, hkv, g, hd in CONTIG_SHAPES:
-        for lmax, cap in ((CONTIG_LMAX, None), (300, 30.0)):
+        for lmax, cap in ((CONTIG_LMAX, None), (296, 30.0), (300, 30.0)):
             q, lanes, end, start, scale = contig_inputs(gen, dev, hkv, g, hd, lmax)
-            k, v = lanes[0]
-            out = da.decode_attention(q, k, v, end, start, scale=scale, softcap=cap)
-            want = ref.decode_attention_ref(q, k, v, end, scale, cap, start=start)
-            torch.cuda.synchronize()
-            worst = max(worst, _allclose(f"decode_attention {name} lmax={lmax}", out, want))
-            if not bool((out[2] == 0).all()):
-                raise AssertionError("empty range (end=0) must give exact zeros")
-            cases.append([name, hkv, g, hd, lmax, cap])
+            if not bool((end == 0).any()):
+                raise AssertionError("the fills were meant to leave a lane empty")
+            invariant = lmax == CONTIG_LMAX and cap is None    # the main paths' shapes
+            worst = max(worst, check(f"{name} lmax={lmax}", q, *lanes[0], end, start,
+                                     scale, cap, invariant))
+            cases.append([name, hkv, g, hd, lmax, cap, "batch invariant" if invariant else ""])
+    # the zamba2 serve's own launch: its Lmax (one chunk, tensor cores, no merge)
+    # at the fills its first four requests reach
+    _, hkv, g, hd = CONTIG_SHAPES[1]
+    reqs = zamba2_requests(get_config("zamba2-7b").vocab_size)
+    lmax = zamba2_max_len(reqs)
+    q, lanes, _, _, scale = contig_inputs(gen, dev, hkv, g, hd, lmax)
+    for when, fills in zamba2_serve_fills(reqs).items():
+        end = torch.tensor(fills, dtype=torch.int32, device=dev)
+        worst = max(worst, check(f"zamba2-7b serve lmax={lmax} {when}", q, *lanes[0], end,
+                                 torch.zeros_like(end), scale, None, True))
+        cases.append(["zamba2-7b serve", hkv, g, hd, lmax, None, "batch invariant", fills])
     emit({"phase": "kernel_check", "kernel": "decode_attention (contiguous)", "batch": ATTN_B,
           "cases": cases, "end": ATTN_END, "start": ATTN_START, "cache": "bf16",
           "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": worst})
@@ -494,6 +559,28 @@ def time_contig_attention(gen, dev) -> dict:
               "roofline_share": row["bound_ms"] / row["ms"]})
         rows[name] = row
         del lanes, sdpa_lanes
+
+    # the zamba2 serve's own regime: lanes as long as its max_len, each
+    # request half way through its decode, as the serve launches the kernel
+    from repro_torch.configs import get_config
+
+    _, hkv, g, hd = CONTIG_SHAPES[1]
+    reqs = zamba2_requests(get_config("zamba2-7b").vocab_size)
+    lmax = zamba2_max_len(reqs)
+    fills = zamba2_serve_fills(reqs)["half way"]
+    q, lanes, _, _, scale = contig_inputs(
+        gen, dev, hkv, g, hd, lmax, copies=copies_for(ATTN_B * hkv * hd * lmax * 2 * 2))
+    end = torch.tensor(fills, dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    bnd, by = attn_bound(end, start, ATTN_B * hkv * g * hd * 4, hkv=hkv, g=g, hd=hd)
+    ms = cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, start, scale=scale)
+                  for kv in lanes], 100)
+    emit({"phase": "kernel_time", "kernel": "decode_attention", "shape": "zamba2-7b serve",
+          "q": [ATTN_B, hkv, g, hd], "lmax": lmax, "end": fills,
+          "live_tokens": live_tokens(end, start), "ms": ms,
+          "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(
+              q, *kv, end, scale, start=start) for kv in lanes[:2]], 10),
+          "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
     return rows["zamba2-7b"]
 
 
@@ -602,6 +689,64 @@ def time_ssd_scan(gen, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# host cost of the attention wrappers
+# ---------------------------------------------------------------------------
+
+
+def host_us(fn, n: int = 400) -> dict:
+    """Host time of one call: the wall clock around it, with the launch queue
+    drained before each call so that none waits for room in the queue."""
+    for _ in range(20):
+        fn()
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        fn()
+        ts.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    ts.sort()
+    return {"us_median": ts[n // 2] / 1e3, "us_p10": ts[n // 10] / 1e3}
+
+
+def host_cost(gen, dev) -> None:
+    """``host_cost`` lines: what one attention call costs the host (Python
+    wrapper, checks, allocations, tensor-map encoding, launches) at the serves'
+    own shapes, and that cost over one decode step's calls (32 attention layers
+    for llama3-8b, 13 shared-block applications for zamba2-7b). The split
+    path's pair of calls is the control: its code is older than the
+    single-pass kernels' redesign."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    nb = SERVE_TABLE_BLOCKS
+    q, pools, table, _, _, scale = attn_inputs(gen, dev, nb=nb)
+    kp, vp = pools[0]
+    end = torch.tensor(SERVE_END, dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    _, lanes, _, _, _ = contig_inputs(gen, dev, ATTN_HKV, ATTN_G, ATTN_HD, nb * 8)
+    _, hkv, g, hd = CONTIG_SHAPES[1]
+    reqs = zamba2_requests(get_config("zamba2-7b").vocab_size)
+    zq, zlanes, _, _, zscale = contig_inputs(gen, dev, hkv, g, hd, zamba2_max_len(reqs))
+    zend = torch.tensor(zamba2_serve_fills(reqs)["half way"], dtype=torch.int32, device=dev)
+    calls = {
+        "decode_attention_paged, llama3-8b paged serve": (32, lambda: da.decode_attention_paged(
+            q, kp, vp, table, end, start, scale=scale)),
+        "decode_attention, llama3-8b contiguous serve": (32, lambda: da.decode_attention(
+            q, *lanes[0], end, start, scale=scale)),
+        "decode_attention, zamba2-7b serve": (13, lambda: da.decode_attention(
+            zq, *zlanes[0], zend, torch.zeros_like(zend), scale=zscale)),
+        "split_partials + merge_splits, 4 splits, llama3-8b paged serve": (
+            32, lambda: da.decode_attention_paged_split(q, kp, vp, table, end, start,
+                                                        num_splits=4, scale=scale)),
+    }
+    for name, (per_step, fn) in calls.items():
+        r = host_us(fn)
+        emit({"phase": "host_cost", "call": name, **r, "calls_per_decode_step": per_step,
+              "us_per_decode_step": per_step * r["us_median"]})
+
+
+# ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
 
@@ -620,6 +765,15 @@ def make_requests(vocab: int, seed: int = 0, n: int = 8, lens=(24, 320), budgets
         prompts[5][:64] = prompts[0][:64]   # a shared 64-token (8-block) prefix
     return [GenerationRequest(prompt=p, max_new_tokens=int(m))
             for p, m in zip(prompts, budgets)]
+
+
+def zamba2_requests(vocab: int) -> list:
+    return make_requests(vocab, seed=1, n=6, lens=(32, 120), budgets=(8, 25),
+                         shared_prefix=False)
+
+
+def zamba2_max_len(reqs) -> int:
+    return max(len(r.prompt) + r.max_new_tokens for r in reqs)
 
 
 def expected_launches(eng, cfg) -> dict[str, int]:
@@ -828,9 +982,8 @@ def zamba2_phase(dev) -> dict:
     cfg = get_config("zamba2-7b").replace(quantized_decode=True)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    reqs = make_requests(cfg.vocab_size, seed=1, n=6, lens=(32, 120), budgets=(8, 25),
-                         shared_prefix=False)
-    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    reqs = zamba2_requests(cfg.vocab_size)
+    max_len = zamba2_max_len(reqs)
     sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
     torch.cuda.synchronize()
     emit(serve_setup_line(sm, reqs, t0))
@@ -845,6 +998,35 @@ def zamba2_phase(dev) -> dict:
     check_launched(total, ("pim_gemv", "decode_attention"), cfg.name)
     profile_decode(sm, Mode.HBCEM, reqs)
     return total
+
+
+def serve_ab(dev) -> None:
+    """``--ab``: one LBIM serve of each configuration and pool (llama3-8b paged
+    and contiguous, zamba2-7b), each after a short warm-up serve, with the
+    same checks as the full run. Run in two checkouts in turn on one machine,
+    it compares their host side."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.api import GenerationRequest
+    from repro_torch.serve.serving_model import ServingModel
+
+    for arch in ("llama3-8b", "zamba2-7b"):
+        cfg = get_config(arch).replace(quantized_decode=True)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        dense = cfg.family == "dense"
+        reqs = make_requests(cfg.vocab_size) if dense else zamba2_requests(cfg.vocab_size)
+        max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+        max_len = -(-max_len // 8) * 8 if dense else max_len    # as the full run sizes them
+        sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
+        short = [GenerationRequest(prompt=r.prompt[:32], max_new_tokens=16)
+                 for r in reqs[:SLOTS]]
+        for paged in (True, False) if dense else (True,):
+            sm.engine(mode=Mode.LBIM, slots=SLOTS, prefix_cache=False).serve(short)
+            _, line = serve_run(sm, Mode.LBIM, reqs, paged=paged)
+            emit(line)
+        del sm, params
+        torch.cuda.empty_cache()
 
 
 KERNEL_GROUPS = (   # kernel-name fragment -> what it computes on the serve path
@@ -941,7 +1123,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 }
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--ab"]):
+        print(f"usage: {sys.argv[0]} [--ab]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
               file=sys.stderr)
@@ -960,12 +1145,17 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s})
 
     gen = torch.Generator(device=dev).manual_seed(1234)
+    if argv == ["--ab"]:
+        host_cost(gen, dev)
+        serve_ab(dev)
+        return 0
     errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"], **check_attention(gen, dev),
             "decode_attention": check_contig_attention(gen, dev),
             "ssd_scan": check_ssd_scan(gen, dev)}
     times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev),
              "decode_attention": time_contig_attention(gen, dev),
              "ssd_scan": time_ssd_scan(gen, dev)}
+    host_cost(gen, dev)
     torch.cuda.empty_cache()
 
     counts = serve_phase(dev)
@@ -1003,4 +1193,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -32,14 +32,16 @@ _FLOATS = (torch.float32, torch.bfloat16)
 def _lib():
     lib = _build.library("decode_attention_paged")
     VP, I32, F32 = _build.VP, _build.I32, _build.F32
-    lib.paged_decode_launch.argtypes = [VP] * 7 + [I32] * 6 + [F32, F32] + [I32] * 3 + [VP]
+    lib.decode_chunk_tokens.argtypes = []
+    lib.decode_chunk_tokens.restype = I32
+    lib.paged_decode_launch.argtypes = [VP] * 8 + [I32] * 7 + [F32, F32] + [I32] * 3 + [VP]
     lib.paged_decode_launch.restype = I32
     lib.paged_split_launch.argtypes = ([VP] * 9 + [I32] * 8 + [F32, F32]
                                        + [I32] * 3 + [VP])
     lib.paged_split_launch.restype = I32
     lib.merge_splits_launch.argtypes = [VP] * 4 + [I32] * 5 + [VP]
     lib.merge_splits_launch.restype = I32
-    lib.contig_decode_launch.argtypes = [VP] * 6 + [I32] * 5 + [F32, F32] + [I32] * 3 + [VP]
+    lib.contig_decode_launch.argtypes = [VP] * 7 + [I32] * 5 + [F32, F32] + [I32] * 3 + [VP]
     lib.contig_decode_launch.restype = I32
     return lib
 
@@ -78,6 +80,22 @@ def _cap(softcap: Optional[float]) -> tuple[float, int]:
     return (float(softcap), 1) if softcap is not None else (1.0, 0)
 
 
+def _chunk_partials(q: torch.Tensor, span: int) -> Optional[torch.Tensor]:
+    """Scratch for the single pass's chunk partials: the kernel splits each
+    lane's ``span`` (table width x page size, or Lmax) into fixed chunks and
+    merges their (acc, m, l) in a second kernel when there is more than one
+    chunk. None (a null pointer) when the span fits one chunk."""
+    b, hkv, g, hd = q.shape
+    n_chunks = -(-span // _lib().decode_chunk_tokens())
+    if n_chunks == 1:
+        return None
+    return torch.empty(b * hkv * n_chunks * g * (hd + 2), dtype=torch.float32, device=q.device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      end, start=None, *, scale: float,
                      softcap: Optional[float] = None) -> torch.Tensor:
@@ -91,10 +109,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     b, hkv, g, hd = q.shape
     lmax = k_cache.shape[-1]
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
+    ws = _chunk_partials(q, lmax)
     cap, has_cap = _cap(softcap)
     code = _lib().contig_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start_b.data_ptr(),
-        end_b.data_ptr(), out.data_ptr(), b, hkv, g, hd, lmax, float(scale), cap, has_cap,
+        end_b.data_ptr(), out.data_ptr(), _ptr(ws), b, hkv, g, hd, lmax, float(scale), cap,
+        has_cap,
         int(q.dtype == torch.float32), int(k_cache.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention")
@@ -115,11 +135,12 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         q, k_pages, v_pages, end, start, block_table)
     b, hkv, g, hd = q.shape
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
+    ws = _chunk_partials(q, table.shape[1] * k_pages.shape[-1])
     cap, has_cap = _cap(softcap)
     code = _lib().paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-        start_b.data_ptr(), end_b.data_ptr(), out.data_ptr(), b, hkv, g, hd,
-        k_pages.shape[-1], table.shape[1], float(scale), cap, has_cap,
+        start_b.data_ptr(), end_b.data_ptr(), out.data_ptr(), _ptr(ws), b, hkv, g, hd,
+        k_pages.shape[-1], table.shape[1], k_pages.shape[0], float(scale), cap, has_cap,
         int(q.dtype == torch.float32), int(k_pages.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention_paged")

@@ -84,19 +84,35 @@ def paged(gen, dev, b, hkv, g, hd, bsz, nb, dtype):
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("g,hd,bsz,dtype,cap", [
-    (4, 128, 8, torch.bfloat16, None), (1, 64, 16, torch.float32, None),
-    (16, 256, 48, torch.bfloat16, 30.0), (3, 32, 1, torch.float32, None),
-    (2, 128, 64, torch.float32, 5.0)])
-def test_paged_decode_matches_plain(dev, gen, g, hd, bsz, dtype, cap):
+def live_ranges(lmax, edges, dev):
+    """(end, start) per lane. ``edges=False``: a full lane, a ragged one, an empty
+    one and one with start > 0. ``edges=True``: ranges that start and end inside
+    one 16-byte vector (8 bf16 tokens) and inside one 256-token chunk, one that
+    crosses chunks from inside a vector, and the empty lane."""
+    if edges:
+        end, start = [13, lmax - 3, 0, 270], [3, 250, 0, 261]
+    else:
+        end, start = [lmax, lmax // 3 + 1, 0, lmax - 1], [0, 0, 0, max(1, lmax // 2)]
+    return (torch.tensor(end, dtype=torch.int32, device=dev),
+            torch.tensor(start, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("g,hd,bsz,nb,dtype,cap,edges", [
+    (4, 128, 8, 12, torch.bfloat16, None, False), (1, 64, 16, 12, torch.float32, None, False),
+    (16, 256, 48, 12, torch.bfloat16, 30.0, False), (3, 32, 1, 12, torch.float32, None, False),
+    (2, 128, 64, 12, torch.float32, 5.0, False),
+    (4, 128, 8, 100, torch.bfloat16, None, True),     # 800 tokens: 4 chunks
+    (1, 112, 8, 100, torch.bfloat16, 30.0, True),
+    (4, 128, 64, 40, torch.bfloat16, None, True),     # 2560 tokens in pages of 64
+    (4, 128, 8, 256, torch.bfloat16, None, False),    # lanes of 8 chunks
+    (4, 128, 8, 37, torch.bfloat16, None, False)])    # the paged llama3-8b serve's tables
+def test_paged_decode_matches_plain(dev, gen, g, hd, bsz, nb, dtype, cap, edges):
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
-    b, hkv, nb = 4, 2, 12
+    b, hkv = 4, 2
     q, kp, vp, table = paged(gen, dev, b, hkv, g, hd, bsz, nb, dtype)
-    lmax = nb * bsz
-    end = torch.tensor([lmax, lmax // 3 + 1, 0, lmax - 1], dtype=torch.int32, device=dev)
-    start = torch.tensor([0, 0, 0, max(1, lmax // 2)], dtype=torch.int32, device=dev)
+    end, start = live_ranges(nb * bsz, edges, dev)
     out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=hd ** -0.5,
                                     softcap=cap)
     want = ref.decode_attention_paged_ref(q, kp, vp, table, end, hd ** -0.5, cap,
@@ -163,20 +179,27 @@ def contiguous(gen, dev, b, hkv, g, hd, lmax, dtype):
     return q, k, v
 
 
-@pytest.mark.parametrize("g,hd,lmax,dtype,cap", [
-    (4, 128, 2048, torch.bfloat16, None), (1, 112, 300, torch.bfloat16, None),
-    (1, 112, 77, torch.float32, 50.0), (16, 256, 130, torch.bfloat16, 30.0),
-    (3, 32, 9, torch.float32, None)])
-def test_contiguous_decode_matches_plain(dev, gen, g, hd, lmax, dtype, cap):
+@pytest.mark.parametrize("g,hd,lmax,dtype,cap,edges", [
+    (4, 128, 2048, torch.bfloat16, None, False), (1, 112, 300, torch.bfloat16, None, False),
+    (1, 112, 77, torch.float32, 50.0, False), (16, 256, 130, torch.bfloat16, 30.0, False),
+    (3, 32, 9, torch.float32, None, False),
+    (1, 112, 600, torch.bfloat16, None, True), (4, 128, 600, torch.bfloat16, 30.0, True),
+    (1, 112, 301, torch.bfloat16, None, True),      # Lmax % 8 != 0: the plain-load path
+    (1, 112, 2051, torch.bfloat16, None, False),    # ragged and longer than 8 chunks
+    (16, 256, 1100, torch.float32, None, True),
+    (1, 112, 128, torch.bfloat16, None, False),     # the zamba2-7b serve's Lmax: one chunk
+    (4, 128, 256, torch.bfloat16, None, False),     # one full chunk on the tensor cores
+    (4, 128, 296, torch.bfloat16, 30.0, False)])    # the contiguous llama3-8b serve's Lmax
+def test_contiguous_decode_matches_plain(dev, gen, g, hd, lmax, dtype, cap, edges):
     """B4: llama3-8b (G 4, hd 128) and zamba2 (G 1, hd 112) shapes, an empty
-    range, a start > 0, a softcap and the wide instantiation."""
+    range, a start > 0, a softcap, the wide instantiation, ranges inside one
+    16-byte vector and inside one chunk, and lanes of several chunks."""
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
     b, hkv = 4, 2
     q, k, v = contiguous(gen, dev, b, hkv, g, hd, lmax, dtype)
-    end = torch.tensor([lmax, lmax // 3 + 1, 0, lmax - 1], dtype=torch.int32, device=dev)
-    start = torch.tensor([0, 0, 0, max(1, lmax // 2)], dtype=torch.int32, device=dev)
+    end, start = live_ranges(lmax, edges, dev)
     before = da.decode_attention.launches
     out = da.decode_attention(q, k, v, end, start, scale=hd ** -0.5, softcap=cap)
     want = ref.decode_attention_ref(q, k, v, end, hd ** -0.5, cap, start=start)
@@ -184,6 +207,32 @@ def test_contiguous_decode_matches_plain(dev, gen, g, hd, lmax, dtype, cap):
     assert da.decode_attention.launches == before + 1
     torch.testing.assert_close(out, want, **TOL)
     assert not out[2].any()
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("g,hd,span", [(4, 128, 2048), (1, 112, 1000), (1, 112, 128)])
+def test_single_pass_is_batch_invariant(dev, gen, layout, g, hd, span):
+    """B1 and B4: each lane of a batch of 4 with other fills gives the same bits
+    as the lane computed alone (B = 1), at the same table width or Lmax."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    b, hkv, bsz = 4, 2, 8
+    end = torch.tensor([span, span // 3 + 5, 0, span - 7], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 3, 0, span // 2 + 1], dtype=torch.int32, device=dev)
+    if layout == "paged":
+        q, kp, vp, table = paged(gen, dev, b, hkv, g, hd, bsz, span // bsz, torch.bfloat16)
+
+        def run(i):
+            return da.decode_attention_paged(q[i], kp, vp, table[i], end[i], start[i],
+                                             scale=hd ** -0.5)
+    else:
+        q, k, v = contiguous(gen, dev, b, hkv, g, hd, span, torch.bfloat16)
+
+        def run(i):
+            return da.decode_attention(q[i], k[i], v[i], end[i], start[i], scale=hd ** -0.5)
+    batch = run(slice(None))
+    for i in range(b):
+        assert torch.equal(run(slice(i, i + 1)), batch[i:i + 1]), f"lane {i}"
 
 
 def test_contiguous_decode_refuses_bad_operands(dev, gen):
