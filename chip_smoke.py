@@ -14,10 +14,11 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    (llama3-8b, G 4 / hd 128, and zamba2-7b, G 1 / hd 112) and the SSD scan
    (zamba2-7b's H 112, P 64, N 64, chunk 256, also against the model's own
    ``ssd_chunked``) within the f32 tolerances below; the single-pass kernels
-   (paged and contiguous) must also give each lane of a batch the same bits as
-   that lane computed alone. ``kernel_time`` lines give each kernel's time beside
-   its bound, its plain version's time and one PyTorch library call's time (a
-   yardstick the port never calls), and the single-pass kernels' times at the
+   (paged and contiguous) and the split pair must also give each lane of a
+   batch the same bits as that lane computed alone. ``kernel_time`` lines give
+   each kernel's time beside its bound, its plain version's time and one
+   PyTorch library call's time (a yardstick the port never calls), the split
+   pair's (stage 1 + merge) time, and the paged kernels' and B4's times at the
    serves' own regimes (short fills in 37-block tables; zamba2's Lmax).
    ``host_cost`` lines give what one attention call costs the host at the
    serves' shapes, alone and over one decode step.
@@ -51,6 +52,12 @@ builds the kernels and prints only the ``host_cost`` lines and one LBIM
 serve line per configuration and pool (llama3-8b paged and contiguous,
 zamba2-7b), with the serves' checks. Run from two checkouts in turn
 (A, B, B, A) on one machine, it compares their host side.
+
+    python3 chip_smoke.py --attn
+
+builds the kernels and prints only the attention ``kernel_time`` lines (B1,
+B2 stage 1, the merge and the pair; B4), to compare builds of the attention
+kernels in one call.
 """
 from __future__ import annotations
 
@@ -324,6 +331,12 @@ def check_attention(gen, dev) -> dict:
                 "decode_attention_paged",
                 lambda i: da.decode_attention_paged(q[i], kp, vp, table[i], end[i], start[i],
                                                     scale=scale), out, ATTN_B)
+            check_batch_invariant(
+                "decode_attention_paged_split, 4 splits",
+                lambda i: da.decode_attention_paged_split(q[i], kp, vp, table[i], end[i],
+                                                          start[i], num_splits=4, scale=scale),
+                da.decode_attention_paged_split(q, kp, vp, table, end, start, num_splits=4,
+                                                scale=scale), ATTN_B)
         for s in (2, 4, 8):
             acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=s,
                                           scale=scale, softcap=cap)
@@ -351,12 +364,39 @@ def check_attention(gen, dev) -> dict:
     emit({"phase": "kernel_check", "kernel": "decode_attention_paged (+split, merge)",
           "q": [ATTN_B, ATTN_HKV, ATTN_G, ATTN_HD], "pages": "bf16",
           "end": ATTN_END, "start": ATTN_START, "cases": [list(c) for c in cases],
-          "splits": [2, 4, 8], "batch_invariant": [list(cases[0])],
+          "splits": [2, 4, 8],
+          "batch_invariant": [list(cases[0]), list(cases[0]) + ["4 splits"]],
           "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
     return errs
 
 
+def sdpa_calls(q, pools, table, end, start, scale) -> list:
+    """The library yardstick of paged attention: SDPA over lanes materialized
+    from the pages and expanded to the query heads beforehand (boolean
+    live-range mask), one call per pool copy (at most two). That preparation
+    is not timed, and the port never calls SDPA."""
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv, g, hd = q.shape
+    lmax = table.shape[1] * pools[0][0].shape[-1]
+    idx = torch.arange(lmax, device=q.device)
+    mask = ((idx[None, :] >= start[:, None]) & (idx[None, :] < end[:, None]))[:, None, None, :]
+    qh = q.reshape(b, hkv * g, 1, hd)
+    calls = []
+    for kp, vp in pools[:2]:
+        k, v = ref.materialize_pages(kp, vp, table)
+        k = k.transpose(-1, -2).repeat_interleave(g, dim=1).contiguous()
+        v = v.repeat_interleave(g, dim=1).contiguous()
+        calls.append(lambda k=k, v=v: F.scaled_dot_product_attention(
+            qh, k, v, attn_mask=mask, scale=scale))
+    return calls
+
+
 def time_attention(gen, dev) -> dict:
+    """B1, B2 stage 1 and the merge at the kernel-bench shape (256-block
+    tables), one line each; B2's pair (stage 1 + merge, the function the
+    4-split serve calls) there and at the paged serve's own regime, beside B1
+    at that regime."""
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
@@ -364,41 +404,16 @@ def time_attention(gen, dev) -> dict:
     pool_bytes = (b * ATTN_NB + 1) * hkv * hd * 8 * 2 * 2     # K and V pages, bf16
     q, pools, table, end, start, scale = attn_inputs(gen, dev, copies=copies_for(pool_bytes))
     out_bytes = b * hkv * g * hd * 4
+    s = 4
     res = {}
 
+    # the closures read q, pools, table, end and start when called, so they
+    # follow the rebinding to the serve regime below
     def single(kp, vp):
         return da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale)
 
     def single_ref(kp, vp):
         return ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, start=start)
-
-    # library yardstick: SDPA over lanes materialized and expanded to the query
-    # heads beforehand (boolean live-range mask); that preparation is not timed
-    lmax = ATTN_NB * 8
-    idx = torch.arange(lmax, device=dev)
-    mask = ((idx[None, :] >= start[:, None]) & (idx[None, :] < end[:, None]))[:, None, None, :]
-    lanes = []
-    for kp, vp in pools[:2]:
-        k, v = ref.materialize_pages(kp, vp, table)
-        lanes.append((k.transpose(-1, -2).repeat_interleave(g, dim=1).contiguous(),
-                      v.repeat_interleave(g, dim=1).contiguous()))
-    qh = q.reshape(b, hkv * g, 1, hd)
-
-    def sdpa(k, v):
-        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, scale=scale)
-
-    bnd, by = attn_bound(end, start, out_bytes)
-    res["decode_attention_paged"] = {
-        "ms": cuda_ms([lambda p=p: single(*p) for p in pools], 100),
-        "plain_ms": cuda_ms([lambda p=p: single_ref(*p) for p in pools[:2]], 10),
-        "library_ms": library_ms("decode_attention_paged",
-                                 [lambda kv=kv: sdpa(*kv) for kv in lanes], 100),
-        "bound_ms": bnd, "bound_by": by}
-    del lanes
-
-    s = 4
-    _, n_real = ref.realized_splits(ATTN_NB, s)
-    part_bytes = b * hkv * n_real * g * (hd + 2) * 4
 
     def split1(kp, vp):
         return da.split_partials(q, kp, vp, table, end, start, num_splits=s, scale=scale)
@@ -406,40 +421,58 @@ def time_attention(gen, dev) -> dict:
     def split1_ref(kp, vp):
         return ref.split_partials_ref(q, kp, vp, table, end, s, scale, start=start)
 
-    bnd, by = attn_bound(end, start, part_bytes)
+    def pair(kp, vp):
+        return da.decode_attention_paged_split(q, kp, vp, table, end, start, num_splits=s,
+                                               scale=scale)
+
+    def pair_ref(kp, vp):
+        return ref.decode_attention_paged_split_ref(q, kp, vp, table, end, s, scale,
+                                                    start=start)
+
+    def line(kernel, splits, fn, fn_ref, lib, n_out_bytes=out_bytes, **note) -> dict:
+        bnd, by = attn_bound(end, start, n_out_bytes)
+        ms = cuda_ms([lambda p=p: fn(*p) for p in pools], 100)
+        row = {"ms": ms, "plain_ms": cuda_ms([lambda p=p: fn_ref(*p) for p in pools[:2]], 10),
+               "library_ms": lib, **note, "bound_ms": bnd, "bound_by": by}
+        emit({"phase": "kernel_time", "kernel": kernel, "splits": splits,
+              "table_blocks": table.shape[1], "live_tokens": live_tokens(end, start), **row,
+              "roofline_share": bnd / ms})
+        return row
+
+    sdpa = library_ms("decode_attention_paged",
+                      sdpa_calls(q, pools, table, end, start, scale), 100)
+    res["decode_attention_paged"] = line("decode_attention_paged", 1, single, single_ref,
+                                         sdpa)
+    _, n_real = ref.realized_splits(ATTN_NB, s)
+    part_bytes = b * hkv * n_real * g * (hd + 2) * 4
     # stage 1 and the merge together compute the function SDPA computes on
-    # these inputs: the split row carries the same SDPA yardstick
-    res["decode_attention_paged_split"] = {
-        "ms": cuda_ms([lambda p=p: split1(*p) for p in pools], 100),
-        "plain_ms": cuda_ms([lambda p=p: split1_ref(*p) for p in pools[:2]], 10),
-        "library_ms": res["decode_attention_paged"]["library_ms"],
-        "library_note": "SDPA, against stage 1 + merge together",
-        "bound_ms": bnd, "bound_by": by}
+    # these inputs: the stage-1 row carries the same SDPA yardstick
+    res["decode_attention_paged_split"] = line(
+        "decode_attention_paged_split", s, split1, split1_ref, sdpa, part_bytes,
+        library_note="SDPA, against stage 1 + merge together")
     parts = [split1(*p) for p in pools[:8]]
     bnd, by = bound(part_bytes + out_bytes, 3 * b * hkv * n_real * g * hd, PEAK_BF16_FLOPS)
+    ms = cuda_ms([lambda pt=pt: da.merge_splits(*pt) for pt in parts], 200)
     res["merge_splits"] = {
-        "ms": cuda_ms([lambda pt=pt: da.merge_splits(*pt) for pt in parts], 200),
-        "plain_ms": cuda_ms([lambda pt=pt: ref.merge_splits(*pt) for pt in parts], 50),
+        "ms": ms, "plain_ms": cuda_ms([lambda pt=pt: ref.merge_splits(*pt) for pt in parts], 50),
         "library_ms": None, "bound_ms": bnd, "bound_by": by}
-    for name, r in res.items():
-        emit({"phase": "kernel_time", "kernel": name, "splits": s if name != "decode_attention_paged" else 1,
-              "table_blocks": ATTN_NB, "live_tokens": live_tokens(end, start), **r,
-              "roofline_share": r["bound_ms"] / r["ms"]})
+    emit({"phase": "kernel_time", "kernel": "merge_splits", "splits": s,
+          "table_blocks": ATTN_NB, "live_tokens": live_tokens(end, start), **res["merge_splits"],
+          "roofline_share": bnd / ms})
+    line("decode_attention_paged_split + merge_splits", s, pair, pair_ref, sdpa)
+    del parts
 
     # the serve's own regime: block tables as wide as its max_len (296 tokens)
     # holding under 50 tokens a lane, as in the profiled decode-heavy serve
-    # (``single`` and ``single_ref`` read the rebound names below when called)
     nb = SERVE_TABLE_BLOCKS
     q, pools, table, _, _, scale = attn_inputs(
         gen, dev, nb=nb, copies=copies_for((b * nb + 1) * hkv * hd * 8 * 2 * 2))
     end = torch.tensor(SERVE_END, dtype=torch.int32, device=dev)
     start = torch.zeros_like(end)
-    bnd, by = attn_bound(end, start, out_bytes)
-    ms = cuda_ms([lambda p=p: single(*p) for p in pools], 100)
-    emit({"phase": "kernel_time", "kernel": "decode_attention_paged", "splits": 1,
-          "table_blocks": nb, "live_tokens": live_tokens(end, start), "ms": ms,
-          "plain_ms": cuda_ms([lambda p=p: single_ref(*p) for p in pools[:2]], 10),
-          "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+    sdpa = library_ms("decode_attention_paged",
+                      sdpa_calls(q, pools, table, end, start, scale), 100)
+    line("decode_attention_paged", 1, single, single_ref, sdpa)
+    line("decode_attention_paged_split + merge_splits", s, pair, pair_ref, sdpa)
     return res
 
 
@@ -713,9 +746,8 @@ def host_cost(gen, dev) -> None:
     """``host_cost`` lines: what one attention call costs the host (Python
     wrapper, checks, allocations, tensor-map encoding, launches) at the serves'
     own shapes, and that cost over one decode step's calls (32 attention layers
-    for llama3-8b, 13 shared-block applications for zamba2-7b). The split
-    path's pair of calls is the control: its code is older than the
-    single-pass kernels' redesign."""
+    for llama3-8b, 13 shared-block applications for zamba2-7b). In an A/B of
+    two trees, the calls whose code did not change are the control."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention as da
 
@@ -1033,7 +1065,6 @@ KERNEL_GROUPS = (   # kernel-name fragment -> what it computes on the serve path
     ("pim_gemv", "pim_gemv (W8A8 decode GEMVs)"),
     ("contig_decode", "contiguous decode attention"),
     ("paged_decode", "paged decode attention"),
-    ("merge_splits", "merge_splits"),
     ("gemm", "GEMM (prefill chunks, lm_head)"), ("gemv", "GEMM (prefill chunks, lm_head)"),
     ("nvjet", "GEMM (prefill chunks, lm_head)"), ("cutlass", "GEMM (prefill chunks, lm_head)"),
     ("index", "page scatter / gather / embedding"),
@@ -1124,8 +1155,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--ab"]):
-        print(f"usage: {sys.argv[0]} [--ab]", file=sys.stderr)
+    if argv not in ([], ["--ab"], ["--attn"]):
+        print(f"usage: {sys.argv[0]} [--ab | --attn]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1145,6 +1176,10 @@ def main(argv: list[str]) -> int:
           "cuda": torch.version.cuda, "build_s": build_s})
 
     gen = torch.Generator(device=dev).manual_seed(1234)
+    if argv == ["--attn"]:
+        time_attention(gen, dev)
+        time_contig_attention(gen, dev)
+        return 0
     if argv == ["--ab"]:
         host_cost(gen, dev)
         serve_ab(dev)

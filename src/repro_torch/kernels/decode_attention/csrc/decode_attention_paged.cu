@@ -67,23 +67,39 @@
 //     fixed order, and every merge runs in a fixed order with no atomics. So a lane
 //     computed alone or inside a batch gives bit-identical output.
 //
-// B2 stage 1 (`split_body`) keeps the earlier design: each (lane, kv head, split) is
-// walked by a thread-block cluster of C <= 8 blocks, C chosen from the tokens one
-// split can hold, every warp on its own 32-token tiles, merged in fixed order through
-// shared and distributed shared memory. The realized-split rule bps = ceil(NB/S),
-// S_real = ceil(NB/bps) is applied by the caller.
+// B2 runs on the same body and the same merge. Its earlier stage 1 was B1's earlier
+// design (a cluster of up to 8 blocks per (lane, kv head, split), 2-byte loads of K
+// one token per lane, CUDA-core GEMVs, a merge through distributed shared memory) and
+// took 2.8x B1's time on the same work. A split is not a chunk: split s is the bps *
+// Bsz tokens from s * bps * Bsz (the caller applies the realized-split rule bps =
+// ceil(NB/S), S_real = ceil(NB/bps)), 80 tokens at the 4-split serve's 37-block
+// tables and 512 at 256-block ones. Each (lane, kv head, split) is one block of the
+// chunked walk (kSplit) whose range is the split clipped to [start, end): its tiles
+// keep their absolute 32-token positions, so a tile that a split boundary cuts is
+// copied by both splits' blocks and each keeps its own rows through fill_tile's live
+// range. One launch per call; 256-token pieces of a split reduced by a third kernel
+// would have doubled the live blocks at long splits but added a launch to every
+// call. A split walks more tiles than a chunk, so its blocks take eight warps where
+// K/V are bf16 (four for f32, whose stages would not fit). A block always writes
+// the unnormalized (acc, m, l) of its split, never the normalized output, and a dead
+// split writes the identity partial before it returns. That acc is held to the f32
+// plain version on its own, so P enters the tensor cores as three bf16 pieces (all
+// 24 bits) where the single pass takes two. Stage 2 is the chunk merge over all S
+// parts of each row (no live range is passed): max first, then the sums in split
+// order, launched as a programmatic dependent of the kernel before it. As in the
+// single pass, a lane's partials depend on its own inputs, the table width and S
+// only.
 //
 // Online softmax in f32 with the finite NEG_INF = -2.3819763e38 of the JAX package.
 // An empty range (end <= start) gives exact zeros through the l > 0 guard. A dead
-// split or chunk carries the identity partial (m = NEG_INF, l = 0, acc = 0), and the
-// merge of an all-dead lane gives zeros, not NaN, because exp(NEG_INF - NEG_INF) = 1
-// is multiplied by l = 0.
+// split carries the identity partial (m = NEG_INF, l = 0, acc = 0), and the merge of
+// an all-dead lane gives zeros, not NaN, because exp(NEG_INF - NEG_INF) = 1 is
+// multiplied by l = 0.
 //
 // Limits: hd <= 256, G <= 16, any page size Bsz or Lmax. G == 1 and G <= 4 with
 // hd <= 128 take narrow instantiations (zamba2: G 1, hd 112; llama3-8b: G 4, hd 128),
 // the rest a wide one on the CUDA cores. A query head beyond G holds zeros and is
 // never stored; a d beyond hd is never stored.
-#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,15 +107,11 @@
 
 #include <type_traits>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr float kNegInf = -2.3819763e38f;
-constexpr int kMaxCluster = 8;   // portable cluster size limit
-constexpr int kKUnroll = 16;     // K loads each lane issues before its FMAs (split body)
 constexpr int kTile = 32;        // tokens of a tile: one per lane in the score GEMV
-constexpr int kChunk = 256;      // tokens of one block of the chunked single pass
+constexpr int kChunk = 256;      // tokens of one block of the single pass
 constexpr int kBarBytes = 128;   // the mbarriers, ahead of q in shared memory
 constexpr int kSmPerSm = 233472; // shared memory of one SM (228 KB)
 constexpr int kSmemPerBlock = 232448;  // the most one block may take (227 KB)
@@ -176,14 +188,15 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // ---------------------------------------------------------------------------
-// B1 / B4: the chunked single pass
+// The chunked walk: B1 and B4 (single pass), B2 stage 1 (split partials)
 // ---------------------------------------------------------------------------
 
 // Geometry of one launch, the same for every block.
 struct ChunkGeom {
   int hkv, g, hd;
   int bsz, nb;        // page size and table width; contiguous lanes: Lmax and 1
-  int n_chunks;       // ceil(nb * bsz / kChunk)
+  int n_chunks;       // blocks per (lane, kv head): ceil(nb * bsz / kChunk), or the splits
+  int span;           // splits: tokens of one split, bps * bsz (the single pass: kChunk)
   int tma;            // 1: copy engine and tensor cores; 0: plain loads and CUDA cores
   int stages;         // ring depth per warp (1 or 2)
   int pw, pw_log2;    // tensor copies: tokens of one K piece, Bsz where it divides 32, else 32
@@ -296,17 +309,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// x, y as the bf16 pair hi plus the bf16 pair lo of what hi leaves out, so that a
-// product with a bf16 operand keeps about 16 bits of x and y
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+// x, y as kPieces bf16 pairs, each of what the ones before leave out, so that a
+// product with a bf16 operand keeps about 8 * kPieces bits of x and y (two pieces:
+// 16 bits; three: all 24 of an f32)
+// into register ``reg`` of each piece's A fragment
+template <int kPieces>
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t (&pieces)[kPieces][4],
+                                           int reg) {
+#pragma unroll
+  for (int i = 0; i < kPieces - 1; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    pieces[i][reg] = *reinterpret_cast<const uint32_t*>(&h);
+    x -= __low2float(h);
+    y -= __high2float(h);
+  }
+  pieces[kPieces - 1][reg] = pack_bf16(x, y);
 }
 
-// One block: chunk blockIdx.x of (lane, kv head) blockIdx.y. kG: query heads per
-// kv head held in registers (>= G); kDC: 32-wide d chunks per lane (>= hd / 32).
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kPaged>
+// One block: chunk blockIdx.x of (lane, kv head) blockIdx.y, or with kSplit split
+// blockIdx.x. kG: query heads per kv head held in registers (>= G); kDC: 32-wide d
+// chunks per lane (>= hd / 32).
+template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kPaged, bool kSplit>
 __device__ __forceinline__ void chunk_body(REPRO_CHUNK_PARAMS, const CUtensorMap& tmk,
                                            const CUtensorMap& tmv) {
   constexpr unsigned kFull = 0xffffffffu;
@@ -321,12 +344,22 @@ __device__ __forceinline__ void chunk_body(REPRO_CHUNK_PARAMS, const CUtensorMap
   // the merge kernel may launch now and wait for this grid's writes (griddepcontrol.wait)
   asm volatile("griddepcontrol.launch_dependents;");
 
-  // live tokens of this chunk
-  const int lo = max(start[b], c * kChunk);
-  const int hi = min(min(end[b], geo.nb * geo.bsz), (c + 1) * kChunk);
+  // live tokens of this chunk or split
+  const int span = kSplit ? geo.span : kChunk;
+  const int lo = max(start[b], c * span);
+  const int hi = min(min(end[b], geo.nb * geo.bsz), (c + 1) * span);
   if (lo >= hi) {
-    if (geo.n_chunks == 1)   // the block is the lane's whole pass: an empty range is zeros
+    if constexpr (kSplit) {   // a dead split: the identity partial
+      const int64_t part = bh * geo.n_chunks + c;
+      const int64_t n_parts = static_cast<int64_t>(gridDim.y) * geo.n_chunks;
+      for (int i = tid; i < g * hd; i += kWarps * 32) ws[part * g * hd + i] = 0.f;
+      if (tid < g) {
+        ws[n_parts * g * hd + part * g + tid] = kNegInf;
+        ws[n_parts * g * (hd + 1) + part * g + tid] = 0.f;
+      }
+    } else if (geo.n_chunks == 1) {   // the block is the lane's whole pass: zeros
       for (int i = tid; i < g * hd; i += kWarps * 32) out[bh * g * hd + i] = 0.f;
+    }
     return;
   }
 
@@ -390,9 +423,12 @@ __device__ __forceinline__ void chunk_body(REPRO_CHUNK_PARAMS, const CUtensorMap
       // steps, then O (query heads x hd) += P V over two 16-token steps, in f32.
       // The rows of the m16 tiles are query heads; with G <= 4 only rows 0-7 (a
       // lane's row grp) are ever nonzero, so rows 8-15 are fed zeros and dropped.
-      // P enters as a bf16 pair hi + lo (16 bits kept).
+      // P enters as bf16 pieces: two (16 bits kept) where the output is normalized
+      // or merged; three (all 24) for split partials, whose unnormalized acc is
+      // held to f32 accuracy on its own.
       static_assert(kG <= 8, "the tensor-core walk keeps one row of each m16 tile");
       constexpr int kKS = 8, kND = 16;    // hd <= 128: 16-wide d steps, 8-wide d blocks
+      constexpr int kPieces = kSplit ? 3 : 2;
       const int grp = lane >> 2, t4 = lane & 3;
       const int n_ks = hd / 16, n_nd = hd / 8;
       uint32_t qa[kKS][4];   // A fragments of q: rows grp (regs 0, 2), rows grp + 8 zero
@@ -502,9 +538,9 @@ __device__ __forceinline__ void chunk_body(REPRO_CHUNK_PARAMS, const CUtensorMap
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
           // A fragments of P (tokens 16 kk .. 16 kk + 15): s[2 kk] and s[2 kk + 1]
-          uint32_t ph[4] = {0u, 0u, 0u, 0u}, pl[4] = {0u, 0u, 0u, 0u};
-          split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-          split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+          uint32_t pp[kPieces][4] = {};
+          split_bf16<kPieces>(s[2 * kk][0], s[2 * kk][1], pp, 0);
+          split_bf16<kPieces>(s[2 * kk + 1][0], s[2 * kk + 1][1], pp, 2);
           // d blocks past hd read the last one again into columns never stored
 #pragma unroll
           for (int nd = 0; nd < kND; nd += 2) {
@@ -512,10 +548,10 @@ __device__ __forceinline__ void chunk_body(REPRO_CHUNK_PARAMS, const CUtensorMap
             const int ndm = min(nd + (mat >> 1), n_nd - 1);
             ldsm_x4_trans(bb, vb + (ndm >> 3) * kTile * 128 + (kk * 16 + k_r) * 128 +
                                   (((ndm & 7) ^ r8) << 4));
-            mma_bf16(o[nd], ph, bb[0], bb[1]);
-            mma_bf16(o[nd], pl, bb[0], bb[1]);
-            mma_bf16(o[nd + 1], ph, bb[2], bb[3]);
-            mma_bf16(o[nd + 1], pl, bb[2], bb[3]);
+#pragma unroll
+            for (int pc = 0; pc < kPieces; ++pc) mma_bf16(o[nd], pp[pc], bb[0], bb[1]);
+#pragma unroll
+            for (int pc = 0; pc < kPieces; ++pc) mma_bf16(o[nd + 1], pp[pc], bb[2], bb[3]);
           }
         }
       });
@@ -639,7 +675,7 @@ __device__ __forceinline__ void chunk_body(REPRO_CHUNK_PARAMS, const CUtensorMap
       lt += wl[w * kG + gi] * al;
       o += wacc[(w * kG + gi) * hd + d] * al;
     }
-    if (geo.n_chunks == 1) {
+    if (!kSplit && geo.n_chunks == 1) {
       out[bh * g * hd + i] = o / (lt > 0.f ? lt : 1.f);
     } else {   // partials (B * Hkv, n_chunks, G, hd), then m and l (B * Hkv, n_chunks, G)
       const int64_t part = bh * geo.n_chunks + c;
@@ -652,42 +688,52 @@ __device__ __forceinline__ void chunk_body(REPRO_CHUNK_PARAMS, const CUtensorMap
   }
 }
 
-// Merge the live chunks' partials of one (lane, kv head, query head), in chunk
-// order; one thread per d. A lane with no live chunk gives zeros.
-__device__ __forceinline__ void chunk_merge_body(const float* __restrict__ ws,
+// Merge the partials of one (lane, kv head, query head) in part order, one thread
+// per d: the chunks that the live range [start, end) touches, or, with start null,
+// all n_chunks parts (the splits). Max first, then the sums; a row with no live part
+// gives zeros, since exp(NEG_INF - NEG_INF) = 1 meets l = 0.
+__device__ __forceinline__ void chunk_merge_body(const float* __restrict__ acc,
+                                                 const float* __restrict__ m,
+                                                 const float* __restrict__ l,
                                                  const int* __restrict__ start,
                                                  const int* __restrict__ end,
                                                  float* __restrict__ out, int hkv, int g, int hd,
                                                  int cap, int n_chunks) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");   // the chunk kernel is done
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // the partials' kernel is done
   const int row = blockIdx.x;   // (b * Hkv + h) * G + gi
-  const int gi = row % g;
-  const int64_t bh = row / g;
-  const int b = static_cast<int>(bh / hkv);
+  const int bh = row / g, gi = row - bh * g;
   const int d = threadIdx.x;
-  const int lo = max(start[b], 0), hi = min(end[b], cap);
-  const int c_lo = lo / kChunk, c_hi = hi > lo ? (hi + kChunk - 1) / kChunk : c_lo;
-  const int64_t n_parts = static_cast<int64_t>(gridDim.x / g) * n_chunks;
-  const float* m = ws + n_parts * g * hd;
-  const float* l = m + n_parts * g;
+  int c_lo = 0, c_hi = n_chunks;
+  if (start != nullptr) {
+    const int b = bh / hkv;
+    const int lo = max(start[b], 0), hi = min(end[b], cap);
+    c_lo = lo / kChunk;
+    c_hi = hi > lo ? (hi + kChunk - 1) / kChunk : c_lo;
+  }
+  // this row's parts: part c's m and l at c * G past mr and lr, its acc at c * G * hd
+  // past ar
+  const int64_t first = static_cast<int64_t>(bh) * n_chunks * g + gi;
+  const float* mr = m + first;
+  const float* lr = l + first;
+  const float* ar = acc + first * hd + d;
+  const int64_t step = static_cast<int64_t>(g) * hd;
   float mx = kNegInf;
-  for (int c = c_lo; c < c_hi; ++c) mx = fmaxf(mx, m[(bh * n_chunks + c) * g + gi]);
+  for (int c = c_lo; c < c_hi; ++c) mx = fmaxf(mx, mr[c * g]);
   float lt = 0.f, o = 0.f;
   for (int c = c_lo; c < c_hi; ++c) {
-    const int64_t part = bh * n_chunks + c;
-    const float al = expf(m[part * g + gi] - mx);
-    lt += l[part * g + gi] * al;
-    if (d < hd) o += ws[(part * g + gi) * hd + d] * al;
+    const float al = expf(mr[c * g] - mx);
+    lt += lr[c * g] * al;
+    if (d < hd) o += ar[c * step] * al;
   }
-  if (d < hd) out[row * static_cast<int64_t>(hd) + d] = o / (lt > 0.f ? lt : 1.f);
+  if (d < hd) out[static_cast<int64_t>(row) * hd + d] = o / (lt > 0.f ? lt : 1.f);
 }
 
-// B1: pages through a block table.
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps>
+// B1 (kSplit false) and B2 stage 1 (kSplit true): pages through a block table.
+template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kSplit>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_kernel(REPRO_CHUNK_PARAMS, const __grid_constant__ CUtensorMap tmk,
                         const __grid_constant__ CUtensorMap tmv) {
-  chunk_body<TQ, TKV, kG, kDC, kWarps, true>(REPRO_CHUNK_ARGS);
+  chunk_body<TQ, TKV, kG, kDC, kWarps, true, kSplit>(REPRO_CHUNK_ARGS);
 }
 
 // B4: contiguous lanes (``table`` is not read). Kernels of their own names, so a
@@ -696,21 +742,43 @@ template <typename TQ, typename TKV, int kG, int kDC, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
     contig_decode_kernel(REPRO_CHUNK_PARAMS, const __grid_constant__ CUtensorMap tmk,
                          const __grid_constant__ CUtensorMap tmv) {
-  chunk_body<TQ, TKV, kG, kDC, kWarps, false>(REPRO_CHUNK_ARGS);
+  chunk_body<TQ, TKV, kG, kDC, kWarps, false, false>(REPRO_CHUNK_ARGS);
 }
 
-__global__ void paged_decode_merge_kernel(const float* __restrict__ ws,
-                                          const int* __restrict__ start,
-                                          const int* __restrict__ end, float* __restrict__ out,
-                                          int hkv, int g, int hd, int cap, int n_chunks) {
-  chunk_merge_body(ws, start, end, out, hkv, g, hd, cap, n_chunks);
+#define REPRO_MERGE_PARAMS                                                                \
+  const float* __restrict__ acc, const float* __restrict__ m, const float* __restrict__ l, \
+      const int* __restrict__ start, const int* __restrict__ end, float* __restrict__ out, \
+      int hkv, int g, int hd, int cap, int n_chunks
+
+// The merges of B1 and B2 (stage 2), and of B4.
+__global__ void paged_decode_merge_kernel(REPRO_MERGE_PARAMS) {
+  chunk_merge_body(acc, m, l, start, end, out, hkv, g, hd, cap, n_chunks);
 }
 
-__global__ void contig_decode_merge_kernel(const float* __restrict__ ws,
-                                           const int* __restrict__ start,
-                                           const int* __restrict__ end, float* __restrict__ out,
-                                           int hkv, int g, int hd, int cap, int n_chunks) {
-  chunk_merge_body(ws, start, end, out, hkv, g, hd, cap, n_chunks);
+__global__ void contig_decode_merge_kernel(REPRO_MERGE_PARAMS) {
+  chunk_merge_body(acc, m, l, start, end, out, hkv, g, hd, cap, n_chunks);
+}
+
+// Launch a merge over ``rows`` (lane, kv head, query head) rows as a programmatic
+// dependent of the kernel before it on the stream: its blocks are made resident
+// while that kernel runs and wait on the card for its writes.
+int launch_merge(bool paged, const float* acc, const float* m, const float* l,
+                 const int* start, const int* end, float* out, int rows, int hkv, int g,
+                 int hd, int cap, int n_chunks, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows);
+  cfg.blockDim = dim3((hd + 31) / 32 * 32);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, paged ? paged_decode_merge_kernel : contig_decode_merge_kernel,
+                         acc, m, l, start, end, out, hkv, g, hd, cap, n_chunks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A 2-D bf16 tensor map over rows of ``inner`` elements, ``row_bytes`` apart, read in
@@ -745,11 +813,13 @@ bool encode_2d(CUtensorMap* map, const void* base, int64_t inner, int64_t rows,
          CUDA_SUCCESS;
 }
 
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kPaged>
+// The single pass (n_splits 0: ``out`` normalized, chunk partials in ``ws`` where
+// the span is over one chunk) or B2 stage 1 (``ws`` takes the split partials).
+template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kPaged, bool kSplit>
 int launch_chunked(const void* q, const void* kc, const void* vc, const void* table,
                    const void* start, const void* end, void* out, void* ws, int batch, int hkv,
-                   int g, int hd, int bsz, int nb, int n_pages, float scale, float softcap,
-                   int has_cap, cudaStream_t s) {
+                   int g, int hd, int bsz, int nb, int n_pages, int bps, int n_splits,
+                   float scale, float softcap, int has_cap, cudaStream_t s) {
   ChunkGeom geo = {};
   geo.hkv = hkv;
   geo.g = g;
@@ -757,8 +827,10 @@ int launch_chunked(const void* q, const void* kc, const void* vc, const void* ta
   geo.bsz = bsz;
   geo.nb = nb;
   const int cap = nb * bsz;
-  geo.n_chunks = (cap + kChunk - 1) / kChunk;
-  if (geo.n_chunks > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  geo.n_chunks = kSplit ? n_splits : (cap + kChunk - 1) / kChunk;
+  geo.span = kSplit ? bps * bsz : kChunk;
+  if ((kSplit || geo.n_chunks > 1) && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   geo.scale = scale;
   geo.softcap = softcap;
   geo.has_cap = has_cap;
@@ -799,7 +871,7 @@ int launch_chunked(const void* q, const void* kc, const void* vc, const void* ta
   const int smem = fixed + kWarps * geo.stages * geo.stage_bytes;
   if (smem > kSmemPerBlock) return static_cast<int>(cudaErrorInvalidValue);
 
-  auto kern = paged_decode_kernel<TQ, TKV, kG, kDC, kWarps>;
+  auto kern = paged_decode_kernel<TQ, TKV, kG, kDC, kWarps, kSplit>;
   if constexpr (!kPaged) kern = contig_decode_kernel<TQ, TKV, kG, kDC, kWarps>;
   static int smem_set = 0;   // per instantiation: raise the opt-in limit once
   if (smem > 48 * 1024 && smem > smem_set) {
@@ -813,342 +885,55 @@ int launch_chunked(const void* q, const void* kc, const void* vc, const void* ta
       static_cast<const int*>(table), static_cast<const int*>(start),
       static_cast<const int*>(end), static_cast<float*>(out), static_cast<float*>(ws), geo, tmk,
       tmv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || geo.n_chunks == 1) return static_cast<int>(err);
-  // the merge, launched while the chunk kernel runs (programmatic dependent launch),
-  // so its blocks are resident and waiting when the chunks' partials land
-  auto merge = kPaged ? paged_decode_merge_kernel : contig_decode_merge_kernel;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch * hkv * g);
-  cfg.blockDim = dim3((hd + 31) / 32 * 32);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, merge, static_cast<const float*>(ws),
-                           static_cast<const int*>(start), static_cast<const int*>(end),
-                           static_cast<float*>(out), hkv, g, hd, cap, geo.n_chunks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || kSplit || geo.n_chunks == 1) return static_cast<int>(err);
+  // the chunks' merge, launched while the chunk kernel runs
+  const float* acc = static_cast<const float*>(ws);
+  const int64_t n_parts = static_cast<int64_t>(batch) * hkv * geo.n_chunks;
+  return launch_merge(kPaged, acc, acc + n_parts * g * hd, acc + n_parts * g * (hd + 1),
+                      static_cast<const int*>(start), static_cast<const int*>(end),
+                      static_cast<float*>(out), batch * hkv * g, hkv, g, hd, cap, geo.n_chunks,
+                      s);
 }
 
-template <typename TQ, typename TKV, bool kPaged>
+template <typename TQ, typename TKV, bool kPaged, bool kSplit>
 int launch_chunked_shaped(const void* q, const void* kc, const void* vc, const void* table,
                           const void* start, const void* end, void* out, void* ws, int batch,
-                          int hkv, int g, int hd, int bsz, int nb, int n_pages, float scale,
-                          float softcap, int has_cap, cudaStream_t s) {
-#define REPRO_SHAPE(KG, KDC, KW)                                                          \
-  return launch_chunked<TQ, TKV, KG, KDC, KW, kPaged>(q, kc, vc, table, start, end, out, \
-                                                      ws, batch, hkv, g, hd, bsz, nb,    \
-                                                      n_pages, scale, softcap, has_cap, s)
-  if (g == 1 && hd <= 128) REPRO_SHAPE(1, 4, 4);
-  if (g <= 4 && hd <= 128) REPRO_SHAPE(4, 4, 4);
+                          int hkv, int g, int hd, int bsz, int nb, int n_pages, int bps,
+                          int n_splits, float scale, float softcap, int has_cap,
+                          cudaStream_t s) {
+#define REPRO_SHAPE(KG, KDC, KW)                                                            \
+  return launch_chunked<TQ, TKV, KG, KDC, KW, kPaged, kSplit>(                             \
+      q, kc, vc, table, start, end, out, ws, batch, hkv, g, hd, bsz, nb, n_pages, bps,     \
+      n_splits, scale, softcap, has_cap, s)
+  // a split walks more tiles than a chunk: eight warps a block where K/V are bf16
+  // (eight warps' f32 stages do not fit a block's shared memory)
+  constexpr int kNarrowWarps = kSplit && std::is_same<TKV, __nv_bfloat16>::value ? 8 : 4;
+  if (g == 1 && hd <= 128) REPRO_SHAPE(1, 4, kNarrowWarps);
+  if (g <= 4 && hd <= 128) REPRO_SHAPE(4, 4, kNarrowWarps);
   REPRO_SHAPE(16, 8, 2);
 #undef REPRO_SHAPE
 }
 
-template <bool kPaged>
-int launch_single(const void* q, const void* kc, const void* vc, const void* table,
-                  const void* start, const void* end, void* out, void* ws, int batch, int hkv,
-                  int g, int hd, int bsz, int nb, int n_pages, float scale, float softcap,
-                  int has_cap, int q_f32, int kv_f32, void* stream) {
-  if (hd < 1 || hd > 256 || g < 1 || g > 16 || bsz < 1 || nb < 1)
+template <bool kPaged, bool kSplit>
+int launch_typed(const void* q, const void* kc, const void* vc, const void* table,
+                 const void* start, const void* end, void* out, void* ws, int batch, int hkv,
+                 int g, int hd, int bsz, int nb, int n_pages, int bps, int n_splits,
+                 float scale, float softcap, int has_cap, int q_f32, int kv_f32, void* stream) {
+  if (hd < 1 || hd > 256 || g < 1 || g > 16 || bsz < 1 || nb < 1 ||
+      (kSplit && (bps < 1 || n_splits < 1 || (n_splits - 1) * bps >= nb)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(TQ, TKV)                                                               \
-  return launch_chunked_shaped<TQ, TKV, kPaged>(q, kc, vc, table, start, end, out, ws, batch, \
-                                                hkv, g, hd, bsz, nb, n_pages, scale, softcap, \
-                                                has_cap, s)
+#define REPRO_LAUNCH(TQ, TKV)                                                                \
+  return launch_chunked_shaped<TQ, TKV, kPaged, kSplit>(q, kc, vc, table, start, end, out,  \
+                                                        ws, batch, hkv, g, hd, bsz, nb,     \
+                                                        n_pages, bps, n_splits, scale,      \
+                                                        softcap, has_cap, s)
   if (q_f32 && kv_f32) REPRO_LAUNCH(float, float);
   if (q_f32) REPRO_LAUNCH(float, __nv_bfloat16);
   if (kv_f32) REPRO_LAUNCH(__nv_bfloat16, float);
   REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
 #undef REPRO_LAUNCH
-}
-
-// ---------------------------------------------------------------------------
-// B2 stage 1: split partials (the cluster body) and stage 2
-// ---------------------------------------------------------------------------
-
-// Shared memory, in floats, of one block of the instantiation <kG, kWarps>.
-inline size_t split_smem_floats(int kG, int kWarps, int hd) {
-  const int hdp = (hd + kKUnroll - 1) / kKUnroll * kKUnroll;
-  return static_cast<size_t>(hdp) * kG          // q, d-major, zero-padded
-         + static_cast<size_t>(kWarps) * kG * hd  // per-warp acc
-         + 2 * kWarps * kG                        // per-warp m, l
-         + static_cast<size_t>(kG) * hd           // block acc
-         + 2 * kG;                                // block m, l
-}
-
-#define REPRO_SPLIT_PARAMS                                                                 \
-  const TQ* __restrict__ q, const TKV* __restrict__ k_pages,                               \
-      const TKV* __restrict__ v_pages, const int* __restrict__ table,                      \
-      const int* __restrict__ start, const int* __restrict__ end,                          \
-      float* __restrict__ acc_out, float* __restrict__ m_out, float* __restrict__ l_out,   \
-      int hkv, int g, int hd, int bsz, int nb, int bps, float scale, float softcap,        \
-      int has_cap
-
-// Stage 1 of the split-KV reduction: the (lane, kv head, split) of blockIdx (y, z)
-// is walked by the blocks of one cluster. kG: query heads per kv head held in
-// registers (>= G); kDC: 32-wide d chunks per lane (>= hd / 32).
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps>
-__device__ __forceinline__ void split_body(REPRO_SPLIT_PARAMS) {
-  constexpr int kPV = kDC <= 4 ? 4 : 2;   // tokens whose V rows are loaded together
-  constexpr unsigned kFull = 0xffffffffu;
-  extern __shared__ float smem_f[];
-  const int hdp = (hd + kKUnroll - 1) / kKUnroll * kKUnroll;
-  float* qs = smem_f;                     // (hdp, kG)
-  float* wacc = qs + hdp * kG;            // (kWarps, kG, hd)
-  float* wm = wacc + kWarps * kG * hd;    // (kWarps, kG)
-  float* wl = wm + kWarps * kG;           // (kWarps, kG)
-  float* bacc = wl + kWarps * kG;         // (kG, hd)   this block's merged partial
-  float* bm = bacc + kG * hd;             // (kG,)
-  float* bl = bm + kG;                    // (kG,)
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int n_ranks = static_cast<int>(cluster.num_blocks());
-  const int bh_i = blockIdx.y;            // b * Hkv + h
-  const int b = bh_i / hkv;
-  const int h = bh_i - b * hkv;
-  const int si = blockIdx.z;
-  const int n_splits = gridDim.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t bh = bh_i;
-
-  // live tokens of this (lane, split)
-  const int lo = max(start[b], si * bps * bsz);
-  const int hi = min(end[b], min((si + 1) * bps, nb) * bsz);
-
-  for (int i = tid; i < hdp * kG; i += kWarps * 32) {
-    const int d = i / kG, gi = i - d * kG;
-    qs[i] = (d < hd && gi < g) ? to_f(q[(bh * g + gi) * hd + d]) : 0.f;
-  }
-  __syncthreads();
-
-  float m[kG], l[kG], acc[kG][kDC];
-#pragma unroll
-  for (int gi = 0; gi < kG; ++gi) {
-    m[gi] = kNegInf;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[gi][c] = 0.f;
-  }
-
-  const int vwarp = rank * kWarps + warp;          // this warp's place in the cluster
-  const int n_vwarps = n_ranks * kWarps;
-  for (int tok0 = lo + vwarp * 32; tok0 < hi; tok0 += n_vwarps * 32) {
-    const int tok = tok0 + lane;
-    const bool valid = tok < hi;
-    int64_t kb = 0, vb = 0;
-    if (valid) {
-      const int64_t page = table[static_cast<int64_t>(b) * nb + tok / bsz];
-      const int off = tok % bsz;
-      kb = ((page * hkv + h) * hd) * bsz + off;    // K[page, h, 0, off]
-      vb = ((page * hkv + h) * bsz + off) * hd;    // V[page, h, off, 0]
-    }
-    // score GEMV, outer-product flow: this lane's token against the G queries
-    float s[kG];
-#pragma unroll
-    for (int gi = 0; gi < kG; ++gi) s[gi] = 0.f;
-    if (valid) {
-      const TKV* kcol = k_pages + kb;
-      for (int d0 = 0; d0 < hd; d0 += kKUnroll) {
-        float kr[kKUnroll];
-#pragma unroll
-        for (int u = 0; u < kKUnroll; ++u)
-          kr[u] = d0 + u < hd ? to_f(kcol[static_cast<int64_t>(d0 + u) * bsz]) : 0.f;
-#pragma unroll
-        for (int u = 0; u < kKUnroll; ++u) {
-          const float* qd = qs + (d0 + u) * kG;
-#pragma unroll
-          for (int gi = 0; gi < kG; ++gi) s[gi] += qd[gi] * kr[u];
-        }
-      }
-    }
-    // online-softmax update; m and l are the same in every lane of the warp
-#pragma unroll
-    for (int gi = 0; gi < kG; ++gi) {
-      float x = s[gi] * scale;
-      if (has_cap) x = softcap * tanhf(x / softcap);
-      x = valid ? x : kNegInf;
-      const float m_new = fmaxf(m[gi], warp_max(x));
-      const float p = valid ? expf(x - m_new) : 0.f;
-      const float alpha = expf(m[gi] - m_new);
-      l[gi] = l[gi] * alpha + warp_sum(p);
-      m[gi] = m_new;
-      s[gi] = p;
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[gi][c] *= alpha;
-    }
-    // output GEMV, inner-product flow: lane d walks the tile's V rows
-    const int n_valid = min(32, hi - tok0);
-    for (int t0 = 0; t0 < n_valid; t0 += kPV) {
-      float vr[kPV][kDC];
-#pragma unroll
-      for (int u = 0; u < kPV; ++u) {
-        const int t = t0 + u;
-        const int64_t vrow = __shfl_sync(kFull, static_cast<long long>(vb), t & 31);
-#pragma unroll
-        for (int c = 0; c < kDC; ++c) {
-          const int d = lane + 32 * c;
-          vr[u][c] = (t < n_valid && d < hd) ? to_f(v_pages[vrow + d]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kPV; ++u) {
-#pragma unroll
-        for (int gi = 0; gi < kG; ++gi) {
-          const float p = __shfl_sync(kFull, s[gi], (t0 + u) & 31);
-#pragma unroll
-          for (int c = 0; c < kDC; ++c) acc[gi][c] += p * vr[u][c];
-        }
-      }
-    }
-  }
-
-  // merge 1: the warps of this block, in warp order
-#pragma unroll
-  for (int gi = 0; gi < kG; ++gi) {
-    if (lane == 0) {
-      wm[warp * kG + gi] = m[gi];
-      wl[warp * kG + gi] = l[gi];
-    }
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd) wacc[(warp * kG + gi) * hd + d] = acc[gi][c];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < g * hd; i += kWarps * 32) {
-    const int gi = i / hd, d = i - gi * hd;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * kG + gi]);
-    float lt = 0.f, o = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float a = expf(wm[w * kG + gi] - mx);
-      lt += wl[w * kG + gi] * a;
-      o += wacc[(w * kG + gi) * hd + d] * a;
-    }
-    bacc[gi * hd + d] = o;
-    if (d == 0) {
-      bm[gi] = mx;
-      bl[gi] = lt;
-    }
-  }
-  cluster.sync();   // every block's partial is in its shared memory
-
-  // merge 2: the blocks of the cluster, in rank order, read by rank 0
-  if (rank == 0) {
-    for (int i = tid; i < g * hd; i += kWarps * 32) {
-      const int gi = i / hd;
-      float mx = kNegInf;
-      for (int r = 0; r < n_ranks; ++r) mx = fmaxf(mx, cluster.map_shared_rank(bm, r)[gi]);
-      float lt = 0.f, o = 0.f;
-      for (int r = 0; r < n_ranks; ++r) {
-        const float a = expf(cluster.map_shared_rank(bm, r)[gi] - mx);
-        lt += cluster.map_shared_rank(bl, r)[gi] * a;
-        o += cluster.map_shared_rank(bacc, r)[i] * a;
-      }
-      const int64_t part = bh * n_splits + si;
-      acc_out[part * g * hd + i] = o;
-      if (i - gi * hd == 0) {
-        m_out[part * g + gi] = mx;
-        l_out[part * g + gi] = lt;
-      }
-    }
-  }
-  cluster.sync();   // keep every block's shared memory alive until rank 0 has read it
-}
-
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps>
-__global__ void __launch_bounds__(kWarps * 32) paged_decode_split_kernel(REPRO_SPLIT_PARAMS) {
-  split_body<TQ, TKV, kG, kDC, kWarps>(q, k_pages, v_pages, table, start, end, acc_out, m_out,
-                                       l_out, hkv, g, hd, bsz, nb, bps, scale, softcap,
-                                       has_cap);
-}
-
-// Stage 2: associative merge of per-split partials. One block per (lane, head,
-// query head), one thread per d.
-__global__ void merge_splits_kernel(const float* __restrict__ acc, const float* __restrict__ m,
-                                    const float* __restrict__ l, float* __restrict__ out,
-                                    int n_splits, int g, int hd) {
-  const int row = blockIdx.x;            // (b * Hkv + h) * G + gi
-  const int gi = row % g;
-  const int64_t bh = row / g;
-  const int d = threadIdx.x;
-  float m_max = kNegInf;
-  for (int s = 0; s < n_splits; ++s) m_max = fmaxf(m_max, m[(bh * n_splits + s) * g + gi]);
-  float l_tot = 0.f, o = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const int64_t part = bh * n_splits + s;
-    const float alpha = expf(m[part * g + gi] - m_max);
-    l_tot += l[part * g + gi] * alpha;
-    if (d < hd) o += acc[(part * g + gi) * hd + d] * alpha;
-  }
-  if (d < hd) out[row * static_cast<int64_t>(hd) + d] = o / (l_tot > 0.f ? l_tot : 1.f);
-}
-
-template <typename TQ, typename TKV, int kG, int kDC, int kWarps>
-int launch_split_typed(const void* q, const void* kp, const void* vp, const void* table,
-                       const void* start, const void* end, void* acc, void* m, void* l,
-                       int batch, int hkv, int g, int hd, int bsz, int nb, int bps, int n_splits,
-                       float scale, float softcap, int has_cap, cudaStream_t s) {
-  const size_t smem = sizeof(float) * split_smem_floats(kG, kWarps, hd);
-  auto kern = paged_decode_split_kernel<TQ, TKV, kG, kDC, kWarps>;
-  static size_t smem_set = 0;   // per instantiation: raise the opt-in limit once
-  if (smem > 48 * 1024 && smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
-  }
-  // cluster size: enough warps for one 32-token tile each when a split is full,
-  // as a power of two up to the portable limit
-  const int tiles = (bps * bsz + 31) / 32;
-  int cluster = 1;
-  while (cluster < kMaxCluster && cluster * kWarps < tiles) cluster *= 2;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, batch * hkv, n_splits);
-  cfg.blockDim = dim3(kWarps * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(start), static_cast<const int*>(end), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), hkv, g, hd, bsz, nb, bps, scale, softcap,
-      has_cap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename TQ, typename TKV>
-int launch_split_shaped(const void* q, const void* kp, const void* vp, const void* table,
-                        const void* start, const void* end, void* acc, void* m, void* l,
-                        int batch, int hkv, int g, int hd, int bsz, int nb, int bps,
-                        int n_splits, float scale, float softcap, int has_cap, cudaStream_t s) {
-#define REPRO_SHAPE(KG, KDC, KW)                                                          \
-  return launch_split_typed<TQ, TKV, KG, KDC, KW>(q, kp, vp, table, start, end, acc, m, l, \
-                                                  batch, hkv, g, hd, bsz, nb, bps,        \
-                                                  n_splits, scale, softcap, has_cap, s)
-  if (g == 1 && hd <= 128) REPRO_SHAPE(1, 4, 8);
-  if (g <= 4 && hd <= 128) REPRO_SHAPE(4, 4, 8);
-  REPRO_SHAPE(16, 8, 4);
-#undef REPRO_SHAPE
 }
 
 }  // namespace
@@ -1164,29 +949,22 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
                                    void* out, void* ws, int batch, int hkv, int g, int hd,
                                    int bsz, int nb, int n_pages, float scale, float softcap,
                                    int has_cap, int q_f32, int kv_f32, void* stream) {
-  return launch_single<true>(q, kp, vp, table, start, end, out, ws, batch, hkv, g, hd, bsz, nb,
-                             n_pages, scale, softcap, has_cap, q_f32, kv_f32, stream);
+  return launch_typed<true, false>(q, kp, vp, table, start, end, out, ws, batch, hkv, g, hd,
+                                   bsz, nb, n_pages, 0, 0, scale, softcap, has_cap, q_f32,
+                                   kv_f32, stream);
 }
 
-// B2 stage 1: unnormalized partials acc (B, Hkv, S, G, hd), m and l (B, Hkv, S, G).
+// B2 stage 1 over n_splits splits of bps blocks (the caller applies the realized-split
+// rule): the unnormalized partials in one buffer ``parts``, acc (B, Hkv, S, G, hd),
+// then m and l (B, Hkv, S, G); a dead split holds the identity partial.
 extern "C" int paged_split_launch(const void* q, const void* kp, const void* vp,
                                   const void* table, const void* start, const void* end,
-                                  void* acc, void* m, void* l, int batch, int hkv, int g,
-                                  int hd, int bsz, int nb, int bps, int n_splits, float scale,
-                                  float softcap, int has_cap, int q_f32, int kv_f32,
-                                  void* stream) {
-  if (hd < 1 || hd > 256 || g < 1 || g > 16 || bsz < 1 || n_splits < 1 || bps < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(TQ, TKV)                                                              \
-  return launch_split_shaped<TQ, TKV>(q, kp, vp, table, start, end, acc, m, l, batch, hkv, \
-                                      g, hd, bsz, nb, bps, n_splits, scale, softcap,       \
-                                      has_cap, s)
-  if (q_f32 && kv_f32) REPRO_LAUNCH(float, float);
-  if (q_f32) REPRO_LAUNCH(float, __nv_bfloat16);
-  if (kv_f32) REPRO_LAUNCH(__nv_bfloat16, float);
-  REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-#undef REPRO_LAUNCH
+                                  void* parts, int batch, int hkv, int g, int hd, int bsz, int nb,
+                                  int n_pages, int bps, int n_splits, float scale, float softcap,
+                                  int has_cap, int q_f32, int kv_f32, void* stream) {
+  return launch_typed<true, true>(q, kp, vp, table, start, end, nullptr, parts, batch, hkv, g,
+                                  hd, bsz, nb, n_pages, bps, n_splits, scale, softcap, has_cap,
+                                  q_f32, kv_f32, stream);
 }
 
 // B4: single pass over contiguous lanes, K (B, Hkv, hd, Lmax) and V (B, Hkv, Lmax, hd);
@@ -1197,18 +975,20 @@ extern "C" int contig_decode_launch(const void* q, const void* k, const void* v,
                                     int batch, int hkv, int g, int hd, int lmax, float scale,
                                     float softcap, int has_cap, int q_f32, int kv_f32,
                                     void* stream) {
-  return launch_single<false>(q, k, v, nullptr, start, end, out, ws, batch, hkv, g, hd, lmax, 1,
-                              batch, scale, softcap, has_cap, q_f32, kv_f32, stream);
+  return launch_typed<false, false>(q, k, v, nullptr, start, end, out, ws, batch, hkv, g, hd,
+                                    lmax, 1, batch, 0, 0, scale, softcap, has_cap, q_f32, kv_f32,
+                                    stream);
 }
 
-// B2 stage 2: merged, normalized f32 output (B, Hkv, G, hd).
+// B2 stage 2: any (B, Hkv, S, G) partials merged into the normalized f32 output
+// (B, Hkv, G, hd), launched as a programmatic dependent of the kernel before it.
 extern "C" int merge_splits_launch(const void* acc, const void* m, const void* l, void* out,
                                    int batch, int hkv, int n_splits, int g, int hd,
                                    void* stream) {
-  if (hd < 1 || hd > 1024 || n_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = ((hd + 31) / 32) * 32;
-  merge_splits_kernel<<<batch * hkv * g, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(acc), static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<float*>(out), n_splits, g, hd);
-  return static_cast<int>(cudaGetLastError());
+  if (hd < 1 || hd > 1024 || g < 1 || n_splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_merge(true, static_cast<const float*>(acc), static_cast<const float*>(m),
+                      static_cast<const float*>(l), nullptr, nullptr, static_cast<float*>(out),
+                      batch * hkv * g, hkv, g, hd, 0, n_splits,
+                      static_cast<cudaStream_t>(stream));
 }

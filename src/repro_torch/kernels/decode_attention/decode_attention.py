@@ -10,10 +10,16 @@ tensors, and counts its launches in ``<wrapper>.launches``:
 * :func:`decode_attention_paged` — single-pass flash decode over pages (JAX
   ``decode_attention_paged``);
 * :func:`split_partials` — stage 1 of the split-KV reduction
-  (JAX ``decode_attention_paged_split``'s Pallas call);
-* :func:`merge_splits` — stage 2, the associative merge (JAX ``ref.merge_splits``).
+  (JAX ``decode_attention_paged_split``'s Pallas call): the single pass's
+  chunked walk, one block per (lane, kv head, split), writing every split's
+  unnormalized ``(acc, m, l)`` (the identity partial for a dead split) into
+  one buffer that the wrapper returns as three views;
+* :func:`merge_splits` — stage 2, the associative merge (JAX ``ref.merge_splits``):
+  the single pass's chunk merge over all the splits of each row, launched as
+  a programmatic dependent of the kernel before it.
 
-:func:`decode_attention_paged_split` chains the last two.
+:func:`decode_attention_paged_split` chains the last two; each still counts
+its own launch.
 """
 from __future__ import annotations
 
@@ -36,8 +42,7 @@ def _lib():
     lib.decode_chunk_tokens.restype = I32
     lib.paged_decode_launch.argtypes = [VP] * 8 + [I32] * 7 + [F32, F32] + [I32] * 3 + [VP]
     lib.paged_decode_launch.restype = I32
-    lib.paged_split_launch.argtypes = ([VP] * 9 + [I32] * 8 + [F32, F32]
-                                       + [I32] * 3 + [VP])
+    lib.paged_split_launch.argtypes = [VP] * 7 + [I32] * 9 + [F32, F32] + [I32] * 3 + [VP]
     lib.paged_split_launch.restype = I32
     lib.merge_splits_launch.argtypes = [VP] * 4 + [I32] * 5 + [VP]
     lib.merge_splits_launch.restype = I32
@@ -160,20 +165,21 @@ def split_partials(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor
         q, k_pages, v_pages, end, start, block_table)
     b, hkv, g, hd = q.shape
     bps, n_splits = ref.realized_splits(table.shape[1], num_splits)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty((b, hkv, n_splits, g, hd), **f32)
-    m = torch.empty((b, hkv, n_splits, g), **f32)
-    l = torch.empty((b, hkv, n_splits, g), **f32)
+    # one buffer, as the kernel writes it: acc, then m, then l
+    n = b * hkv * n_splits * g
+    parts = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
     cap, has_cap = _cap(softcap)
     code = _lib().paged_split_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-        start_b.data_ptr(), end_b.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, hkv, g, hd, k_pages.shape[-1], table.shape[1], bps, n_splits, float(scale),
+        start_b.data_ptr(), end_b.data_ptr(), parts.data_ptr(), b, hkv, g, hd,
+        k_pages.shape[-1], table.shape[1], k_pages.shape[0], bps, n_splits, float(scale),
         cap, has_cap, int(q.dtype == torch.float32), int(k_pages.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention_paged_split")
     split_partials.launches += 1
-    return acc, m, l
+    acc, m, l = parts.split([n * hd, n, n])
+    return (acc.view(b, hkv, n_splits, g, hd), m.view(b, hkv, n_splits, g),
+            l.view(b, hkv, n_splits, g))
 
 
 def merge_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:

@@ -107,6 +107,8 @@ def live_ranges(lmax, edges, dev):
     (4, 128, 8, 256, torch.bfloat16, None, False),    # lanes of 8 chunks
     (4, 128, 8, 37, torch.bfloat16, None, False)])    # the paged llama3-8b serve's tables
 def test_paged_decode_matches_plain(dev, gen, g, hd, bsz, nb, dtype, cap, edges):
+    """B1, and B2 at 2, 4, 5 and 64 splits (4 splits of the 37-block tables are
+    80 tokens each, cut mid-tile)."""
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
@@ -119,7 +121,7 @@ def test_paged_decode_matches_plain(dev, gen, g, hd, bsz, nb, dtype, cap, edges)
                                           start=start)
     torch.testing.assert_close(out, want, **TOL)
     assert not out[2].any()
-    for s in (2, 5, 64):
+    for s in (2, 4, 5, 64):
         acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=s,
                                       scale=hd ** -0.5, softcap=cap)
         racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, s, hd ** -0.5, cap,
@@ -130,6 +132,49 @@ def test_paged_decode_matches_plain(dev, gen, g, hd, bsz, nb, dtype, cap, edges)
         torch.testing.assert_close(merged, ref.merge_splits(acc, m, l), **TOL)
         torch.testing.assert_close(merged, want, **TOL)
         assert not merged[2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])   # tensor / CUDA cores
+@pytest.mark.parametrize("nb,splits,end,start,cap", [
+    # 4 splits of 80 tokens: lane 0 starts at 70, so the boundary at 80 falls inside
+    # its first tile [64, 96); lane 1 leaves three splits dead; lane 2 is all dead;
+    # lane 3 lives in split 2 only, from inside a tile to inside another
+    (37, 4, [296, 45, 0, 239], [70, 0, 0, 161], 30.0),
+    # 4 splits of 512 tokens (two chunks each) at the kernel-bench fills
+    (256, 4, [2048, 777, 0, 300], [0, 0, 0, 100], None),
+    # 3 realized splits of 104, 104 and 88 tokens, each boundary mid-tile
+    (37, 3, [296, 100, 0, 296], [1, 99, 0, 200], None)])
+def test_split_partials_match_plain(dev, gen, dtype, nb, splits, end, start, cap):
+    """B2 stage 1 and the merge against their plain versions on both walks, with
+    dead splits (the exact identity partial), an all-dead lane (zeros after the
+    merge), a softcap and start > 0; one launch of each wrapper."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv, g, hd, bsz = 4, 2, 4, 128, 8
+    q, kp, vp, table = paged(gen, dev, b, hkv, g, hd, bsz, nb, dtype)
+    end = torch.tensor(end, dtype=torch.int32, device=dev)
+    start = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = (da.split_partials.launches, da.merge_splits.launches)
+    acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=splits,
+                                  scale=hd ** -0.5, softcap=cap)
+    merged = da.merge_splits(acc, m, l)
+    torch.cuda.synchronize()
+    assert (da.split_partials.launches, da.merge_splits.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, splits, hd ** -0.5, cap,
+                                          start=start)
+    assert acc.shape == racc.shape and m.shape == rm.shape and l.shape == rl.shape
+    for a, r in ((acc, racc), (m, rm), (l, rl)):
+        torch.testing.assert_close(a, r, **TOL)
+    dead = rl == 0
+    assert dead.any() and not dead.all()
+    assert bool((l[dead] == 0).all()) and bool((m[dead] == ref.NEG_INF).all())
+    assert not acc[dead].any()
+    torch.testing.assert_close(merged, ref.merge_splits(racc, rm, rl), **TOL)
+    want = ref.decode_attention_paged_ref(q, kp, vp, table, end, hd ** -0.5, cap, start=start)
+    torch.testing.assert_close(merged, want, **TOL)
+    assert not merged[2].any() and not merged.isnan().any()
 
 
 def test_attention_refuses_unsupported_shapes(dev, gen):
@@ -233,6 +278,28 @@ def test_single_pass_is_batch_invariant(dev, gen, layout, g, hd, span):
     batch = run(slice(None))
     for i in range(b):
         assert torch.equal(run(slice(i, i + 1)), batch[i:i + 1]), f"lane {i}"
+
+
+@pytest.mark.parametrize("nb", [256, 125, 37])
+def test_split_is_batch_invariant(dev, gen, nb):
+    """B2 at 4 splits: each lane of a batch of 4 with other fills gives the same
+    partials and merged bits as the lane computed alone, at the same table width."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    b, hkv, g, hd, bsz = 4, 2, 4, 128, 8
+    span = nb * bsz
+    end = torch.tensor([span, span // 3 + 5, 0, span - 7], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 3, 0, span // 2 + 1], dtype=torch.int32, device=dev)
+    q, kp, vp, table = paged(gen, dev, b, hkv, g, hd, bsz, nb, torch.bfloat16)
+
+    def run(i):
+        parts = da.split_partials(q[i], kp, vp, table[i], end[i], start[i], num_splits=4,
+                                  scale=hd ** -0.5)
+        return [*parts, da.merge_splits(*parts)]
+    batch = run(slice(None))
+    for i in range(b):
+        for alone, full in zip(run(slice(i, i + 1)), batch):
+            assert torch.equal(alone, full[i:i + 1]), f"lane {i}"
 
 
 def test_contiguous_decode_refuses_bad_operands(dev, gen):
