@@ -13,9 +13,14 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    paged attention kernels (llama3-8b), the contiguous attention kernel
    (llama3-8b, G 4 / hd 128, and zamba2-7b, G 1 / hd 112) and the SSD scan
    (zamba2-7b's H 112, P 64, N 64, chunk 256, also against the model's own
-   ``ssd_chunked``) within the f32 tolerances below; the single-pass kernels
-   (paged and contiguous) and the split pair must also give each lane of a
-   batch the same bits as that lane computed alone. ``kernel_time`` lines give
+   ``ssd_chunked``, and at three times the log decays) within the f32
+   tolerances below; the single-pass kernels (paged and contiguous), the split
+   pair and the scan must also give each lane of a batch the same bits as that
+   lane computed alone. The scan is a scores kernel per (lane, 32-step
+   sub-chunk) and a walk per (head, 64 state rows, lane) with its products on
+   the tensor cores as three TF32 products each; its bound is its bytes, and
+   its line also gives the earlier f32-core bound and the model's own scan
+   (``chunked_torch_ms``). ``kernel_time`` lines give
    each kernel's time beside its bound, its plain version's time and one
    PyTorch library call's time (a yardstick the port never calls), the split
    pair's (stage 1 + merge) time, and the paged kernels' and B4's times at the
@@ -58,6 +63,11 @@ zamba2-7b), with the serves' checks. Run from two checkouts in turn
 builds the kernels and prints only the attention ``kernel_time`` lines (B1,
 B2 stage 1, the merge and the pair; B4), to compare builds of the attention
 kernels in one call.
+
+    python3 chip_smoke.py --ssd
+
+builds the kernels and prints only the SSD scan's ``kernel_time`` and
+``kernel_check`` lines (B5), to compare builds of the scan in one call.
 """
 from __future__ import annotations
 
@@ -80,7 +90,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
+TF32_PIECES = 3                 # the SSD kernel's products: lo*hi + hi*lo + hi*hi
 L2_BYTES = 50 * 2**20
 
 # attention tolerance: kernel and plain version both accumulate in f32, but the
@@ -623,101 +635,151 @@ def time_contig_attention(gen, dev) -> dict:
 
 SSD_H, SSD_P, SSD_N, SSD_Q = 112, 64, 64, 256   # zamba2-7b: d_inner 7168 / 64, chunk 256
 SSD_T = 2048
+SSD_STRONG = 3.0     # the strong-decay case: log decays three times the test's
 
 
-def ssd_inputs(gen, dev, b, t):
+def ssd_inputs(gen, dev, b, t, decay=1.0):
     """Scan operands at zamba2's widths, drawn as the JAX package's own scan
-    test draws them (tests/test_kernels.py): log decays -|N(0, 1)| * 0.3."""
+    test draws them (tests/test_kernels.py): log decays -|N(0, 1)| * 0.3
+    (times ``decay``)."""
     x = torch.randn((b, t, SSD_H, SSD_P), generator=gen, device=dev) * 0.5
-    a = -torch.randn((b, t, SSD_H), generator=gen, device=dev).abs() * 0.3
+    a = -torch.randn((b, t, SSD_H), generator=gen, device=dev).abs() * (0.3 * decay)
     bm = torch.randn((b, t, SSD_N), generator=gen, device=dev) * 0.5
     cm = torch.randn((b, t, SSD_N), generator=gen, device=dev) * 0.5
     s0 = torch.randn((b, SSD_H, SSD_P, SSD_N), generator=gen, device=dev) * 0.1
     return x, a, bm, cm, s0
 
 
-def ssd_work(b, t) -> dict:
-    """Work of one scan. ``bytes``: each input read once, y and the final
-    state written once. ``flops``: what the function needs, the smaller of
-    two ways to compute it, named in ``flops_by``. The recurrence (its
-    definition, ``ssd_scan_ref``) takes per step and head P*N decay
-    multiplies, P*N multiply-adds for the outer-product update and P*N for
-    the output: 5*P*N flops. The chunked algorithm (what the kernel runs)
-    takes the scores and intra-chunk product over the visible lower
-    triangle, the carried-state product and the state update, two flops per
-    multiply-add: ``chunked_flops``."""
-    q = min(SSD_Q, t)
+def chunked_flops(b, t, q, shared_scores: bool) -> int:
+    """Flops of the chunked algorithm at chunk ``q`` (two a multiply-add): the
+    scores C B^T and the masked intra-chunk product over the visible lower
+    triangle, the carried-state product and the state update; the scores
+    once per (lane, chunk) where they are shared by the heads."""
     n_chunks = -(-t // q)
     tri = q * (q + 1) // 2
-    chunked = 2 * n_chunks * b * SSD_H * (tri * SSD_N + tri * SSD_P + 2 * q * SSD_P * SSD_N)
+    scores = 2 * b * n_chunks * tri * SSD_N * (1 if shared_scores else SSD_H)
+    return scores + 2 * b * SSD_H * n_chunks * (tri * SSD_P + 2 * q * SSD_P * SSD_N)
+
+
+def ssd_work(b, t) -> dict:
+    """Work of one scan. ``bytes``: each input read once, y and the final
+    state written once. The operations, two ways: the recurrence (the
+    definition, ``ssd_scan_ref``) takes 5*P*N flops per step and head (decay,
+    outer-product update, output) on the f32 CUDA cores; the chunked products
+    at the kernel's sub-chunk (scores shared by the heads) take
+    ``chunked_flops``, run as three TF32 products on the tensor cores
+    (``tensor_flops``). The operations' least time is the faster of the two;
+    ``bound_f32_cores_ms`` keeps the bound earlier runs reported (the fewer
+    flops of the recurrence and the 256-chunk algorithm, all at the f32 rate)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    sub = getattr(ss, "SUB_CHUNK", 32)
     recurrence = 5 * b * t * SSD_H * SSD_P * SSD_N
+    chunked = chunked_flops(b, t, sub, shared_scores=True)
+    tensor = TF32_PIECES * chunked
     nbytes = 4 * (b * t * SSD_H * SSD_P * 2 + b * t * SSD_H + 2 * b * t * SSD_N
                   + 2 * b * SSD_H * SSD_P * SSD_N)
-    return {"bytes": nbytes, "flops": min(recurrence, chunked),
-            "flops_by": "recurrence" if recurrence <= chunked else "chunked",
-            "recurrence_flops": recurrence, "chunked_flops": chunked}
+    ops, peak, ops_by = min((tensor, PEAK_TF32_FLOPS, "tensor cores, TF32 x3"),
+                            (recurrence, PEAK_F32_FLOPS, "f32 cores, recurrence"),
+                            key=lambda o: o[0] / o[1])
+    bnd, by = bound(nbytes, ops, peak)
+    old = min(recurrence, chunked_flops(b, t, min(SSD_Q, t), shared_scores=False))
+    return {"bytes": nbytes, "recurrence_flops": recurrence, "sub_chunk": sub,
+            "chunked_flops": chunked, "tensor_flops": tensor, "ops_by": ops_by,
+            "ops_ms": 1e3 * ops / peak, "bound_ms": bnd, "bound_by": by,
+            "bound_f32_cores_ms": bound(nbytes, old, PEAK_F32_FLOPS)[0]}
 
 
 def check_ssd_scan(gen, dev) -> float:
     """The kernel against the sequential recurrence (the definition) and the
-    model's ``ssd_chunked`` over the same chunks. A T that is not a multiple
-    of the chunk is padded to it on the kernel's path (zero-decay steps),
-    while ``ssd_chunked`` scans such a T as ONE chunk (ssm.py's fallback), a
-    different chunking whose f32 exp of cumulative log decays over a
-    thousand steps loses digits of its own; so the ragged case holds the
-    kernel against ``ssd_chunked`` over the padded sequence, and the line
-    reports the one-chunk fallback's own distance from the recurrence."""
+    model's ``ssd_chunked``. A T that is not a multiple of the chunk is padded
+    to it on the kernel's path (zero-decay steps), while ``ssd_chunked`` scans
+    such a T as ONE chunk (ssm.py's fallback), whose f32 exp of cumulative log
+    decays over a thousand steps loses digits of its own; so the ragged case
+    holds the kernel against ``ssd_chunked`` over the padded sequence. The
+    strong-decay case (log decays three times the test's, a step of -2.7 at
+    three sigma) loses digits the same way at chunk 256, where cumulative log
+    decays reach some -180, so it holds the kernel against ``ssd_chunked``
+    over the kernel's own 32-step chunks. Each line that is not held reports
+    its distance from the recurrence beside. Every comparison also reports its
+    largest share of the tolerance, |err| / (atol + rtol |want|). Each lane of
+    the B = 4 batch must have the same bits computed alone."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.kernels.ssd_scan.ops import pad_to_chunk, ssd_scan_op
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models.ssm import ssd_chunked
 
+    sub = getattr(ss, "SUB_CHUNK", 32)
     worst = 0.0
     errs = {}
-    for b, t in ((1, SSD_T), (4, SSD_T), (2, 1000)):     # 1000 % 256 != 0: the pad path
-        x, a, bm, cm, s0 = ssd_inputs(gen, dev, b, t)
+    cases = ((1, SSD_T, 1.0, SSD_Q), (4, SSD_T, 1.0, SSD_Q), (2, 1000, 1.0, SSD_Q),
+             (2, SSD_T, SSD_STRONG, sub))     # 1000 % 256 != 0: the pad path
+    for b, t, decay, q_model in cases:
+        x, a, bm, cm, s0 = ssd_inputs(gen, dev, b, t, decay)
         y, s = ssd_scan_op(x, a, bm, cm, s0, chunk=SSD_Q)
         yr, sr = ssd_scan_ref(x, a, bm, cm, s0)
-        yc, sc = ssd_chunked(*pad_to_chunk(x, a, bm, cm, SSD_Q), SSD_Q, s0)
+        yc, sc = ssd_chunked(*pad_to_chunk(x, a, bm, cm, q_model), q_model, s0)
         yc = yc[:, :t]
         torch.cuda.synchronize()
+        tag = f"B={b} T={t}" + (f" decay x{decay:g}" if decay != 1.0 else "")
         for what, got, want in (("y vs ssd_scan_ref", y, yr), ("state vs ssd_scan_ref", s, sr),
-                                ("y vs ssd_chunked", y, yc), ("state vs ssd_chunked", s, sc)):
-            err = float((got - want).abs().max())
+                                (f"y vs ssd_chunked at chunk {q_model}", y, yc),
+                                (f"state vs ssd_chunked at chunk {q_model}", s, sc)):
+            diff = (got - want).abs()
+            err = float(diff.max())
+            share = float((diff / (SSD_ATOL + SSD_RTOL * want.abs())).max())
             worst = max(worst, err)
-            errs[f"B={b} T={t} {what}"] = err
+            errs[f"{tag} {what}"] = [err, share]
             if not torch.allclose(got, want, rtol=SSD_RTOL, atol=SSD_ATOL):
-                raise AssertionError(f"ssd_scan B={b} T={t} {what}: max |err| {err} outside "
+                raise AssertionError(f"ssd_scan {tag} {what}: max |err| {err} outside "
                                      f"rtol={SSD_RTOL} atol={SSD_ATOL}")
-        if t % SSD_Q:
-            y1, _ = ssd_chunked(x, a, bm, cm, SSD_Q, s0)     # one chunk of T
-            errs[f"B={b} T={t} ssd_chunked one-chunk fallback vs ssd_scan_ref (not held)"] = \
+        if t % SSD_Q or q_model != SSD_Q:
+            y1, _ = ssd_chunked(x, a, bm, cm, SSD_Q, s0)    # the model's own chunking
+            how = "one-chunk fallback" if t % SSD_Q else f"at chunk {SSD_Q}"
+            errs[f"{tag} ssd_chunked {how} vs ssd_scan_ref (not held)"] = \
                 float((y1 - yr).abs().max())
             del y1
+        if b == SLOTS:
+            for k, out in ((0, y), (1, s)):
+                check_batch_invariant(
+                    f"ssd_scan {'y' if k == 0 else 'state'}",
+                    lambda i, k=k: ssd_scan_op(x[i], a[i], bm[i], cm[i], s0[i],
+                                               chunk=SSD_Q)[k], out, b)
         del x, a, bm, cm, s0, y, s, yr, sr, yc, sc
     emit({"phase": "kernel_check", "kernel": "ssd_scan", "h": SSD_H, "p": SSD_P, "n": SSD_N,
-          "chunk": SSD_Q, "cases": [[1, SSD_T], [4, SSD_T], [2, 1000]],
+          "chunk": SSD_Q, "cases": [list(c) for c in cases],
           "against": ["ssd_scan_ref", "ssd_chunked"], "rtol": SSD_RTOL, "atol": SSD_ATOL,
-          "max_abs_err": worst, "errors": errs})
+          "batch_invariant": True, "max_abs_err": worst, "errors": errs})
     return worst
 
 
 def time_ssd_scan(gen, dev) -> dict:
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    """B5 at zamba2's scan (B = 4, T 2048): the kernel, its plain version, and
+    the model's own scan ``ssd_chunked`` (f32 einsums at chunk 256; what
+    zamba2 runs, not a library call) as ``chunked_torch_ms``."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.ssm import ssd_chunked
 
     b = SLOTS
     work = ssd_work(b, SSD_T)
     sets = [ssd_inputs(gen, dev, b, SSD_T) for _ in range(copies_for(work["bytes"]))]
-    bnd, by = bound(work["bytes"], work["flops"], PEAK_F32_FLOPS)
-    row = {"ms": cuda_ms([lambda st=st: ssd_scan(*st, chunk=SSD_Q) for st in sets], 20),
+    row = {"ms": cuda_ms([lambda st=st: ss.ssd_scan(*st, chunk=SSD_Q) for st in sets], 20),
            "plain_ms": cuda_ms([lambda st=st: ssd_scan_ref(*st) for st in sets[:2]], 2),
+           "chunked_torch_ms": cuda_ms(
+               [lambda st=st: ssd_chunked(*st[:4], SSD_Q, st[4]) for st in sets[:2]], 2),
            "library_ms": None,
-           "library_note": "no single PyTorch call computes the SSD scan",
-           "bound_ms": bnd, "bound_by": by}
+           "library_note": "no single PyTorch call computes the SSD scan; chunked_torch_ms "
+                           "is the model's own scan, not a library call",
+           "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
+    occupancy = getattr(ss, "blocks_per_sm", None)
     emit({"phase": "kernel_time", "kernel": "ssd_scan", "b": b, "t": SSD_T, "h": SSD_H,
           "p": SSD_P, "n": SSD_N, "chunk": SSD_Q, **work, **row,
-          "roofline_share": bnd / row["ms"],
-          "algorithm_f32_TFLOPs": work["chunked_flops"] / row["ms"] / 1e9})
+          "roofline_share": work["bound_ms"] / row["ms"],
+          "share_of_f32_cores_bound": work["bound_f32_cores_ms"] / row["ms"],
+          "tensor_TFLOPs": work["tensor_flops"] / row["ms"] / 1e9,
+          "HBM_TBs": work["bytes"] / row["ms"] / 1e9,
+          "walk_blocks_per_sm": occupancy() if occupancy else None})
     return row
 
 
@@ -1155,8 +1217,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--ab"], ["--attn"]):
-        print(f"usage: {sys.argv[0]} [--ab | --attn]", file=sys.stderr)
+    if argv not in ([], ["--ab"], ["--attn"], ["--ssd"]):
+        print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1179,6 +1241,10 @@ def main(argv: list[str]) -> int:
     if argv == ["--attn"]:
         time_attention(gen, dev)
         time_contig_attention(gen, dev)
+        return 0
+    if argv == ["--ssd"]:      # timed first, so a build that fails its check still has a time
+        time_ssd_scan(gen, dev)
+        check_ssd_scan(gen, dev)
         return 0
     if argv == ["--ab"]:
         host_cost(gen, dev)
@@ -1209,9 +1275,10 @@ def main(argv: list[str]) -> int:
             "merge_splits": "as above, 4 splits (stage 2)",
             "ssd_scan": f"zamba2-7b's scan, B={SLOTS}, T={SSD_T}, H={SSD_H}, P={SSD_P}, "
                         f"N={SSD_N}, chunk {SSD_Q}, f32; on no model path (as in the JAX "
-                        f"package), so 0 launches there; bound_ms from the 5*P*N flops per "
-                        f"step and head the recurrence needs, fewer than the chunked "
-                        f"algorithm's; no PyTorch library call computes it"}
+                        f"package), so 0 launches there; bound_ms from the bytes, above "
+                        f"the chunked products at the kernel's sub-chunk as three TF32 "
+                        f"products on the tensor cores; no PyTorch library call computes "
+                        f"it (the model's own ssd_chunked is timed as chunked_torch_ms)"}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         t = times[name]

@@ -1,7 +1,8 @@
-"""Wrapper of the CUDA SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the CUDA SSD chunked-scan kernels (``csrc/ssd_scan.cu``).
 
 CPU tensors take the plain version (:func:`ref.ssd_scan_ref`); CUDA tensors
-launch the kernel or raise. ``ssd_scan.launches`` counts kernel launches.
+launch the kernels or raise. ``ssd_scan.launches`` counts calls that launched
+(each launches the per-lane scores kernel, then the per-head walk).
 """
 from __future__ import annotations
 
@@ -12,32 +13,39 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-THREADS = 256            # the kernel's block; a chunk's cumsum takes one thread a step
-ROW_TILE = 32            # output rows per intra-chunk tile
-MAX_SMEM_BYTES = 232448  # dynamic shared memory a block may use on the H100
+SUB_CHUNK = 32      # steps of the kernel's own sub-chunk, whatever the caller's chunk
+MAX_N = 64          # state columns the kernel holds in registers
+ROW_FLOATS = 64     # floats of an x, b or c row in shared memory
 
 
-def smem_bytes(q: int, p: int, n: int) -> int:
-    """Shared memory of one block: the chunk's x and b tiles, a c row tile,
-    the decay-masked score tile, the (P, N) state and two (Q,) decay rows
-    (row strides padded by one float against bank conflicts)."""
-    return 4 * (q * (p + 1) + q * (n + 1) + ROW_TILE * (n + 1) + ROW_TILE * q
-                + p * (n + 1) + 2 * q)
+def smem_bytes() -> int:
+    """Shared memory of one walk block: two stages of x, b and c tiles
+    (SUB_CHUNK x 64 floats each) and a (SUB_CHUNK, SUB_CHUNK) score tile."""
+    return 2 * 4 * (3 * SUB_CHUNK * ROW_FLOATS + SUB_CHUNK * SUB_CHUNK)
 
 
 @functools.lru_cache(maxsize=None)
 def _bind():
     fn = _build.library("ssd_scan").ssd_scan_launch
-    fn.argtypes = [_build.VP] * 7 + [_build.I32] * 6 + [_build.VP]
+    fn.argtypes = [_build.VP] * 8 + [_build.I32] * 6 + [_build.VP]
     fn.restype = _build.I32
     return fn
+
+
+def blocks_per_sm() -> int:
+    """Walk blocks resident on one SM by the occupancy calculator (its
+    shared-memory attributes are set at the first launch, so ask after one)."""
+    fn = _build.library("ssd_scan").ssd_scan_blocks_per_sm
+    fn.argtypes = [_build.I32]
+    fn.restype = _build.I32
+    return fn(1)
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              s0: torch.Tensor, *, chunk: int):
     """x (B,T,H,P); a (B,T,H); b, c (B,T,N); s0 (B,H,P,N) -> y (B,T,H,P) f32,
     s_final (B,H,P,N) f32. On CUDA, T must be a multiple of ``chunk`` (the op
-    pads) and every operand float32."""
+    pads), every operand float32 and N at most ``MAX_N``."""
     bb, t, h, p = x.shape
     n = b.shape[-1]
     if (tuple(a.shape) != (bb, t, h) or tuple(b.shape) != (bb, t, n)
@@ -54,16 +62,17 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if any(o.device != x.device for o in ops):
         raise ValueError("ssd_scan operands must share one CUDA device")
     q = int(chunk)
-    if not 1 <= q <= THREADS or t % q:
-        raise ValueError(f"chunk {q} must be in [1, {THREADS}] and divide T={t}")
-    if smem_bytes(q, p, n) > MAX_SMEM_BYTES:
-        raise ValueError(f"chunk {q} with P={p}, N={n} needs {smem_bytes(q, p, n)} bytes "
-                         f"of shared memory (> {MAX_SMEM_BYTES})")
+    if q < 1 or t < 1 or t % q:
+        raise ValueError(f"chunk {q} must be at least 1 and divide T={t}")
+    if n > MAX_N:
+        raise ValueError(f"ssd_scan kernel holds N <= {MAX_N} state columns, got N={n}")
     x, a, b, c, s0 = (o.contiguous() for o in ops)
     y = torch.empty((bb, t, h, p), dtype=torch.float32, device=x.device)
     s_fin = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
+    scores = torch.empty((bb, -(-t // SUB_CHUNK), SUB_CHUNK, SUB_CHUNK),
+                         dtype=torch.float32, device=x.device)
     code = _bind()(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), s0.data_ptr(),
-                   y.data_ptr(), s_fin.data_ptr(), bb, t, h, p, n, q,
+                   y.data_ptr(), s_fin.data_ptr(), scores.data_ptr(), bb, t, h, p, n, q,
                    torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ssd_scan")
     ssd_scan.launches += 1

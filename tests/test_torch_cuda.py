@@ -312,9 +312,9 @@ def test_contiguous_decode_refuses_bad_operands(dev, gen):
         da.decode_attention(q.half(), k.half(), v.half(), 4, scale=0.1)
 
 
-def ssd_inputs(gen, dev, b, t, h, p, n):
+def ssd_inputs(gen, dev, b, t, h, p, n, decay=1.0):
     x = torch.randn((b, t, h, p), generator=gen, device=dev) * 0.5
-    a = -torch.randn((b, t, h), generator=gen, device=dev).abs() * 0.3
+    a = -torch.randn((b, t, h), generator=gen, device=dev).abs() * (0.3 * decay)
     bm = torch.randn((b, t, n), generator=gen, device=dev) * 0.5
     cm = torch.randn((b, t, n), generator=gen, device=dev) * 0.5
     s0 = torch.randn((b, h, p, n), generator=gen, device=dev) * 0.1
@@ -326,32 +326,61 @@ def ssd_inputs(gen, dev, b, t, h, p, n):
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("b,t,h,p,n,q", [(2, 64, 3, 16, 8, 16), (1, 100, 2, 32, 16, 32),
-                                         (2, 512, 4, 64, 64, 256), (1, 24, 1, 64, 64, 8)])
-def test_ssd_scan_matches_plain(dev, gen, b, t, h, p, n, q):
-    """B5 against the sequential recurrence, the pad path (T 100, Q 32) included."""
+@pytest.mark.parametrize("b,t,h,p,n,q,decay", [
+    (2, 64, 3, 16, 8, 16, 1.0), (1, 100, 2, 32, 16, 32, 1.0),     # 100 % 32: the pad path
+    (2, 512, 4, 64, 64, 256, 1.0), (1, 24, 1, 64, 64, 8, 1.0),
+    (1, 96, 2, 24, 12, 32, 1.0),        # P and N not multiples of 16
+    (2, 80, 2, 64, 64, 8, 1.0),         # a chunk under the kernel's sub-chunk of 32
+    (1, 96, 2, 64, 64, 24, 1.0),        # a chunk that is not a multiple of it
+    (2, 1, 3, 64, 64, 256, 1.0),        # T = 1
+    (1, 40, 2, 32, 16, 256, 1.0),       # T under the chunk
+    (2, 512, 4, 64, 64, 256, 3.0),      # strong decays: three times the log decay
+    (2, 64, 4, 16, 16, 8, 1.0),         # zamba2 smoke's widths (configs/zamba2_7b.py)
+    (1, 64, 2, 100, 64, 64, 1.0),       # P over 64: two blocks of state rows a head
+    (1, 50, 2, 7, 5, 25, 1.0),          # P, N not multiples of 4: 4-byte copies
+])
+def test_ssd_scan_matches_plain(dev, gen, b, t, h, p, n, q, decay):
+    """B5 against the sequential recurrence."""
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    ops = ssd_inputs(gen, dev, b, t, h, p, n)
+    ops = ssd_inputs(gen, dev, b, t, h, p, n, decay)
     before = ss.ssd_scan.launches
     y, s = ssd_scan_op(*ops, chunk=q)
     yr, sr = ssd_scan_ref(*ops)
     torch.cuda.synchronize()
     assert ss.ssd_scan.launches == before + 1
+    assert tuple(y.shape) == (b, t, h, p) and tuple(s.shape) == (b, h, p, n)
     torch.testing.assert_close(y, yr, **SSD_TOL)
     torch.testing.assert_close(s, sr, **SSD_TOL)
 
 
+def test_ssd_scan_lane_alone_matches_the_batch(dev, gen):
+    """A lane scanned alone gives the same bits as that lane inside a batch."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+
+    ops = ssd_inputs(gen, dev, 3, 200, 4, 64, 64)
+    y, s = ssd_scan_op(*ops, chunk=64)
+    for i in range(3):
+        yi, si = ssd_scan_op(*(o[i:i + 1] for o in ops), chunk=64)
+        torch.cuda.synchronize()
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(si, s[i:i + 1]), f"lane {i}"
+
+
 def test_ssd_scan_refuses_bad_operands(dev, gen):
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import MAX_N, ssd_scan
 
     x, a, bm, cm, s0 = ssd_inputs(gen, dev, 1, 48, 2, 16, 8)
     with pytest.raises(ValueError):
         ssd_scan(x, a, bm, cm, s0, chunk=32)          # 48 % 32 != 0: the op pads, not the kernel
+    with pytest.raises(ValueError):
+        ssd_scan(x, a, bm, cm, s0, chunk=0)
     with pytest.raises(TypeError):
         ssd_scan(x.double(), a, bm, cm, s0, chunk=16)
+    x, a, bm, cm, s0 = ssd_inputs(gen, dev, 1, 16, 1, 8, MAX_N + 1)
+    with pytest.raises(ValueError):                   # the state's columns live in registers
+        ssd_scan(x, a, bm, cm, s0, chunk=16)
 
 
 def test_contiguous_and_hybrid_serves_on_the_card_go_through_b4(dev):

@@ -2,7 +2,9 @@
 
 Kernel B5 (SSD chunked scan): its plain version (the sequential recurrence)
 and the op's pad path against JAX ``ssd_scan_ref`` and the Pallas kernel in
-interpret mode. The model's own chunked scan (``ssd_chunked``, plain PyTorch
+interpret mode; the kernel's own arithmetic (``ssd_subchunk_ref``: sub-chunks
+of 32, operands in TF32 pieces) against both, showing that three TF32 pieces
+meet the f32 tolerance and one does not. The model's own chunked scan (``ssd_chunked``, plain PyTorch
 in both packages) against JAX ``ssd_chunked``, and its chunk invariance.
 Then ``ssm_forward`` / ``ssm_decode_step`` against JAX at an f32 smoke size.
 """
@@ -24,7 +26,8 @@ from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import pad_to_chunk, ssd_scan_op  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_scan_ref, ssd_subchunk_ref, tf32_round)
 from repro_torch.models import ssm as tssm  # noqa: E402
 
 
@@ -113,8 +116,100 @@ def test_ssd_scan_wrapper_refuses_meta_tensors():
     with pytest.raises(ValueError):
         ss.ssd_scan(x, a[:, :4], bm, cm, s0, chunk=8)      # shape mismatch
     assert launch_counts() == before
-    # the kernel's shared memory at zamba2's shapes fits one H100 block
-    assert ss.smem_bytes(256, 64, 64) <= ss.MAX_SMEM_BYTES
+    # the walk block's shared memory lets four blocks share an H100 SM (228 KB,
+    # 1 KB of it reserved a block), whatever the chunk or P
+    assert 4 * (ss.smem_bytes() + 1024) <= 233472
+
+
+# the kernel's arithmetic on the CPU: SCAN_CASES at the JAX test's decays, then
+# zamba2's P = N = 64 over T 2048 at those decays and three times stronger, and
+# with no decay over T 512 (over T 2048 without decay the f32 references drift
+# from the exact recurrence by most of the tolerance themselves: see
+# test_ssd_subchunk_without_decay_matches_the_f64_recurrence)
+SUB_CASES = ([(*case, 1.0) for case in SCAN_CASES]
+             + [(1, 2048, 2, 64, 64, 256, scale) for scale in (1.0, 3.0)]
+             + [(1, 512, 2, 64, 64, 256, 0.0)])
+
+
+def sub_inputs(b, t_len, h, p, n, scale):
+    x, a, bm, cm, s0 = scan_inputs(b, t_len, h, p, n, seed=t_len + p)
+    return x, (a * np.float32(scale)).astype(np.float32), bm, cm, s0
+
+
+def close(got, want) -> bool:
+    return all(np.allclose(g.numpy().astype(np.float64), np.asarray(w), **TOL)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,t_len,h,p,n,q,scale", SUB_CASES)
+def test_ssd_subchunk_three_tf32_pieces_match_jax(b, t_len, h, p, n, q, scale):
+    """The CUDA kernel's precision scheme, emulated: sub-chunks of the kernel's
+    own size and every chunked product as lo*hi + hi*lo + hi*hi of TF32
+    pieces, against JAX ``ssd_scan_ref`` and the Pallas kernel in interpret
+    mode at the caller's chunk, at the unchanged f32 tolerance."""
+    ops = sub_inputs(b, t_len, h, p, n, scale)
+    jargs = [jnp.asarray(v) for v in ops]
+    got = ssd_subchunk_ref(*(t(v) for v in ops), sub_chunk=ss.SUB_CHUNK, tf32_pieces=3)
+    assert tuple(got[0].shape) == (b, t_len, h, p) and tuple(got[1].shape) == (b, h, p, n)
+    for want in (j_scan_ref(*jargs), j_scan_op(*jargs, chunk=q, interpret=True)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("b,t_len,h,p,n,q,scale", SUB_CASES)
+def test_ssd_subchunk_one_tf32_piece_fails(b, t_len, h, p, n, q, scale):
+    """One TF32 piece (11 significant bits, about 5e-4 relative) misses the f32
+    tolerance on the same inputs where f32 products meet it: the reason the
+    kernel takes three pieces."""
+    ops = sub_inputs(b, t_len, h, p, n, scale)
+    want = j_scan_ref(*[jnp.asarray(v) for v in ops])
+    tops = [t(v) for v in ops]
+    assert close(ssd_subchunk_ref(*tops, sub_chunk=ss.SUB_CHUNK), want)
+    assert not close(ssd_subchunk_ref(*tops, sub_chunk=ss.SUB_CHUNK, tf32_pieces=1), want)
+
+
+def test_ssd_subchunk_without_decay_matches_the_f64_recurrence():
+    """a = 0 over T 2048: the state sums 2048 outer products and an f32
+    sequential recurrence lands near the edge of the tolerance from the exact
+    result; three TF32 pieces stay within the tolerance of the recurrence
+    taken in f64, and one piece does not."""
+    x, a, bm, cm, s0 = sub_inputs(1, 2048, 2, 64, 64, 0.0)
+    s = torch.from_numpy(s0).double()
+    xd, bd, cd = (torch.from_numpy(v).double() for v in (x, bm, cm))
+    ys = []
+    for i in range(x.shape[1]):                 # a = 0: no decay
+        s = s + torch.einsum("bhp,bn->bhpn", xd[:, i], bd[:, i])
+        ys.append(torch.einsum("bhpn,bn->bhp", s, cd[:, i]))
+    want = (torch.stack(ys, dim=1).numpy(), s.numpy())
+    tops = [t(v) for v in (x, a, bm, cm, s0)]
+    assert close(ssd_subchunk_ref(*tops, sub_chunk=ss.SUB_CHUNK, tf32_pieces=3), want)
+    assert not close(ssd_subchunk_ref(*tops, sub_chunk=ss.SUB_CHUNK, tf32_pieces=1), want)
+
+
+@pytest.mark.parametrize("sub_chunk", [1, 8, 24, 64])
+def test_ssd_subchunk_result_does_not_depend_on_the_sub_chunk(sub_chunk):
+    """Any sub-chunk, a ragged one (100 % 24 != 0) included, gives the
+    recurrence's result within the tolerance."""
+    ops = [t(v) for v in scan_inputs(2, 100, 3, 16, 8, seed=sub_chunk)]
+    want = ssd_scan_ref(*ops)
+    for pieces in (None, 3):
+        got = ssd_subchunk_ref(*ops, sub_chunk=sub_chunk, tf32_pieces=pieces)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` keeps 10 stored mantissa bits, rounding to nearest with
+    ties away from zero as ``cvt.rna.tf32.f32`` does."""
+    ulp = 2.0 ** -10                                    # TF32's unit at [1, 2)
+    vals = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, -(1 + ulp / 2),
+                         1.5 + ulp / 2 - 2.0 ** -20, 3.0e-3, 0.0], dtype=torch.float32)
+    want = torch.tensor([1.0, 1 + ulp, 1.0, 1 + ulp, -(1 + ulp), 1.5, 3.0e-3, 0.0],
+                        dtype=torch.float32)
+    got = tf32_round(vals)
+    assert torch.equal(got[:6], want[:6]) and got[7] == 0.0
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+    assert abs(float(got[6]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
 
 
 # --------------------------------------------------------------------------
