@@ -9,11 +9,14 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    versions, and the seconds the kernels took to build from
    ``src/repro_torch/kernels/*/csrc`` (nvcc, one process per source).
 2. ``kernel_check``: every CUDA kernel against its plain PyTorch version on the
-   card, at the main paths' full-width shapes: ``pim_gemv`` bit-exact; the
+   card, at the main paths' full-width shapes: ``pim_gemv`` bit-exact (also
+   past the llama3-8b shapes: K 36,864, gemma2-27b's w_down, whose x is staged
+   in K tiles, at B 8 and 16, and an odd K at B 16: batch groups); the
    paged attention kernels (llama3-8b), the contiguous attention kernel
    (llama3-8b, G 4 / hd 128, and zamba2-7b, G 1 / hd 112) and the SSD scan
    (zamba2-7b's H 112, P 64, N 64, chunk 256, also against the model's own
-   ``ssd_chunked``, and at three times the log decays) within the f32
+   ``ssd_chunked``, at three times the log decays, and at N 128, two column
+   tiles, against the plain version) within the f32
    tolerances below; the single-pass kernels (paged and contiguous), the split
    pair and the scan must also give each lane of a batch the same bits as that
    lane computed alone. The scan is a scores kernel per (lane, 32-step
@@ -45,7 +48,22 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    modes, exactly 7 x 13 ``pim_gemv`` and 13 contiguous attention launches per
    one-token forward. The SSD scan kernel is not on this path, as in the JAX
    package (the model scans with ``ssd_chunked``): the kernel phase launches it.
-5. A ``profile`` line per model (device time by kernel group, busy share), a
+5. ``spec``: full-width llama3-8b (bf16, W8A8, paged, 4 slots) serves one
+   request set of 4 (prompts of 32-96 tokens, 16-24 new tokens; two greedy,
+   two sampled at temperature 0.8, top-k 50, top-p 0.95 with fixed seeds)
+   without and with speculative decoding (self-draft: the same
+   ``ServingModel`` drafts, ``SpecConfig(k=3)``) in HBCEM and in LBIM. Each
+   spec serve's tokens must equal the non-spec serve's in the same mode (the
+   reference's bit-identity contract: verify runs the same ``(slots, 1)``
+   program), the greedy lanes must accept draft tokens, both pools must pass
+   ``check_invariants()``, and the launch counts must be exactly what the
+   schedule implies: per verify position and per plain one-token forward the
+   target's 7 x 32 ``pim_gemv`` and 32 paged single-pass attention calls; per
+   single-token draft feed (each chained candidate, and a catch-up of one
+   token) the draft's 7 x 32 ``pim_gemv`` and 32 contiguous attention calls
+   on its batch-1 lane. Lines give decode-step ms, tokens/s and the spec
+   report.
+6. A ``profile`` line per model (device time by kernel group, busy share), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -68,6 +86,12 @@ kernels in one call.
 
 builds the kernels and prints only the SSD scan's ``kernel_time`` and
 ``kernel_check`` lines (B5), to compare builds of the scan in one call.
+
+    python3 chip_smoke.py --gemv
+    python3 chip_smoke.py --spec
+
+print only ``pim_gemv``'s ``kernel_time`` and ``kernel_check`` lines (B3),
+or only the spec phase's lines.
 """
 from __future__ import annotations
 
@@ -112,6 +136,10 @@ GEMV_LAYER = [  # (N, K, launches per layer) of llama3-8b's seven decode GEMVs
     (4096, 14336, 1),    # w_down
 ]
 GEMV_RAGGED = (3001, 4100)   # N odd, K % 16 != 0: the kernel's masked edge path
+# past the llama3-8b shapes, as the Pallas op takes any B and K: x staged in K
+# tiles (gemma2-27b's w_down, K 36,864, at B 8: 295 KB), batch groups (B 16),
+# both at once, and an odd K in batch groups
+GEMV_WIDE = ((4096, 36864, 8), (4096, 36864, 16), (4096, 4096, 16), (3001, 4100, 16))
 SLOTS = 4
 
 
@@ -205,9 +233,19 @@ def check_pim_gemv(gen, dev) -> dict:
             if not torch.equal(out, ref):
                 raise AssertionError(f"pim_gemv ({n},{k}) B={b} is not bit-exact: "
                                      f"max |err| {err}")
+    for n, k, b in GEMV_WIDE:
+        w, x, ws, xs = gemv_inputs(n, k, b, gen, dev)
+        out = pim_gemv(w, x, ws, xs)
+        ref = pim_gemv_ref(w, x, ws, xs)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"pim_gemv ({n},{k}) B={b} is not bit-exact: max |err| "
+                                 f"{float((out - ref).abs().max())}")
+        del w, x, ws, xs, out, ref
     emit({"phase": "kernel_check", "kernel": "pim_gemv", "exact": True,
           "shapes": [[n, k] for n, k, _ in GEMV_LAYER] + [list(GEMV_RAGGED)],
-          "batches": [1, 4, 8], "max_abs_err": worst})
+          "batches": [1, 4, 8], "wide_cases": [list(c) for c in GEMV_WIDE],
+          "max_abs_err": worst})
     return {"max_abs_err": worst}
 
 
@@ -314,6 +352,7 @@ def check_batch_invariant(name, fn, out, b: int) -> None:
 
 
 def check_attention(gen, dev) -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
@@ -373,10 +412,31 @@ def check_attention(gen, dev) -> dict:
             _allclose(f"split vs single pass S={s}", merged, want)
             if not bool((merged[2] == 0).all()):
                 raise AssertionError("all-dead lane must merge to zeros, not NaN")
+    # the spec serve's verify launches: its own tables (max_len plus the spec
+    # slack; one chunk, no merge) at the fills its lanes reach
+    sreqs = spec_requests(get_config("llama3-8b").vocab_size)
+    nb = spec_table_blocks(sreqs)
+    q, pools, table, _, _, scale = attn_inputs(gen, dev, nb=nb)
+    kp, vp = pools[0]
+    spec_cases = []
+    for when, fills in serve_fills(sreqs).items():
+        end = torch.tensor(fills, dtype=torch.int32, device=dev)
+        start = torch.zeros_like(end)
+        out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale)
+        want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, None, start=start)
+        torch.cuda.synchronize()
+        errs["decode_attention_paged"] = max(
+            errs["decode_attention_paged"],
+            _allclose(f"decode_attention_paged spec serve {when}", out, want))
+        check_batch_invariant(
+            f"decode_attention_paged spec serve {when}",
+            lambda i: da.decode_attention_paged(q[i], kp, vp, table[i], end[i], start[i],
+                                                scale=scale), out, ATTN_B)
+        spec_cases.append([8, nb, None, ATTN_G, ATTN_HD, "batch invariant", fills])
     emit({"phase": "kernel_check", "kernel": "decode_attention_paged (+split, merge)",
           "q": [ATTN_B, ATTN_HKV, ATTN_G, ATTN_HD], "pages": "bf16",
           "end": ATTN_END, "start": ATTN_START, "cases": [list(c) for c in cases],
-          "splits": [2, 4, 8],
+          "spec_serve_cases": spec_cases, "splits": [2, 4, 8],
           "batch_invariant": [list(cases[0]), list(cases[0]) + ["4 splits"]],
           "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
     return errs
@@ -514,9 +574,9 @@ def contig_inputs(gen, dev, hkv, g, hd, lmax=None, copies=1):
     return q, lanes, end, start, hd ** -0.5
 
 
-def zamba2_serve_fills(reqs) -> dict[str, list[int]]:
-    """Lane fills of the zamba2 serve's first four requests: half way through
-    their decode, and at their last decode step."""
+def serve_fills(reqs) -> dict[str, list[int]]:
+    """Lane fills of a serve's first four requests: half way through their
+    decode, and at their last decode step."""
     return {"half way": [len(r.prompt) + r.max_new_tokens // 2 for r in reqs[:ATTN_B]],
             "last step": [len(r.prompt) + r.max_new_tokens - 1 for r in reqs[:ATTN_B]]}
 
@@ -558,13 +618,25 @@ def check_contig_attention(gen, dev) -> float:
     # at the fills its first four requests reach
     _, hkv, g, hd = CONTIG_SHAPES[1]
     reqs = zamba2_requests(get_config("zamba2-7b").vocab_size)
-    lmax = zamba2_max_len(reqs)
+    lmax = serve_max_len(reqs)
     q, lanes, _, _, scale = contig_inputs(gen, dev, hkv, g, hd, lmax)
-    for when, fills in zamba2_serve_fills(reqs).items():
+    for when, fills in serve_fills(reqs).items():
         end = torch.tensor(fills, dtype=torch.int32, device=dev)
         worst = max(worst, check(f"zamba2-7b serve lmax={lmax} {when}", q, *lanes[0], end,
                                  torch.zeros_like(end), scale, None, True))
         cases.append(["zamba2-7b serve", hkv, g, hd, lmax, None, "batch invariant", fills])
+    # the spec serve's draft: llama3-8b's shape on lanes of the draft pool's Lmax
+    # (one chunk, no merge), each lane alone as the draft runs it (batch 1)
+    _, hkv, g, hd = CONTIG_SHAPES[0]
+    sreqs = spec_requests(get_config("llama3-8b").vocab_size)
+    lmax = spec_draft_lmax(sreqs)
+    q, lanes, _, _, scale = contig_inputs(gen, dev, hkv, g, hd, lmax)
+    for when, fills in serve_fills(sreqs).items():
+        end = torch.tensor(fills, dtype=torch.int32, device=dev)
+        worst = max(worst, check(f"llama3-8b spec draft lmax={lmax} {when}", q, *lanes[0],
+                                 end, torch.zeros_like(end), scale, None, True))
+        cases.append(["llama3-8b spec draft", hkv, g, hd, lmax, None, "batch invariant",
+                      fills])
     emit({"phase": "kernel_check", "kernel": "decode_attention (contiguous)", "batch": ATTN_B,
           "cases": cases, "end": ATTN_END, "start": ATTN_START, "cache": "bf16",
           "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": worst})
@@ -611,8 +683,8 @@ def time_contig_attention(gen, dev) -> dict:
 
     _, hkv, g, hd = CONTIG_SHAPES[1]
     reqs = zamba2_requests(get_config("zamba2-7b").vocab_size)
-    lmax = zamba2_max_len(reqs)
-    fills = zamba2_serve_fills(reqs)["half way"]
+    lmax = serve_max_len(reqs)
+    fills = serve_fills(reqs)["half way"]
     q, lanes, _, _, scale = contig_inputs(
         gen, dev, hkv, g, hd, lmax, copies=copies_for(ATTN_B * hkv * hd * lmax * 2 * 2))
     end = torch.tensor(fills, dtype=torch.int32, device=dev)
@@ -636,17 +708,18 @@ def time_contig_attention(gen, dev) -> dict:
 SSD_H, SSD_P, SSD_N, SSD_Q = 112, 64, 64, 256   # zamba2-7b: d_inner 7168 / 64, chunk 256
 SSD_T = 2048
 SSD_STRONG = 3.0     # the strong-decay case: log decays three times the test's
+SSD_WIDE = (2, 512, 128)   # (B, T, N): a state of two 64-column tiles
 
 
-def ssd_inputs(gen, dev, b, t, decay=1.0):
-    """Scan operands at zamba2's widths, drawn as the JAX package's own scan
-    test draws them (tests/test_kernels.py): log decays -|N(0, 1)| * 0.3
-    (times ``decay``)."""
+def ssd_inputs(gen, dev, b, t, decay=1.0, n=SSD_N):
+    """Scan operands at zamba2's widths (``n`` state columns), drawn as the
+    JAX package's own scan test draws them (tests/test_kernels.py): log
+    decays -|N(0, 1)| * 0.3 (times ``decay``)."""
     x = torch.randn((b, t, SSD_H, SSD_P), generator=gen, device=dev) * 0.5
     a = -torch.randn((b, t, SSD_H), generator=gen, device=dev).abs() * (0.3 * decay)
-    bm = torch.randn((b, t, SSD_N), generator=gen, device=dev) * 0.5
-    cm = torch.randn((b, t, SSD_N), generator=gen, device=dev) * 0.5
-    s0 = torch.randn((b, SSD_H, SSD_P, SSD_N), generator=gen, device=dev) * 0.1
+    bm = torch.randn((b, t, n), generator=gen, device=dev) * 0.5
+    cm = torch.randn((b, t, n), generator=gen, device=dev) * 0.5
+    s0 = torch.randn((b, SSD_H, SSD_P, n), generator=gen, device=dev) * 0.1
     return x, a, bm, cm, s0
 
 
@@ -746,8 +819,24 @@ def check_ssd_scan(gen, dev) -> float:
                     lambda i, k=k: ssd_scan_op(x[i], a[i], bm[i], cm[i], s0[i],
                                                chunk=SSD_Q)[k], out, b)
         del x, a, bm, cm, s0, y, s, yr, sr, yc, sc
+    # any N, as the Pallas kernel takes it: N 128 is two 64-column tiles
+    b, t, n = SSD_WIDE
+    x, a, bm, cm, s0 = ssd_inputs(gen, dev, b, t, n=n)
+    y, s = ssd_scan_op(x, a, bm, cm, s0, chunk=SSD_Q)
+    yr, sr = ssd_scan_ref(x, a, bm, cm, s0)
+    torch.cuda.synchronize()
+    for what, got, want in (("y", y, yr), ("state", s, sr)):
+        diff = (got - want).abs()
+        err = float(diff.max())
+        worst = max(worst, err)
+        errs[f"B={b} T={t} N={n} {what} vs ssd_scan_ref"] = [
+            err, float((diff / (SSD_ATOL + SSD_RTOL * want.abs())).max())]
+        if not torch.allclose(got, want, rtol=SSD_RTOL, atol=SSD_ATOL):
+            raise AssertionError(f"ssd_scan N={n} {what}: max |err| {err} outside "
+                                 f"rtol={SSD_RTOL} atol={SSD_ATOL}")
+    del x, a, bm, cm, s0, y, s, yr, sr
     emit({"phase": "kernel_check", "kernel": "ssd_scan", "h": SSD_H, "p": SSD_P, "n": SSD_N,
-          "chunk": SSD_Q, "cases": [list(c) for c in cases],
+          "chunk": SSD_Q, "cases": [list(c) for c in cases], "wide_n_case": list(SSD_WIDE),
           "against": ["ssd_scan_ref", "ssd_chunked"], "rtol": SSD_RTOL, "atol": SSD_ATOL,
           "batch_invariant": True, "max_abs_err": worst, "errors": errs})
     return worst
@@ -821,8 +910,8 @@ def host_cost(gen, dev) -> None:
     _, lanes, _, _, _ = contig_inputs(gen, dev, ATTN_HKV, ATTN_G, ATTN_HD, nb * 8)
     _, hkv, g, hd = CONTIG_SHAPES[1]
     reqs = zamba2_requests(get_config("zamba2-7b").vocab_size)
-    zq, zlanes, _, _, zscale = contig_inputs(gen, dev, hkv, g, hd, zamba2_max_len(reqs))
-    zend = torch.tensor(zamba2_serve_fills(reqs)["half way"], dtype=torch.int32, device=dev)
+    zq, zlanes, _, _, zscale = contig_inputs(gen, dev, hkv, g, hd, serve_max_len(reqs))
+    zend = torch.tensor(serve_fills(reqs)["half way"], dtype=torch.int32, device=dev)
     calls = {
         "decode_attention_paged, llama3-8b paged serve": (32, lambda: da.decode_attention_paged(
             q, kp, vp, table, end, start, scale=scale)),
@@ -866,37 +955,48 @@ def zamba2_requests(vocab: int) -> list:
                          shared_prefix=False)
 
 
-def zamba2_max_len(reqs) -> int:
+def serve_max_len(reqs) -> int:
     return max(len(r.prompt) + r.max_new_tokens for r in reqs)
 
 
 def expected_launches(eng, cfg) -> dict[str, int]:
     """Launches one serve must make. Every forward of one token per lane (each
-    decode step, and an admission chunk of a single token) runs the seven
-    decode GEMVs and one attention call per attention layer (llama3-8b's 32
-    layers; zamba2-7b's 13 applications of its shared block): the contiguous
-    kernel for a contiguous pool; for a paged pool the single-pass kernel, or
-    the split kernel and the merge when ``decode_kv_splits`` (clamped to the
-    block table's width) is above 1. Longer chunks, and the batch admission
-    (never one token here: every prompt is longer), take GEMMs and dense
-    attention and launch none of the port's kernels; nothing launches the SSD
-    scan, which no model path runs."""
+    decode step, each verify position of a spec round, and an admission chunk
+    of a single token) runs the seven decode GEMVs and one attention call per
+    attention layer (llama3-8b's 32 layers; zamba2-7b's 13 applications of its
+    shared block): the contiguous kernel for a contiguous pool; for a paged
+    pool the single-pass kernel, or the split kernel and the merge when
+    ``decode_kv_splits`` (clamped to the block table's width) is above 1.
+    A spec serve's draft rollouts add, per round's event, each chained
+    candidate (``spec_draft_steps``) and each catch-up of one token
+    (``spec_catchup_decodes``): a single-token forward of the draft on its
+    batch-1 contiguous lane (the GEMVs and the contiguous kernel); a longer
+    catch-up, the lane resync prefill, longer
+    chunks and the batch admission (never one token here: every prompt is
+    longer) take GEMMs and dense attention and launch none of the port's
+    kernels. Nothing launches the SSD scan, which no model path runs."""
     from repro_torch.kernels import launch_counts
 
     from repro_torch.models.model import _hybrid_groups
 
-    fwd = sum(int(e.plan.decode) + int(e.prefill_tokens == 1) for e in eng.events)
+    fwd = sum((e.verify_tokens // e.decode_batch if e.plan.spec else int(e.plan.decode))
+              + int(e.prefill_tokens == 1) for e in eng.events)
     n_attn = _hybrid_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
     n = n_attn * fwd
     want = {k: 0 for k in launch_counts()}
     want["pim_gemv"] = 7 * n
-    table_width = -(-eng.pool.max_len // eng.pool.block_size)
     if not eng.pool.paged:
         want["decode_attention"] = n
-    elif min(cfg.decode_kv_splits, table_width) > 1:
+    elif min(cfg.decode_kv_splits, eng.pool.table_blocks) > 1:
         want["decode_attention_paged_split"] = want["merge_splits"] = n
     else:
         want["decode_attention_paged"] = n
+    if eng.spec_dec is not None:
+        dcfg = eng.spec_dec.draft_cfg
+        d_fwd = sum(e.spec_draft_steps + e.spec_catchup_decodes for e in eng.events)
+        d_attn = _hybrid_groups(dcfg) if dcfg.family == "hybrid" else dcfg.n_layers
+        want["pim_gemv"] += 7 * d_attn * d_fwd
+        want["decode_attention"] += d_attn * d_fwd
     return want
 
 
@@ -1021,7 +1121,7 @@ def modes_agree(tokens: dict, what: str) -> list:
 
 def serve_phase(dev) -> dict:
     """llama3-8b: paged in the three modes, paged with 4 KV splits, and the
-    contiguous pool in LBIM."""
+    contiguous pool in LBIM; then the spec phase on the same weights."""
     from repro_torch.configs import get_config
     from repro_torch.core.pim_modes import Mode
     from repro_torch.models.model import init_params
@@ -1063,6 +1163,10 @@ def serve_phase(dev) -> dict:
     del sm4
     sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
     profile_decode(sm, Mode.HBCEM, reqs)
+    del sm
+    torch.cuda.empty_cache()
+    for k, v in spec_phase(dev, cfg, params).items():
+        total[k] = total.get(k, 0) + v
     return total
 
 
@@ -1077,7 +1181,7 @@ def zamba2_phase(dev) -> dict:
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     reqs = zamba2_requests(cfg.vocab_size)
-    max_len = zamba2_max_len(reqs)
+    max_len = serve_max_len(reqs)
     sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
     torch.cuda.synchronize()
     emit(serve_setup_line(sm, reqs, t0))
@@ -1091,6 +1195,136 @@ def zamba2_phase(dev) -> dict:
     emit({"phase": "serve_launches", "arch": cfg.name, "runs": 3, **total})
     check_launched(total, ("pim_gemv", "decode_attention"), cfg.name)
     profile_decode(sm, Mode.HBCEM, reqs)
+    return total
+
+
+SPEC_K = 3
+SPEC_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# accepted over proposed draft tokens on the greedy lanes, summed: every sound
+# run read 26/32 (0.81; a bf16 draft rounds otherwise than verify). A fault on
+# the draft path (a wrong kernel branch, a stale anchor, an off-by-one
+# catch-up) leaves the tokens equal and only cuts acceptance.
+SPEC_GREEDY_ACCEPT_FLOOR = 0.7
+
+
+def spec_requests(vocab: int) -> list:
+    """Four requests, prompts of 32-96 tokens and 16-24 new tokens; requests 1
+    and 3 sample (fixed seeds), 0 and 2 are greedy, so greedy and sampled
+    lanes share every batch."""
+    from repro_torch.serve.api import GenerationRequest, SamplingParams
+
+    rng = np.random.default_rng(2)
+    lens = rng.integers(32, 97, size=SLOTS)
+    budgets = rng.integers(16, 25, size=SLOTS)
+    out = []
+    for i in range(SLOTS):
+        sp = SamplingParams(**SPEC_SAMPLED, seed=100 + i) if i % 2 else SamplingParams()
+        out.append(GenerationRequest(prompt=rng.integers(1, vocab, size=int(lens[i])).tolist(),
+                                     max_new_tokens=int(budgets[i]), sampling=sp))
+    return out
+
+
+def spec_table_blocks(reqs) -> int:
+    """Block-table width of the spec serve's paged pool (8-token pages)."""
+    return -(-(serve_max_len(reqs) + SPEC_K) // 8)
+
+
+def spec_draft_lmax(reqs) -> int:
+    """Lane length of the spec serve's contiguous draft pool."""
+    return serve_max_len(reqs) + SPEC_K + 1
+
+
+def spec_serve(sm, mode, reqs, spec: bool) -> tuple[list, dict]:
+    """One serve of ``reqs`` with or without self-draft speculation; launch
+    counts of this serve alone held to what its schedule events imply; both
+    pools audited."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.api import RequestState
+    from repro_torch.serve.spec import SpecConfig
+
+    eng = sm.engine(mode=mode, slots=SLOTS,
+                    spec=SpecConfig(draft=sm, k=SPEC_K) if spec else None)
+    if spec and (eng.pool.table_blocks != spec_table_blocks(reqs)
+                 or eng.spec_dec.pool.max_len != spec_draft_lmax(reqs)):
+        raise AssertionError(
+            f"spec pools ({eng.pool.table_blocks} blocks, draft Lmax "
+            f"{eng.spec_dec.pool.max_len}) are not the shapes kernel_check held "
+            f"({spec_table_blocks(reqs)}, {spec_draft_lmax(reqs)})")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for i, r in enumerate(results):
+        if r.state is not RequestState.FINISHED or len(r.tokens) != reqs[i].max_new_tokens:
+            raise AssertionError(f"spec={spec} request {i}: {r.state} {r.finish_reason} "
+                                 f"{len(r.tokens)} tokens {r.error}")
+    pools = [eng.pool] + ([eng.spec_dec.pool] if spec else [])
+    for pool in pools:
+        bad = pool.check_invariants()
+        if bad or pool.occupancy().slots_used:
+            raise AssertionError(f"spec={spec} {mode.value}: pool invariants {bad}, "
+                                 f"{pool.occupancy().slots_used} lanes left")
+    want = expected_launches(eng, sm.cfg)
+    if counts != want:
+        raise AssertionError(f"spec={spec} {mode.value}: launches {counts}, the schedule "
+                             f"implies {want}")
+    rep = eng.schedule_report()
+    decode = [e.step_s for e in eng.events if e.plan.decode and not e.plan.prefill_chunk]
+    ntok = sum(len(r.tokens) for r in results)
+    line = {"phase": "spec_serve", "arch": sm.cfg.name, "mode": mode.value,
+            "spec_k": SPEC_K if spec else 0, "requests": len(reqs), "tokens": ntok,
+            "wall_s": wall, "tokens_per_s": ntok / wall,
+            "decode_step_ms_median": 1e3 * statistics.median(decode),
+            "pure_decode_steps": len(decode), "steps": rep["steps"],
+            "spec": rep["spec"], "rollouts": sum(e.spec_rollouts for e in eng.events),
+            "single_token_catchups": sum(e.spec_catchup_decodes for e in eng.events),
+            "accepted_by_request": [r.spec_accepted for r in results],
+            "proposed_by_request": [r.spec_proposed for r in results],
+            "launches": counts}
+    return [r.tokens for r in results], line
+
+
+def spec_phase(dev, cfg, params) -> dict:
+    """llama3-8b (bf16, W8A8, paged, SLOTS lanes) with and without self-draft
+    speculation in HBCEM and LBIM: spec tokens equal non-spec tokens per mode,
+    the greedy lanes accept draft tokens above a floor, exact launch counts."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.serve.serving_model import ServingModel
+
+    reqs = spec_requests(cfg.vocab_size)
+    sm = ServingModel.prepare(cfg, params, max_len=serve_max_len(reqs), slots=SLOTS,
+                              device=dev)
+    total: dict[str, int] = {}
+    for mode in (Mode.HBCEM, Mode.LBIM):
+        plain, line = spec_serve(sm, mode, reqs, spec=False)
+        emit(line)
+        add_launches(total, line)
+        toks, line = spec_serve(sm, mode, reqs, spec=True)
+        if toks != plain:
+            diff = [i for i, (a, b) in enumerate(zip(plain, toks)) if a != b]
+            raise AssertionError(f"spec {mode.value}: tokens differ from the non-spec serve "
+                                 f"in requests {diff}")
+        greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature == 0]
+        accepted = sum(line["accepted_by_request"][i] for i in greedy)
+        proposed = sum(line["proposed_by_request"][i] for i in greedy)
+        line["greedy_acceptance"] = accepted / proposed if proposed else 0.0
+        if (not all(line["accepted_by_request"][i] > 0 for i in greedy)
+                or line["greedy_acceptance"] < SPEC_GREEDY_ACCEPT_FLOOR):
+            raise AssertionError(
+                f"spec {mode.value}: greedy lanes accepted {accepted} of {proposed} draft "
+                f"tokens ({line['accepted_by_request']}), under the floor "
+                f"{SPEC_GREEDY_ACCEPT_FLOOR} or none on a lane")
+        line["tokens_equal_non_spec"] = True
+        emit(line)
+        add_launches(total, line)
+    emit({"phase": "serve_launches", "arch": cfg.name, "what": "spec phase", "runs": 4,
+          **total})
+    check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged"),
+                   f"{cfg.name} spec")
+    del sm
     return total
 
 
@@ -1217,8 +1451,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--ab"], ["--attn"], ["--ssd"]):
-        print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd]", file=sys.stderr)
+    if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"]):
+        print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1246,6 +1481,18 @@ def main(argv: list[str]) -> int:
         time_ssd_scan(gen, dev)
         check_ssd_scan(gen, dev)
         return 0
+    if argv == ["--gemv"]:     # timed first, as --ssd
+        time_pim_gemv(gen, dev)
+        check_pim_gemv(gen, dev)
+        return 0
+    if argv == ["--spec"]:
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import init_params
+
+        cfg = get_config("llama3-8b").replace(quantized_decode=True)
+        spec_phase(dev, cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                         device=dev))
+        return 0
     if argv == ["--ab"]:
         host_cost(gen, dev)
         serve_ab(dev)
@@ -1264,7 +1511,8 @@ def main(argv: list[str]) -> int:
     for k, v in zamba2_phase(dev).items():
         counts[k] = counts.get(k, 0) + v
 
-    work = {"pim_gemv": f"the 7 decode GEMVs of one llama3-8b layer at B={SLOTS}",
+    work = {"pim_gemv": f"the 7 decode GEMVs of one llama3-8b layer at B={SLOTS}; launches "
+                        f"include the spec serves (draft and verify)",
             "decode_attention": f"one zamba2-7b shared-block layer, q ({ATTN_B},32,1,112), "
                                 f"bf16 lanes of {CONTIG_LMAX}, end {ATTN_END}, "
                                 f"start {ATTN_START}",

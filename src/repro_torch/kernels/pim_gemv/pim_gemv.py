@@ -13,11 +13,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
 
-MAX_BATCH = 8
-# dynamic shared memory a block may use on the H100: x (B*K int8) is staged whole
-MAX_SMEM_BYTES = 232448
-
-
 @functools.lru_cache(maxsize=None)
 def _bind():
     lib = _build.library("pim_gemv")
@@ -29,7 +24,8 @@ def _bind():
 
 def pim_gemv(w: torch.Tensor, x: torch.Tensor, w_scale: torch.Tensor,
              x_scale: torch.Tensor) -> torch.Tensor:
-    """(N, K) int8 × (B, K) int8 → (B, N) f32, any N and K, B <= 8."""
+    """(N, K) int8 × (B, K) int8 → (B, N) f32, any N, K and B (the kernel takes
+    groups of 8 batch rows and stages x in K tiles where it does not fit)."""
     n, k = w.shape
     b = x.shape[0]
     if x.shape != (b, k) or w_scale.shape != (n,) or x_scale.shape != (b,):
@@ -45,10 +41,8 @@ def pim_gemv(w: torch.Tensor, x: torch.Tensor, w_scale: torch.Tensor,
         raise TypeError(f"pim_gemv takes int8 operands, got {w.dtype}, {x.dtype}")
     if w_scale.dtype != torch.float32 or x_scale.dtype != torch.float32:
         raise TypeError("pim_gemv takes float32 scales")
-    if not 1 <= b <= MAX_BATCH:
-        raise ValueError(f"pim_gemv batch {b} outside 1..{MAX_BATCH}")
-    if b * k > MAX_SMEM_BYTES:
-        raise ValueError(f"pim_gemv: B*K={b * k} bytes exceed the shared-memory stage")
+    if min(n, k, b) < 1:
+        raise ValueError(f"pim_gemv: empty operand (N={n}, K={k}, B={b})")
     w, x = w.contiguous(), x.contiguous()
     w_scale, x_scale = w_scale.contiguous(), x_scale.contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=w.device)

@@ -64,8 +64,14 @@
 // operand splits are the largest part of the walk's instructions), not the bytes:
 // mma.sync does not reach the TF32 rate above, which only wgmma does (PERF.md).
 //
-// Limits: N <= 64 (the state's columns, held in registers); any P (slices of 64), T
-// and chunk (T a multiple of the chunk, as in the JAX kernel). Rows past T and
+// Any N: a walk block carries 64 state columns in registers, so N over 64 takes
+// ceil(N / 64) column tiles, each a block of its own. The state update is per column
+// and the carried-state product S c_t splits into the tiles' sums, so tile j > 0
+// writes its share of y into a scratch slab and a third small kernel adds the slabs
+// into y in a fixed order (no atomics: the bits do not depend on the schedule); the
+// masked intra-chunk product is added once, by tile 0. The scores kernel reduces
+// over N in 64-wide tiles. zamba2's N = 64 is one tile and takes none of this.
+// Any P (slices of 64), T and chunk (T a multiple of the chunk, as in the JAX kernel). Rows past T and
 // columns past P or N are zeros in shared memory and are never stored. P and N
 // multiples of 4 with 16-byte aligned x, b, c and y take 16-byte copies, other shapes
 // 4-byte ones; y is written in 16-byte rows where P is a multiple of 4.
@@ -205,28 +211,31 @@ ssd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
   const int sub = blockIdx.x, bi = blockIdx.y;
   const int t0 = sub * kQ;
   const int64_t row0 = static_cast<int64_t>(bi) * t_len + t0;
-  load_rows<kVec, kThreads>(bs, bm + row0 * n, n, min(kQ, t_len - t0), n);
-  load_rows<kVec, kThreads>(cs, cm + row0 * n, n, min(kQ, t_len - t0), n);
-  cp_commit();
-  cp_wait_all();
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int col = 8 * warp + g;            // the score column s this lane's B fragment holds
   float acc[2][4] = {};
+  for (int n0 = 0; n0 < n; n0 += kNT) {    // N in 64-wide tiles (one at N <= 64)
+    if (n0) __syncthreads();               // every warp is done with the last tile
+    const int rows = min(kQ, t_len - t0), width = min(kNT, n - n0);
+    load_rows<kVec, kThreads>(bs, bm + row0 * n + n0, n, rows, width);
+    load_rows<kVec, kThreads>(cs, cm + row0 * n + n0, n, rows, width);
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < kNT / 8; ++kk) {
-    const int k0 = 8 * kk + q;
-    const FragB fb = frag_b(bs[sw_row(col, k0)], bs[sw_row(col, k0 + 4)]);
+    for (int kk = 0; kk < kNT / 8; ++kk) {
+      const int k0 = 8 * kk + q;
+      const FragB fb = frag_b(bs[sw_row(col, k0)], bs[sw_row(col, k0 + 4)]);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      if (16 * mt + 15 < 8 * warp) continue;   // rows all above the diagonal
-      const int r = 16 * mt + g;
-      mma3(acc[mt],
-           frag_a(cs[sw_row(r, k0)], cs[sw_row(r + 8, k0)], cs[sw_row(r, k0 + 4)],
-                  cs[sw_row(r + 8, k0 + 4)]),
-           fb);
+      for (int mt = 0; mt < 2; ++mt) {
+        if (16 * mt + 15 < 8 * warp) continue;   // rows all above the diagonal
+        const int r = 16 * mt + g;
+        mma3(acc[mt],
+             frag_a(cs[sw_row(r, k0)], cs[sw_row(r + 8, k0)], cs[sw_row(r, k0 + 4)],
+                    cs[sw_row(r + 8, k0 + 4)]),
+             fb);
+      }
     }
   }
   float* out = scores + (static_cast<int64_t>(bi) * gridDim.x + sub) * kQ * kQ;
@@ -244,17 +253,25 @@ ssd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
 constexpr int kWalkWarps = 2;    // warps of a walk block: two 16-row state tiles each
 
 // Warp w holds the kMT 16-row tiles of state rows [16 kMT w, 16 kMT (w + 1)).
-template <bool kVec>
+// kSplitN: N over 64, one block per 64-column tile. A separate instantiation keeps
+// the tiles' indexing out of the one-tile walk (zamba2's N = 64): one body reading
+// the tile at run time took 14 % longer there, at the same register count.
+template <bool kVec, bool kSplitN>
 __global__ void __launch_bounds__(32 * kWalkWarps, 4)
 ssd_walk_kernel(const float* __restrict__ x, const float* __restrict__ a,
                 const float* __restrict__ bm, const float* __restrict__ cm,
                 const float* __restrict__ scores, const float* __restrict__ s0,
-                float* __restrict__ y, float* __restrict__ s_out, int t_len, int h, int p,
-                int n, int n_pt) {
+                float* __restrict__ y, float* __restrict__ y_parts, float* __restrict__ s_out,
+                int t_len, int h, int p, int n, int n_pt, int n_nt) {
   constexpr int kW = kWalkWarps, kT = 32 * kW, kMT = kPT / 16 / kW;
   extern __shared__ __align__(16) float smem[];
-  const int hi = blockIdx.x / n_pt, p0 = (blockIdx.x - hi * n_pt) * kPT, bi = blockIdx.y;
+  const int nt = kSplitN ? blockIdx.x % n_nt : 0;   // column tile
+  const int hp = kSplitN ? blockIdx.x / n_nt : blockIdx.x;   // (head, 64 state rows)
+  const int hi = hp / n_pt, p0 = (hp - hi * n_pt) * kPT, bi = blockIdx.y;
   const int p_w = min(kPT, p - p0);        // state rows of this slice
+  const int n0 = nt * kNT, n_w = kSplitN ? min(kNT, n - n0) : n;   // this tile's columns
+  // tile 0 writes y itself (and adds the intra-chunk product); tile j > 0 its slab
+  if (kSplitN && nt > 0) y = y_parts + (nt - 1) * (static_cast<int64_t>(gridDim.y) * t_len * h * p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int pw = 16 * kMT * warp;          // lane rows: pw + 16 mt + g and + 8
@@ -270,11 +287,11 @@ ssd_walk_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const int cr = threadIdx.x >> 4, cc = (threadIdx.x & 15) << 2;
   const int gr = threadIdx.x >> 3, gc = (threadIdx.x & 7) << 2;
   const int off_row = sw_row(cr, cc), off_g = sw_g(gr, gc);
-  const bool x_col = cc < p_w, n_col = cc < n;
+  const bool x_col = cc < p_w, n_col = cc < n_w;
   const int64_t x_step = static_cast<int64_t>(h) * p;   // floats from one step to the next
   const float* x_src = x + ((row0 + cr) * h + hi) * p + p0 + cc;
-  const float* b_src = bm + (row0 + cr) * n + cc;
-  const float* c_src = cm + (row0 + cr) * n + cc;
+  const float* b_src = bm + (row0 + cr) * n + n0 + cc;
+  const float* c_src = cm + (row0 + cr) * n + n0 + cc;
   const float* g_src = scores + static_cast<int64_t>(bi) * n_sub * kQ * kQ + gr * kQ + gc;
   auto issue = [&](int sub) {              // the sub-chunk's x, b, c and scores
     float* st = smem + (sub & 1) * kStageF;
@@ -299,8 +316,8 @@ ssd_walk_kernel(const float* __restrict__ x, const float* __restrict__ a,
       const int64_t r = row0 + t0;
       const int rows = min(kQ, t_len - t0);
       load_rows<false, kT>(st, x + (r * h + hi) * p + p0, x_step, rows, p_w);
-      load_rows<false, kT>(st + kTileF, bm + r * n, n, rows, n);
-      load_rows<false, kT>(st + 2 * kTileF, cm + r * n, n, rows, n);
+      load_rows<false, kT>(st + kTileF, bm + r * n + n0, n, rows, n_w);
+      load_rows<false, kT>(st + 2 * kTileF, cm + r * n + n0, n, rows, n_w);
       load_scores<kT>(st + 3 * kTileF,
                       scores + (static_cast<int64_t>(bi) * n_sub + sub) * kQ * kQ);
     }
@@ -320,7 +337,7 @@ ssd_walk_kernel(const float* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = pw + 16 * mt + g + 8 * (e >> 1), col = 8 * jn + 2 * q + (e & 1);
-        s[mt][jn][e] = r < p_w && col < n ? s0[(bh * p + p0 + r) * n + col] : 0.f;
+        s[mt][jn][e] = r < p_w && col < n_w ? s0[(bh * p + p0 + r) * n + n0 + col] : 0.f;
       }
 
   issue(0);
@@ -413,23 +430,25 @@ ssd_walk_kernel(const float* __restrict__ x, const float* __restrict__ a,
         for (int mt = 0; mt < kMT; ++mt) mma3(s[mt][jn], fw[mt], fb);
       }
     }
-    // ... and the masked intra-chunk product from the same x
+    // ... and the masked intra-chunk product from the same x (tile 0 only)
+    if (!kSplitN || nt == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kQ / 8; ++kk) {
-      const int r0 = 8 * kk + q;
-      FragA fx[kMT];
+      for (int kk = 0; kk < kQ / 8; ++kk) {
+        const int r0 = 8 * kk + q;
+        FragA fx[kMT];
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int r = pw + 16 * mt + g;
-        fx[mt] = frag_a(xs[sw_row(r0, r)], xs[sw_row(r0, r + 8)], xs[sw_row(r0 + 4, r)],
-                        xs[sw_row(r0 + 4, r + 8)]);
-      }
+        for (int mt = 0; mt < kMT; ++mt) {
+          const int r = pw + 16 * mt + g;
+          fx[mt] = frag_a(xs[sw_row(r0, r)], xs[sw_row(r0, r + 8)], xs[sw_row(r0 + 4, r)],
+                          xs[sw_row(r0 + 4, r + 8)]);
+        }
 #pragma unroll
-      for (int jt = kk; jt < kQ / 8; ++jt) {
-        const int t = 8 * jt + g;
-        const FragB fb = frag_b(gs[sw_g(t, r0)], gs[sw_g(t, r0 + 4)]);
+        for (int jt = kk; jt < kQ / 8; ++jt) {
+          const int t = 8 * jt + g;
+          const FragB fb = frag_b(gs[sw_g(t, r0)], gs[sw_g(t, r0 + 4)]);
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) mma3(yt[mt][jt], fx[mt], fb);
+          for (int mt = 0; mt < kMT; ++mt) mma3(yt[mt][jt], fx[mt], fb);
+        }
       }
     }
 
@@ -473,34 +492,64 @@ ssd_walk_kernel(const float* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = pw + 16 * mt + g + 8 * (e >> 1), col = 8 * jn + 2 * q + (e & 1);
-        if (r < p_w && col < n) s_out[(bh * p + p0 + r) * n + col] = s[mt][jn][e];
+        if (r < p_w && col < n_w) s_out[(bh * p + p0 + r) * n + n0 + col] = s[mt][jn][e];
       }
 }
 
-template <bool kVec>
-int launch(const float* x, const float* a, const float* b, const float* c, const float* s0,
-           float* y, float* s_out, float* scores, int batch, int t_len, int h, int p, int n,
-           cudaStream_t stream) {
+// y += the column tiles' slabs, in tile order (N over 64 only)
+__global__ void ssd_sum_parts_kernel(float* __restrict__ y, const float* __restrict__ parts,
+                                     int64_t elems, int n_parts) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < elems;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float v = y[i];
+    for (int j = 0; j < n_parts; ++j) v += parts[j * elems + i];
+    y[i] = v;
+  }
+}
+
+template <bool kVec, bool kSplitN>
+int launch_walk(const float* x, const float* a, const float* b, const float* c,
+                const float* scores, const float* s0, float* y, float* y_parts, float* s_out,
+                int batch, int t_len, int h, int p, int n, cudaStream_t stream) {
   static bool attrs_set = false;
   if (!attrs_set) {
-    cudaError_t err = cudaFuncSetAttribute(ssd_walk_kernel<kVec>,
+    cudaError_t err = cudaFuncSetAttribute(ssd_walk_kernel<kVec, kSplitN>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            kSmemBytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ssd_walk_kernel<kVec>,
+      err = cudaFuncSetAttribute(ssd_walk_kernel<kVec, kSplitN>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
     attrs_set = true;
   }
-  const int n_sub = (t_len + kQ - 1) / kQ;
   const int n_pt = (p + kPT - 1) / kPT;
+  const int n_nt = (n + kNT - 1) / kNT;
+  ssd_walk_kernel<kVec, kSplitN><<<dim3(h * n_pt * n_nt, batch), 32 * kWalkWarps, kSmemBytes,
+                                   stream>>>(x, a, b, c, scores, s0, y, y_parts, s_out, t_len,
+                                             h, p, n, n_pt, n_nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch(const float* x, const float* a, const float* b, const float* c, const float* s0,
+           float* y, float* y_parts, float* s_out, float* scores, int batch, int t_len,
+           int h, int p, int n, cudaStream_t stream) {
+  const int n_sub = (t_len + kQ - 1) / kQ;
+  const int n_nt = (n + kNT - 1) / kNT;
   ssd_scores_kernel<kVec><<<dim3(n_sub, batch), kThreads, 0, stream>>>(b, c, scores, t_len, n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_walk_kernel<kVec><<<dim3(h * n_pt, batch), 32 * kWalkWarps, kSmemBytes,
-                                      stream>>>(x, a, b, c, scores, s0, y, s_out, t_len, h, p,
-                                                n, n_pt);
+  if (n_nt == 1)
+    return launch_walk<kVec, false>(x, a, b, c, scores, s0, y, y_parts, s_out, batch, t_len, h,
+                                    p, n, stream);
+  const int werr = launch_walk<kVec, true>(x, a, b, c, scores, s0, y, y_parts, s_out, batch,
+                                           t_len, h, p, n, stream);
+  if (werr != 0) return werr;
+  const int64_t elems = static_cast<int64_t>(batch) * t_len * h * p;
+  const int64_t want = (elems + 255) / 256;
+  ssd_sum_parts_kernel<<<static_cast<int>(want < 4096 ? want : 4096), 256, 0, stream>>>(
+      y, y_parts, elems, n_nt - 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -510,17 +559,21 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15)
 
 // x (B, T, H, P), a (B, T, H), b and c (B, T, N), s0 (B, H, P, N), all f32 ->
 // y (B, T, H, P) f32 and s_out (B, H, P, N) f32. scores is f32 scratch of
-// B * ceil(T / 32) * 32 * 32 floats, 16-byte aligned. T must be a multiple of q (the caller's chunk,
-// which the op pads to); the kernels walk sub-chunks of 32 whatever q is.
+// B * ceil(T / 32) * 32 * 32 floats, 16-byte aligned; y_parts, for N > 64, is f32
+// scratch of (ceil(N / 64) - 1) * B * T * H * P floats (may be null at N <= 64).
+// T must be a multiple of q (the caller's chunk, which the op pads to); the kernels
+// walk sub-chunks of 32 whatever q is.
 extern "C" int ssd_scan_launch(const void* x, const void* a, const void* b, const void* c,
-                               const void* s0, void* y, void* s_out, void* scores, int batch,
-                               int t_len, int h, int p, int n, int q, void* stream) {
-  if (batch < 1 || batch > 65535 || t_len < 1 || h < 1 || p < 1 || n < 1 || n > kNT ||
-      q < 1 || t_len % q != 0 || static_cast<int64_t>(h) * ((p + kPT - 1) / kPT) > 0x7fffffff ||
-      !aligned16(scores))
+                               const void* s0, void* y, void* s_out, void* scores,
+                               void* y_parts, int batch, int t_len, int h, int p, int n, int q,
+                               void* stream) {
+  if (batch < 1 || batch > 65535 || t_len < 1 || h < 1 || p < 1 || n < 1 || q < 1 ||
+      t_len % q != 0 ||
+      static_cast<int64_t>(h) * ((p + kPT - 1) / kPT) * ((n + kNT - 1) / kNT) > 0x7fffffff ||
+      !aligned16(scores) || (n > kNT && y_parts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = p % 4 == 0 && n % 4 == 0 && aligned16(x) && aligned16(b) && aligned16(c) &&
-                   aligned16(y);
+                   aligned16(y) && (y_parts == nullptr || aligned16(y_parts));
   auto* st = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
   const auto* af = static_cast<const float*>(a);
@@ -530,8 +583,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* a, const void* b, cons
   auto* yf = static_cast<float*>(y);
   auto* of = static_cast<float*>(s_out);
   auto* gf = static_cast<float*>(scores);
-  return vec ? launch<true>(xf, af, bf, cf, sf, yf, of, gf, batch, t_len, h, p, n, st)
-             : launch<false>(xf, af, bf, cf, sf, yf, of, gf, batch, t_len, h, p, n, st);
+  auto* pf = static_cast<float*>(y_parts);
+  return vec ? launch<true>(xf, af, bf, cf, sf, yf, pf, of, gf, batch, t_len, h, p, n, st)
+             : launch<false>(xf, af, bf, cf, sf, yf, pf, of, gf, batch, t_len, h, p, n, st);
 }
 
 // Walk blocks resident on one SM (the occupancy calculator's answer, with this
@@ -540,8 +594,8 @@ extern "C" int ssd_scan_blocks_per_sm(int vec) {
   int blocks = 0;
   const cudaError_t err =
       vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &blocks, ssd_walk_kernel<true>, 32 * kWalkWarps, kSmemBytes)
+                &blocks, ssd_walk_kernel<true, false>, 32 * kWalkWarps, kSmemBytes)
           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &blocks, ssd_walk_kernel<false>, 32 * kWalkWarps, kSmemBytes);
+                &blocks, ssd_walk_kernel<false, false>, 32 * kWalkWarps, kSmemBytes);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

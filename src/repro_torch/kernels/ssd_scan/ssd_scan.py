@@ -2,7 +2,8 @@
 
 CPU tensors take the plain version (:func:`ref.ssd_scan_ref`); CUDA tensors
 launch the kernels or raise. ``ssd_scan.launches`` counts calls that launched
-(each launches the per-lane scores kernel, then the per-head walk).
+(each launches the per-lane scores kernel, then the per-head walk, and for
+N over 64 the kernel that sums the column tiles' shares of y).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 SUB_CHUNK = 32      # steps of the kernel's own sub-chunk, whatever the caller's chunk
-MAX_N = 64          # state columns the kernel holds in registers
+N_TILE = 64         # state columns one walk block holds in registers
 ROW_FLOATS = 64     # floats of an x, b or c row in shared memory
 
 
@@ -27,7 +28,7 @@ def smem_bytes() -> int:
 @functools.lru_cache(maxsize=None)
 def _bind():
     fn = _build.library("ssd_scan").ssd_scan_launch
-    fn.argtypes = [_build.VP] * 8 + [_build.I32] * 6 + [_build.VP]
+    fn.argtypes = [_build.VP] * 9 + [_build.I32] * 6 + [_build.VP]
     fn.restype = _build.I32
     return fn
 
@@ -45,7 +46,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              s0: torch.Tensor, *, chunk: int):
     """x (B,T,H,P); a (B,T,H); b, c (B,T,N); s0 (B,H,P,N) -> y (B,T,H,P) f32,
     s_final (B,H,P,N) f32. On CUDA, T must be a multiple of ``chunk`` (the op
-    pads), every operand float32 and N at most ``MAX_N``."""
+    pads) and every operand float32; N over ``N_TILE`` takes column tiles."""
     bb, t, h, p = x.shape
     n = b.shape[-1]
     if (tuple(a.shape) != (bb, t, h) or tuple(b.shape) != (bb, t, n)
@@ -64,15 +65,18 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     q = int(chunk)
     if q < 1 or t < 1 or t % q:
         raise ValueError(f"chunk {q} must be at least 1 and divide T={t}")
-    if n > MAX_N:
-        raise ValueError(f"ssd_scan kernel holds N <= {MAX_N} state columns, got N={n}")
     x, a, b, c, s0 = (o.contiguous() for o in ops)
     y = torch.empty((bb, t, h, p), dtype=torch.float32, device=x.device)
     s_fin = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
     scores = torch.empty((bb, -(-t // SUB_CHUNK), SUB_CHUNK, SUB_CHUNK),
                          dtype=torch.float32, device=x.device)
+    n_tiles = -(-n // N_TILE)
+    # the shares of y of column tiles 1.. (N over 64 only), summed into y in order
+    y_parts = (torch.empty((n_tiles - 1, bb, t, h, p), dtype=torch.float32, device=x.device)
+               if n_tiles > 1 else None)
     code = _bind()(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), s0.data_ptr(),
-                   y.data_ptr(), s_fin.data_ptr(), scores.data_ptr(), bb, t, h, p, n, q,
+                   y.data_ptr(), s_fin.data_ptr(), scores.data_ptr(),
+                   None if y_parts is None else y_parts.data_ptr(), bb, t, h, p, n, q,
                    torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ssd_scan")
     ssd_scan.launches += 1

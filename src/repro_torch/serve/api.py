@@ -2,10 +2,10 @@
 
 The types are the JAX package's, field for field: :class:`SamplingParams`,
 :class:`GenerationRequest`, :class:`GenerationResult`, :class:`RequestState`
-and the ``FINISH_*`` reasons. The port's engine serves greedy requests
-(``temperature == 0``); sampled decoding, deadlines, priorities, arrivals and
-speculative depth caps are validated here and refused by the engine until
-their slices are ported (see ``serve.engine``).
+and the ``FINISH_*`` reasons. The port's engine serves greedy and sampled
+requests and per-request speculative depth caps; deadlines, priorities and
+arrivals are validated here and refused by the engine until their slices are
+ported (see ``serve.engine``).
 
 Lifecycle: QUEUED -> ADMITTED -> RUNNING -> FINISHED (``finish_reason``
 ``"length"`` or ``"eos"``); FAILED / TIMED_OUT / CANCELLED are the other

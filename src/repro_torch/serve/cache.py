@@ -30,8 +30,16 @@ Differences from the JAX package, none of which changes a token:
 * Contiguous lanes (:class:`LaneState`, one per :class:`StateSpec`) are
   written in place too: insert copies one lane, retire zeroes one lane of
   the recurrent leaves, and the decode step writes each layer's slice.
-* Ring and static states (gemma2, audio) and fork/rollback (speculative
-  decoding) wait for their slices.
+* Speculative decoding's fork / restore / rollback keeps the JAX protocol
+  (:meth:`CachePool.fork_lane`). Because pages are written in place, the
+  copy-on-write that the JAX package does defensively is load-bearing here:
+  a verify branch's first append into a page the fork still references
+  copies that page first (:meth:`PagedKVState.ensure_residency`), so the
+  snapshot a restore reinstates was never written. And
+  :meth:`CachePool.extract_lane` returns a COPY of a contiguous lane (the
+  JAX view was safe because its updates were functional): a draft rollout
+  writes into the copy, and the pool changes only when the round commits.
+* Ring and static states (gemma2, audio) wait for their slices.
 """
 from __future__ import annotations
 
@@ -175,9 +183,12 @@ class PagedKVState:
     lanes, the admission stream and the prefix index."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, block_size: int, *,
-                 store_pages: int, prefix_cache: bool, dtype, device):
+                 store_pages: int, prefix_cache: bool, dtype, device, spec_slack: int = 0):
         self.block_size = int(block_size)
-        self.n_blocks = -(-int(max_len) // self.block_size)
+        # ``spec_slack`` buys each lane room for a speculative verify round's
+        # TRANSIENT k+1 appends beyond max_len (rolled back before the lane can
+        # be observed at that fill)
+        self.n_blocks = -(-(int(max_len) + max(int(spec_slack), 0)) // self.block_size)
         self.n_slots = int(n_slots)
         self.prefix_cache = bool(prefix_cache)
         self.store_capacity = int(store_pages) if self.prefix_cache else 0
@@ -194,6 +205,12 @@ class PagedKVState:
         self.block_tables = np.full((self.n_slots, self.n_blocks), -1, np.int64)
         self._index: OrderedDict[bytes, int] = OrderedDict()
         self.staging: Optional[_StagingHandle] = None
+        # live fork rows (identity-keyed): each holds one ref per page and is
+        # part of the audit's expected-refcount reconstruction
+        self._forks: list[np.ndarray] = []
+        # drained batch-admission streams waiting for their lane (their refs
+        # are audited like the open stream's)
+        self._parked: list[_StagingHandle] = []
 
     def __len__(self) -> int:
         """Indexed prefix entries (``prefix_report``'s ``stored_blocks``)."""
@@ -283,7 +300,9 @@ class PagedKVState:
 
     def ensure_residency(self, slot: int, pos: int, n_tokens: int = 1) -> None:
         """Page-in ``slot``'s write blocks for the next ``n_tokens`` appends
-        starting at ``pos``; copy-on-write any such block that is shared."""
+        starting at ``pos``; copy-on-write any such block that is shared (a
+        forked lane's partial write block): the copy is made before the decode
+        step writes in place, so the fork's page is never written."""
         last = min(pos + max(int(n_tokens), 1), self.n_blocks * self.block_size) - 1
         if last < pos:
             return  # at capacity: the engine retires before appending
@@ -297,6 +316,52 @@ class PagedKVState:
                 self.pages["v_pages"][:, q].copy_(self.pages["v_pages"][:, p])  # in place
                 self.block_tables[slot, wb] = q
                 self._unref(p)
+
+    # -------------------------------------------------------- fork / rollback
+
+    def fork_row(self, slot: int) -> np.ndarray:
+        """Snapshot ``slot``'s table row: one extra ref per page, no page
+        content copied. The row is registered live for the audit."""
+        row = self.block_tables[slot].copy()
+        for p in row:
+            if p >= 0:
+                self._ref(int(p))
+        self._forks.append(row)
+        return row
+
+    def _forget_fork(self, row: np.ndarray) -> None:
+        for i, r in enumerate(self._forks):
+            if r is row:
+                del self._forks[i]
+                return
+        raise EngineStateError("fork row is not registered (released twice?)")
+
+    def restore_row(self, slot: int, row: np.ndarray) -> None:
+        """Reinstate a fork: the lane's current row (with any pages the branch
+        wrote) is released and the snapshot's row and refs go back to the slot.
+        Bit-identical, because the branch copied a shared write block before
+        writing it."""
+        self._forget_fork(row)
+        self._drop_row(slot)
+        self.block_tables[slot] = row
+
+    def drop_fork_row(self, row: np.ndarray) -> None:
+        """Release a fork's references (the accept path, after rollback)."""
+        self._forget_fork(row)
+        for p in row:
+            if p >= 0:
+                self._unref(int(p))
+
+    def rollback(self, slot: int, pos: int) -> None:
+        """Truncate ``slot`` to fill level ``pos``: release every block at or
+        beyond the first dead one. Exact for paged KV: attention masks strictly
+        by ``[0, pos)``, so the kept write block's tail is dead weight."""
+        first = -(-int(pos) // self.block_size)
+        for b in range(first, self.n_blocks):
+            p = int(self.block_tables[slot, b])
+            if p >= 0:
+                self._unref(p)
+                self.block_tables[slot, b] = -1
 
     # --------------------------------------------------------------- staging
 
@@ -353,6 +418,7 @@ class PagedKVState:
         if h is None:
             raise EngineStateError("park_staging with no admission stream open")
         self.staging = None
+        self._parked.append(h)
         return h
 
     def insert(self, slot: int, handle: Optional[_StagingHandle] = None) -> None:
@@ -362,6 +428,10 @@ class PagedKVState:
         h = self.staging if handle is None else handle
         if h is None:
             raise EngineStateError("paged insert with no staging handle")
+        if handle is not None:
+            if not any(p is handle for p in self._parked):
+                raise EngineStateError("paged insert of a handle that is not parked")
+            self._parked = [p for p in self._parked if p is not handle]
         self._drop_row(slot)
         self.block_tables[slot] = h.table
         if handle is None:
@@ -376,9 +446,16 @@ class PagedKVState:
                 "block_table": torch.as_tensor(eff.astype(np.int32), device=self.device)}
 
     def reset_lanes(self) -> None:
-        """Drop every lane row and any staging stream; the prefix index and
-        page content survive."""
+        """Drop every lane row, any staging stream and any leaked fork; the
+        prefix index and page content survive."""
         self.release_staging()
+        for row in list(self._forks):
+            self.drop_fork_row(row)
+        for h in self._parked:
+            for p in h.table:
+                if p >= 0:
+                    self._unref(int(p))
+        self._parked = []
         for slot in range(self.n_slots):
             self._drop_row(slot)
 
@@ -393,8 +470,12 @@ class PagedKVState:
             for p in row:
                 if p >= 0:
                     expect[p] += 1
-        if self.staging is not None:
-            for p in self.staging.table:
+        for h in ([self.staging] if self.staging is not None else []) + self._parked:
+            for p in h.table:
+                if p >= 0:
+                    expect[p] += 1
+        for row in self._forks:
+            for p in row:
                 if p >= 0:
                     expect[p] += 1
         for p in self._index.values():
@@ -416,6 +497,19 @@ class PagedKVState:
 # ===========================================================================
 # the pool
 # ===========================================================================
+
+
+@dataclass
+class LaneFork:
+    """A point-in-time snapshot of one slot's paged lane: the table row (one
+    fork-held ref per page) and the fill level. Spent exactly once, by
+    :meth:`CachePool.drop_fork` (accept) or :meth:`CachePool.restore_lane`
+    (failure); a second release raises :class:`EngineStateError`."""
+
+    slot: int
+    pos: int
+    row: np.ndarray
+    live: bool = True
 
 
 @dataclass
@@ -445,7 +539,7 @@ class CachePool:
     def __init__(self, cfg: ModelConfig, max_len: int, n_slots: int, *,
                  prefix_cache: bool = True, block_size: int = 8,
                  prefix_pages: Optional[int] = None, paged: Optional[bool] = None,
-                 device=None):
+                 spec_slack: int = 0, device=None):
         M._check_family(cfg)
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -454,6 +548,8 @@ class CachePool:
         self.n_slots = n_slots
         self.block_size = block_size
         self.prefix_pages = prefix_pages
+        # extra per-lane physical blocks for speculative verify transients
+        self.spec_slack = max(int(spec_slack), 0)
         self.device = resolve_device(device)
         self.specs = derive_state_specs(cfg)
         self.policy = derive_policy(self.specs)
@@ -469,12 +565,20 @@ class CachePool:
             store_pages = prefix_pages if prefix_pages is not None else 4 * n_slots * nb
             self._kv = PagedKVState(cfg, n_slots, max_len, block_size,
                                     store_pages=store_pages, prefix_cache=self.prefix_cache,
-                                    dtype=M.kv_cache_dtype(cfg), device=self.device)
+                                    dtype=M.kv_cache_dtype(cfg), device=self.device,
+                                    spec_slack=self.spec_slack)
         else:
             cache = M.init_decode_cache(cfg, n_slots, max_len, device=self.device)
             self.states = [LaneState(sp, cache) for sp in self.specs]
         self.stats = {"prefix_lookups": 0, "prefix_hits": 0, "reused_prefix_tokens": 0}
         self._build()
+
+    @property
+    def table_blocks(self) -> int:
+        """Blocks in one lane's block table, ``ceil((max_len + spec_slack) /
+        block_size)``: the width the paged decode kernels read (0 for a
+        contiguous pool)."""
+        return self._kv.n_blocks if self._kv is not None else 0
 
     def _build(self) -> None:
         if self._kv is not None:
@@ -519,7 +623,9 @@ class CachePool:
                              prefix_pins=len(pinned))
 
     def check_invariants(self) -> list[str]:
-        """Audit cache accounting; returns violation descriptions (empty = healthy)."""
+        """Audit cache accounting; returns violation descriptions (empty =
+        healthy). Live forks are part of the refcount audit, so it holds in
+        the middle of a verify round too."""
         bad: list[str] = []
         for i, s in enumerate(self.slots):
             if s.state == FREE and int(self._pos[i]) != 0:
@@ -537,12 +643,20 @@ class CachePool:
     # -------------------------------------------------------------- protocol
 
     def alloc(self, request: Any, rid: int, *, reused_tokens: int = 0,
-              ctx: Optional[int] = None, emitted: int = 0) -> int:
-        """Claim the first free lane for ``request`` (a GenerationRequest)."""
+              ctx: Optional[int] = None, emitted: int = 0,
+              slot: Optional[int] = None) -> int:
+        """Claim the first free lane for ``request`` (a GenerationRequest), or
+        the free lane ``slot`` (a speculative draft pool mirrors the target
+        pool's slot assignment)."""
         free = self.free_slots()
-        if not free:
+        if slot is not None:
+            if self.slots[slot].state != FREE:
+                raise EngineStateError(f"CachePool.alloc: slot {slot} is not free")
+            si = slot
+        elif not free:
             raise PoolExhausted("CachePool.alloc: no free slot", self.occupancy())
-        si = free[0]
+        else:
+            si = free[0]
         self.slots[si] = SlotInfo(
             state=ACTIVE, req=rid, budget=request.max_new_tokens, emitted=emitted,
             ctx=len(request.prompt) if ctx is None else ctx,
@@ -573,16 +687,17 @@ class CachePool:
         self._pos[slot] = 0
         self.slots[slot] = replace(self.slots[slot], state=FREE)
 
-    def views(self) -> dict:
+    def views(self, span: int = 1) -> dict:
         """The decode-step cache dict; paged pools page-in every active lane's
-        write block."""
+        write blocks for the next ``span`` appends (copying a block that a
+        fork shares before it is written)."""
         kv = self._kv
         out: dict = {}
         if kv is not None:
             try:
                 for i, s in enumerate(self.slots):
                     if s.state == ACTIVE:
-                        kv.ensure_residency(i, int(self._pos[i]), 1)
+                        kv.ensure_residency(i, int(self._pos[i]), span)
             except _PagesExhausted as e:
                 raise PoolExhausted(str(e), self.occupancy()) from None
             out = kv.views()
@@ -601,6 +716,64 @@ class CachePool:
         for i in self.free_slots():
             pos[i] = 0
         self._pos = pos
+
+    # -------------------------------------------------------- fork / rollback
+
+    def _paged(self, what: str) -> PagedKVState:
+        if self._kv is None:
+            raise EngineStateError(f"{what} requires a paged pool")
+        return self._kv
+
+    def fork_lane(self, slot: int) -> LaneFork:
+        """Snapshot an active lane before a speculative verify branch writes
+        into it: the table row is copied and each page gains one fork-held
+        reference; no page content moves. The branch's first append into the
+        now shared partial write block copies it first (:meth:`views`)."""
+        kv = self._paged("fork_lane")
+        if self.slots[slot].state != ACTIVE:
+            raise EngineStateError(f"fork_lane of non-active slot {slot}")
+        return LaneFork(slot=slot, pos=int(self._pos[slot]), row=kv.fork_row(slot))
+
+    def restore_lane(self, fork: LaneFork) -> None:
+        """Reinstate a fork bit-identically (the verify branch failed): the
+        branch's pages are released and the snapshot's row and fill level go
+        back to the slot. Spends the fork."""
+        kv = self._paged("restore_lane")
+        if not fork.live:
+            raise EngineStateError("restore_lane on a spent fork")
+        kv.restore_row(fork.slot, fork.row)
+        self._pos[fork.slot] = fork.pos
+        fork.live = False
+
+    def drop_fork(self, fork: LaneFork) -> None:
+        """Release a fork's page references (the accept path, after
+        :meth:`rollback_lane` truncated the lane). Spends the fork."""
+        kv = self._paged("drop_fork")
+        if not fork.live:
+            raise EngineStateError("drop_fork on a spent fork")
+        kv.drop_fork_row(fork.row)
+        fork.live = False
+
+    def rollback_lane(self, slot: int, pos: int) -> None:
+        """Truncate an active lane to fill level ``pos``: blocks at or beyond
+        the first dead one are released, each exactly once."""
+        self._paged("rollback_lane").rollback(slot, pos)
+        self._pos[slot] = int(pos)
+
+    def extract_lane(self, slot: int) -> dict:
+        """A batch-1 COPY of one contiguous lane (every leaf's lane, and its
+        fill as a (1,) ``pos``). Decode steps write their cache in place, so a
+        view would let a draft rollout change the pool before its round
+        commits; the copy keeps the pool as it was until :meth:`insert`."""
+        if self._kv is not None:
+            raise EngineStateError("extract_lane requires a contiguous pool")
+        out: dict = {}
+        for st in self.states:
+            for k, leaf in st.views().items():
+                out[k] = leaf[:, slot:slot + 1].clone()
+        out["pos"] = torch.tensor([int(self._pos[slot])], dtype=torch.int32,
+                                  device=self.device)
+        return out
 
     # ----------------------------------------------------------- admission
 

@@ -1,5 +1,5 @@
 """Inference engine: slot-level continuous batching with BLOCKED/HBCEM/LBIM
-(port of ``repro.serve.engine``, greedy main path).
+(port of ``repro.serve.engine``).
 
 ``Engine.serve(requests)`` takes ``GenerationRequest`` objects and returns
 index-aligned ``GenerationResult`` objects. The decode cache is a
@@ -18,13 +18,22 @@ next freed lane:
 Prefix reuse, per-request ``max_new_tokens``/``eos_id`` retirement, the
 starvation-aware admission quantum, ``RequestState`` transitions and the
 ``ScheduleEvent`` stream follow the JAX engine exactly, so both engines give
-the same tokens, states and events for the same requests.
+the same tokens, states and events for the same requests. Sampling draws on
+per-request RNG lanes whose keys are the JAX package's (``serve.sampling``),
+so sampled tokens match too.
+
+Speculative decoding (``spec=SpecConfig(draft, k)``, :mod:`serve.spec`)
+drafts on a contiguous mirror pool and verifies every span position through
+the same ``(slots, 1)`` decode program plain decode runs, over forked
+block-table rows; its tokens equal the non-spec engine's at every
+temperature. The port has a static mode pin, so speculation is always
+allowed, as the JAX engine does under a pin.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than ignored:
-sampled decoding (``temperature > 0``), priorities and preemption, deadlines,
-``arrival_step > 0``, speculative decoding, fault plans and the degradation
-ladder, per-step mode policies. A step with non-finite logits raises
-:class:`~repro_torch.serve.errors.KernelFault`.
+priorities and preemption, deadlines, ``arrival_step > 0``, fault plans and
+the degradation ladder, per-step mode policies. A step with non-finite
+logits, or any exception in a step, restores the step's verify forks and
+raises (a NaN trip as :class:`~repro_torch.serve.errors.KernelFault`).
 """
 from __future__ import annotations
 
@@ -39,19 +48,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import interleave
 from repro_torch.core.pim_modes import Mode, StepPlan, plan_step
 from repro_torch.device import tensor_device
-from repro_torch.serve import sampling
+from repro_torch.serve import prng, sampling
 from repro_torch.serve.api import (FINISH_EOS, FINISH_FAILED, FINISH_LENGTH,
                                    TERMINAL_STATES, GenerationRequest, GenerationResult,
                                    RequestState)
-from repro_torch.serve.cache import CachePool
+from repro_torch.serve.cache import ACTIVE, CachePool
 from repro_torch.serve.errors import EngineStateError, KernelFault
 from repro_torch.serve.serving_model import ServingModel
+from repro_torch.serve.spec import SpecConfig, SpecDecoder
 
 
 @dataclass
 class ScheduleEvent:
     """One engine step, with the fields of the JAX engine's event that the
-    ported path fills (spec / fault / ladder fields wait for their slices)."""
+    ported path fills (fault / ladder / idle fields wait for their slices)."""
     plan: StepPlan
     decode_batch: int       # active decode lanes this step
     prefill_tokens: int     # admission-prefill tokens consumed this step
@@ -65,6 +75,15 @@ class ScheduleEvent:
     first_tokens: int = 0    # requests whose FIRST token emitted here
     step_s: float = 0.0      # host seconds from the step's launch to its tokens
     #                          on the host (the step ends in a device sync)
+    # --- speculative decoding (plan.spec steps; all 0 otherwise) ----------
+    spec_drafted: int = 0         # draft tokens proposed this round
+    spec_accepted: int = 0        # draft tokens accepted this round
+    spec_draft_steps: int = 0     # chained single-token draft feeds
+    spec_rollouts: int = 0        # lanes that rolled out draft candidates
+    spec_catchup_decodes: int = 0  # rollouts whose catch-up fed one token (a decode step)
+    verify_tokens: int = 0        # target positions scored: lanes x (K+1)
+    spec_max_emitted: int = 0     # most tokens any one lane emitted
+    draft_prefill_tokens: int = 0  # draft-lane (re)sync prefill and catch-up tokens
 
 
 class ScheduleReport(dict):
@@ -90,17 +109,12 @@ def _finite(logits, active, pre_logits) -> bool:
 
 def _unsupported(r: GenerationRequest) -> Optional[str]:
     """Why the ported engine cannot serve ``r`` yet (None: it can)."""
-    if r.sampling.temperature > 0:
-        return ("sampled decoding (temperature > 0) needs the threefry/fold_in "
-                "port (ROADMAP A.1); only greedy requests are served")
     if r.priority != 0:
         return "priorities and preemption are not ported yet (ROADMAP A.3)"
     if r.ttft_deadline is not None or r.deadline is not None:
         return "deadlines are not ported yet (ROADMAP A.4)"
     if r.arrival_step != 0:
         return "arrival_step > 0 (the traffic plane) is not ported yet (ROADMAP A.4)"
-    if r.spec_k is not None:
-        return "speculative decoding is not ported yet (ROADMAP A.5)"
     return None
 
 
@@ -143,6 +157,10 @@ class Engine:
     pool: Optional[CachePool] = None
     nan_guard: bool = True                  # finite-logits check per step
     step_limit: Optional[int] = None        # watchdog; None -> sized from work
+    spec: Optional[SpecConfig] = None       # draft/verify speculative decoding
+    spec_refill: bool = True  # scale the admission quantum with emitted tokens
+    #                           (speculating lanes drain budgets up to (k+1)x
+    #                            faster than retirements alone suggest)
 
     def __post_init__(self) -> None:
         if self.serving is None:
@@ -152,18 +170,33 @@ class Engine:
         self.cfg = self.serving.cfg
         self.params = self.serving.params
         self.max_len = self.serving.max_len
+        if self.spec is not None:
+            self.spec.validate()
         if self.pool is None:
             # prefix blocks align with the admission chunk so a reuse run's
-            # chunk boundaries match a cold run's exactly
-            self.pool = self.serving.cache_pool(slots=self.slots,
-                                                prefix_cache=self.prefix_cache,
-                                                block_size=self.chunk)
+            # chunk boundaries match a cold run's exactly; spec_slack buys each
+            # lane room for a verify round's transient k+1 appends
+            self.pool = self.serving.cache_pool(
+                slots=self.slots, prefix_cache=self.prefix_cache, block_size=self.chunk,
+                spec_slack=self.spec.k if self.spec is not None else 0)
         elif self.pool.n_slots != self.slots:
             raise ValueError(f"pool has {self.pool.n_slots} slots, engine expects {self.slots}")
         elif self.pool.prefix_cache and self.pool.block_size != self.chunk:
             raise ValueError(f"pool block_size={self.pool.block_size} must equal engine "
                              f"chunk={self.chunk} when prefix caching is on")
         self.prefix_cache = self.pool.prefix_cache
+        self.spec_dec: Optional[SpecDecoder] = None
+        if self.spec is not None:
+            if not self.pool.paged:
+                raise ValueError(
+                    "speculative decoding requires a fully paged target pool (verify "
+                    "branches fork/rollback block-table rows); this pool is contiguous")
+            if self.pool.spec_slack < self.spec.k:
+                raise ValueError(
+                    f"pool spec_slack={self.pool.spec_slack} < spec.k={self.spec.k}: a "
+                    f"verify round near max_len would overflow the lane's block grid")
+            self.spec_dec = SpecDecoder(self.spec.draft, self.serving, slots=self.slots,
+                                        max_len=self.max_len, k=self.spec.k)
         self.last_results: Optional[list[GenerationResult]] = None
         self._last_ev: Optional[ScheduleEvent] = None
         self._arrived_unstamped = 0
@@ -204,6 +237,7 @@ class Engine:
         n = len(reqs)
         self._reqs = reqs
         self._eos = [r.eos_id if r.eos_id is not None else self.cfg.eos_id for r in reqs]
+        self._base_keys = [sampling.request_key(r.sampling.seed, r.prompt) for r in reqs]
         results = [GenerationResult(prompt_len=len(r.prompt), arrival_step=r.arrival_step)
                    for r in reqs]
         self._results = results
@@ -211,6 +245,9 @@ class Engine:
         self.events.clear()
         pool = self.pool
         pool.reset()  # fresh lanes + slot table; the prefix store survives
+        spec_dec = self.spec_dec
+        if spec_dec is not None:
+            spec_dec.reset()
         pending: list[int] = list(range(n))
         queue: list[int] = []
         cur_tok = np.zeros((self.slots,), np.int32)
@@ -251,6 +288,8 @@ class Engine:
             res.state = RequestState.FINISHED
             res.finish_step = self._clock
             pool.retire(si)
+            if spec_dec is not None:  # the draft mirror never outlives it
+                spec_dec.retire_lane(si)
 
         def place(rdy: _Ready) -> None:
             """Drop a fully prefilled request into the first free lane."""
@@ -319,46 +358,55 @@ class Engine:
             c = 0
             if stream is not None:
                 boost = max(1, len(pool.free_slots()))
+                if (self.spec_refill and spec_dec is not None and self._last_ev is not None
+                        and self._last_ev.decode_batch > 0):
+                    e = self._last_ev
+                    boost = max(boost, -(-e.emitted_tokens // e.decode_batch))
                 if stream.remaining >= self.chunk:
                     c = self.chunk * min(boost, stream.remaining // self.chunk)
                 else:
                     c = stream.remaining
-            plan = plan_step(self.mode, bool(active), stream is not None, c)
+            # speculative draft depth per lane: the engine-wide k, capped by the
+            # request's own spec_k and by its remaining budget (a round emits at
+            # most k+1 tokens). Computed before planning, so a round where
+            # nothing drafts is a plain decode step. The static mode pin always
+            # allows speculation.
+            spec_ks: dict[int, int] = {}
+            if spec_dec is not None:
+                for si in active:
+                    s = pool.get(si)
+                    rk = reqs[s.req].spec_k
+                    k_eff = min(self.spec.k if rk is None else rk, self.spec.k,
+                                s.budget - s.emitted - 1)
+                    if k_eff > 0:
+                        spec_ks[si] = k_eff
+            plan = plan_step(self.mode, bool(active), stream is not None, c,
+                             spec=bool(spec_ks))
             if stream is not None and c > 0:
                 stream.cache = pool.staging_step_prep(stream.cache, c)
 
             t_step = time.perf_counter()
-            dparams = self.serving.decode_params
-            logits = pre_logits = new_cache = new_scache = None
-            feed = self._tokens(cur_tok[:, None])
-            if plan.fused:
-                self._require(stream is not None,
-                              "fused step planned without an admission stream in flight")
-                chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
-                logits, new_cache, pre_logits, new_scache = interleave.fused_step(
-                    dparams, pool.views(), feed, stream.cache, chunk_toks, self.cfg,
-                    sub_chunk=self.chunk)
-            else:
-                if plan.decode:
-                    logits, new_cache = interleave.decode_only_step(
-                        dparams, pool.views(), feed, self.cfg)
-                if plan.prefill_chunk:
-                    self._require(stream is not None,
-                                  "prefill chunk planned without an admission stream")
-                    chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
-                    pre_logits, new_scache = interleave.prefill_chunk_step(
-                        dparams, stream.cache, chunk_toks, self.cfg, sub_chunk=self.chunk)
-            if self.nan_guard and not _finite(logits, active, pre_logits):
-                raise KernelFault("decode_attention",
-                                  "non-finite logits (NaN/Inf guard trip); the port has "
-                                  "no degradation ladder yet (ROADMAP A.2)")
+            if plan.spec:
+                spec_dec.begin_round()
+            logits, new_cache, pre_logits, new_scache, drafts, forks, pos_before, span = \
+                self._run_step(plan, active, stream, c, cur_tok, spec_ks)
 
             ev = ScheduleEvent(
                 plan, len(active), c if plan.prefill_chunk else 0,
                 max((pool.get(i).ctx for i in active), default=0),
                 self._take_reuse(), mode=self.mode.value,
+                # a spec step is priced as one weights-resident verify pass,
+                # not K+1 split-KV sweeps, so it does not fan out
                 kv_splits=(max(1, self.cfg.decode_kv_splits)
-                           if plan.decode and pool.paged else 1))
+                           if plan.decode and pool.paged and not plan.spec else 1))
+            if plan.spec:
+                st = spec_dec.round_stats()
+                ev.spec_drafted = st["drafted"]
+                ev.spec_draft_steps = st["draft_steps"]
+                ev.spec_rollouts = st["rollouts"]
+                ev.spec_catchup_decodes = st["catchup_decodes"]
+                ev.draft_prefill_tokens = st["draft_prefill_tokens"]
+                ev.verify_tokens = len(active) * span
             self._push_event(ev)
 
             if new_cache is not None:
@@ -367,13 +415,17 @@ class Engine:
                 stream.cache = new_scache
                 stream.off += c
 
-            if plan.decode:
-                done = torch.ones((self.slots,), dtype=torch.bool)
-                done[active] = False
-                tok = sampling.greedy_masked(logits, done).cpu().numpy()
+            if plan.spec:
+                cur_tok = self._spec_accept(logits, active, drafts, forks, pos_before,
+                                            cur_tok, ev, emit)
+            elif plan.decode:
+                tok = self._sample_slots(logits, active)
                 cur_tok = tok.astype(np.int32)
                 for si in active:
                     emit(si, int(tok[si]))
+                    if spec_dec is not None:
+                        # keep draft lanes in sync across plain decode steps
+                        spec_dec.note_emitted(si, [int(tok[si])])
             ev.step_s = time.perf_counter() - t_step
 
             if stream is not None and stream.remaining == 0:
@@ -382,7 +434,8 @@ class Engine:
                 self._require(pre_logits is not None,
                               "admission stream drained without prefill logits")
                 r = stream.req
-                first = int(sampling.greedy(pre_logits[:, -1:, :])[0])
+                first = self._first_tokens(pre_logits[:, -1:, :], [r],
+                                           offsets=[len(results[r].tokens)])[0]
                 ready = _Ready(r, stream.cache, first, stream.reused,
                                prompt=[int(t) for t in stream.toks[0]],
                                ctx=int(stream.toks.shape[1]))
@@ -395,13 +448,191 @@ class Engine:
                 results[r].finish_reason = FINISH_FAILED
                 results[r].error = results[r].error or "engine exited with request non-terminal"
                 results[r].finish_step = self._clock
-        del self._reqs, self._eos
+        del self._reqs, self._eos, self._base_keys
         self.last_results = results
         return results
+
+    def _run_step(self, plan, active, stream, c, cur_tok, spec_ks):
+        """Compute one step: the draft rollouts and verify forks of a spec
+        round, the decode and/or admission chunk, and the verify positions,
+        then the NaN guard. The decode pool's writes are committed here only
+        for verify positions (each before the next); the caller commits the
+        rest. On any exception the step's forks are restored (rows and
+        refcounts bit-identical to the round's start) and the round is
+        aborted before the exception propagates: there is no ladder yet."""
+        pool, spec_dec, reqs = self.pool, self.spec_dec, self._reqs
+        dparams = self.serving.decode_params
+        logits = pre_logits = new_cache = new_scache = None
+        drafts: dict[int, list[int]] = {}
+        forks: dict = {}
+        pos_before: dict[int, int] = {}
+        span = 1
+        try:
+            if plan.spec:
+                # draft rollouts write into lane copies: the draft pool changes
+                # only in finish_round
+                spec_dec.prune({si: pool.get(si).req for si in active})
+                dcfg = spec_dec.draft_cfg
+                for si, k_eff in spec_ks.items():
+                    s = pool.get(si)
+                    spec_dec.ensure_lane(si, s.req, reqs[s.req],
+                                         list(reqs[s.req].prompt) + self._results[s.req].tokens,
+                                         dcfg)
+                    drafts[si] = spec_dec.rollout(si, k_eff, dcfg)
+                span = 1 + max(len(d) for d in drafts.values())
+                forks = {si: pool.fork_lane(si) for si in active}
+                pos_before = {si: forks[si].pos for si in active}
+            feed = self._tokens(cur_tok[:, None])
+            if plan.fused:
+                self._require(stream is not None,
+                              "fused step planned without an admission stream in flight")
+                chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
+                logits, new_cache, pre_logits, new_scache = interleave.fused_step(
+                    dparams, pool.views(span=1), feed, stream.cache, chunk_toks, self.cfg,
+                    sub_chunk=self.chunk)
+            else:
+                if plan.decode:
+                    logits, new_cache = interleave.decode_only_step(
+                        dparams, pool.views(span=1), feed, self.cfg)
+                if plan.prefill_chunk:
+                    self._require(stream is not None,
+                                  "prefill chunk planned without an admission stream")
+                    chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
+                    pre_logits, new_scache = interleave.prefill_chunk_step(
+                        dparams, stream.cache, chunk_toks, self.cfg, sub_chunk=self.chunk)
+            if plan.spec and span > 1:
+                # Verify scores every span position through the SAME (slots, 1)
+                # decode program plain decode runs, each committed into the
+                # forked rows before the next, so the verify logits and the
+                # accepted tokens' KV are the non-spec path's bits.
+                vlogits = [logits]
+                pool.commit(new_cache)
+                new_cache = None
+                for j in range(1, span):
+                    feed_j = np.zeros((self.slots, 1), np.int32)
+                    for si, d in drafts.items():
+                        if j - 1 < len(d):
+                            feed_j[si, 0] = d[j - 1]
+                    lg_j, nc_j = interleave.decode_only_step(
+                        dparams, pool.views(span=1), self._tokens(feed_j), self.cfg)
+                    pool.commit(nc_j)
+                    vlogits.append(lg_j)
+                logits = torch.cat(vlogits, dim=1)
+            if self.nan_guard and not _finite(logits, active, pre_logits):
+                raise KernelFault("decode_attention",
+                                  "non-finite logits (NaN/Inf guard trip); the port has "
+                                  "no degradation ladder yet (ROADMAP A.2)")
+        except Exception:
+            for fk in forks.values():
+                if fk.live:
+                    pool.restore_lane(fk)
+            if spec_dec is not None:
+                spec_dec.abort_round()
+            raise
+        return logits, new_cache, pre_logits, new_scache, drafts, forks, pos_before, span
 
     def _take_reuse(self) -> int:
         r, self._pending_reuse = self._pending_reuse, 0
         return r
+
+    # --------------------------------------------------------------- sampling
+
+    def _sample_slots(self, logits, active, offsets: Optional[dict] = None) -> np.ndarray:
+        """One pool-wide sampling step with per-slot params and keys.
+
+        When every active lane is greedy this is one argmax
+        (``greedy_masked``): no key is derived and no filter runs.
+        ``offsets`` overrides each lane's key index (slot -> absolute
+        emitted-token index; default the slot's ``emitted``): a verify round
+        samples position ``j`` at ``emitted + j``, the key non-spec decode
+        uses when it reaches that token."""
+        pool = self.pool
+        done = torch.ones((self.slots,), dtype=torch.bool)
+        done[active] = False
+        if all(self._reqs[pool.get(si).req].sampling.temperature <= 0 for si in active):
+            return sampling.greedy_masked(logits, done).cpu().numpy()
+        temps = np.zeros((self.slots,), np.float32)
+        tks = np.zeros((self.slots,), np.int64)
+        tps = np.ones((self.slots,), np.float32)
+        keys = torch.zeros((self.slots, 2), dtype=torch.int64)
+        sampled = []
+        for si in active:
+            sp = self._reqs[pool.get(si).req].sampling
+            temps[si], tks[si], tps[si] = sp.temperature, sp.top_k, sp.top_p
+            if sp.temperature > 0:
+                sampled.append(si)
+        # one batched fold_in for every sampled lane's token key
+        offs = [pool.get(si).emitted if offsets is None else offsets[si] for si in sampled]
+        keys[sampled] = prng.fold_in(
+            torch.stack([self._base_keys[pool.get(si).req] for si in sampled]),
+            torch.tensor(offs, dtype=torch.int64))
+        return sampling.sample_masked(
+            logits, done, keys=keys, temperature=torch.from_numpy(temps),
+            top_k=torch.from_numpy(tks), top_p=torch.from_numpy(tps)).cpu().numpy()
+
+    def _spec_accept(self, logits, active, drafts, forks, pos_before, cur_tok,
+                     ev: ScheduleEvent, emit) -> np.ndarray:
+        """Token-matching acceptance for one verify round.
+
+        Every position ``j`` of the (slots, K+1, V) verify logits is sampled on
+        the request's own RNG lane at absolute index ``emitted + j``; draft
+        token ``d_j`` is accepted iff it equals the target's sample at the
+        position that fed it. Surviving lanes roll back to their pre-round
+        fill plus what they emitted (the verify pass itself wrote the accepted
+        tokens' KV); each fork is spent exactly once."""
+        pool, spec_dec, results = self.pool, self.spec_dec, self._results
+        span = logits.shape[1]
+        emitted_at = {si: pool.get(si).emitted for si in active}
+        samp = np.zeros((self.slots, span), np.int32)
+        for j in range(span):
+            samp[:, j] = self._sample_slots(logits[:, j:j + 1, :], active,
+                                            offsets={si: emitted_at[si] + j for si in active})
+        new_cur = cur_tok.copy()
+        for si in active:
+            d = drafts.get(si, [])
+            a = 0
+            while a < len(d) and int(d[a]) == int(samp[si, a]):
+                a += 1
+            r = pool.get(si).req
+            emitted: list[int] = []
+            for j in range(a + 1):
+                emitted.append(int(samp[si, j]))
+                emit(si, int(samp[si, j]))
+                if pool.get(si).state != ACTIVE:
+                    break  # eos/budget: exactly where non-spec would stop
+            results[r].spec_proposed += len(d)
+            results[r].spec_accepted += a
+            ev.spec_accepted += a
+            ev.spec_max_emitted = max(ev.spec_max_emitted, len(emitted))
+            if pool.get(si).state == ACTIVE:
+                pool.rollback_lane(si, pos_before[si] + len(emitted))
+                new_cur[si] = emitted[-1]
+                spec_dec.finish_round(si, emitted)
+            else:
+                # retire released the lane's pages; the fork still holds its own
+                spec_dec.retire_lane(si)
+            pool.drop_fork(forks[si])
+        return new_cur
+
+    def _first_tokens(self, logits, rids: list[int],
+                      offsets: Optional[list[int]] = None) -> list[int]:
+        """Each request's prefill-seeded first token from logits (g, 1, V),
+        sampled at key index ``offsets`` (0 on first admission)."""
+        g = len(rids)
+        offs = offsets if offsets is not None else [0] * g
+        sps = [self._reqs[r].sampling for r in rids]
+        if all(sp.temperature <= 0 for sp in sps):
+            return [int(t) for t in sampling.greedy(logits).cpu()]
+        keys = torch.stack([
+            sampling.token_key(self._base_keys[r], off) if sp.temperature > 0
+            else torch.zeros((2,), dtype=torch.int64)
+            for r, sp, off in zip(rids, sps, offs)])
+        tok = sampling.sample_masked(
+            logits, torch.zeros((g,), dtype=torch.bool), keys=keys,
+            temperature=torch.tensor([sp.temperature for sp in sps], dtype=torch.float32),
+            top_k=torch.tensor([sp.top_k for sp in sps], dtype=torch.int64),
+            top_p=torch.tensor([sp.top_p for sp in sps], dtype=torch.float32))
+        return [int(t) for t in tok.cpu()]
 
     # ------------------------------------------------------- admission paths
 
@@ -446,7 +677,8 @@ class Engine:
                 if self.nan_guard and not _finite(None, [], logits):
                     raise KernelFault("decode_attention", "non-finite prefill logits")
                 staged.append((r, cache, pool.park_staging(),
-                               int(sampling.greedy(logits[:, -1:, :])[0])))
+                               self._first_tokens(logits[:, -1:, :], [r],
+                                                  offsets=[len(results[r].tokens)])[0]))
             glens = [len(ext[r]) for r in group]
             self._push_event(ScheduleEvent(plan_step(self.mode, False, True, sum(glens)),
                                            0, sum(glens),
@@ -479,4 +711,21 @@ class Engine:
             "reused_prefix_tokens": sum(e.reused_tokens for e in self.events),
             "arrivals": sum(e.arrivals for e in self.events),
             "prefix": self.pool.prefix_report(),
+            "spec": self._spec_report(),
         })
+
+    def _spec_report(self) -> dict:
+        """Speculative-decoding stats summed over the event stream."""
+        spec_events = [e for e in self.events if e.plan.spec]
+        proposed = sum(e.spec_drafted for e in spec_events)
+        accepted = sum(e.spec_accepted for e in spec_events)
+        return {
+            "enabled": self.spec_dec is not None,
+            "rounds": len(spec_events),
+            "proposed": proposed,
+            "accepted": accepted,
+            "acceptance_rate": (accepted / proposed) if proposed else 0.0,
+            "draft_steps": sum(e.spec_draft_steps for e in spec_events),
+            "draft_prefill_tokens": sum(e.draft_prefill_tokens for e in spec_events),
+            "verify_tokens": sum(e.verify_tokens for e in spec_events),
+        }

@@ -58,29 +58,33 @@ class ServingModel:
 
     def cache_pool(self, *, slots: Optional[int] = None, prefix_cache: bool = True,
                    block_size: int = 8, prefix_pages: Optional[int] = None,
-                   paged: Optional[bool] = None):
+                   paged: Optional[bool] = None, spec_slack: int = 0):
         """A :class:`repro_torch.serve.cache.CachePool` on this artifact's
         device. ``paged=None`` pages whenever KV is the whole cache state
         (the dense family); ``paged=False`` forces contiguous lanes for A/B
-        comparison; a hybrid's pool is contiguous either way."""
+        comparison; a hybrid's pool is contiguous either way. ``spec_slack``
+        adds per-lane blocks for speculative verify rounds' transient ``k+1``
+        appends."""
         from repro_torch.serve.cache import CachePool
 
         return CachePool(self.cfg, self.max_len, self.slots if slots is None else slots,
                          prefix_cache=prefix_cache, block_size=block_size,
-                         prefix_pages=prefix_pages, paged=paged, device=self.device)
+                         prefix_pages=prefix_pages, paged=paged, spec_slack=spec_slack,
+                         device=self.device)
 
     def engine(self, *, slots: Optional[int] = None, mode: Mode = Mode.HBCEM,
-               chunk: int = 8, prefix_cache: bool = True):
-        """A continuous-batching engine view over this artifact."""
+               chunk: int = 8, prefix_cache: bool = True, spec=None):
+        """A continuous-batching engine view over this artifact. ``spec`` (a
+        ``serve.spec.SpecConfig``) enables draft/verify speculative decoding."""
         from repro_torch.serve.engine import Engine  # deferred: engine imports us
 
         return Engine(self.cfg, self.params, max_len=self.max_len,
                       slots=self.slots if slots is None else slots, mode=mode,
-                      chunk=chunk, serving=self, prefix_cache=prefix_cache)
+                      chunk=chunk, serving=self, prefix_cache=prefix_cache, spec=spec)
 
     def generate(self, requests: Sequence[GenerationRequest], *, mode: Mode = Mode.HBCEM,
                  slots: Optional[int] = None, chunk: int = 8,
-                 prefix_cache: bool = True) -> list[GenerationResult]:
+                 prefix_cache: bool = True, spec=None) -> list[GenerationResult]:
         """One-shot convenience: serve ``requests`` through a fresh engine."""
         return self.engine(slots=slots, mode=mode, chunk=chunk,
-                           prefix_cache=prefix_cache).serve(requests)
+                           prefix_cache=prefix_cache, spec=spec).serve(requests)

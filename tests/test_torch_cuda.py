@@ -7,6 +7,7 @@ machine with a card::
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -35,7 +36,11 @@ def gemv_operands(n, k, b, gen, dev):
 
 
 @pytest.mark.parametrize("n,k,b", [(1, 16, 1), (37, 64, 3), (256, 1000, 8), (1024, 4096, 4),
-                                   (300, 14336, 8), (5, 7, 2)])
+                                   (300, 14336, 8), (5, 7, 2),
+                                   # x staged in K tiles (8 K > 227 KB): gemma2-27b's w_down
+                                   (4096, 36864, 8), (257, 36870, 5),
+                                   # batch groups past 8 rows, whole and tiled
+                                   (1024, 4096, 16), (300, 4100, 11), (96, 36864, 17)])
 def test_pim_gemv_bit_exact(dev, gen, n, k, b):
     from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
     from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
@@ -66,9 +71,8 @@ def test_pim_gemv_refuses_bad_operands(dev, gen):
     w, x, ws, xs = gemv_operands(8, 32, 2, gen, dev)
     with pytest.raises(TypeError):
         pim_gemv(w.float(), x, ws, xs)
-    w9, x9, ws9, xs9 = gemv_operands(8, 32, 9, gen, dev)
-    with pytest.raises(ValueError):
-        pim_gemv(w9, x9, ws9, xs9)
+    with pytest.raises(ValueError):              # one scale per batch row
+        pim_gemv(w, x, ws, xs[:1])
 
 
 def paged(gen, dev, b, hkv, g, hd, bsz, nb, dtype):
@@ -105,7 +109,8 @@ def live_ranges(lmax, edges, dev):
     (1, 112, 8, 100, torch.bfloat16, 30.0, True),
     (4, 128, 64, 40, torch.bfloat16, None, True),     # 2560 tokens in pages of 64
     (4, 128, 8, 256, torch.bfloat16, None, False),    # lanes of 8 chunks
-    (4, 128, 8, 37, torch.bfloat16, None, False)])    # the paged llama3-8b serve's tables
+    (4, 128, 8, 37, torch.bfloat16, None, False),     # the paged llama3-8b serve's tables
+    (4, 128, 8, 14, torch.bfloat16, None, False)])    # the spec serve's (max_len + slack)
 def test_paged_decode_matches_plain(dev, gen, g, hd, bsz, nb, dtype, cap, edges):
     """B1, and B2 at 2, 4, 5 and 64 splits (4 splits of the 37-block tables are
     80 tokens each, cut mid-tile)."""
@@ -234,7 +239,8 @@ def contiguous(gen, dev, b, hkv, g, hd, lmax, dtype):
     (16, 256, 1100, torch.float32, None, True),
     (1, 112, 128, torch.bfloat16, None, False),     # the zamba2-7b serve's Lmax: one chunk
     (4, 128, 256, torch.bfloat16, None, False),     # one full chunk on the tensor cores
-    (4, 128, 296, torch.bfloat16, 30.0, False)])    # the contiguous llama3-8b serve's Lmax
+    (4, 128, 296, torch.bfloat16, 30.0, False),     # the contiguous llama3-8b serve's Lmax
+    (4, 128, 109, torch.bfloat16, None, False)])    # the spec serve's draft lanes
 def test_contiguous_decode_matches_plain(dev, gen, g, hd, lmax, dtype, cap, edges):
     """B4: llama3-8b (G 4, hd 128) and zamba2 (G 1, hd 112) shapes, an empty
     range, a start > 0, a softcap, the wide instantiation, ranges inside one
@@ -255,7 +261,8 @@ def test_contiguous_decode_matches_plain(dev, gen, g, hd, lmax, dtype, cap, edge
 
 
 @pytest.mark.parametrize("layout", ["paged", "contiguous"])
-@pytest.mark.parametrize("g,hd,span", [(4, 128, 2048), (1, 112, 1000), (1, 112, 128)])
+@pytest.mark.parametrize("g,hd,span", [(4, 128, 2048), (1, 112, 1000), (1, 112, 128),
+                                       (4, 128, 112)])
 def test_single_pass_is_batch_invariant(dev, gen, layout, g, hd, span):
     """B1 and B4: each lane of a batch of 4 with other fills gives the same bits
     as the lane computed alone (B = 1), at the same table width or Lmax."""
@@ -338,6 +345,8 @@ SSD_TOL = dict(rtol=1e-4, atol=1e-4)
     (2, 64, 4, 16, 16, 8, 1.0),         # zamba2 smoke's widths (configs/zamba2_7b.py)
     (1, 64, 2, 100, 64, 64, 1.0),       # P over 64: two blocks of state rows a head
     (1, 50, 2, 7, 5, 25, 1.0),          # P, N not multiples of 4: 4-byte copies
+    (2, 128, 3, 64, 128, 64, 1.0),      # N over 64: two column tiles
+    (1, 50, 2, 7, 130, 25, 1.0),        # three column tiles, the last of 2, 4-byte copies
 ])
 def test_ssd_scan_matches_plain(dev, gen, b, t, h, p, n, q, decay):
     """B5 against the sequential recurrence."""
@@ -369,7 +378,7 @@ def test_ssd_scan_lane_alone_matches_the_batch(dev, gen):
 
 
 def test_ssd_scan_refuses_bad_operands(dev, gen):
-    from repro_torch.kernels.ssd_scan.ssd_scan import MAX_N, ssd_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 
     x, a, bm, cm, s0 = ssd_inputs(gen, dev, 1, 48, 2, 16, 8)
     with pytest.raises(ValueError):
@@ -378,9 +387,8 @@ def test_ssd_scan_refuses_bad_operands(dev, gen):
         ssd_scan(x, a, bm, cm, s0, chunk=0)
     with pytest.raises(TypeError):
         ssd_scan(x.double(), a, bm, cm, s0, chunk=16)
-    x, a, bm, cm, s0 = ssd_inputs(gen, dev, 1, 16, 1, 8, MAX_N + 1)
-    with pytest.raises(ValueError):                   # the state's columns live in registers
-        ssd_scan(x, a, bm, cm, s0, chunk=16)
+    with pytest.raises(ValueError):                   # s0 must carry every state column
+        ssd_scan(x, a, bm, cm, s0[..., :4], chunk=16)
 
 
 def test_contiguous_and_hybrid_serves_on_the_card_go_through_b4(dev):
@@ -413,3 +421,172 @@ def test_contiguous_and_hybrid_serves_on_the_card_go_through_b4(dev):
         counts = launch_counts()
         assert counts["decode_attention"] > 0 and counts["pim_gemv"] > 0
         assert counts["decode_attention_paged"] == counts["ssd_scan"] == 0
+
+
+# --------------------------------------------------------------------------
+# the engine on the card against the CPU path (plain versions)
+# --------------------------------------------------------------------------
+
+SERVE_PROMPTS = [[3, 1, 4, 1, 5, 9, 2], [7, 7], [2, 7, 1, 8, 2, 8, 1, 8, 2, 8, 4],
+                 [9], [5, 3, 5, 8, 9, 7, 9, 3]]
+SERVE_BUDGETS = [9, 12, 6, 10, 8]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.fixture
+def no_tf32():
+    """f32 matmuls in full f32 on the card, as chip_smoke.py sets them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def smoke_pair(dev, **overrides):
+    """llama3-8b smoke params made once on the CPU (seeded) and copied to the
+    card, with the config they were made for."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("llama3-8b", smoke=True).replace(**overrides)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, cpu, _to(cpu, dev)
+
+
+def serve_tokens(cfg, params, device, mode, samplers=None, spec_k=None):
+    from repro_torch.serve.api import GenerationRequest, SamplingParams
+    from repro_torch.serve.serving_model import ServingModel
+    from repro_torch.serve.spec import SpecConfig
+
+    sm = ServingModel.prepare(cfg, params, max_len=64, slots=2, device=device)
+    spec = SpecConfig(draft=sm, k=spec_k) if spec_k else None
+    eng = sm.engine(mode=mode, chunk=4, spec=spec)
+    samplers = samplers or [{}] * len(SERVE_PROMPTS)
+    res = eng.serve([GenerationRequest(prompt=p, max_new_tokens=b,
+                                       sampling=SamplingParams(**s))
+                     for p, b, s in zip(SERVE_PROMPTS, SERVE_BUDGETS, samplers)])
+    assert eng.pool.check_invariants() == []
+    if spec is not None:
+        assert eng.spec_dec.pool.check_invariants() == []
+    assert all(len(r.tokens) == b for r, b in zip(res, SERVE_BUDGETS))
+    return [r.tokens for r in res], eng
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("mode", ["BLOCKED", "HBCEM", "LBIM"])
+def test_engine_tokens_on_the_card_equal_the_cpu_path(dev, no_tf32, mode, splits):
+    """f32 smoke through the paged pool, W8A8 off: the greedy tokens served on
+    the card (B1 at one split, B2 stage 1 and the merge at four) equal those
+    served on the CPU by the plain versions."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    cfg, cpu, cuda = smoke_pair(dev, dtype="float32", param_dtype="float32",
+                                decode_kv_splits=splits)
+    want, _ = serve_tokens(cfg, cpu, "cpu", Mode[mode])
+    reset_launches()
+    got, eng = serve_tokens(cfg, cuda, dev, Mode[mode])
+    assert eng.pool.paged
+    counts = launch_counts()
+    if splits == 1:
+        assert counts["decode_attention_paged"] > 0
+    else:
+        assert counts["decode_attention_paged_split"] == counts["merge_splits"] > 0
+    assert got == want
+
+
+def _random_paged_cache(cfg, b, nb, bsz, fills, seed, dtype):
+    from repro_torch.core import kv_mapping
+
+    g = torch.Generator().manual_seed(seed)
+    pages = kv_mapping.init_paged_cache(cfg.n_layers, b * nb + 1, cfg.n_kv_heads,
+                                        cfg.head_dim, bsz, dtype, "cpu")
+    for k in pages:
+        pages[k].copy_(torch.randn(pages[k].shape, generator=g) * 0.3)
+    table = (torch.randperm(b * nb, generator=g) + 1).reshape(b, nb).to(torch.int32)
+    return {**pages, "block_table": table, "pos": torch.tensor(fills, dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("case", ["w8a8_f32", "bf16_hd64"])
+def test_decode_logits_per_step_on_the_card(dev, no_tf32, case, splits):
+    """One-token decode steps of a ragged paged batch, the card against the
+    plain path on the CPU, each step restarted from the CPU's cache (a shared
+    cache: under W8A8 an f32 ulp can flip one int8 rounding, and carried over
+    steps that would compare two roundings, not two step functions).
+
+    ``w8a8_f32``: f32 smoke with ``quantized_decode``, at the CPU W8A8 tests'
+    tolerance (rtol = atol = 1e-4) and equal argmaxes. ``bf16_hd64``: bf16
+    smoke with a head dim of 64, so B1 and B2 take their tensor-core branch;
+    bf16 rounds activations at other places on the two sides (2**-8 relative
+    a rounding, over two layers and the lm_head), so rtol = atol = 3e-2."""
+    from repro_torch.models import model as TM
+    from repro_torch.serve.serving_model import ServingModel
+
+    if case == "w8a8_f32":
+        over = dict(dtype="float32", param_dtype="float32", quantized_decode=True)
+        tol, dtype = dict(rtol=1e-4, atol=1e-4), torch.float32
+    else:
+        over = dict(dtype="bfloat16", param_dtype="bfloat16", d_head=64)
+        tol, dtype = dict(rtol=3e-2, atol=3e-2), torch.bfloat16
+    cfg, cpu, cuda = smoke_pair(dev, decode_kv_splits=splits, **over)
+    sm_cpu = ServingModel.prepare(cfg, cpu, max_len=64, slots=3, device="cpu")
+    sm_dev = ServingModel.prepare(cfg, cuda, max_len=64, slots=3, device=dev)
+    cache = _random_paged_cache(cfg, 3, 16, 4, [5, 0, 37], 11, dtype)
+    r = np.random.default_rng(5)
+    for _ in range(4):
+        tokens = torch.from_numpy(r.integers(1, cfg.vocab_size, (3, 1))).long()
+        dev_cache = _to(cache, dev)
+        want, cache = TM.decode_step(sm_cpu.decode_params, cache, tokens, cfg)
+        got, _ = TM.decode_step(sm_dev.decode_params, dev_cache, tokens.to(dev), cfg)
+        torch.testing.assert_close(got.float().cpu(), want.float(), **tol)
+        if case == "w8a8_f32":
+            assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+
+
+def test_sample_masked_on_the_card_equals_the_cpu(dev):
+    """The port's threefry and filter on CUDA tensors: the same tokens as on
+    the CPU for the same logits and keys (llama3-8b's vocab)."""
+    from repro_torch.serve import sampling
+
+    g = torch.Generator().manual_seed(2)
+    lg = torch.randn((4, 1, 128256), generator=g) * 3
+    keys = torch.stack([sampling.token_key(sampling.request_key(s, [1, 2, s]), s)
+                        for s in range(4)])
+    args = dict(temperature=torch.tensor([0.8, 0.0, 1.2, 0.7]),
+                top_k=torch.tensor([50, 0, 0, 5]), top_p=torch.tensor([0.95, 1.0, 0.5, 1.0]))
+    done = torch.tensor([False, False, False, True])
+    want = sampling.sample_masked(lg, done, keys=keys, **args)
+    got = sampling.sample_masked(lg.to(dev), done.to(dev), keys=keys.to(dev),
+                                 **{k: v.to(dev) for k, v in args.items()})
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["HBCEM", "LBIM"])
+def test_spec_serve_on_the_card(dev, no_tf32, mode):
+    """Self-draft speculation on the card (f32 smoke, W8A8): tokens equal the
+    non-spec serve's, greedy and sampled; the draft rolls out through B4 on
+    batch-1 contiguous lanes and verify runs B1 over the forked rows."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    cfg, _, cuda = smoke_pair(dev, dtype="float32", param_dtype="float32",
+                              quantized_decode=True)
+    samplers = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=1), {}, {},
+                dict(temperature=0.8, top_k=50, top_p=0.95, seed=2), {}]
+    plain, _ = serve_tokens(cfg, cuda, dev, Mode[mode], samplers)
+    reset_launches()
+    spec, eng = serve_tokens(cfg, cuda, dev, Mode[mode], samplers, spec_k=3)
+    assert spec == plain
+    rep = eng.schedule_report()["spec"]
+    assert rep["rounds"] > 0 and rep["accepted"] > 0
+    counts = launch_counts()
+    assert counts["decode_attention"] > 0 and counts["decode_attention_paged"] > 0
