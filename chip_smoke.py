@@ -63,7 +63,29 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    token) the draft's 7 x 32 ``pim_gemv`` and 32 contiguous attention calls
    on its batch-1 lane. Lines give decode-step ms, tokens/s and the spec
    report.
-6. A ``profile`` line per model (device time by kernel group, busy share), a
+6. ``traffic``: full-width llama3-8b (bf16, W8A8, paged 8-token pages,
+   4 slots, 64-token admission chunks) serves a seeded 16-request Poisson
+   trace (``serve.traffic.generate``: 0.25 arrivals a step, prompts of
+   32-256 tokens, 8-48 new, priorities 0, 0, 1) four times: (a) HBCEM, every
+   request finished, at least one preemption, streamed tokens equal to the
+   final ones; (b) the SLO-aware policy with 3-step TTFT deadlines on every
+   fourth request, one request cancelling itself from its stream and a plan
+   of one ``alloc_fail`` and one ``slow_step``: timeouts, one cancellation,
+   two injected faults; (c) (a) with self-draft speculation (the number of
+   requests whose tokens equal (a)'s is printed: bf16 may flip them); (d)
+   HBCEM with an injected ``pim_gemv`` ``kernel_exc``: exactly that step's
+   participants fail, every other request finishes, one kernel fault and no
+   fallback. Every serve must leave its pools audited empty, launch exactly
+   what its events imply, and (but (d)) report no failure, kernel fault or
+   failed attempt: the one-rung ladder on the card must not hide a real
+   kernel error. The kernel checks hold B1 at these serves' own tables (37
+   blocks, 38 with the spec slack) and B4 at the spec draft's Lmax 300
+   without softcap, at the trace's fills, each lane alone too; the traffic
+   engines refuse pools of any other shape. Then ``python -m
+   repro_torch.launch.serve`` in-process at smoke size with
+   ``--arrival-rate``, ``--mode-policy auto`` and ``--faults 1``; its health
+   line must account for the plan.
+7. A ``profile`` line per model (device time by kernel group, busy share), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -89,9 +111,10 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
 
     python3 chip_smoke.py --gemv
     python3 chip_smoke.py --spec
+    python3 chip_smoke.py --traffic
 
 print only ``pim_gemv``'s ``kernel_time`` and ``kernel_check`` lines (B3),
-or only the spec phase's lines.
+only the spec phase's lines, or only the traffic phase's and the CLI's.
 """
 from __future__ import annotations
 
@@ -433,10 +456,35 @@ def check_attention(gen, dev) -> dict:
             lambda i: da.decode_attention_paged(q[i], kp, vp, table[i], end[i], start[i],
                                                 scale=scale), out, ATTN_B)
         spec_cases.append([8, nb, None, ATTN_G, ATTN_HD, "batch invariant", fills])
+    # the traffic serves' launches: their tables without (a, b, d) and with
+    # (c, verify) the spec slack, at the trace's fills (lanes past 256 tokens
+    # take two chunks and the merge)
+    treqs = traffic_trace(get_config("llama3-8b").vocab_size).to_requests()
+    traffic_cases = []
+    for spec in (False, True):
+        nb = traffic_table_blocks(treqs, spec)
+        q, pools, table, _, _, scale = attn_inputs(gen, dev, nb=nb)
+        kp, vp = pools[0]
+        for when, fills in traffic_fills(treqs).items():
+            end = torch.tensor(fills, dtype=torch.int32, device=dev)
+            start = torch.zeros_like(end)
+            out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale)
+            want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, None,
+                                                  start=start)
+            torch.cuda.synchronize()
+            errs["decode_attention_paged"] = max(
+                errs["decode_attention_paged"],
+                _allclose(f"decode_attention_paged traffic {nb} blocks {when}", out, want))
+            check_batch_invariant(
+                f"decode_attention_paged traffic {nb} blocks {when}",
+                lambda i: da.decode_attention_paged(q[i], kp, vp, table[i], end[i], start[i],
+                                                    scale=scale), out, ATTN_B)
+            traffic_cases.append([8, nb, None, ATTN_G, ATTN_HD, "batch invariant", fills])
     emit({"phase": "kernel_check", "kernel": "decode_attention_paged (+split, merge)",
           "q": [ATTN_B, ATTN_HKV, ATTN_G, ATTN_HD], "pages": "bf16",
           "end": ATTN_END, "start": ATTN_START, "cases": [list(c) for c in cases],
-          "spec_serve_cases": spec_cases, "splits": [2, 4, 8],
+          "spec_serve_cases": spec_cases, "traffic_serve_cases": traffic_cases,
+          "splits": [2, 4, 8],
           "batch_invariant": [list(cases[0]), list(cases[0]) + ["4 splits"]],
           "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
     return errs
@@ -636,6 +684,18 @@ def check_contig_attention(gen, dev) -> float:
         worst = max(worst, check(f"llama3-8b spec draft lmax={lmax} {when}", q, *lanes[0],
                                  end, torch.zeros_like(end), scale, None, True))
         cases.append(["llama3-8b spec draft", hkv, g, hd, lmax, None, "batch invariant",
+                      fills])
+    # the traffic spec serve's draft (c): its Lmax (two chunks and the merge
+    # past 256 tokens, the CUDA-core walk: 300 is not a multiple of 8), no
+    # softcap, at the trace's fills, each lane alone as the draft runs it
+    treqs = traffic_trace(get_config("llama3-8b").vocab_size).to_requests()
+    lmax = traffic_draft_lmax(treqs)
+    q, lanes, _, _, scale = contig_inputs(gen, dev, hkv, g, hd, lmax)
+    for when, fills in traffic_fills(treqs).items():
+        end = torch.tensor(fills, dtype=torch.int32, device=dev)
+        worst = max(worst, check(f"llama3-8b traffic draft lmax={lmax} {when}", q,
+                                 *lanes[0], end, torch.zeros_like(end), scale, None, True))
+        cases.append(["llama3-8b traffic draft", hkv, g, hd, lmax, None, "batch invariant",
                       fills])
     emit({"phase": "kernel_check", "kernel": "decode_attention (contiguous)", "batch": ATTN_B,
           "cases": cases, "end": ATTN_END, "start": ATTN_START, "cache": "bf16",
@@ -974,13 +1034,16 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     catch-up, the lane resync prefill, longer
     chunks and the batch admission (never one token here: every prompt is
     longer) take GEMMs and dense attention and launch none of the port's
-    kernels. Nothing launches the SSD scan, which no model path runs."""
+    kernels. Nothing launches the SSD scan, which no model path runs. Failed
+    steps are left out: here each failed at an injected fault, which fires
+    before any launch (a serve without one must fail no step)."""
     from repro_torch.kernels import launch_counts
 
     from repro_torch.models.model import _hybrid_groups
 
+    events = [e for e in eng.events if not e.failed]
     fwd = sum((e.verify_tokens // e.decode_batch if e.plan.spec else int(e.plan.decode))
-              + int(e.prefill_tokens == 1) for e in eng.events)
+              + int(e.prefill_tokens == 1) for e in events)
     n_attn = _hybrid_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
     n = n_attn * fwd
     want = {k: 0 for k in launch_counts()}
@@ -993,7 +1056,7 @@ def expected_launches(eng, cfg) -> dict[str, int]:
         want["decode_attention_paged"] = n
     if eng.spec_dec is not None:
         dcfg = eng.spec_dec.draft_cfg
-        d_fwd = sum(e.spec_draft_steps + e.spec_catchup_decodes for e in eng.events)
+        d_fwd = sum(e.spec_draft_steps + e.spec_catchup_decodes for e in events)
         d_attn = _hybrid_groups(dcfg) if dcfg.family == "hybrid" else dcfg.n_layers
         want["pim_gemv"] += 7 * d_attn * d_fwd
         want["decode_attention"] += d_attn * d_fwd
@@ -1121,7 +1184,8 @@ def modes_agree(tokens: dict, what: str) -> list:
 
 def serve_phase(dev) -> dict:
     """llama3-8b: paged in the three modes, paged with 4 KV splits, and the
-    contiguous pool in LBIM; then the spec phase on the same weights."""
+    contiguous pool in LBIM; then the spec and traffic phases on the same
+    weights."""
     from repro_torch.configs import get_config
     from repro_torch.core.pim_modes import Mode
     from repro_torch.models.model import init_params
@@ -1166,6 +1230,9 @@ def serve_phase(dev) -> dict:
     del sm
     torch.cuda.empty_cache()
     for k, v in spec_phase(dev, cfg, params).items():
+        total[k] = total.get(k, 0) + v
+    torch.cuda.empty_cache()
+    for k, v in traffic_phase(dev, cfg, params).items():
         total[k] = total.get(k, 0) + v
     return total
 
@@ -1328,6 +1395,301 @@ def spec_phase(dev, cfg, params) -> dict:
     return total
 
 
+# the traffic phase: llama3-8b at full width under a seeded Poisson arrival
+# trace (as `python -m repro_torch.launch.serve --arrival-rate` generates one)
+TRAFFIC = dict(n_requests=16, seed=0, process="poisson", rate=0.25, prompt_len=(32, 256),
+               max_new=(8, 48), priorities=(0, 0, 1))
+# the admission quantum: at 8 tokens a step this trace is admission-bound
+# (lanes never all busy, so nothing is ever preempted); at 64 the lanes fill
+# and a priority-1 admission preempts. Pages stay 8 tokens: the prefix cache
+# (which ties pages to the chunk) is off, the trace's prompts share nothing.
+TRAFFIC_CHUNK = 64
+TRAFFIC_TTFT_DEADLINE = 3    # steps from arrival, on every fourth request of serve (b)
+TRAFFIC_CANCEL = (5, 3)      # serve (b): request 5 cancels itself after its 3rd token
+TRAFFIC_PLAN_B = (("alloc_fail", 6), ("slow_step", 12, 2))   # (kind, step[, penalty])
+CLI_FAULT_SEED = 1           # the CLI run's --faults seed
+
+
+def traffic_trace(vocab: int):
+    from repro_torch.serve import traffic
+
+    return traffic.generate(traffic.TrafficConfig(vocab=vocab, **TRAFFIC))
+
+
+def traffic_max_len(reqs) -> int:
+    """The traffic serves' max_len: the trace's longest request, in whole pages."""
+    return -(-serve_max_len(reqs) // 8) * 8
+
+
+def traffic_table_blocks(reqs, spec: bool) -> int:
+    """Block-table width of a traffic serve's paged pool (8-token pages; the
+    spec serve's lanes carry the 3-token verify slack)."""
+    return -(-(traffic_max_len(reqs) + (SPEC_K if spec else 0)) // 8)
+
+
+def traffic_draft_lmax(reqs) -> int:
+    """Lane length of the traffic spec serve's contiguous draft pool."""
+    return traffic_max_len(reqs) + SPEC_K + 1
+
+
+def traffic_fills(reqs) -> dict[str, list[int]]:
+    """Lane fills the traffic serves reach: the trace's first four requests
+    and its four longest, half way and at their last decode step."""
+    longest = sorted(reqs, key=lambda r: -(len(r.prompt) + r.max_new_tokens))
+    return {f"{who} {when}": fills
+            for who, rs in (("first four", reqs), ("longest four", longest))
+            for when, fills in serve_fills(rs).items()}
+
+
+def traffic_engine(sm, reqs, *, spec: bool = False, **kw):
+    """An engine of the traffic phase: SLOTS lanes, ``TRAFFIC_CHUNK``-token
+    admission chunks over a paged pool of 8-token pages without prefix
+    reuse; ``kw`` goes to the Engine (mode, step_policy, fault_plan). Its
+    pools must have the shapes the kernel checks held for ``reqs``."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.spec import SpecConfig
+
+    pool = sm.cache_pool(slots=SLOTS, prefix_cache=False, block_size=8,
+                         spec_slack=SPEC_K if spec else 0)
+    eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, chunk=TRAFFIC_CHUNK,
+                 serving=sm, prefix_cache=False, pool=pool,
+                 spec=SpecConfig(draft=sm, k=SPEC_K) if spec else None, **kw)
+    blocks, lmax = eng.pool.table_blocks, eng.spec_dec.pool.max_len if spec else None
+    if (blocks != traffic_table_blocks(reqs, spec)
+            or (spec and lmax != traffic_draft_lmax(reqs))):
+        raise AssertionError(
+            f"traffic pools ({blocks} blocks, draft Lmax {lmax}) are not the shapes "
+            f"kernel_check held ({traffic_table_blocks(reqs, spec)}, "
+            f"{traffic_draft_lmax(reqs) if spec else None})")
+    return eng
+
+
+def traffic_serve(eng, name: str, reqs) -> tuple[list, dict, dict]:
+    """One serve of the trace's requests on ``eng``: launch counts of this
+    serve alone held to what its events imply, the pools audited
+    empty, and the line with the latency summary on the engine-step clock and
+    the health counters."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.api import TERMINAL_STATES
+
+    spec = eng.spec_dec is not None
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if not all(r.state in TERMINAL_STATES for r in results):
+        raise AssertionError(f"traffic {name}: a request is not terminal")
+    for pool in [eng.pool] + ([eng.spec_dec.pool] if spec else []):
+        bad = pool.check_invariants()
+        occ = pool.occupancy()
+        if bad or occ.slots_used or occ.prefix_pins:
+            raise AssertionError(f"traffic {name}: pool invariants {bad}, {occ.slots_used} "
+                                 f"lanes and {occ.prefix_pins} prefix pins left")
+    want = expected_launches(eng, eng.cfg)
+    if counts != want:
+        raise AssertionError(f"traffic {name}: launches {counts}, the events imply {want}")
+    rep = eng.schedule_report()
+    h = eng.health()
+    lat = rep["latency"]
+    ntok = sum(len(r.tokens) for r in results)
+    line = {"phase": "traffic_serve", "serve": name, "arch": eng.cfg.name,
+            "policy": eng.step_policy.name if eng.step_policy is not None else eng.mode.value,
+            "spec_k": SPEC_K if spec else 0, "requests": len(reqs), "tokens": ntok,
+            "wall_s": wall, "tokens_per_s": ntok / wall, "steps": rep["steps"],
+            "idle_steps": rep["idle_steps"], "mode_steps": rep["mode_steps"],
+            **{f"{k}_p{p}": lat[k].get(f"p{p}")
+               for k in ("ttft_steps", "tpot_steps", "queue_wait_steps") for p in (50, 99)},
+            "states": lat["states"], "slo": lat.get("slo"), **h["counters"],
+            "ladder": {op: {k: c[k] for k in ("backend", "kernel_faults", "fallbacks")}
+                       for op, c in h["ladder"].items()},
+            "failed_steps": [e.plan.label for e in eng.events if e.failed],
+            "spec": rep["spec"] if spec else None, "launches": counts}
+    return results, line, h
+
+
+def check_clean(name: str, eng, h: dict) -> None:
+    """A serve without an injected kernel fault must not hide a real one: no
+    failure, no kernel fault and no failed attempt."""
+    c = h["counters"]
+    faults = sum(v["kernel_faults"] + v["nan_trips"] for v in h["ladder"].values())
+    if faults or c["failures"] or c["retried_steps"]:
+        raise AssertionError(f"traffic {name}: health not clean ({eng.last_step_error}): {h}")
+
+
+def run_cli(dev) -> dict:
+    """``repro_torch.launch.serve.main`` in-process on the card at smoke size
+    with arrivals, the SLO-aware policy and a seeded fault plan; its health
+    line must account for every fired fault (on the card a kernel is live, so
+    each fired ``kernel_exc`` fails one step) and its occupancy line must read
+    an empty pool."""
+    import ast
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import serve as cli
+    from repro_torch.serve.faults import FaultPlan
+
+    argv = ["--arch", "llama3-8b", "--smoke", "--device", "cuda", "--quantized-decode",
+            "--requests", "8", "--prompt-len", "24", "--max-new", "12", "--slots", str(SLOTS),
+            "--arrival-rate", "0.3", "--mode-policy", "auto", "--faults", str(CLI_FAULT_SEED)]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    out = buf.getvalue()
+    print(out, file=sys.stderr)
+    m = re.search(r"^health: degraded=(True|False) counters=(\{.*\})$", out, re.M)
+    occ = re.search(r"^occupancy: slots (\d+)/\d+ pages \d+/\d+ prefix_pins=(\d+)$", out, re.M)
+    lad = re.search(r"^ladder: (\{.*\}) fault_plan: (\{.*\})$", out, re.M)
+    if rc != 0 or not (m and occ and lad):
+        raise AssertionError(f"CLI: rc {rc}, health/occupancy/ladder lines missing:\n{out}")
+    counters, ladder = ast.literal_eval(m.group(2)), ast.literal_eval(lad.group(1))
+    plan = ast.literal_eval(lad.group(2))
+    kernel = sum(f["fired"] for f in plan["faults"] if f["kind"] == "kernel_exc")
+    want_plan = FaultPlan.seeded(CLI_FAULT_SEED).to_json()
+    if ([(f["kind"], f["step"], f["op"]) for f in plan["faults"]]
+            != [(f["kind"], f["step"], f["op"]) for f in want_plan["faults"]]):
+        raise AssertionError(f"CLI: fault plan {plan} is not FaultPlan.seeded's")
+    if (counters["injected_faults"] != plan["fired"]
+            or counters["failures"] != kernel or kernel < 1
+            or sum(v["kernel_faults"] for v in ladder.values()) != kernel
+            or any(v["backend"] != "kernel" or v["fallbacks"] for v in ladder.values())
+            or occ.group(1) != "0" or occ.group(2) != "0"):
+        raise AssertionError(f"CLI: health does not account for the plan:\n{out}")
+    line = {"phase": "cli", "argv": " ".join(argv), "wall_s": wall, **counters,
+            "kernel_faults_fired": kernel, "launches": counts,
+            "latency_line": re.search(r"^latency \(steps\).*$", out, re.M).group(0)}
+    emit(line)
+    return counts
+
+
+def traffic_phase(dev, cfg, params) -> dict:
+    """llama3-8b (bf16, W8A8, paged 8-token pages, SLOTS lanes) under the
+    seeded arrival trace: (a) HBCEM, no faults; (b) the SLO-aware policy with
+    tight TTFT deadlines, a cancel from a request's own stream and a plan of
+    one alloc failure and one slow step; (c) (a) with self-draft speculation;
+    (d) HBCEM with an injected ``pim_gemv`` kernel fault at a step with
+    running lanes. Then the CLI at smoke size."""
+    import dataclasses
+
+    from repro_torch.core.pim_modes import Mode, SloAwarePolicy
+    from repro_torch.serve.api import RequestState
+    from repro_torch.serve.faults import Fault, FaultPlan
+    from repro_torch.serve.serving_model import ServingModel
+
+    trace = traffic_trace(cfg.vocab_size)
+    reqs = trace.to_requests()
+    max_len = traffic_max_len(reqs)
+    sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
+    emit({"phase": "traffic_setup", "arch": cfg.name, "trace": TRAFFIC, "max_len": max_len,
+          "chunk": TRAFFIC_CHUNK, "page_tokens": 8, "slots": SLOTS,
+          "arrivals": [r.arrival_step for r in reqs],
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "max_new_tokens": [r.max_new_tokens for r in reqs],
+          "priorities": [r.priority for r in reqs]})
+    total: dict[str, int] = {}
+
+    def finished_budgets(name, res):
+        if not all(r.state is RequestState.FINISHED and len(r.tokens) == q.max_new_tokens
+                   for r, q in zip(res, reqs)):
+            raise AssertionError(f"traffic {name}: a request did not finish its budget")
+
+    # (a) HBCEM pin, no faults; the stream shows emitted tokens are never retracted
+    streamed: dict[int, list] = {i: [] for i in range(len(reqs))}
+    eng_a = traffic_engine(sm, reqs, mode=Mode.HBCEM)
+    res_a, line, h = traffic_serve(
+        eng_a, "a", [dataclasses.replace(r, on_token=streamed[i].append)
+                     for i, r in enumerate(reqs)])
+    check_clean("a", eng_a, h)
+    finished_budgets("a", res_a)
+    if h["counters"]["preemptions"] < 1:
+        raise AssertionError("traffic a: no preemption")
+    if any(streamed[i] != r.tokens for i, r in enumerate(res_a)):
+        raise AssertionError("traffic a: a resumed request lost or re-emitted tokens")
+    line["preempted_requests"] = sum(1 for r in res_a if r.preemptions)
+    emit(line)
+    add_launches(total, line)
+
+    # (b) auto, tight TTFT deadlines on every fourth request, a cancel from a
+    # request's own stream, one alloc failure and one slow step
+    eng_b = traffic_engine(sm, reqs, step_policy=SloAwarePolicy(), fault_plan=FaultPlan(
+        faults=[Fault(f[0], f[1], penalty=f[2] if len(f) > 2 else 0) for f in TRAFFIC_PLAN_B]))
+    who, after = TRAFFIC_CANCEL
+    seen: list = []
+
+    def canceller(tok):
+        seen.append(tok)
+        if len(seen) == after:
+            eng_b.cancel(who)
+    reqs_b = [dataclasses.replace(r, ttft_deadline=TRAFFIC_TTFT_DEADLINE if i % 4 == 3
+                                  else None, on_token=canceller if i == who else None)
+              for i, r in enumerate(reqs)]
+    res_b, line, h = traffic_serve(eng_b, "b", reqs_b)
+    check_clean("b", eng_b, h)
+    c = h["counters"]
+    if (c["timeouts"] < 1 or c["cancellations"] != 1 or c["injected_faults"] != 2
+            or eng_b.fault_plan.pending() or res_b[who].state is not RequestState.CANCELLED
+            or len(res_b[who].tokens) < after):
+        raise AssertionError(f"traffic b: counters {c}, plan {eng_b.fault_plan.to_json()}, "
+                             f"request {who} {res_b[who].state}")
+    if any(r.state is RequestState.TIMED_OUT and reqs_b[i].ttft_deadline is None
+           for i, r in enumerate(res_b)):
+        raise AssertionError("traffic b: a request without a deadline timed out")
+    emit(line)
+    add_launches(total, line)
+
+    # (c) (a)'s traffic with self-draft speculation
+    eng_c = traffic_engine(sm, reqs, mode=Mode.HBCEM, spec=True)
+    res_c, line, h = traffic_serve(eng_c, "c", reqs)
+    check_clean("c", eng_c, h)
+    finished_budgets("c", res_c)
+    line["requests_equal_to_a"] = sum(r.tokens == q.tokens for r, q in zip(res_c, res_a))
+    emit(line)
+    add_launches(total, line)
+
+    # (d) a pim_gemv kernel fault at the clock of (a)'s 10th step with two or
+    # more lanes decoding: the schedule is (a)'s up to it
+    steps = [e.clock for e in eng_a.events if e.plan.decode and e.decode_batch >= 2]
+    eng_d = traffic_engine(sm, reqs, mode=Mode.HBCEM, fault_plan=FaultPlan(
+        faults=[Fault("kernel_exc", steps[9], op="pim_gemv")]))
+    res_d, line, h = traffic_serve(eng_d, "d", reqs)
+    failed = [i for i, r in enumerate(res_d) if r.state is RequestState.FAILED]
+    ev = [e for e in eng_d.events if e.failed]
+    lad = h["ladder"]
+    if (eng_d.fault_plan.fired() != 1 or len(ev) != 1 or ev[0].clock != steps[9]
+            or len(failed) != ev[0].decode_batch + bool(ev[0].plan.prefill_chunk)
+            or ev[0].decode_batch < 1
+            or lad["pim_gemv"]["kernel_faults"] != 1 or h["counters"]["failures"] != 1
+            or any(v["fallbacks"] for v in lad.values())
+            or not all(res_d[i].error for i in failed)
+            or eng_d.last_step_error != "KernelFault: kernel fault in 'pim_gemv'"
+            or not all(r.state is RequestState.FINISHED and len(r.tokens) == reqs[i].max_new_tokens
+                       for i, r in enumerate(res_d) if i not in failed)):
+        raise AssertionError(f"traffic d: {h}, failed requests {failed}, failed steps {ev}")
+    line["step_error"] = eng_d.last_step_error
+    line["fault_step"] = steps[9]
+    line["failed_requests"] = failed
+    emit(line)
+    add_launches(total, line)
+    del sm
+    for k, v in run_cli(dev).items():
+        total[k] = total.get(k, 0) + v
+    emit({"phase": "serve_launches", "arch": cfg.name, "what": "traffic phase and CLI",
+          "runs": 5, **total})
+    check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged"),
+                   f"{cfg.name} traffic")
+    return total
+
+
 def serve_ab(dev) -> None:
     """``--ab``: one LBIM serve of each configuration and pool (llama3-8b paged
     and contiguous, zamba2-7b), each after a short warm-up serve, with the
@@ -1451,8 +1813,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"]):
-        print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec]",
+    if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
+                    ["--traffic"]):
+        print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1485,13 +1848,14 @@ def main(argv: list[str]) -> int:
         time_pim_gemv(gen, dev)
         check_pim_gemv(gen, dev)
         return 0
-    if argv == ["--spec"]:
+    if argv in (["--spec"], ["--traffic"]):
         from repro_torch.configs import get_config
         from repro_torch.models.model import init_params
 
         cfg = get_config("llama3-8b").replace(quantized_decode=True)
-        spec_phase(dev, cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                                         device=dev))
+        phase = spec_phase if argv == ["--spec"] else traffic_phase
+        phase(dev, cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                    device=dev))
         return 0
     if argv == ["--ab"]:
         host_cost(gen, dev)

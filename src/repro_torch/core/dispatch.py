@@ -9,7 +9,19 @@
 * ``"pallas"`` / ``"interpret"`` — TPU backends of the JAX package; they raise.
 
 There is no silent kernel -> reference rung: a kernel that fails on a CUDA
-tensor raises. The JAX package's ``DegradationLadder`` is not ported yet.
+tensor raises.
+
+**Degradation ladder.** The JAX package walks each op down
+``pallas -> interpret -> reference`` on a kernel fault or a NaN trip and
+retries the step. The TPU's ``interpret`` rung has no CUDA counterpart, and
+the port allows no plain-version rung on CUDA tensors, so here each op
+(:data:`LADDER_OPS`) has exactly one rung, its resolved backend: ``"kernel"``
+on the card, ``"reference"`` on the CPU. :class:`DegradationLadder` keeps the
+JAX package's health counters and ``kernel_live`` (True only on the card);
+having no rung to fall to, it has no ``degrade``. A failed step therefore
+takes the engine's exhaustion path: its participants fail with a typed error
+and the engine keeps serving. The JAX engine at its own floor (``reference``,
+``auto`` on the CPU) behaves exactly so.
 
 ``quantized_decode`` routes decode-time linear projections (qkv / o / MLP)
 through the W8A8 PIM GEMV whenever the activation is a low-batch
@@ -48,6 +60,43 @@ def resolve_backend(cfg, device) -> str:
     if dev.type == "cpu":
         return "reference"
     raise ValueError(f"unsupported device {dev}")
+
+
+LADDER_OPS = ("decode_attention", "pim_gemv")
+
+
+class DegradationLadder:
+    """Per-op rung and health counters for one engine. Each op's one rung is
+    its resolved backend for the engine's device, so there is never a rung to
+    fall to: the engine fails the step's participants instead of retrying,
+    and ``fallbacks`` stays 0 (kept so ``health()`` has the JAX package's
+    shape). ``record_nan`` and ``record_fault`` feed the counters
+    ``Engine.health()`` reports."""
+
+    def __init__(self, cfg, device):
+        self._base = {op: resolve_backend(cfg, device) for op in LADDER_OPS}
+        self.counters = {op: {"fallbacks": 0, "nan_trips": 0, "kernel_faults": 0}
+                         for op in LADDER_OPS}
+
+    def backend(self, op: str) -> str:
+        return self._base[op]
+
+    def kernel_live(self, op: str) -> bool:
+        """True while ``op`` runs a kernel (only there can a kernel fault
+        originate): on the card, never on the CPU."""
+        return self._base[op] == "kernel"
+
+    def record_nan(self, op: str = "decode_attention") -> None:
+        self.counters[op]["nan_trips"] += 1
+
+    def record_fault(self, op: str) -> None:
+        self.counters.setdefault(op, {"fallbacks": 0, "nan_trips": 0, "kernel_faults": 0})
+        self.counters[op]["kernel_faults"] += 1
+
+    def health(self) -> dict:
+        """JSON-safe per-op snapshot for ``Engine.health()``."""
+        return {op: {"backend": self._base.get(op, "?"), "base": self._base.get(op, "?"), **c}
+                for op, c in self.counters.items()}
 
 
 def decode_attention(q, k_cache, v_cache, end, *, scale: float, softcap=None,

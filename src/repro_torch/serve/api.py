@@ -2,14 +2,14 @@
 
 The types are the JAX package's, field for field: :class:`SamplingParams`,
 :class:`GenerationRequest`, :class:`GenerationResult`, :class:`RequestState`
-and the ``FINISH_*`` reasons. The port's engine serves greedy and sampled
-requests and per-request speculative depth caps; deadlines, priorities and
-arrivals are validated here and refused by the engine until their slices are
-ported (see ``serve.engine``).
+and the ``FINISH_*`` reasons. The port's engine serves all of them: greedy and
+sampled requests, speculative depth caps, priorities, deadlines and arrival
+steps.
 
 Lifecycle: QUEUED -> ADMITTED -> RUNNING -> FINISHED (``finish_reason``
 ``"length"`` or ``"eos"``); FAILED / TIMED_OUT / CANCELLED are the other
-terminal states.
+terminal states; preemption sends a RUNNING request back to QUEUED with its
+emitted tokens kept.
 """
 from __future__ import annotations
 

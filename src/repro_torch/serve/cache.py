@@ -522,6 +522,7 @@ class SlotInfo:
     emitted: int = 0
     ctx: int = 0            # prompt length + generated tokens in cache
     reused_tokens: int = 0  # prompt tokens served from the prefix store
+    priority: int = 0       # preemption order: lowest-priority slot evicts first
 
 
 class CachePool:
@@ -644,10 +645,13 @@ class CachePool:
 
     def alloc(self, request: Any, rid: int, *, reused_tokens: int = 0,
               ctx: Optional[int] = None, emitted: int = 0,
-              slot: Optional[int] = None) -> int:
+              priority: Optional[int] = None, slot: Optional[int] = None) -> int:
         """Claim the first free lane for ``request`` (a GenerationRequest), or
         the free lane ``slot`` (a speculative draft pool mirrors the target
-        pool's slot assignment)."""
+        pool's slot assignment). A preempted request resumes with ``ctx``
+        covering prompt + emitted tokens and ``emitted`` at its emitted count,
+        so its budget and RNG lane continue where eviction cut them off. With
+        no free lane it raises :class:`PoolExhausted` with the occupancy."""
         free = self.free_slots()
         if slot is not None:
             if self.slots[slot].state != FREE:
@@ -660,7 +664,8 @@ class CachePool:
         self.slots[si] = SlotInfo(
             state=ACTIVE, req=rid, budget=request.max_new_tokens, emitted=emitted,
             ctx=len(request.prompt) if ctx is None else ctx,
-            reused_tokens=reused_tokens)
+            reused_tokens=reused_tokens,
+            priority=getattr(request, "priority", 0) if priority is None else priority)
         return si
 
     def insert(self, slot: int, prefilled: dict, *, prompt=None, handle=None) -> None:

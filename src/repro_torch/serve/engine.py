@@ -26,14 +26,23 @@ Speculative decoding (``spec=SpecConfig(draft, k)``, :mod:`serve.spec`)
 drafts on a contiguous mirror pool and verifies every span position through
 the same ``(slots, 1)`` decode program plain decode runs, over forked
 block-table rows; its tokens equal the non-spec engine's at every
-temperature. The port has a static mode pin, so speculation is always
-allowed, as the JAX engine does under a pin.
+temperature.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than ignored:
-priorities and preemption, deadlines, ``arrival_step > 0``, fault plans and
-the degradation ladder, per-step mode policies. A step with non-finite
-logits, or any exception in a step, restores the step's verify forks and
-raises (a NaN trip as :class:`~repro_torch.serve.errors.KernelFault`).
+The traffic plane and robustness follow the JAX engine path for path:
+requests arrive at ``arrival_step`` on the engine-step clock (idle gaps jump
+the clock in one event); ``ttft_deadline``/``deadline`` (steps from arrival)
+and :meth:`Engine.cancel` are enforced at step boundaries; lane pressure and
+a parked higher-priority admission preempt the lowest-priority running lane,
+which requeues with its emitted tokens and resumes bit-identically; a
+``step_policy`` chooses the mode (and whether speculation runs) per step; a
+``fault_plan`` injects seeded faults. A failed step (a kernel error, an
+injected ``kernel_exc``, a NaN trip or any other exception) restores its
+verify forks. The port's ladder has one rung per op (``core.dispatch``), so
+there is nothing to retry on: the step's participants fail with a typed
+error while queued and parked requests go on being served, and
+:meth:`Engine.health` counts the event. As in the JAX engine, batch admission
+has no NaN guard of its own: a first token drawn there from non-finite
+prefill logits is emitted, and the request fails at the next step's guard.
 """
 from __future__ import annotations
 
@@ -46,33 +55,45 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import interleave
-from repro_torch.core.pim_modes import Mode, StepPlan, plan_step
+from repro_torch.core.dispatch import DegradationLadder
+from repro_torch.core.pim_modes import (Mode, StepChoice, StepPlan, StepPolicy, StepSignals,
+                                        plan_step)
 from repro_torch.device import tensor_device
 from repro_torch.serve import prng, sampling
-from repro_torch.serve.api import (FINISH_EOS, FINISH_FAILED, FINISH_LENGTH,
-                                   TERMINAL_STATES, GenerationRequest, GenerationResult,
-                                   RequestState)
+from repro_torch.serve.api import (FINISH_CANCELLED, FINISH_EOS, FINISH_FAILED,
+                                   FINISH_LENGTH, FINISH_TIMEOUT, TERMINAL_STATES,
+                                   GenerationRequest, GenerationResult, RequestState)
 from repro_torch.serve.cache import ACTIVE, CachePool
-from repro_torch.serve.errors import EngineStateError, KernelFault
+from repro_torch.serve.errors import EngineStateError, KernelFault, PoolExhausted
+from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.serving_model import ServingModel
 from repro_torch.serve.spec import SpecConfig, SpecDecoder
 
 
 @dataclass
 class ScheduleEvent:
-    """One engine step, with the fields of the JAX engine's event that the
-    ported path fills (fault / ladder / idle fields wait for their slices)."""
+    """One engine step: the JAX engine's event fields, plus the port's
+    ``clock``, ``failed``, ``step_s`` and its finer spec counters. The JAX
+    engine's ``attempts`` and ``degraded`` are always 1 and False here (the
+    port's ladder has one rung, so a step runs once), and are left out."""
     plan: StepPlan
     decode_batch: int       # active decode lanes this step
     prefill_tokens: int     # admission-prefill tokens consumed this step
     decode_ctx: int = 0     # max context (cache fill) among active lanes
     reused_tokens: int = 0  # prompt tokens served from the prefix store
+    slow_penalty: int = 0   # injected slow-step clock penalty (engine steps)
     kv_splits: int = 1      # paged decode KV-split fan-out
-    mode: str = ""          # governing Mode this step
+    mode: str = ""          # governing Mode this step (step-policy choice)
     arrivals: int = 0       # requests that became visible at this boundary
     queue_depth: int = 0    # arrived-but-unadmitted requests after arrivals
     emitted_tokens: int = 0  # tokens emitted at this event's boundary
     first_tokens: int = 0    # requests whose FIRST token emitted here
+    idle_steps: int = 0      # pure-idle clock jump to the next arrival (idle
+    #                          events advance the clock by this gap instead of
+    #                          1 + slow_penalty)
+    clock: int = 0           # engine-step clock the event began at (the step
+    #                          a fault plan's entries are due against)
+    failed: bool = False     # the step failed: its participants are FAILED
     step_s: float = 0.0      # host seconds from the step's launch to its tokens
     #                          on the host (the step ends in a device sync)
     # --- speculative decoding (plan.spec steps; all 0 otherwise) ----------
@@ -105,17 +126,6 @@ def _finite(logits, active, pre_logits) -> bool:
         if not bool(torch.isfinite(pre_logits[:, -1:, :]).all()):
             return False
     return True
-
-
-def _unsupported(r: GenerationRequest) -> Optional[str]:
-    """Why the ported engine cannot serve ``r`` yet (None: it can)."""
-    if r.priority != 0:
-        return "priorities and preemption are not ported yet (ROADMAP A.3)"
-    if r.ttft_deadline is not None or r.deadline is not None:
-        return "deadlines are not ported yet (ROADMAP A.4)"
-    if r.arrival_step != 0:
-        return "arrival_step > 0 (the traffic plane) is not ported yet (ROADMAP A.4)"
-    return None
 
 
 @dataclass
@@ -155,9 +165,14 @@ class Engine:
     serving: Optional[ServingModel] = None
     prefix_cache: bool = True
     pool: Optional[CachePool] = None
+    # --- robustness knobs -------------------------------------------------
+    fault_plan: Optional[FaultPlan] = None  # deterministic chaos injection
     nan_guard: bool = True                  # finite-logits check per step
     step_limit: Optional[int] = None        # watchdog; None -> sized from work
     spec: Optional[SpecConfig] = None       # draft/verify speculative decoding
+    # --- traffic plane ----------------------------------------------------
+    step_policy: Optional[StepPolicy] = None  # per-step mode choice; None ->
+    #                                           the static `mode` pin governs
     spec_refill: bool = True  # scale the admission quantum with emitted tokens
     #                           (speculating lanes drain budgets up to (k+1)x
     #                            faster than retirements alone suggest)
@@ -197,7 +212,17 @@ class Engine:
                     f"verify round near max_len would overflow the lane's block grid")
             self.spec_dec = SpecDecoder(self.spec.draft, self.serving, slots=self.slots,
                                         max_len=self.max_len, k=self.spec.k)
+        # health counters accumulate for the engine's lifetime
+        self.ladder = DegradationLadder(self.cfg, self.serving.device)
+        self._health = {"preemptions": 0, "timeouts": 0, "cancellations": 0,
+                        "failures": 0, "retried_steps": 0, "injected_faults": 0}
+        self._in_serve = False
+        self._cancel: set = set()
+        # the exception of the last failed step attempt: a failed step's
+        # requests carry only the ladder's verdict, this keeps the cause
+        self.last_step_error: Optional[str] = None
         self.last_results: Optional[list[GenerationResult]] = None
+        self.last_requests: Optional[list[GenerationRequest]] = None
         self._last_ev: Optional[ScheduleEvent] = None
         self._arrived_unstamped = 0
         self._queue_depth = 0
@@ -212,8 +237,11 @@ class Engine:
             ev.mode = self.mode.value
         ev.arrivals, self._arrived_unstamped = self._arrived_unstamped, 0
         ev.queue_depth = self._queue_depth
+        ev.clock = self._clock
         self.events.append(ev)
-        self._clock += 1
+        # an idle event jumps the clock straight to the next arrival; every
+        # other event is one engine step plus any injected slow penalty
+        self._clock += ev.idle_steps if ev.idle_steps else 1 + ev.slow_penalty
         self._last_ev = ev
 
     def _tokens(self, rows) -> torch.Tensor:
@@ -222,18 +250,26 @@ class Engine:
     # ------------------------------------------------------------------ API
 
     def serve(self, requests: Sequence[GenerationRequest]) -> list[GenerationResult]:
-        """Serve ``requests`` through the persistent decode pool. Each request
-        decodes to its own ``max_new_tokens``, retires the step it emits its
-        ``eos_id`` (the EOS token is included), and streams through
-        ``on_token`` if set. On return every result is terminal."""
+        """Serve ``requests`` through the persistent decode pool.
+
+        Each request decodes to its own ``max_new_tokens``, retires the step
+        it emits its ``eos_id`` (the EOS token is included), samples on its
+        private RNG lane, and streams through ``on_token`` if set. Results are
+        index-aligned with ``requests``; on return every result is terminal,
+        whatever faulted mid-run.
+
+        Robustness semantics (README "Failure semantics"): deadlines (engine
+        steps from each request's arrival) and :meth:`cancel` take effect at
+        step boundaries; lane pressure preempts the lowest-priority running
+        lane, which requeues with its emitted tokens and resumes
+        bit-identically (re-prefill of prompt + emitted tokens on the same RNG
+        lane); a failed step fails only its participants.
+        """
         self._require(self.serving is not None and self.pool is not None,
                       "Engine not prepared: serving artifact / cache pool missing")
         reqs = list(requests)
         for r in reqs:
             r.validate(self.max_len)
-            why = _unsupported(r)
-            if why is not None:
-                raise NotImplementedError(why)
         n = len(reqs)
         self._reqs = reqs
         self._eos = [r.eos_id if r.eos_id is not None else self.cfg.eos_id for r in reqs]
@@ -244,11 +280,21 @@ class Engine:
 
         self.events.clear()
         pool = self.pool
+        ladder = self.ladder
+        H = self._health
+        faults = self.fault_plan
+        if faults is not None:
+            for f in faults.faults:  # a plan replays identically per serve
+                f.fired = False
         pool.reset()  # fresh lanes + slot table; the prefix store survives
         spec_dec = self.spec_dec
         if spec_dec is not None:
             spec_dec.reset()
-        pending: list[int] = list(range(n))
+        # the arrival plane: a request is invisible to admission (and to the
+        # step policy's signals) until the clock reaches its arrival_step.
+        # `pending` is arrival-ordered (ties by submission index); `queue`
+        # holds only arrived requests.
+        pending: list[int] = sorted(range(n), key=lambda r: (reqs[r].arrival_step, r))
         queue: list[int] = []
         cur_tok = np.zeros((self.slots,), np.int32)
         stream: Optional[_Prefill] = None
@@ -258,12 +304,22 @@ class Engine:
         self._arrived_unstamped = 0
         self._queue_depth = 0
         self._last_ev = None
+        self._cancel.clear()
+        self._in_serve = True
         iters = 0
         limit = self.step_limit if self.step_limit is not None else (
-            64 + 8 * sum(len(r.prompt) + r.max_new_tokens for r in reqs))
+            64 + max((r.arrival_step for r in reqs), default=0)
+            + 8 * sum(len(r.prompt) + r.max_new_tokens for r in reqs))
+
+        def ext_prompt(r: int) -> list[int]:
+            """Admission span: prompt + already-emitted tokens, so a preempted
+            request resumes exactly where eviction cut it off."""
+            return list(reqs[r].prompt) + results[r].tokens
 
         def emit(si: int, tok: int) -> None:
-            """Record one token for slot ``si``; retire the lane when done."""
+            """Record one token for slot ``si``; retire the lane when done.
+            The token's timestamp is the boundary the step's event just
+            advanced the clock to."""
             s = pool.get(si)
             r = reqs[s.req]
             res = results[s.req]
@@ -291,22 +347,121 @@ class Engine:
             if spec_dec is not None:  # the draft mirror never outlives it
                 spec_dec.retire_lane(si)
 
-        def place(rdy: _Ready) -> None:
-            """Drop a fully prefilled request into the first free lane."""
+        def preempt(si: int) -> None:
+            """Evict lane ``si`` under pressure: retire (pages released) and
+            requeue at the head with the emitted tokens kept."""
+            r = pool.get(si).req
+            pool.retire(si)
+            if spec_dec is not None:
+                spec_dec.retire_lane(si)
+            H["preemptions"] += 1
+            results[r].preemptions += 1
+            results[r].state = RequestState.QUEUED
+            queue.insert(0, r)
+
+        def alloc_guarded(rdy: _Ready) -> int:
+            """``pool.alloc`` with injected exhaustion and preemption healing."""
             r = rdy.req
-            si = pool.alloc(reqs[r], r, reused_tokens=rdy.reused, ctx=rdy.ctx,
-                            emitted=len(results[r].tokens))
+            injected = (faults is not None
+                        and faults.take(self._clock, "alloc_fail") is not None)
+            if injected:
+                H["injected_faults"] += 1  # models fragmentation/contention
+            else:
+                try:
+                    return pool.alloc(reqs[r], r, reused_tokens=rdy.reused, ctx=rdy.ctx,
+                                      emitted=len(results[r].tokens))
+                except PoolExhausted:
+                    pass
+            # exhausted (injected or real): preempt the lowest-priority active
+            # lane the incoming request outranks or ties
+            victims = sorted((pool.get(si).priority, si) for si in pool.active_slots()
+                             if pool.get(si).priority <= reqs[r].priority)
+            if not victims:
+                return -1  # stays parked; retried next boundary
+            preempt(victims[0][1])
+            return pool.alloc(reqs[r], r, reused_tokens=rdy.reused, ctx=rdy.ctx,
+                              emitted=len(results[r].tokens))
+
+        def place(rdy: _Ready) -> bool:
+            """Drop a fully prefilled request into a lane (False: parked)."""
+            si = alloc_guarded(rdy)
+            if si < 0:
+                return False
             pool.insert(si, rdy.cache, prompt=rdy.prompt or None)
-            results[r].reused_prefix_tokens += rdy.reused
-            results[r].state = RequestState.RUNNING
+            results[rdy.req].reused_prefix_tokens += rdy.reused
+            results[rdy.req].state = RequestState.RUNNING
             cur_tok[si] = rdy.first_tok
             emit(si, rdy.first_tok)
+            return True
+
+        def evict(r: int, state: RequestState, reason: str,
+                  error: Optional[str] = None) -> None:
+            """Force request ``r`` terminal wherever it currently lives."""
+            nonlocal stream, ready
+            if results[r].state in TERMINAL_STATES:
+                return
+            if r in queue:
+                queue.remove(r)
+            if stream is not None and stream.req == r:
+                stream = None
+                pool.release_staging()  # the stream's pages go back
+            if ready is not None and ready.req == r:
+                ready = None
+                pool.release_staging()  # its un-inserted handle too
+            for si in pool.active_slots():
+                if pool.get(si).req == r:
+                    pool.retire(si)
+                    if spec_dec is not None:
+                        spec_dec.retire_lane(si)
+            results[r].state = state
+            results[r].finish_reason = reason
+            results[r].error = error
+            results[r].finish_step = self._clock
+
+        def sweep() -> None:
+            """Step-boundary enforcement: cancellations, then deadlines
+            (measured from each request's arrival step)."""
+            for r in sorted(self._cancel):
+                if results[r].state not in TERMINAL_STATES:
+                    evict(r, RequestState.CANCELLED, FINISH_CANCELLED)
+                    H["cancellations"] += 1
+            self._cancel.clear()
+            for r in range(n):
+                if results[r].state in TERMINAL_STATES:
+                    continue
+                rq = reqs[r]
+                arr = rq.arrival_step
+                if (rq.ttft_deadline is not None and not results[r].tokens
+                        and self._clock >= arr + rq.ttft_deadline):
+                    evict(r, RequestState.TIMED_OUT, FINISH_TIMEOUT,
+                          f"no first token by ttft_deadline={rq.ttft_deadline} steps "
+                          f"after arrival {arr} (step {self._clock})")
+                    H["timeouts"] += 1
+                elif rq.deadline is not None and self._clock >= arr + rq.deadline:
+                    evict(r, RequestState.TIMED_OUT, FINISH_TIMEOUT,
+                          f"not finished by deadline={rq.deadline} steps after "
+                          f"arrival {arr} (step {self._clock})")
+                    H["timeouts"] += 1
 
         def admit_arrivals() -> None:
-            while pending:
+            """Move requests whose arrival step the clock has reached from the
+            pending plane into the admission queue (arrival order)."""
+            while pending and reqs[pending[0]].arrival_step <= self._clock:
                 r = pending.pop(0)
-                queue.append(r)
-                self._arrived_unstamped += 1
+                if results[r].state not in TERMINAL_STATES:
+                    queue.append(r)
+                    self._arrived_unstamped += 1
+
+        def ttft_slack() -> Optional[int]:
+            """Tightest TTFT slack among arrived first-token-less live requests
+            that declare a ttft_deadline (None if none do)."""
+            slacks = [reqs[r].arrival_step + reqs[r].ttft_deadline - self._clock
+                      for r in range(n)
+                      if reqs[r].ttft_deadline is not None
+                      and reqs[r].arrival_step <= self._clock
+                      and results[r].state not in TERMINAL_STATES
+                      and results[r].first_token_step is None]
+            return min(slacks) if slacks else None
 
         while queue or pending or stream is not None or ready is not None \
                 or pool.has_work():
@@ -314,23 +469,42 @@ class Engine:
             if iters > limit:
                 for r in range(n):  # watchdog: nothing hangs, ever
                     if results[r].state not in TERMINAL_STATES:
-                        results[r].state = RequestState.FAILED
-                        results[r].finish_reason = FINISH_FAILED
-                        results[r].error = f"watchdog: step limit {limit} exceeded"
-                        results[r].finish_step = self._clock
+                        evict(r, RequestState.FAILED, FINISH_FAILED,
+                              f"watchdog: step limit {limit} exceeded")
+                        H["failures"] += 1
                 break
             admit_arrivals()
+            sweep()
             self._queue_depth = len(queue)
+
+            # -- nothing to run but arrivals still due: jump the clock to the
+            # next arrival as ONE zero-work idle event
+            if (not queue and stream is None and ready is None
+                    and not pool.has_work() and pending):
+                gap = reqs[pending[0]].arrival_step - self._clock
+                self._require(gap > 0, "idle jump planned with a due arrival")
+                self._push_event(ScheduleEvent(plan_step(self.mode, False, False, 0), 0, 0,
+                                               idle_steps=gap))
+                continue
 
             # -- a parked request takes the first freed lane
             if ready is not None and pool.free_slots():
-                place(ready)
-                ready = None
+                if place(ready):
+                    ready = None
                 continue
+
+            # -- priority preemption: a parked admission outranking a running
+            # lane evicts the lowest-priority strict underdog
+            if ready is not None:
+                victims = sorted((pool.get(si).priority, si) for si in pool.active_slots()
+                                 if pool.get(si).priority < reqs[ready.req].priority)
+                if victims:
+                    preempt(victims[0][1])
+                    continue
 
             active = pool.active_slots()
             if not (queue or stream is not None or ready is not None or active):
-                break
+                break  # sweep() emptied the engine
 
             # -- drained pool, nothing staged: batch-prefill straight into lanes
             if not active and stream is None and ready is None and queue:
@@ -342,9 +516,9 @@ class Engine:
                 r = queue.pop(0)
                 self._queue_depth = len(queue)
                 results[r].state = RequestState.ADMITTED
-                if results[r].admit_step is None:
-                    results[r].admit_step = self._clock
-                p = list(reqs[r].prompt) + results[r].tokens
+                if results[r].admit_step is None:   # first admission only: a
+                    results[r].admit_step = self._clock  # requeue never re-counts
+                p = ext_prompt(r)
                 staging, skip = pool.stage_admission(p)
                 self._pending_reuse += skip
                 stream = _Prefill(req=r, toks=np.asarray([p], np.int32), cache=staging,
@@ -353,8 +527,9 @@ class Engine:
             # starvation-aware admission rate: each FREE lane is wasted decode
             # bandwidth, so the quantum grows with the number of empty lanes
             # (1x when the stream merely runs ahead of retirement, up to
-            # `slots`x when the pool is starved). Quanta are whole multiples of
-            # `chunk` with at most one sub-chunk tail per prompt.
+            # `slots`x when the pool is starved); under speculation it also
+            # follows the last decode event's emitted tokens per lane. Quanta
+            # are whole multiples of `chunk` with at most one sub-chunk tail.
             c = 0
             if stream is not None:
                 boost = max(1, len(pool.free_slots()))
@@ -366,13 +541,27 @@ class Engine:
                     c = self.chunk * min(boost, stream.remaining // self.chunk)
                 else:
                     c = stream.remaining
+            # -- per-step mode: the step policy (when installed) resolves
+            # LBIM-vs-HBCEM and speculative participation from the live
+            # signals; otherwise the static `mode` pin governs, speculation on.
+            choice = StepChoice(self.mode)
+            if self.step_policy is not None:
+                choice = self.step_policy.choose(StepSignals(
+                    clock=self._clock, active=len(active), free=len(pool.free_slots()),
+                    queue_depth=len(queue), pending_arrivals=len(pending),
+                    stream_remaining=stream.remaining if stream is not None else 0,
+                    backlog_prefill_tokens=sum(len(ext_prompt(r)) for r in queue),
+                    backlog_decode_tokens=sum(reqs[r].max_new_tokens - len(results[r].tokens)
+                                              for r in queue),
+                    min_ttft_slack=ttft_slack()))
+            step_mode = choice.mode
             # speculative draft depth per lane: the engine-wide k, capped by the
             # request's own spec_k and by its remaining budget (a round emits at
             # most k+1 tokens). Computed before planning, so a round where
-            # nothing drafts is a plain decode step. The static mode pin always
-            # allows speculation.
+            # nothing drafts is a plain decode step. A policy that withholds
+            # spec leaves it empty: draft lanes stay synced by note_emitted.
             spec_ks: dict[int, int] = {}
-            if spec_dec is not None:
+            if spec_dec is not None and choice.allow_spec:
                 for si in active:
                     s = pool.get(si)
                     rk = reqs[s.req].spec_k
@@ -380,21 +569,43 @@ class Engine:
                                 s.budget - s.emitted - 1)
                     if k_eff > 0:
                         spec_ks[si] = k_eff
-            plan = plan_step(self.mode, bool(active), stream is not None, c,
+            plan = plan_step(step_mode, bool(active), stream is not None, c,
                              spec=bool(spec_ks))
             if stream is not None and c > 0:
                 stream.cache = pool.staging_step_prep(stream.cache, c)
 
+            # ---- guarded step execution: on an exception or a NaN trip the
+            # attempt's forks are restored and the step fails (below). The
+            # port's ladder has one rung per op, so there is nothing to retry
+            # on: the JAX engine at its reference floor does the same.
             t_step = time.perf_counter()
+            out = None
             if plan.spec:
                 spec_dec.begin_round()
-            logits, new_cache, pre_logits, new_scache, drafts, forks, pos_before, span = \
-                self._run_step(plan, active, stream, c, cur_tok, spec_ks)
+            try:
+                out = self._run_step(plan, active, stream, c, cur_tok, spec_ks)
+            except EngineStateError:
+                raise
+            except Exception as e:  # noqa: BLE001 — the failure path IS the handler
+                self.last_step_error = f"{type(e).__name__}: {e}"
+                H["retried_steps"] += 1
+                if isinstance(e, KernelFault):
+                    ladder.record_fault(e.op)
+            logits, new_cache, pre_logits, new_scache, drafts, forks, pos_before = \
+                out if out is not None else (None,) * 5 + ({}, {})
+            span = self._span   # the last attempt's verify span
 
+            slow = 0
+            if faults is not None:
+                f = faults.take(self._clock, "slow_step")
+                if f is not None:
+                    H["injected_faults"] += 1
+                    slow = f.penalty
             ev = ScheduleEvent(
                 plan, len(active), c if plan.prefill_chunk else 0,
                 max((pool.get(i).ctx for i in active), default=0),
-                self._take_reuse(), mode=self.mode.value,
+                self._take_reuse(), slow_penalty=slow, mode=step_mode.value,
+                failed=out is None,
                 # a spec step is priced as one weights-resident verify pass,
                 # not K+1 split-KV sweeps, so it does not fan out
                 kv_splits=(max(1, self.cfg.decode_kv_splits)
@@ -409,9 +620,38 @@ class Engine:
                 ev.verify_tokens = len(active) * span
             self._push_event(ev)
 
+            if out is None:
+                # fail ONLY the step's participants; parked/queued requests and
+                # the engine itself keep serving. The attempt already restored
+                # its verify forks; the lanes retire with their pages, so every
+                # page is released exactly once.
+                if spec_dec is not None:
+                    spec_dec.abort_round()
+                H["failures"] += 1
+                err = "step failed after 1 attempts (degradation ladder exhausted)"
+                for si in list(pool.active_slots()):
+                    r = pool.get(si).req
+                    pool.retire(si)
+                    if spec_dec is not None:
+                        spec_dec.retire_lane(si)
+                    results[r].state = RequestState.FAILED
+                    results[r].finish_reason = FINISH_FAILED
+                    results[r].error = err
+                    results[r].finish_step = self._clock
+                if stream is not None:
+                    results[stream.req].state = RequestState.FAILED
+                    results[stream.req].finish_reason = FINISH_FAILED
+                    results[stream.req].error = err
+                    results[stream.req].finish_step = self._clock
+                    stream = None
+                    pool.release_staging()
+                ev.step_s = time.perf_counter() - t_step
+                continue
+
             if new_cache is not None:
                 pool.commit(new_cache)
             if new_scache is not None:
+                self._require(stream is not None, "stream vanished mid-step")
                 stream.cache = new_scache
                 stream.off += c
 
@@ -441,6 +681,7 @@ class Engine:
                                ctx=int(stream.toks.shape[1]))
                 stream = None
 
+        self._in_serve = False
         pool.release_staging()  # no handle outlives a serve()
         for r in range(n):  # terminal contract: nothing is left in flight
             if results[r].state not in TERMINAL_STATES:
@@ -448,29 +689,56 @@ class Engine:
                 results[r].finish_reason = FINISH_FAILED
                 results[r].error = results[r].error or "engine exited with request non-terminal"
                 results[r].finish_step = self._clock
+                H["failures"] += 1
+        self.last_requests = reqs
         del self._reqs, self._eos, self._base_keys
         self.last_results = results
         return results
 
+    def cancel(self, request_index: int) -> None:
+        """Cancel an in-flight request (index into the ``serve()`` request
+        list). Valid only while ``serve()`` runs — from an ``on_token``
+        callback or another thread; it takes effect at the next step boundary
+        and keeps the tokens already emitted."""
+        if not self._in_serve:
+            raise EngineStateError(
+                "cancel() is only valid while serve() is running — request "
+                "indices are scoped to the in-flight call")
+        if not 0 <= request_index < len(self._reqs):
+            raise EngineStateError(
+                f"cancel({request_index}): no such request in the in-flight "
+                f"serve ({len(self._reqs)} requests)")
+        self._cancel.add(request_index)
+
     def _run_step(self, plan, active, stream, c, cur_tok, spec_ks):
-        """Compute one step: the draft rollouts and verify forks of a spec
-        round, the decode and/or admission chunk, and the verify positions,
-        then the NaN guard. The decode pool's writes are committed here only
-        for verify positions (each before the next); the caller commits the
-        rest. On any exception the step's forks are restored (rows and
-        refcounts bit-identical to the round's start) and the round is
-        aborted before the exception propagates: there is no ladder yet."""
+        """One attempt at a step: an injected ``kernel_exc`` first (before any
+        launch), then the draft rollouts and verify forks of a spec round, the
+        decode and/or admission chunk, the verify positions and the NaN
+        guard. The decode pool's writes are
+        committed here only for verify positions (each before the next); the
+        caller commits the rest; ``self._span`` is the attempt's verify span.
+        On any exception the attempt's forks are restored (rows and refcounts
+        bit-identical to the round's start) before it propagates to the
+        caller."""
         pool, spec_dec, reqs = self.pool, self.spec_dec, self._reqs
+        ladder, faults = self.ladder, self.fault_plan
         dparams = self.serving.decode_params
         logits = pre_logits = new_cache = new_scache = None
         drafts: dict[int, list[int]] = {}
         forks: dict = {}
         pos_before: dict[int, int] = {}
-        span = 1
+        self._span = 1
+        cfg = self.cfg
         try:
+            if faults is not None:
+                f = faults.take(self._clock, "kernel_exc",
+                                pred=lambda f: ladder.kernel_live(f.op))
+                if f is not None:
+                    self._health["injected_faults"] += 1
+                    raise KernelFault(f.op, injected=True)
             if plan.spec:
                 # draft rollouts write into lane copies: the draft pool changes
-                # only in finish_round
+                # only in finish_round, so a retried attempt simply re-drafts
                 spec_dec.prune({si: pool.get(si).req for si in active})
                 dcfg = spec_dec.draft_cfg
                 for si, k_eff in spec_ks.items():
@@ -479,7 +747,7 @@ class Engine:
                                          list(reqs[s.req].prompt) + self._results[s.req].tokens,
                                          dcfg)
                     drafts[si] = spec_dec.rollout(si, k_eff, dcfg)
-                span = 1 + max(len(d) for d in drafts.values())
+                self._span = 1 + max(len(d) for d in drafts.values())
                 forks = {si: pool.fork_lane(si) for si in active}
                 pos_before = {si: forks[si].pos for si in active}
             feed = self._tokens(cur_tok[:, None])
@@ -488,19 +756,19 @@ class Engine:
                               "fused step planned without an admission stream in flight")
                 chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
                 logits, new_cache, pre_logits, new_scache = interleave.fused_step(
-                    dparams, pool.views(span=1), feed, stream.cache, chunk_toks, self.cfg,
+                    dparams, pool.views(span=1), feed, stream.cache, chunk_toks, cfg,
                     sub_chunk=self.chunk)
             else:
                 if plan.decode:
                     logits, new_cache = interleave.decode_only_step(
-                        dparams, pool.views(span=1), feed, self.cfg)
+                        dparams, pool.views(span=1), feed, cfg)
                 if plan.prefill_chunk:
                     self._require(stream is not None,
                                   "prefill chunk planned without an admission stream")
                     chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
                     pre_logits, new_scache = interleave.prefill_chunk_step(
-                        dparams, stream.cache, chunk_toks, self.cfg, sub_chunk=self.chunk)
-            if plan.spec and span > 1:
+                        dparams, stream.cache, chunk_toks, cfg, sub_chunk=self.chunk)
+            if plan.spec and self._span > 1:
                 # Verify scores every span position through the SAME (slots, 1)
                 # decode program plain decode runs, each committed into the
                 # forked rows before the next, so the verify logits and the
@@ -508,28 +776,25 @@ class Engine:
                 vlogits = [logits]
                 pool.commit(new_cache)
                 new_cache = None
-                for j in range(1, span):
+                for j in range(1, self._span):
                     feed_j = np.zeros((self.slots, 1), np.int32)
                     for si, d in drafts.items():
                         if j - 1 < len(d):
                             feed_j[si, 0] = d[j - 1]
                     lg_j, nc_j = interleave.decode_only_step(
-                        dparams, pool.views(span=1), self._tokens(feed_j), self.cfg)
+                        dparams, pool.views(span=1), self._tokens(feed_j), cfg)
                     pool.commit(nc_j)
                     vlogits.append(lg_j)
                 logits = torch.cat(vlogits, dim=1)
             if self.nan_guard and not _finite(logits, active, pre_logits):
-                raise KernelFault("decode_attention",
-                                  "non-finite logits (NaN/Inf guard trip); the port has "
-                                  "no degradation ladder yet (ROADMAP A.2)")
+                ladder.record_nan()
+                raise KernelFault("decode_attention", "non-finite logits (NaN/Inf guard trip)")
         except Exception:
             for fk in forks.values():
                 if fk.live:
                     pool.restore_lane(fk)
-            if spec_dec is not None:
-                spec_dec.abort_round()
             raise
-        return logits, new_cache, pre_logits, new_scache, drafts, forks, pos_before, span
+        return logits, new_cache, pre_logits, new_scache, drafts, forks, pos_before
 
     def _take_reuse(self) -> int:
         r, self._pending_reuse = self._pending_reuse, 0
@@ -647,8 +912,15 @@ class Engine:
         one group, unless the pool's states cannot ride a right-padded ragged
         batch (recurrent state) and the lengths differ — then one group per
         request. Requests whose prompt hits the prefix store are not taken —
-        they admit through the chunk stream, which maps the shared blocks."""
+        they admit through the chunk stream, which maps the shared blocks.
+        Returns False when no request was admissible here (an injected
+        ``alloc_fail`` included: the queue head then admits through the chunk
+        stream, the engine's recovery route)."""
         reqs, results, pool = self._reqs, self._results, self.pool
+        if (self.fault_plan is not None
+                and self.fault_plan.take(self._clock, "alloc_fail") is not None):
+            self._health["injected_faults"] += 1
+            return False
         free = pool.free_slots()
         ext = {r: list(reqs[r].prompt) + results[r].tokens for r in queue}
         take: list[int] = []
@@ -674,8 +946,6 @@ class Engine:
                 logits, cache = interleave.prefill_chunk_step(
                     self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk,
                     gemm=True)
-                if self.nan_guard and not _finite(None, [], logits):
-                    raise KernelFault("decode_attention", "non-finite prefill logits")
                 staged.append((r, cache, pool.park_staging(),
                                self._first_tokens(logits[:, -1:, :], [r],
                                                   offsets=[len(results[r].tokens)])[0]))
@@ -693,11 +963,27 @@ class Engine:
 
     # ------------------------------------------------------------- reporting
 
+    def health(self) -> dict:
+        """Engine health snapshot: the ladder's rungs and per-op fault
+        counters, lifecycle counters (cumulative for the engine's lifetime),
+        pool occupancy, and the fault plan's consumption state."""
+        self._require(self.pool is not None, "health() without a pool")
+        return {
+            "degraded": False,   # one rung per op: nothing to degrade to
+            "ladder": self.ladder.health(),
+            "counters": dict(self._health),
+            "occupancy": self.pool.occupancy().to_json(),
+            "fault_plan": self.fault_plan.to_json() if self.fault_plan is not None else None,
+        }
+
     def schedule_report(self) -> ScheduleReport:
         self._require(self.pool is not None, "schedule_report() without a pool")
+        from repro_torch.serve.traffic import latency_summary  # cycle-free (lazy)
         decode_events = [e for e in self.events if e.plan.decode]
         mode_steps: dict[str, int] = {}
         for e in self.events:
+            if e.idle_steps:
+                continue  # idle jumps are clock bookkeeping, not mode picks
             mode_steps[e.mode] = mode_steps.get(e.mode, 0) + 1
         return ScheduleReport({
             "steps": len(self.events),
@@ -710,8 +996,14 @@ class Engine:
             "prefill_tokens": sum(e.prefill_tokens for e in self.events),
             "reused_prefix_tokens": sum(e.reused_tokens for e in self.events),
             "arrivals": sum(e.arrivals for e in self.events),
+            "idle_steps": sum(e.idle_steps for e in self.events),
             "prefix": self.pool.prefix_report(),
+            "retried_step_attempts": 0,   # a step runs once (one rung per op)
+            "degraded_steps": 0,
+            "slow_penalty_steps": sum(e.slow_penalty for e in self.events),
             "spec": self._spec_report(),
+            "latency": latency_summary(self.last_results or [], self.last_requests),
+            "health": self.health(),
         })
 
     def _spec_report(self) -> dict:

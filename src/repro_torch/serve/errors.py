@@ -1,10 +1,10 @@
 """Typed serving errors (the port's own copy of ``repro.serve.errors``).
 
 :class:`PoolExhausted` carries a :class:`PoolOccupancy` snapshot;
+:class:`AdmissionRejected` is backpressure at the scheduler's bounded queue;
 :class:`EngineStateError` is an invariant violation; :class:`KernelFault`
-names the op of a non-finite step; all inherit :class:`ServingError`. The
-JAX package's admission-queue and fault-injection errors wait for the
-scheduler and fault-plan slices.
+names the op of a failed step (a kernel error, an injected fault or a
+non-finite logit); all inherit :class:`ServingError`.
 """
 from __future__ import annotations
 
@@ -51,12 +51,24 @@ class ServingError(RuntimeError):
 class PoolExhausted(ServingError):
     """No lane (or page) could be claimed; carries the occupancy snapshot."""
 
-    def __init__(self, message: str, occupancy: PoolOccupancy):
+    def __init__(self, message: str, occupancy: PoolOccupancy, injected: bool = False):
         super().__init__(f"{message} [occupancy: slots {occupancy.slots_used}/"
                          f"{occupancy.slots_total} used, pages "
                          f"{occupancy.pages_used}/{occupancy.pages_total} used,"
                          f" {occupancy.prefix_pins} pinned]")
         self.occupancy = occupancy
+        self.injected = injected  # raised by a FaultPlan, not real pressure
+
+
+class AdmissionRejected(ServingError):
+    """Bounded admission queue is full — the submit was refused."""
+
+    def __init__(self, depth: int, max_queue: int):
+        super().__init__(
+            f"admission queue full ({depth}/{max_queue}); retry after a "
+            f"drain or raise Scheduler.max_queue")
+        self.depth = depth
+        self.max_queue = max_queue
 
 
 class EngineStateError(ServingError):
@@ -65,9 +77,12 @@ class EngineStateError(ServingError):
 
 class KernelFault(ServingError):
     """A kernel-level failure attributed to one dispatched op (``op``) —
-    raised when a step produces non-finite logits. The port has no
-    degradation ladder yet, so the engine raises it to the caller."""
+    a non-finite step or one injected by a
+    :class:`~repro_torch.serve.faults.FaultPlan`. The engine counts it on
+    the degradation ladder; with no rung below (the port's ladder has none,
+    see ``core.dispatch``) it fails the step's participants."""
 
-    def __init__(self, op: str, message: str = ""):
+    def __init__(self, op: str, message: str = "", injected: bool = False):
         super().__init__(message or f"kernel fault in {op!r}")
         self.op = op
+        self.injected = injected

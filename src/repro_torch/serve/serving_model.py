@@ -73,14 +73,17 @@ class ServingModel:
                          device=self.device)
 
     def engine(self, *, slots: Optional[int] = None, mode: Mode = Mode.HBCEM,
-               chunk: int = 8, prefix_cache: bool = True, spec=None):
+               chunk: int = 8, prefix_cache: bool = True, spec=None, step_policy=None):
         """A continuous-batching engine view over this artifact. ``spec`` (a
-        ``serve.spec.SpecConfig``) enables draft/verify speculative decoding."""
+        ``serve.spec.SpecConfig``) enables draft/verify speculative decoding;
+        ``step_policy`` (a ``core.pim_modes.StepPolicy``) overrides the static
+        ``mode`` pin with a per-step choice."""
         from repro_torch.serve.engine import Engine  # deferred: engine imports us
 
         return Engine(self.cfg, self.params, max_len=self.max_len,
                       slots=self.slots if slots is None else slots, mode=mode,
-                      chunk=chunk, serving=self, prefix_cache=prefix_cache, spec=spec)
+                      chunk=chunk, serving=self, prefix_cache=prefix_cache, spec=spec,
+                      step_policy=step_policy)
 
     def generate(self, requests: Sequence[GenerationRequest], *, mode: Mode = Mode.HBCEM,
                  slots: Optional[int] = None, chunk: int = 8,

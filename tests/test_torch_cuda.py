@@ -590,3 +590,86 @@ def test_spec_serve_on_the_card(dev, no_tf32, mode):
     assert rep["rounds"] > 0 and rep["accepted"] > 0
     counts = launch_counts()
     assert counts["decode_attention"] > 0 and counts["decode_attention_paged"] > 0
+
+
+def _traffic_serve(cfg, params, device, reqs, *, plan=None, spec_k=None):
+    """One HBCEM serve of ``reqs`` (slots 2, chunk 4) with an optional fault
+    plan and self-draft; the pool (and the draft pool) audited clean."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.serve.serving_model import ServingModel
+    from repro_torch.serve.spec import SpecConfig
+
+    sm = ServingModel.prepare(cfg, params, max_len=64, slots=2, device=device)
+    eng = sm.engine(mode=Mode.HBCEM, chunk=4,
+                    spec=SpecConfig(draft=sm, k=spec_k) if spec_k else None)
+    eng.fault_plan = plan
+    res = eng.serve(reqs)
+    assert eng.pool.check_invariants() == []
+    assert eng.pool.occupancy().slots_used == 0
+    if spec_k:
+        assert eng.spec_dec.pool.check_invariants() == []
+    return res, eng
+
+
+# the reference suite's preemption scenario: request 2 outranks two running lanes
+PREEMPT_PROMPTS = [[1, 2, 3], [1, 2, 3, 4, 5, 6, 7], [5, 5]]
+PREEMPT_BUDGETS = [6, 6, 4]
+
+
+def _serve_requests(over=None, prompts=SERVE_PROMPTS, budgets=SERVE_BUDGETS):
+    """Requests of ``prompts``/``budgets``; ``over`` maps an index to fields."""
+    import dataclasses
+
+    from repro_torch.serve.api import GenerationRequest
+
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    for i, kw in (over or {}).items():
+        reqs[i] = dataclasses.replace(reqs[i], **kw)
+    return reqs
+
+
+@pytest.mark.parametrize("op", ["decode_attention", "pim_gemv"])
+def test_injected_kernel_fault_on_the_card_fails_only_its_participants(dev, no_tf32, op):
+    """On the card a kernel is live, so ``kernel_exc`` fires (at the top of
+    an attempt, before any launch). The one-rung ladder cannot recover: that
+    step's participants fail with a typed error, every other request finishes
+    with the f32 smoke tokens the CPU path serves without faults, and the
+    health counters show one kernel fault, one failure and no fallback."""
+    from repro_torch.serve.api import RequestState
+    from repro_torch.serve.faults import Fault, FaultPlan
+
+    cfg, cpu, cuda = smoke_pair(dev, dtype="float32", param_dtype="float32")
+    want, _ = _traffic_serve(cfg, cpu, "cpu", _serve_requests())
+    plan = FaultPlan(faults=[Fault("kernel_exc", 4, op=op)])
+    got, eng = _traffic_serve(cfg, cuda, dev, _serve_requests(), plan=plan)
+    assert plan.fired() == 1
+    failed = [i for i, r in enumerate(got) if r.state is RequestState.FAILED]
+    [ev] = [e for e in eng.events if e.failed]    # the one failed step
+    assert len(failed) == ev.decode_batch + (1 if ev.prefill_tokens else 0) >= 1
+    assert {got[i].finish_step for i in failed} == {ev.clock + 1 + ev.slow_penalty}
+    for i, (r, w) in enumerate(zip(got, want)):
+        if i in failed:
+            assert "ladder exhausted" in r.error and r.tokens == w.tokens[:len(r.tokens)]
+        else:
+            assert r.state is RequestState.FINISHED and r.tokens == w.tokens
+    h = eng.health()
+    assert h["ladder"][op]["kernel_faults"] == 1 and h["ladder"][op]["backend"] == "kernel"
+    assert all(c["fallbacks"] == 0 for c in h["ladder"].values()) and not h["degraded"]
+    assert h["counters"]["failures"] == 1 and h["counters"]["injected_faults"] == 1
+
+
+@pytest.mark.parametrize("spec_k", [None, 2])
+def test_priority_preemption_resume_on_the_card_equals_the_cpu(dev, no_tf32, spec_k):
+    """A high-priority request preempts a running (with ``spec_k``, a
+    speculating) lane; the victim resumes by re-prefilling prompt + emitted
+    tokens. The f32 smoke tokens, states and preemption counts on the card
+    equal the CPU path's."""
+    cfg, cpu, cuda = smoke_pair(dev, dtype="float32", param_dtype="float32")
+    reqs = lambda: _serve_requests({2: dict(priority=5)}, PREEMPT_PROMPTS,  # noqa: E731
+                                   PREEMPT_BUDGETS)
+    want, _ = _traffic_serve(cfg, cpu, "cpu", reqs(), spec_k=spec_k)
+    got, eng = _traffic_serve(cfg, cuda, dev, reqs(), spec_k=spec_k)
+    assert sum(r.preemptions for r in got) >= 1
+    assert [(r.tokens, r.state, r.preemptions) for r in got] == \
+        [(r.tokens, r.state, r.preemptions) for r in want]
+    assert eng.health()["counters"]["failures"] == 0

@@ -1,0 +1,84 @@
+"""The port's serving CLI (``repro_torch.launch.serve``) in-process on the CPU
+(``--device cpu --smoke``): the traffic flags (``--arrival-rate``, ``--trace``
+replay, ``--mode-policy auto``), fault plans (``--faults``) and deadlines
+drive the ported engine, and every run prints its tokens, the latency summary
+and the health line with occupancy, as the JAX package's CLI does."""
+import ast
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import serve as cli  # noqa: E402
+from repro_torch.serve import traffic  # noqa: E402
+from repro_torch.serve.faults import FaultPlan  # noqa: E402
+
+BASE = ["--arch", "llama3-8b", "--smoke", "--device", "cpu", "--requests", "5",
+        "--prompt-len", "10", "--max-new", "5", "--slots", "2", "--chunk", "4"]
+
+
+def _run(capsys, *extra) -> str:
+    assert cli.main(BASE + list(extra)) == 0
+    return capsys.readouterr().out
+
+
+def _health(out: str) -> tuple[bool, dict]:
+    m = re.search(r"^health: degraded=(True|False) counters=(\{.*\})$", out, re.M)
+    assert m, out
+    return m.group(1) == "True", ast.literal_eval(m.group(2))
+
+
+def _tokens(out: str) -> list[str]:
+    return re.findall(r"^  req\d+ \(.*$", out, re.M)
+
+
+def test_arrivals_auto_policy_and_faults(capsys):
+    out = _run(capsys, "--arrival-rate", "0.3", "--mode-policy", "auto", "--faults", "1",
+               "--ttft-deadline", "60", "--seed", "3")
+    assert "traffic: poisson rate=0.3/step seed=3 (5 requests)" in out
+    assert re.search(r"^latency \(steps\): ttft p50=\d+ .* queue-wait p50=\d+", out, re.M)
+    assert re.search(r"^SLO attainment: \d+/5 ", out, re.M)
+    assert len(_tokens(out)) == 3
+    degraded, counters = _health(out)
+    # on the CPU no kernel is live: the plan's kernel faults stay pending, the
+    # slow steps fire, and nothing fails
+    plan = FaultPlan.seeded(1)
+    fired = sum(f.kind in ("alloc_fail", "slow_step") for f in plan.faults)
+    assert not degraded
+    assert counters["injected_faults"] == fired > 0
+    assert counters["failures"] == counters["retried_steps"] == 0
+    assert re.search(r"^occupancy: slots 0/2 pages \d+/\d+ prefix_pins=0$", out, re.M)
+    assert re.search(r"^ladder: .*'backend': 'reference'.* fault_plan: ", out, re.M)
+    assert "mode_steps={'" in out and "'lbim'" in out
+
+
+def test_trace_replay_equals_generated_arrivals(capsys, tmp_path):
+    gen = _run(capsys, "--arrival-rate", "0.5", "--seed", "2", "--mode", "lbim")
+    trace = traffic.generate(traffic.TrafficConfig(
+        n_requests=5, seed=2, rate=0.5, prompt_len=(10, 10), max_new=(5, 5), vocab=256))
+    path = tmp_path / "trace.json"
+    trace.save(path)
+    rep = _run(capsys, "--trace", str(path), "--mode", "lbim")
+    assert f"traffic: replaying 5 requests from {path}" in rep
+    assert _tokens(rep) == _tokens(gen)
+    assert _health(rep) == _health(gen)
+
+
+def test_deadline_times_out_and_health_counts_it(capsys):
+    out = _run(capsys, "--ttft-deadline", "1", "--mode", "blocked")
+    _, counters = _health(out)
+    assert counters["timeouts"] >= 1
+    assert "timed_out" in out
+
+
+def test_unported_arch_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="A.9"):
+        cli.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu"])
+
+
+def test_device_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.parse_args(["--arch", "llama3-8b"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--arch", "llama3-8b", "--smoke"])

@@ -4,8 +4,9 @@
 (``serving_refs.PROMPTS``/``BUDGETS``) at an f32 smoke size, through
 BLOCKED/HBCEM/LBIM x W8A8 decode off/on x KV splits 1/2. Tokens, finish
 reasons, states, latency marks and the ``ScheduleEvent`` fields the port
-carries must be equal. Then the port's guard rails: the device rule and the
-requests it refuses until their slices are ported.
+carries must be equal. Then the port's guard rails: the device rule, and the
+request features that once were refused, each served as the JAX engine
+serves it.
 """
 import dataclasses
 
@@ -164,19 +165,24 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(models, monkeypatch
     ("spec_k", 2, "A.5"),
 ])
 def test_unported_request_features_raise(models, field, value, roadmap):
-    """A request feature whose module is not ported raises, citing its ROADMAP
-    item. Sampled decoding (A.1) and ``spec_k`` (A.5) are ported now: those
-    requests are served to the end instead (``spec_k`` without a draft model
-    is ignored, as in the JAX engine)."""
-    _, tcfg, _, tp = models
+    """Every request feature that once raised (citing its ROADMAP item) is
+    ported now. Sampled decoding (A.1) and ``spec_k`` (A.5, ignored without a
+    draft model, as in the JAX engine) are served to the end; a priority
+    (A.3), a deadline or an arrival step (A.4) is served to the terminal
+    state, tokens and latency marks the JAX engine gives the same request."""
+    jcfg, tcfg, jp, tp = models
     eng = ServingModel.prepare(tcfg, tp, max_len=MAX_LEN, slots=2, device="cpu").engine()
     req = GenerationRequest(prompt=[1, 2, 3], max_new_tokens=2, **{field: value})
+    res = eng.serve([req])[0]
     if roadmap in ("A.1", "A.5"):
-        res = eng.serve([req])[0]
         assert res.state is RequestState.FINISHED and len(res.tokens) == 2
         return
-    with pytest.raises(NotImplementedError, match=roadmap):
-        eng.serve([req])
+    jeng = JServing.prepare(jcfg, jp, max_len=MAX_LEN, slots=2).engine()
+    jres = jeng.serve([JReq(prompt=[1, 2, 3], max_new_tokens=2, **{field: value})])[0]
+    assert res.state.value == jres.state.value == "finished"
+    assert result_fields(res) == result_fields(jres)
+    assert res.arrival_step == jres.arrival_step == req.arrival_step
+    assert eng.pool.check_invariants() == []
 
 
 def test_backend_names(models):

@@ -215,6 +215,38 @@ def test_events_record_each_rollout_and_its_catchup(models):
     assert all(not e.spec_rollouts for e in eng.events if not e.plan.spec)
 
 
+def test_spec_bit_identical_under_mid_decode_preemption(models):
+    """A higher-priority arrival preempts a speculating lane mid-decode; the
+    victim resumes (its draft lane resynced by a draft prefill of prompt +
+    emitted tokens) bit-identically to solo runs, and the whole serve
+    (tokens, states, events, spec report) equals the JAX spec engine's."""
+    jt, tt = models["llama"]
+    prompts, budgets = PROMPTS[:3], [6, 6, 4]
+    solo = [tt.engine(slots=1, mode=Mode.HBCEM, chunk=4)
+            .serve(_treqs(prompts=[p], budgets=[b]))[0].tokens
+            for p, b in zip(prompts, budgets)]
+    treqs = _treqs(prompts=prompts, budgets=budgets)
+    treqs[2] = dataclasses.replace(treqs[2], priority=5)
+    jreqs = _jreqs(prompts=prompts, budgets=budgets)
+    jreqs[2] = dataclasses.replace(jreqs[2], priority=5)
+    teng = tt.engine(slots=2, mode=Mode.HBCEM, chunk=4, spec=SpecConfig(draft=tt, k=2))
+    tres = teng.serve(treqs)
+    jeng = jt.engine(slots=2, mode=JMode.HBCEM, chunk=4, spec=JSpec(draft=jt, k=2))
+    jres = jeng.serve(jreqs)
+    assert sum(r.preemptions for r in tres) >= 1
+    victim = next(i for i, r in enumerate(tres) if r.preemptions)
+    assert tres[victim].spec_proposed > 0          # it was speculating when evicted
+    assert [r.tokens for r in tres] == solo
+    assert [(r.tokens, r.state.value, r.preemptions, r.admit_step, r.first_token_step,
+             r.finish_step, r.spec_proposed, r.spec_accepted) for r in tres] == \
+        [(r.tokens, r.state.value, r.preemptions, r.admit_step, r.first_token_step,
+          r.finish_step, r.spec_proposed, r.spec_accepted) for r in jres]
+    assert _events(teng) == _events(jeng)
+    assert teng.schedule_report()["spec"] == jeng.schedule_report()["spec"]
+    assert teng.health()["counters"] == jeng.health()["counters"]
+    _no_leaks(teng)
+
+
 def test_spec_k_without_a_spec_engine_is_ignored(models):
     """As in the JAX engine: ``spec_k`` caps a spec engine's depth and means
     nothing to an engine without a draft."""
