@@ -85,7 +85,26 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    repro_torch.launch.serve`` in-process at smoke size with
    ``--arrival-rate``, ``--mode-policy auto`` and ``--faults 1``; its health
    line must account for the plan.
-7. A ``profile`` line per model (device time by kernel group, busy share), a
+7. ``dense``: the rest of the dense family at full width, each model's
+   weights freed before the next is made (``memory`` lines give the card's
+   free memory before each init): (a) yi-9b (48 layers, G 8, W8A8, paged) in
+   HBCEM and LBIM and (b) codeqwen1.5-7b (G 1 MHA with q/k/v biases, W8A8,
+   paged) in HBCEM, each over the llama3-8b serve's 8 requests; then
+   gemma2-27b in bf16 (54.46 GB of weights: its W8A8 images beside the bf16
+   copies would not fit one card with its KV) over 4 requests, one of a
+   4,200-token prompt and 24 new tokens, so every local layer's 4,096-token
+   window binds (start > 0) from the first decode, and three of 32-256
+   tokens with 16-32 new; ``max_len`` 4,232, 256-token admission chunks,
+   HBCEM: (c) on the paged pool (8-token pages, no prefix reuse; the line
+   counts the B1 launches with a lane at start > 0) and (d) on the ring pool
+   (``windowed_kv_cache``: 4,096-slot rings for the 23 local layers, full
+   lanes for the 23 global ones, solo-prefill admission; the line counts the
+   B4 launches over rings and over lanes, which must be equal, and the
+   requests whose tokens equal (c)'s: bf16 may flip some). Launches exact,
+   health clean, as every serve. The kernel checks hold B1/B2/B4 and B3 at
+   these serves' shapes (``check_dense_kernels``); ``kernel_time`` lines give
+   B1 at (c)'s window-bound shape and B4 over (d)'s rings.
+8. A ``profile`` line per model (device time by kernel group, busy share), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -112,9 +131,11 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
     python3 chip_smoke.py --gemv
     python3 chip_smoke.py --spec
     python3 chip_smoke.py --traffic
+    python3 chip_smoke.py --dense
 
 print only ``pim_gemv``'s ``kernel_time`` and ``kernel_check`` lines (B3),
-only the spec phase's lines, or only the traffic phase's and the CLI's.
+only the spec phase's lines, only the traffic phase's and the CLI's, or
+only the dense phase's (with its kernel checks and times).
 """
 from __future__ import annotations
 
@@ -319,8 +340,8 @@ ATTN_START = [0, 0, 0, 100]       # a lane with start > 0
 SERVE_TABLE_BLOCKS, SERVE_END = 37, [48, 47, 46, 45]   # the serve's tables, short fills
 
 
-def attn_inputs(gen, dev, bsz=8, nb=None, copies=1, g=ATTN_G, hd=ATTN_HD):
-    b, hkv = ATTN_B, ATTN_HKV
+def attn_inputs(gen, dev, bsz=8, nb=None, copies=1, g=ATTN_G, hd=ATTN_HD, hkv=ATTN_HKV):
+    b = ATTN_B
     nb = ATTN_NB if nb is None else nb
     p = b * nb + 1                   # page 0 stays the unused dummy, as in the pool
     q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -1042,12 +1063,13 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     from repro_torch.models.model import _hybrid_groups
 
     events = [e for e in eng.events if not e.failed]
+    one_tok = eng.pool.policy.chunkable   # a ring pool prefills even one token whole
     fwd = sum((e.verify_tokens // e.decode_batch if e.plan.spec else int(e.plan.decode))
-              + int(e.prefill_tokens == 1) for e in events)
+              + int(one_tok and e.prefill_tokens == 1) for e in events)
     n_attn = _hybrid_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
     n = n_attn * fwd
     want = {k: 0 for k in launch_counts()}
-    want["pim_gemv"] = 7 * n
+    want["pim_gemv"] = 7 * n if cfg.quantized_decode else 0
     if not eng.pool.paged:
         want["decode_attention"] = n
     elif min(cfg.decode_kv_splits, eng.pool.table_blocks) > 1:
@@ -1058,7 +1080,7 @@ def expected_launches(eng, cfg) -> dict[str, int]:
         dcfg = eng.spec_dec.draft_cfg
         d_fwd = sum(e.spec_draft_steps + e.spec_catchup_decodes for e in events)
         d_attn = _hybrid_groups(dcfg) if dcfg.family == "hybrid" else dcfg.n_layers
-        want["pim_gemv"] += 7 * d_attn * d_fwd
+        want["pim_gemv"] += 7 * d_attn * d_fwd if dcfg.quantized_decode else 0
         want["decode_attention"] += d_attn * d_fwd
     return want
 
@@ -1081,7 +1103,8 @@ def decode_weight_bytes(sm) -> int:
         return sum(nbytes(v) for v in tree)
 
     cfg, dp = sm.cfg, sm.decode_params
-    rest = nbytes(dp["final_norm"]) + nbytes(dp["lm_head"])
+    rest = nbytes(dp["final_norm"]) + nbytes(dp["embed"] if cfg.tie_embeddings
+                                              else dp["lm_head"])
     if cfg.family == "hybrid":
         return (nbytes(dp["mamba_layers"]) + _hybrid_groups(cfg) * nbytes(dp["shared_attn"])
                 + rest)
@@ -1092,7 +1115,9 @@ def serve_setup_line(sm, reqs, t0) -> dict:
     cfg = sm.cfg
     wbytes = decode_weight_bytes(sm)
     return {"phase": "serve_setup", "arch": cfg.name, "n_layers": cfg.n_layers,
-            "d_model": cfg.d_model, "dtype": cfg.dtype, "quantized_decode": True,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "quantized_decode": cfg.quantized_decode,
+            "windowed_kv_cache": cfg.windowed_kv_cache,
             "max_len": sm.max_len, "slots": SLOTS,
             "prompt_lens": [len(r.prompt) for r in reqs],
             "max_new_tokens": [r.max_new_tokens for r in reqs],
@@ -1102,22 +1127,23 @@ def serve_setup_line(sm, reqs, t0) -> dict:
             "decode_step_bound_ms": 1e3 * wbytes / HBM_BYTES_PER_S}
 
 
-def serve_run(sm, mode, reqs, *, paged: bool = True) -> tuple[list, dict]:
+def serve_run(sm, mode, reqs, *, paged: bool = True, eng=None) -> tuple[list, dict]:
     """One serve, with the launch counts of this serve alone (set to 0 just
-    before it, read just after) held to what its schedule implies. A paged
-    pool must reuse the shared prefix; ``paged=False`` serves through a
-    contiguous pool without prefix reuse."""
+    before it, read just after) held to what its schedule implies, and a
+    clean health report. A pool with prefix reuse must reuse the shared
+    prefix; ``paged=False`` serves through a contiguous pool without prefix
+    reuse; ``eng`` serves on an engine built by the caller."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve.api import FINISH_EOS, FINISH_LENGTH, RequestState
     from repro_torch.serve.engine import Engine
 
-    if paged:
+    if eng is None and paged:
         eng = sm.engine(mode=mode, slots=SLOTS)
-    else:
+    elif eng is None:
         pool = sm.cache_pool(slots=SLOTS, prefix_cache=False, paged=False)
         eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=mode,
                      serving=sm, prefix_cache=False, pool=pool)
-    if eng.pool.paged != (paged and sm.cfg.family == "dense"):
+    if eng.pool.paged != (paged and eng.pool.policy.prefix_capable):
         raise AssertionError(f"{sm.cfg.name}: pool paged={eng.pool.paged}")
     torch.cuda.synchronize()
     reset_launches()
@@ -1137,8 +1163,9 @@ def serve_run(sm, mode, reqs, *, paged: bool = True) -> tuple[list, dict]:
     if bad:
         raise AssertionError(f"pool invariants: {bad}")
     rep = eng.schedule_report()
-    if eng.pool.paged and rep["reused_prefix_tokens"] <= 0:
+    if eng.pool.prefix_cache and rep["reused_prefix_tokens"] <= 0:
         raise AssertionError("the shared prefix was not reused")
+    check_clean(f"{sm.cfg.name} {mode.value}", eng, eng.health())
     want = expected_launches(eng, sm.cfg)
     if counts != want:
         raise AssertionError(f"{sm.cfg.name} {mode.value} splits={sm.cfg.decode_kv_splits} "
@@ -1147,7 +1174,9 @@ def serve_run(sm, mode, reqs, *, paged: bool = True) -> tuple[list, dict]:
     decode = [e.step_s for e in eng.events if e.plan.decode and not e.plan.prefill_chunk]
     ntok = sum(len(r.tokens) for r in results)
     line = {"phase": "serve", "arch": sm.cfg.name, "mode": mode.value,
-            "pool": "paged" if eng.pool.paged else "contiguous",
+            "pool": ("paged" if eng.pool.paged else
+                     "ring + contiguous" if not eng.pool.policy.chunkable else "contiguous"),
+            "chunk": eng.chunk,
             "kv_splits": sm.cfg.decode_kv_splits,
             "requests": len(reqs), "tokens": ntok, "wall_s": wall,
             "tokens_per_s": ntok / wall, "decode_step_ms_median": 1e3 * statistics.median(decode),
@@ -1262,6 +1291,327 @@ def zamba2_phase(dev) -> dict:
     emit({"phase": "serve_launches", "arch": cfg.name, "runs": 3, **total})
     check_launched(total, ("pim_gemv", "decode_attention"), cfg.name)
     profile_decode(sm, Mode.HBCEM, reqs)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dense family: yi-9b, codeqwen1.5-7b, gemma2-27b
+# ---------------------------------------------------------------------------
+
+GEMMA2_MAX_LEN = 4232      # 529 8-token blocks: room for the 4,200 + 24 request
+GEMMA2_CHUNK = 256         # admission chunk: the 4,200-token prompt in 17 sub-steps
+GEMMA2_LONG = (4200, 24)   # the request whose local windows bind from its first decode
+DENSE_GEMV = {   # distinct (N, K) of each config's seven decode GEMVs
+    "yi-9b": ((4096, 4096), (512, 4096), (11008, 4096), (4096, 11008)),
+    "codeqwen1.5-7b": ((4096, 4096), (13440, 4096), (4096, 13440)),
+}
+
+
+def gemma2_requests(vocab: int) -> list:
+    """Four greedy requests: a 4,200-token prompt with 24 new tokens, so every
+    local layer's 4,096-token window starts past 0 from the first decode, and
+    three prompts of 32-256 tokens with 16-32 new."""
+    from repro_torch.serve.api import GenerationRequest
+
+    rng = np.random.default_rng(2)
+    lens = [GEMMA2_LONG[0], *rng.integers(32, 257, size=3)]
+    news = [GEMMA2_LONG[1], *rng.integers(16, 33, size=3)]
+    return [GenerationRequest(prompt=rng.integers(1, vocab, size=int(n)).tolist(),
+                              max_new_tokens=int(m)) for n, m in zip(lens, news)]
+
+
+def window_start(end: torch.Tensor, window: int) -> torch.Tensor:
+    """A local layer's live-range start, as ``attention._live_start`` gives it."""
+    return (end - window).clamp_min(0).to(torch.int32)
+
+
+def check_dense_kernels(gen, dev) -> dict:
+    """The kernels at the dense serves' own shapes against their plain
+    versions: B3 bit-exact at yi-9b's and codeqwen's (N, K) at B 4; B1 at
+    yi-9b's q (4, 4, 8, 128) and codeqwen's (4, 32, 1, 128) over their
+    serves' 37-block tables; B1, B2 (4 splits: stage 1, the merge and the
+    pair) at gemma2-27b's q (4, 16, 2, 128), softcap 50, scale 144^-0.5 over
+    529-block tables at serve (c)'s fills, with the local layers' window
+    starts and from 0 (global); B4 over serve (d)'s 4,096-slot rings (end
+    ``min(fill, 4096)``) and 4,232-token global lanes, softcap 50. The
+    single-pass and pair launches also lane by lane (bit-equal to the batch).
+    Returns the largest |err| per kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    errs = dict.fromkeys(("pim_gemv", "decode_attention", "decode_attention_paged",
+                          "decode_attention_paged_split", "merge_splits"), 0.0)
+    cases = []
+    for arch, shapes in DENSE_GEMV.items():
+        for n, k in shapes:
+            w, x, ws, xs = gemv_inputs(n, k, SLOTS, gen, dev)
+            out, want = pim_gemv(w, x, ws, xs), pim_gemv_ref(w, x, ws, xs)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"pim_gemv {arch} ({n},{k}) B={SLOTS} is not bit-exact: "
+                                     f"max |err| {float((out - want).abs().max())}")
+            cases.append(["pim_gemv", arch, n, k, SLOTS, "bit-exact"])
+
+    def paged_case(what, q, kp, vp, table, end, start, scale, cap, splits):
+        out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale,
+                                        softcap=cap)
+        want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, cap, start=start)
+        torch.cuda.synchronize()
+        errs["decode_attention_paged"] = max(errs["decode_attention_paged"],
+                                             _allclose(f"B1 {what}", out, want))
+        check_batch_invariant(f"B1 {what}", lambda i: da.decode_attention_paged(
+            q[i], kp, vp, table[i], end[i], start[i], scale=scale, softcap=cap), out, ATTN_B)
+        if not splits:
+            return
+        acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=splits,
+                                      scale=scale, softcap=cap)
+        racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, splits, scale, cap,
+                                              start=start)
+        merged = da.merge_splits(acc, m, l)
+        torch.cuda.synchronize()
+        errs["decode_attention_paged_split"] = max(
+            errs["decode_attention_paged_split"], _allclose(f"B2 acc {what}", acc, racc),
+            _allclose(f"B2 m {what}", m, rm), _allclose(f"B2 l {what}", l, rl))
+        errs["merge_splits"] = max(errs["merge_splits"], _allclose(
+            f"merge {what}", merged, ref.merge_splits(acc, m, l)))
+        _allclose(f"B2 pair vs B1 {what}", merged, want)
+        check_batch_invariant(f"B2 pair {what}", lambda i: da.decode_attention_paged_split(
+            q[i], kp, vp, table[i], end[i], start[i], num_splits=splits, scale=scale,
+            softcap=cap), da.decode_attention_paged_split(
+                q, kp, vp, table, end, start, num_splits=splits, scale=scale, softcap=cap),
+            ATTN_B)
+
+    for arch in ("yi-9b", "codeqwen1.5-7b"):
+        cfg = get_config(arch)
+        reqs = make_requests(cfg.vocab_size)
+        nb = -(-serve_max_len(reqs) // 8)
+        q, pools, table, _, _, scale = attn_inputs(gen, dev, nb=nb, g=cfg.q_per_kv,
+                                                   hd=cfg.head_dim, hkv=cfg.n_kv_heads)
+        for when, fills in serve_fills(reqs).items():
+            end = torch.tensor(fills, dtype=torch.int32, device=dev)
+            paged_case(f"{arch} {when}", q, *pools[0], table, end, torch.zeros_like(end),
+                       scale, None, 0)
+            cases.append(["B1", arch, list(q.shape), nb, None, fills, "batch invariant"])
+
+    cfg = get_config("gemma2-27b")
+    reqs = gemma2_requests(cfg.vocab_size)
+    hkv, g, hd, w = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim, cfg.sliding_window
+    scale, cap = cfg.attn_scale_override, cfg.attn_softcap
+    nb = GEMMA2_MAX_LEN // 8
+    q, pools, table, _, _, _ = attn_inputs(gen, dev, nb=nb, g=g, hd=hd, hkv=hkv)
+    for when, fills in serve_fills(reqs).items():
+        end = torch.tensor(fills, dtype=torch.int32, device=dev)
+        for layer, start in (("local", window_start(end, w)), ("global", torch.zeros_like(end))):
+            paged_case(f"gemma2-27b {layer} {when}", q, *pools[0], table, end, start, scale,
+                       cap, 4)
+            cases.append(["B1 + B2 (4 splits)", "gemma2-27b", list(q.shape), nb, cap, fills,
+                          start.tolist(), "batch invariant"])
+    del pools
+    for lmax, what in ((w, "rings"), (GEMMA2_MAX_LEN, "global lanes")):
+        q, lanes, _, _, _ = contig_inputs(gen, dev, hkv, g, hd, lmax)
+        k, v = lanes[0]
+        for when, fills in serve_fills(reqs).items():
+            end = torch.tensor([min(f, lmax) for f in fills], dtype=torch.int32, device=dev)
+            start = torch.zeros_like(end)
+            out = da.decode_attention(q, k, v, end, start, scale=scale, softcap=cap)
+            want = ref.decode_attention_ref(q, k, v, end, scale, cap, start=start)
+            torch.cuda.synchronize()
+            errs["decode_attention"] = max(errs["decode_attention"], _allclose(
+                f"B4 gemma2-27b {what} {when}", out, want))
+            check_batch_invariant(f"B4 gemma2-27b {what} {when}", lambda i: da.decode_attention(
+                q[i], k[i], v[i], end[i], start[i], scale=scale, softcap=cap), out, ATTN_B)
+            cases.append(["B4", f"gemma2-27b {what}", list(q.shape), lmax, cap,
+                          end.tolist(), "batch invariant"])
+        del lanes
+    emit({"phase": "kernel_check", "kernel": "dense family shapes", "cases": cases,
+          "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
+    return errs
+
+
+def time_dense_attention(gen, dev) -> None:
+    """``kernel_time`` lines at gemma2-27b's serve shapes: B1 over (c)'s
+    529-block tables with the local layers' window starts, each request half
+    way through its decode; B4 over (d)'s 4,096-slot rings at the same fills;
+    each beside its bound, its plain version and SDPA."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    cfg = get_config("gemma2-27b")
+    hkv, g, hd, w = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim, cfg.sliding_window
+    scale, cap = cfg.attn_scale_override, cfg.attn_softcap
+    b = ATTN_B
+    fills = serve_fills(gemma2_requests(cfg.vocab_size))["half way"]
+    out_bytes = b * hkv * g * hd * 4
+    nb = GEMMA2_MAX_LEN // 8
+    q, pools, table, _, _, _ = attn_inputs(
+        gen, dev, nb=nb, g=g, hd=hd, hkv=hkv,
+        copies=copies_for((b * nb + 1) * hkv * hd * 8 * 2 * 2))
+    end = torch.tensor(fills, dtype=torch.int32, device=dev)
+    start = window_start(end, w)
+    bnd, by = attn_bound(end, start, out_bytes, hkv=hkv, g=g, hd=hd)
+    ms = cuda_ms([lambda p=p: da.decode_attention_paged(q, *p, table, end, start, scale=scale,
+                                                       softcap=cap) for p in pools], 100)
+    plain = cuda_ms([lambda p=p: ref.decode_attention_paged_ref(q, *p, table, end, scale, cap,
+                                                               start=start)
+                     for p in pools[:2]], 10)
+    # SDPA takes no softcap: its time is for the uncapped function (a lower yardstick)
+    lib = library_ms("decode_attention_paged", sdpa_calls(q, pools, table, end, start, scale),
+                     100)
+    emit({"phase": "kernel_time", "kernel": "decode_attention_paged",
+          "shape": "gemma2-27b serve (c), local layer", "q": list(q.shape),
+          "table_blocks": nb, "end": fills, "start": start.tolist(), "softcap": cap,
+          "live_tokens": live_tokens(end, start), "ms": ms, "plain_ms": plain,
+          "library_ms": lib, "library_note": "SDPA without the softcap", "bound_ms": bnd,
+          "bound_by": by, "roofline_share": bnd / ms})
+    del pools
+    q, lanes, _, _, _ = contig_inputs(gen, dev, hkv, g, hd, w,
+                                      copies=copies_for(b * hkv * hd * w * 2 * 2))
+    end = torch.tensor([min(f, w) for f in fills], dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    bnd, by = attn_bound(end, start, out_bytes, hkv=hkv, g=g, hd=hd)
+    idx = torch.arange(w, device=dev)
+    mask = (idx[None, :] < end[:, None])[:, None, None]
+    qh = q.reshape(b, hkv * g, 1, hd)
+    sdpa_lanes = [(k.transpose(-1, -2).repeat_interleave(g, dim=1).contiguous(),
+                   v.repeat_interleave(g, dim=1).contiguous()) for k, v in lanes[:2]]
+    ms = cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, start, scale=scale,
+                                                    softcap=cap) for kv in lanes], 100)
+    emit({"phase": "kernel_time", "kernel": "decode_attention",
+          "shape": "gemma2-27b serve (d), 4,096-slot rings", "q": list(q.shape), "lmax": w,
+          "end": end.tolist(), "softcap": cap, "live_tokens": live_tokens(end, start),
+          "ms": ms, "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(
+              q, *kv, end, scale, cap, start=start) for kv in lanes[:2]], 10),
+          "library_ms": library_ms("decode_attention", [
+              lambda kv=kv: F.scaled_dot_product_attention(qh, *kv, attn_mask=mask,
+                                                           scale=scale)
+              for kv in sdpa_lanes], 100),
+          "library_note": "SDPA without the softcap", "bound_ms": bnd, "bound_by": by,
+          "roofline_share": bnd / ms})
+
+
+class AttentionCalls:
+    """Counts, while it is entered, what the serve's attention calls are given
+    (the launch counters count launches; this counts their live ranges): the
+    paged single-pass calls that have a lane at start > 0 (a device-side
+    count, no sync) and the contiguous calls by Lmax."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        from repro_torch.core import dispatch
+
+        self._dispatch = dispatch
+        self._paged, self._contig = dispatch.decode_attention_paged_op, dispatch.decode_attention_op
+        self.windowed = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self.contig_lmax: dict[int, int] = {}
+
+        def paged(*a, start=None, **kw):
+            if start is not None:
+                self.windowed += (start > 0).any()
+            return self._paged(*a, start=start, **kw)
+
+        def contig(q, k_cache, *a, **kw):
+            lmax = int(k_cache.shape[-1])
+            self.contig_lmax[lmax] = self.contig_lmax.get(lmax, 0) + 1
+            return self._contig(q, k_cache, *a, **kw)
+
+        dispatch.decode_attention_paged_op, dispatch.decode_attention_op = paged, contig
+        return self
+
+    def __exit__(self, *exc):
+        self._dispatch.decode_attention_paged_op = self._paged
+        self._dispatch.decode_attention_op = self._contig
+        return False
+
+
+def free_card(what: str) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "memory", "before": what, "free_GB": free / 1e9, "total_GB": total / 1e9})
+
+
+def dense_phase(dev) -> dict:
+    """(a) yi-9b (W8A8, paged) in HBCEM and LBIM and (b) codeqwen1.5-7b
+    (W8A8, paged) in HBCEM, each over ``make_requests``' 8 requests; then
+    gemma2-27b in bf16 over ``gemma2_requests``' 4, admission chunks of 256
+    tokens, HBCEM: (c) on the paged pool (8-token pages, no prefix reuse) and
+    (d) on the ring pool (``windowed_kv_cache``: 4,096-slot rings for the 23
+    local layers, full lanes for the 23 global ones); a profile of (c)'s
+    decode. Each model's weights are freed before the next is made."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.serving_model import ServingModel
+
+    total: dict[str, int] = {}
+    for arch, modes in (("yi-9b", (Mode.HBCEM, Mode.LBIM)), ("codeqwen1.5-7b", (Mode.HBCEM,))):
+        cfg = get_config(arch).replace(quantized_decode=True)
+        free_card(f"{arch} init")
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        reqs = make_requests(cfg.vocab_size)
+        sm = ServingModel.prepare(cfg, params, max_len=-(-serve_max_len(reqs) // 8) * 8,
+                                  slots=SLOTS, device=dev)
+        torch.cuda.synchronize()
+        emit(serve_setup_line(sm, reqs, t0))
+        for mode in modes:
+            _, line = serve_run(sm, mode, reqs)
+            emit(line)
+            add_launches(total, line)
+        del sm, params
+
+    cfg = get_config("gemma2-27b")
+    free_card("gemma2-27b init")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    reqs = gemma2_requests(cfg.vocab_size)
+    tokens = {}
+    for ring in (False, True):
+        sm = ServingModel.prepare(cfg.replace(windowed_kv_cache=ring), params,
+                                  max_len=GEMMA2_MAX_LEN, slots=SLOTS, device=dev)
+        pool = sm.cache_pool(slots=SLOTS, prefix_cache=False, block_size=8)
+        eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=Mode.HBCEM,
+                     chunk=GEMMA2_CHUNK, serving=sm, prefix_cache=False, pool=pool)
+        torch.cuda.synchronize()
+        emit(serve_setup_line(sm, reqs, t0))
+        with AttentionCalls(dev) as calls:
+            tokens[ring], line = serve_run(sm, Mode.HBCEM, reqs, paged=not ring, eng=eng)
+        del eng, pool
+        if ring:
+            # 23 ring launches and 23 global-lane launches per one-token forward
+            rings, lanes = calls.contig_lmax.get(cfg.sliding_window, 0), \
+                calls.contig_lmax.get(GEMMA2_MAX_LEN, 0)
+            if not (rings == lanes == line["launches"]["decode_attention"] // 2 > 0):
+                raise AssertionError(f"gemma2-27b ring: B4 over rings {rings}, over lanes "
+                                     f"{lanes}, launches {line['launches']}")
+            line["b4_launches_over_rings"], line["b4_launches_over_lanes"] = rings, lanes
+            line["requests_equal_to_paged"] = sum(
+                a == b for a, b in zip(tokens[False], tokens[True]))
+        else:
+            line["b1_launches_with_start_gt_0"] = int(calls.windowed)
+            if not 0 < line["b1_launches_with_start_gt_0"] <= \
+                    line["launches"]["decode_attention_paged"] // 2:
+                raise AssertionError(f"gemma2-27b paged: {line['b1_launches_with_start_gt_0']}"
+                                     f" B1 launches with start > 0 of {line['launches']}")
+        emit(line)
+        add_launches(total, line)
+        if not ring:
+            profile_decode(sm, Mode.HBCEM, reqs)
+        del sm
+        free_card(f"gemma2-27b {'end' if ring else 'ring pool'}")
+        t0 = time.perf_counter()
+    del params
+    emit({"phase": "serve_launches", "what": "dense family (yi-9b, codeqwen1.5-7b, "
+          "gemma2-27b paged and ring)", "runs": 5, **total})
+    check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged"),
+                   "dense family")
     return total
 
 
@@ -1516,7 +1866,7 @@ def check_clean(name: str, eng, h: dict) -> None:
     c = h["counters"]
     faults = sum(v["kernel_faults"] + v["nan_trips"] for v in h["ladder"].values())
     if faults or c["failures"] or c["retried_steps"]:
-        raise AssertionError(f"traffic {name}: health not clean ({eng.last_step_error}): {h}")
+        raise AssertionError(f"serve {name}: health not clean ({eng.last_step_error}): {h}")
 
 
 def run_cli(dev) -> dict:
@@ -1609,7 +1959,7 @@ def traffic_phase(dev, cfg, params) -> dict:
     res_a, line, h = traffic_serve(
         eng_a, "a", [dataclasses.replace(r, on_token=streamed[i].append)
                      for i, r in enumerate(reqs)])
-    check_clean("a", eng_a, h)
+    check_clean("traffic a", eng_a, h)
     finished_budgets("a", res_a)
     if h["counters"]["preemptions"] < 1:
         raise AssertionError("traffic a: no preemption")
@@ -1634,7 +1984,7 @@ def traffic_phase(dev, cfg, params) -> dict:
                                   else None, on_token=canceller if i == who else None)
               for i, r in enumerate(reqs)]
     res_b, line, h = traffic_serve(eng_b, "b", reqs_b)
-    check_clean("b", eng_b, h)
+    check_clean("traffic b", eng_b, h)
     c = h["counters"]
     if (c["timeouts"] < 1 or c["cancellations"] != 1 or c["injected_faults"] != 2
             or eng_b.fault_plan.pending() or res_b[who].state is not RequestState.CANCELLED
@@ -1650,7 +2000,7 @@ def traffic_phase(dev, cfg, params) -> dict:
     # (c) (a)'s traffic with self-draft speculation
     eng_c = traffic_engine(sm, reqs, mode=Mode.HBCEM, spec=True)
     res_c, line, h = traffic_serve(eng_c, "c", reqs)
-    check_clean("c", eng_c, h)
+    check_clean("traffic c", eng_c, h)
     finished_budgets("c", res_c)
     line["requests_equal_to_a"] = sum(r.tokens == q.tokens for r, q in zip(res_c, res_a))
     emit(line)
@@ -1814,9 +2164,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
-                    ["--traffic"]):
-        print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic]",
-              file=sys.stderr)
+                    ["--traffic"], ["--dense"]):
+        print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
+              f"| --dense]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1861,12 +2211,20 @@ def main(argv: list[str]) -> int:
         host_cost(gen, dev)
         serve_ab(dev)
         return 0
+    if argv == ["--dense"]:
+        check_dense_kernels(gen, dev)
+        time_dense_attention(gen, dev)
+        dense_phase(dev)
+        return 0
     errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"], **check_attention(gen, dev),
             "decode_attention": check_contig_attention(gen, dev),
             "ssd_scan": check_ssd_scan(gen, dev)}
+    for k, v in check_dense_kernels(gen, dev).items():
+        errs[k] = max(errs[k], v)
     times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev),
              "decode_attention": time_contig_attention(gen, dev),
              "ssd_scan": time_ssd_scan(gen, dev)}
+    time_dense_attention(gen, dev)
     host_cost(gen, dev)
     torch.cuda.empty_cache()
 
@@ -1874,9 +2232,13 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     for k, v in zamba2_phase(dev).items():
         counts[k] = counts.get(k, 0) + v
+    torch.cuda.empty_cache()
+    for k, v in dense_phase(dev).items():
+        counts[k] = counts.get(k, 0) + v
 
     work = {"pim_gemv": f"the 7 decode GEMVs of one llama3-8b layer at B={SLOTS}; launches "
-                        f"include the spec serves (draft and verify)",
+                        f"include the spec serves (draft and verify) and the W8A8 dense "
+                        f"serves (yi-9b, codeqwen1.5-7b)",
             "decode_attention": f"one zamba2-7b shared-block layer, q ({ATTN_B},32,1,112), "
                                 f"bf16 lanes of {CONTIG_LMAX}, end {ATTN_END}, "
                                 f"start {ATTN_START}",

@@ -1,8 +1,11 @@
-"""Architecture registry — importing this package registers the ported archs
-(dense ``llama3-8b`` and hybrid ``zamba2-7b``)."""
+"""Architecture registry — importing this package registers the ported archs:
+the dense family (``llama3-8b``, ``yi-9b``, ``codeqwen1.5-7b``, ``gemma2-27b``)
+and the hybrid ``zamba2-7b``."""
 from repro_torch.configs.base import ModelConfig, get_config, list_archs, register
 
 # One module per ported architecture (registration side effect).
-from repro_torch.configs import llama3_8b, zamba2_7b  # noqa: E402
+from repro_torch.configs import (codeqwen15_7b, gemma2_27b, llama3_8b,  # noqa: E402
+                                 yi_9b, zamba2_7b)
 
-__all__ = ["ModelConfig", "get_config", "list_archs", "register", "llama3_8b", "zamba2_7b"]
+__all__ = ["ModelConfig", "get_config", "list_archs", "register", "codeqwen15_7b",
+           "gemma2_27b", "llama3_8b", "yi_9b", "zamba2_7b"]

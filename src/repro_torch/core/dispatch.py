@@ -99,13 +99,14 @@ class DegradationLadder:
                 for op, c in self.counters.items()}
 
 
-def decode_attention(q, k_cache, v_cache, end, *, scale: float, softcap=None,
+def decode_attention(q, k_cache, v_cache, end, *, start=None, scale: float, softcap=None,
                      cfg) -> torch.Tensor:
     """Dispatched decode attention over contiguous lanes, K (B, Hkv, hd, Lmax)
-    column-wise and V (B, Hkv, Lmax, hd) row-wise, each lane over ``[0, end)``.
-    Returns (B, Hq, hd) float32."""
+    column-wise and V (B, Hkv, Lmax, hd) row-wise, each lane over ``[start,
+    end)`` (``start`` None: from 0). Returns (B, Hq, hd) float32."""
     resolve_backend(cfg, q.device)   # validates; the wrapper follows the device
-    return decode_attention_op(q, k_cache, v_cache, end, scale=scale, softcap=softcap)
+    return decode_attention_op(q, k_cache, v_cache, end, start=start, scale=scale,
+                               softcap=softcap)
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_table, end, *, start=None,

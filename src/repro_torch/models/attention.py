@@ -2,13 +2,17 @@
 of the decode part of ``repro.models.attention``).
 
 Single-token decode steps go through ``core.dispatch`` (the CUDA flash-decode
-kernels on the card, the plain versions on the CPU); with
-``cfg.quantized_decode`` the decode-time qkv/o projections run as W8A8 PIM
-GEMVs. Multi-token chunk-prefill steps gather the lanes and run the dense
-masked einsum in plain PyTorch, as the JAX package computes them outside any
-Pallas kernel.
+kernels on the card, the plain versions on the CPU) with each lane's live
+range ``[start, end)``, so sliding-window layers (``window``: ``start = end -
+window``) and gemma2's W-slot ring lanes (:func:`attention_decode_ring`) run
+the same kernels; with ``cfg.quantized_decode`` the decode-time qkv/o
+projections run as W8A8 PIM GEMVs. Multi-token chunk-prefill steps gather the
+lanes and run the dense masked einsum in plain PyTorch, as the JAX package
+computes them outside any Pallas kernel.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -75,10 +79,12 @@ def _scale(cfg: ModelConfig) -> float:
 
 
 def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                      positions: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
+                      positions: torch.Tensor, cfg: ModelConfig, dtype,
+                      window: Optional[int] = None) -> torch.Tensor:
     """Dense masked attention of T new tokens against contiguous lanes (the
     JAX package's multi-token decode form): q (B, Hq, T, hd), K (B, Hkv, hd,
-    L), V (B, Hkv, L, hd), query positions (B, T). Returns (B, T, Hq*hd)."""
+    L), V (B, Hkv, L, hd), query positions (B, T); a ``window`` also masks
+    keys at or before ``q_pos - window``. Returns (B, T, Hq*hd)."""
     b, _, t, hd = q.shape
     lmax = k_cache.shape[-1]
     qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
@@ -86,11 +92,19 @@ def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     s = softcap(s, cfg.attn_softcap)
     k_pos = torch.arange(lmax, device=q.device)
     valid = k_pos[None, None, :] <= positions[:, :, None]                 # (B, T, L)
+    if window is not None:
+        valid = valid & (k_pos[None, None, :] > positions[:, :, None] - window)
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
     s = s + bias[:, None, None, :, :]
     pr = torch.softmax(s, dim=-1).to(dtype)
     y = kv_mapping.read_output(pr, v_cache, "cdpim")
     return y.reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
+
+
+def _live_start(end: torch.Tensor, window: Optional[int]) -> Optional[torch.Tensor]:
+    """A windowed layer's live-range start, ``max(end - window, 0)`` per lane
+    (None without a window: the kernels then start at 0)."""
+    return None if window is None else (end - window).clamp_min(0).to(torch.int32)
 
 
 def attention_decode(
@@ -101,14 +115,16 @@ def attention_decode(
     pos: torch.Tensor,          # (B,) int32 per-lane fill, or a scalar
     cfg: ModelConfig,
     *,
+    window: Optional[int] = None,
     gemm: bool = False,
 ) -> torch.Tensor:
     """One step against contiguous dual-layout lanes. The new tokens' K/V are
     written into the lanes IN PLACE; returns the attention block's output
     (B, T, d). A single-token step takes the dispatched decode-attention
-    kernel over each lane's live range ``[0, pos + 1)``; ``T > 1`` (chunked
-    admission) and ``gemm=True`` (the batch-prefill form) take the dense
-    masked softmax with float GEMMs."""
+    kernel over each lane's live range ``[max(end - window, 0), end)``, end =
+    pos + 1 (``window`` None: from 0); ``T > 1`` (chunked admission) and
+    ``gemm=True`` (the batch-prefill form) take the dense masked softmax with
+    float GEMMs, the window in its mask."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     pos_b = torch.as_tensor(pos, device=x.device).to(torch.int32).reshape(-1).expand(b)
@@ -119,14 +135,47 @@ def attention_decode(
     kv_mapping.append_layer(k_cache, v_cache, k_new, v_new, pos_b)
 
     if t == 1 and not gemm:
+        end = pos_b + 1
         o = dispatch.decode_attention(
-            q[:, :, 0, :], k_cache, v_cache, pos_b + 1,
+            q[:, :, 0, :], k_cache, v_cache, end, start=_live_start(end, window),
             scale=_scale(cfg), softcap=cfg.attn_softcap, cfg=cfg)
         y = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
         return lin(p["wo"], y)
 
-    y = _masked_attention(q, k_cache, v_cache, positions, cfg, x.dtype)
+    y = _masked_attention(q, k_cache, v_cache, positions, cfg, x.dtype, window)
     return (lin or _dense_matmul)(p["wo"], y)
+
+
+def attention_decode_ring(
+    p: dict,
+    x: torch.Tensor,            # (B, 1, d) — one new token per lane
+    k_ring: torch.Tensor,       # (B, Hkv, hd, W) column-wise ring (one layer)
+    v_ring: torch.Tensor,       # (B, Hkv, W, hd) row-wise ring (one layer)
+    pos: torch.Tensor,          # (B,) int32 absolute position per lane, or a scalar
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Sliding-window decode against a RING of exactly W slots (gemma2's local
+    layers under ``windowed_kv_cache``). The new token's K/V overwrite slot
+    ``pos % W`` of each lane IN PLACE; after the write the ring holds exactly
+    the tokens ``(pos - W, pos]``, and softmax does not depend on slot order,
+    so the contiguous decode kernel runs over the slot prefix ``[0, min(pos +
+    1, W))``. RoPE is applied at absolute positions, so stored K stays valid.
+    Returns the attention block's output (B, 1, d)."""
+    b, t, _ = x.shape
+    if t != 1:
+        raise ValueError(f"a ring cache takes one token per step (got {t}); rings are "
+                         f"filled by a full prefill (models.model.prefill)")
+    w = k_ring.shape[-1]
+    hd = cfg.head_dim
+    pos_b = torch.as_tensor(pos, device=x.device).to(torch.int32).reshape(-1).expand(b)
+    lin = _decode_linear(cfg)
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos_b[:, None], linear_fn=lin)
+    kv_mapping.append_layer(k_ring, v_ring, k_new, v_new, pos_b % w)
+    end = (pos_b + 1).clamp_max(w)
+    o = dispatch.decode_attention(q[:, :, 0, :], k_ring, v_ring, end,
+                                  scale=_scale(cfg), softcap=cfg.attn_softcap, cfg=cfg)
+    y = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
+    return lin(p["wo"], y)
 
 
 def attention_decode_paged(
@@ -138,11 +187,13 @@ def attention_decode_paged(
     pos: torch.Tensor,          # (B,) int32: per-lane cache fill
     cfg: ModelConfig,
     *,
+    window: Optional[int] = None,
     gemm: bool = False,
 ) -> torch.Tensor:
     """One step against block-paged dual-layout KV. The new tokens' K/V are
     written into their pages IN PLACE (``k_pages``/``v_pages`` are mutated);
-    returns the attention block's output (B, T, d).
+    returns the attention block's output (B, T, d). ``window`` bounds each
+    lane's live range as in :func:`attention_decode`.
 
     ``gemm=True`` is the batch-prefill form (the JAX ``M.prefill`` path): float
     GEMMs and the dense masked attention even for a one-token chunk.
@@ -162,11 +213,12 @@ def attention_decode_paged(
         end = pos_b + 1
         o = dispatch.decode_attention_paged(
             q[:, :, 0, :], k_pages, v_pages, block_table, end,
+            start=_live_start(end, window),
             scale=_scale(cfg), softcap=cfg.attn_softcap, cfg=cfg)
         y = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
         return lin(p["wo"], y)
 
     k_cache, v_cache = kv_mapping.materialize_lanes(k_pages, v_pages, block_table)
-    y = _masked_attention(q, k_cache, v_cache, positions, cfg, x.dtype)
+    y = _masked_attention(q, k_cache, v_cache, positions, cfg, x.dtype, window)
     proj = lin or _dense_matmul
     return proj(p["wo"], y)

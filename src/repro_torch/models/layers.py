@@ -113,6 +113,16 @@ def lm_head(p: dict, x: torch.Tensor, softcap: Optional[float] = None) -> torch.
     return logits
 
 
+def lm_head_tied(embed_p: dict, x: torch.Tensor,
+                 softcap: Optional[float] = None) -> torch.Tensor:
+    """The LM head of a tied-embedding model: ``x @ embed.T``, then f32 and
+    the optional final-logit softcap."""
+    logits = (x @ embed_p["w"].T).float()
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x

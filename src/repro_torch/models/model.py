@@ -1,20 +1,25 @@
-"""Model zoo, dense and hybrid families: init / decode step (port of the dense
-and hybrid parts of ``repro.models.model``).
+"""Model zoo, dense and hybrid families: init / prefill / decode step (port of
+the dense and hybrid parts of ``repro.models.model``).
 
 Layers are a Python list of per-layer dicts and are walked with a Python
 loop. The JAX package carried the layer-stacked caches (page pool, contiguous
-lanes, SSD states) through ``lax.scan`` and rebuilt them per layer with
+lanes, rings, SSD states) through ``lax.scan`` and rebuilt them per layer with
 ``dynamic_update_index_in_dim``; here each layer's slice is a view of the
-stacked tensor (``k_pages[i]``, ``k[i]``, ``ssd[i]``) written in place, so a
-decode step never copies a stacked cache.
+stacked tensor (``k_pages[i]``, ``k[i]``, ``k_loc[i]``, ``ssd[i]``) written in
+place, so a decode step never copies a stacked cache.
 
-Families: ``dense`` (llama3-8b; paged or contiguous KV) and ``hybrid``
-(zamba2-7b: groups of ``attn_every`` Mamba2 layers, each group followed by
-ONE weight-shared attention + MLP block whose KV lives in contiguous lanes).
+Families: ``dense`` (llama3-8b, yi-9b, codeqwen1.5-7b and gemma2-27b; paged
+or contiguous KV) and ``hybrid`` (zamba2-7b: groups of ``attn_every`` Mamba2
+layers, each group followed by ONE weight-shared attention + MLP block whose
+KV lives in contiguous lanes). gemma2 adds per-layer sliding windows (its
+even, local layers attend to the last ``sliding_window`` tokens), attention
+and final-logit softcaps, post-block norms, tied embeddings and the embedding
+scale; with ``windowed_kv_cache`` its local layers keep W-slot rings
+(``k_loc``/``v_loc``) beside the global layers' full lanes.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -31,6 +36,9 @@ FAMILIES = ("dense", "hybrid")
 STACKED = ("layers", "mamba_layers")
 # hybrid recurrent-state leaves, stacked over all n_layers Mamba2 layers
 SSM_STATE_KEYS = ("ssd", "conv_x", "conv_bc")
+# a global layer's window under gemma2's local/global pattern: wider than any
+# lane, so its live range starts at 0 (the JAX package's width, model.py:288)
+GLOBAL_WINDOW = 2**30
 
 # ===========================================================================
 # init / weight carry-over
@@ -42,22 +50,20 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP A.9); the port "
             f"serves the families {FAMILIES}")
-    if (cfg.sliding_window is not None or cfg.local_global_pattern
-            or cfg.post_block_norm or cfg.tie_embeddings
-            or cfg.name.startswith("gemma")):
-        raise NotImplementedError(
-            "sliding-window / post-norm / tied-embedding dense variants are not "
-            "ported yet (ROADMAP A.7, kernel B4)")
 
 
 def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
     dtype = torch_dtype(cfg.param_dtype)
-    return {
+    p = {
         "attn_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
         "attn": attn_lib.init_attention(generator, cfg, device),
         "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
         "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if cfg.post_block_norm:
+        p["post_attn_norm"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+        p["post_mlp_norm"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
@@ -76,7 +82,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
         params["layers"] = [_init_dense_layer(generator, cfg, dev)
                             for _ in range(cfg.n_layers)]
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
-    params["lm_head"] = L.init_lm_head(generator, cfg.d_model, cfg.vocab_size, dtype, dev)
+    if not cfg.tie_embeddings:    # tied: the head is the embedding (logits_fn)
+        params["lm_head"] = L.init_lm_head(generator, cfg.d_model, cfg.vocab_size, dtype,
+                                           dev)
     return params
 
 
@@ -130,13 +138,45 @@ def _hybrid_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.attn_every
 
 
+def windowed_cache_applicable(cfg: ModelConfig) -> bool:
+    """gemma2 under ``windowed_kv_cache``: its local (even) layers keep a ring
+    of ``sliding_window`` slots, its global (odd) layers full lanes."""
+    return (cfg.windowed_kv_cache and cfg.local_global_pattern
+            and cfg.sliding_window is not None and cfg.n_layers % 2 == 0)
+
+
+def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
+    """Each layer's sliding window on the decode path (the JAX package's
+    ``_layer_flags`` with the widths of ``_dense_block_decode``): None
+    without ``sliding_window``; under gemma2's local/global pattern the even
+    (local) layers take ``sliding_window`` and the odd (global) ones
+    :data:`GLOBAL_WINDOW`; otherwise every layer takes ``sliding_window``."""
+    if cfg.sliding_window is None:
+        return [None] * cfg.n_layers
+    if cfg.local_global_pattern:
+        return [cfg.sliding_window if i % 2 == 0 else GLOBAL_WINDOW
+                for i in range(cfg.n_layers)]
+    return [cfg.sliding_window] * cfg.n_layers
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     """A fresh contiguous decode cache: K (nL, B, Hkv, hd, Lmax) column-wise and
     V (nL, B, Hkv, Lmax, hd) row-wise (the hybrid keeps one KV layer per
-    shared-block application and adds the stacked Mamba2 states), fill
-    ``pos`` 0 (a scalar, as in the JAX package)."""
+    shared-block application and adds the stacked Mamba2 states; a windowed
+    gemma2 keeps ``k_loc``/``v_loc`` rings of ``min(sliding_window, max_len)``
+    slots for its local layers and ``k``/``v`` lanes for its global ones),
+    fill ``pos`` 0 (a scalar, as in the JAX package)."""
     _check_family(cfg)
     kvd = kv_cache_dtype(cfg)
+    if windowed_cache_applicable(cfg):
+        n_pairs = cfg.n_layers // 2
+        w = min(cfg.sliding_window, max_len)
+        loc = kv_mapping.init_cache(n_pairs, batch, cfg.n_kv_heads, cfg.head_dim, w, kvd,
+                                    device)
+        glob = kv_mapping.init_cache(n_pairs, batch, cfg.n_kv_heads, cfg.head_dim, max_len,
+                                     kvd, device)
+        return {"k_loc": loc["k"], "v_loc": loc["v"], "k": glob["k"], "v": glob["v"],
+                "pos": glob["pos"]}
     n_kv = cfg.n_layers
     cache: dict = {}
     if cfg.family == "hybrid":
@@ -156,12 +196,28 @@ def decode_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 # ===========================================================================
-# decode step
+# blocks
 # ===========================================================================
 
 
 def logits_fn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return L.lm_head_tied(params["embed"], x, cfg.logit_softcap)
     return L.lm_head(params["lm_head"], x, cfg.logit_softcap)
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings; gemma scales them by sqrt(d_model) rounded to the
+    activation dtype first, as the JAX package's ``jnp.asarray(d**0.5,
+    x.dtype)`` does (bf16: 68.0 for gemma2-27b's 4608)."""
+    x = L.embed(params["embed"], tokens)
+    if cfg.name.startswith("gemma"):
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+    return x
+
+
+def _post_norm(lp: dict, name: str, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return L.rmsnorm(lp[name], y, cfg.norm_eps) if cfg.post_block_norm else y
 
 
 def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False) -> torch.Tensor:
@@ -170,57 +226,95 @@ def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False) -
         m = L.mlp(lp["mlp"], h, linear_fn=attn_lib._dense_matmul)
     else:
         m = dispatch.mlp(lp["mlp"], h, cfg)  # W8A8 GEMVs under quantized_decode
-    return x + m
+    return x + _post_norm(lp, "post_mlp_norm", m, cfg)
 
 
-def _dense_block_decode(lp, x, kc, vc, pos, cfg: ModelConfig, gemm: bool = False):
+def _dense_block_decode(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] = None,
+                        gemm: bool = False):
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    a = attn_lib.attention_decode(lp["attn"], h, kc, vc, pos, cfg, gemm=gemm)
-    return _mlp_tail(lp, x + a, cfg, gemm=gemm)
+    a = attn_lib.attention_decode(lp["attn"], h, kc, vc, pos, cfg, window=window, gemm=gemm)
+    return _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=gemm)
 
 
 def _dense_block_decode_paged(lp, x, kp, vp, table, pos, cfg: ModelConfig,
-                              gemm: bool = False):
+                              window: Optional[int] = None, gemm: bool = False):
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    a = attn_lib.attention_decode_paged(lp["attn"], h, kp, vp, table, pos, cfg, gemm=gemm)
-    return _mlp_tail(lp, x + a, cfg, gemm=gemm)
+    a = attn_lib.attention_decode_paged(lp["attn"], h, kp, vp, table, pos, cfg,
+                                        window=window, gemm=gemm)
+    return _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=gemm)
+
+
+# ===========================================================================
+# decode step
+# ===========================================================================
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
                 *, gemm: bool = False):
     """T tokens per lane: tokens (B, T) -> (logits (B, T, V), cache').
 
-    ``cache`` is either fully paged (``k_pages``/``v_pages`` (nL, P, H, ...),
-    ``block_table`` (B, NB)) or contiguous (``k``/``v`` (nL, B, H, ...), plus
-    the hybrid's Mamba2 states), with ``pos`` the per-lane fill (B,) or a
-    scalar. Every cache tensor is written IN PLACE and the returned cache
-    shares them, with ``pos`` advanced by T. ``gemm=True`` runs the
-    batch-prefill form (float GEMMs, dense attention at any T).
+    ``cache`` is fully paged (``k_pages``/``v_pages`` (nL, P, H, ...),
+    ``block_table`` (B, NB)), contiguous (``k``/``v`` (nL, B, H, ...), plus
+    the hybrid's Mamba2 states), or a windowed gemma2's rings and global lanes
+    (``k_loc``/``v_loc``/``k``/``v``, one token a step), with ``pos`` the
+    per-lane fill (B,) or a scalar. Every cache tensor is written IN PLACE
+    and the returned cache shares them, with ``pos`` advanced by T.
+    ``gemm=True`` runs the batch-prefill form (float GEMMs, dense attention at
+    any T).
     """
+    x, new_cache = _forward(params, cache, tokens, cfg, gemm=gemm)
+    return logits_fn(params, x, cfg), new_cache
+
+
+def _forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
+             *, gemm: bool = False):
+    """:func:`decode_step` up to the final norm: (hidden (B, T, d), cache')."""
     _check_family(cfg)
     if cfg.family == "hybrid":
-        return _hybrid_decode_step(params, cache, tokens, cfg, gemm=gemm)
+        return _hybrid_forward(params, cache, tokens, cfg, gemm=gemm)
+    if "k_loc" in cache:
+        return _windowed_forward(params, cache, tokens, cfg)
     pos = cache["pos"]
-    x = L.embed(params["embed"], tokens)
+    x = _embed(params, tokens, cfg)
+    windows = layer_windows(cfg)
     if "k_pages" in cache:
         table = cache["block_table"]
         kp_all, vp_all = cache["k_pages"], cache["v_pages"]
         for i, lp in enumerate(params["layers"]):
             x = _dense_block_decode_paged(lp, x, kp_all[i], vp_all[i], table, pos, cfg,
-                                          gemm=gemm)
+                                          window=windows[i], gemm=gemm)
         new_cache = {"k_pages": kp_all, "v_pages": vp_all, "block_table": table,
                      "pos": pos + tokens.shape[1]}
     else:
         k_all, v_all = cache["k"], cache["v"]
         for i, lp in enumerate(params["layers"]):
-            x = _dense_block_decode(lp, x, k_all[i], v_all[i], pos, cfg, gemm=gemm)
+            x = _dense_block_decode(lp, x, k_all[i], v_all[i], pos, cfg, window=windows[i],
+                                    gemm=gemm)
         new_cache = {"k": k_all, "v": v_all, "pos": pos + tokens.shape[1]}
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_fn(params, x, cfg), new_cache
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
 
 
-def _hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                        *, gemm: bool = False):
+def _windowed_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """gemma2 over rings: (local, global) layer pairs in layer order; the
+    local layer attends over its W-slot ring (``attention_decode_ring``), the
+    global one over its full lane (no window)."""
+    pos = cache["pos"]
+    x = _embed(params, tokens, cfg)
+    layers = params["layers"]
+    for i in range(cfg.n_layers // 2):
+        loc, glob = layers[2 * i], layers[2 * i + 1]
+        h = L.rmsnorm(loc["attn_norm"], x, cfg.norm_eps)
+        a = attn_lib.attention_decode_ring(loc["attn"], h, cache["k_loc"][i],
+                                           cache["v_loc"][i], pos, cfg)
+        x = _mlp_tail(loc, x + _post_norm(loc, "post_attn_norm", a, cfg), cfg)
+        x = _dense_block_decode(glob, x, cache["k"][i], cache["v"][i], pos, cfg)
+    new_cache = {k: cache[k] for k in ("k_loc", "v_loc", "k", "v")}
+    new_cache["pos"] = pos + tokens.shape[1]
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
+
+
+def _hybrid_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    *, gemm: bool = False):
     """zamba2: ``attn_every`` Mamba2 layers, then the shared attention + MLP
     block against that application's KV layer; the trailing layers after the
     last application run Mamba2 only. Mamba2 states are written back IN
@@ -249,5 +343,56 @@ def _hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: Mo
         x = mamba(li, x)
     new_cache = {k: cache[k] for k in (*SSM_STATE_KEYS, "k", "v")}
     new_cache["pos"] = pos + tokens.shape[1]
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_fn(params, x, cfg), new_cache
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
+
+
+# ===========================================================================
+# prefill
+# ===========================================================================
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
+            seq_lens=None):
+    """Whole prompts of the dense family in one pass: tokens (B, S) ->
+    (logits at each row's last token (B, 1, V), a fresh decode cache filled to
+    S, ``pos`` the scalar S). ``seq_lens`` (B,) marks each row's true length in
+    a right-padded ragged batch; its logits are read at ``seq_lens - 1``.
+
+    The pass is the batch-prefill form of :func:`decode_step` (``gemm=True``:
+    float GEMMs, dense masked attention with each layer's window) into a
+    fresh full-length contiguous cache, ``cfg.q_chunk`` queries at a time, so
+    one layer's f32 scores stay (B, Hq, q_chunk, max_len). A windowed gemma2
+    then places each local layer's last W tokens into their ring slots (slot
+    ``t % W`` holds token ``t``; a prompt shorter than W leaves the surplus
+    slots holding its last token, masked at decode by ``end = min(pos + 1,
+    W)``) and keeps the global layers' lanes."""
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"prefill ports the dense family; the {cfg.family} family admits through "
+            f"chunked decode steps")
+    b, s = tokens.shape
+    full = init_decode_cache(cfg.replace(windowed_kv_cache=False), b, max_len,
+                             device=tokens.device)
+    cache, hidden = full, []
+    step = max(int(cfg.q_chunk), 1)
+    for lo in range(0, s, step):
+        x, cache = _forward(params, cache, tokens[:, lo:lo + step], cfg, gemm=True)
+        hidden.append(x)
+    x = torch.cat(hidden, dim=1) if len(hidden) > 1 else hidden[0]
+    if seq_lens is None:
+        last = x[:, -1:, :]
+    else:
+        idx = torch.as_tensor(seq_lens, device=x.device).long() - 1
+        last = x[torch.arange(b, device=x.device), idx][:, None, :]
+    logits = logits_fn(params, last, cfg)
+    pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
+    if not windowed_cache_applicable(cfg):
+        return logits, {"k": full["k"], "v": full["v"], "pos": pos}
+    w = min(cfg.sliding_window, max_len)
+    slots = torch.arange(w, device=tokens.device)
+    t_idx = (s - w + (slots - (s - w)) % w) if s >= w else slots.clamp_max(s - 1)
+    return logits, {"k_loc": full["k"][0::2].index_select(-1, t_idx),
+                    "v_loc": full["v"][0::2].index_select(-2, t_idx),
+                    "k": full["k"][1::2].contiguous(), "v": full["v"][1::2].contiguous(),
+                    "pos": pos}

@@ -5,7 +5,10 @@ Which states a pool holds is derived from the config's decode-cache structure
 (:func:`derive_state_specs`), and so is the admission policy
 (:func:`derive_policy`): dense KV alone pages; a hybrid (zamba2) keeps its
 shared block's KV in contiguous lanes beside recurrent Mamba2 states that are
-zeroed on retire, and admits ragged batches one request at a time.
+zeroed on retire, and admits ragged batches one request at a time; a windowed
+gemma2 (``windowed_kv_cache``) keeps its global layers' KV in contiguous
+lanes beside W-slot rings, which cannot ingest a chunk, so each request
+admits through one full prefill.
 
 :class:`PagedKVState` owns ONE physical page pool in the paper's §III-C dual
 layout — K pages column-wise ``(hd, Bsz)``, V pages row-wise ``(Bsz, hd)``,
@@ -39,7 +42,8 @@ Differences from the JAX package, none of which changes a token:
   :meth:`CachePool.extract_lane` returns a COPY of a contiguous lane (the
   JAX view was safe because its updates were functional): a draft rollout
   writes into the copy, and the pool changes only when the round commits.
-* Ring and static states (gemma2, audio) wait for their slices.
+* Static states (audio cross-attention memory) wait for their slice
+  (ROADMAP A.9).
 """
 from __future__ import annotations
 
@@ -58,10 +62,11 @@ from repro_torch.serve.errors import EngineStateError, PoolExhausted, PoolOccupa
 
 FREE, ACTIVE = "free", "active"
 
-# KV lanes are masked by position; every OTHER leaf of a decode cache (but
-# ``pos``) is recurrent state that must be zeroed when a lane is retired, so a
-# new family's novel keys are zero-on-retire by default.
+# KV lanes and rings are masked by position; every OTHER leaf of a decode
+# cache (but ``pos``) is recurrent state that must be zeroed when a lane is
+# retired, so a new family's novel keys are zero-on-retire by default.
 KV_KEYS = ("k", "v")
+RING_KEYS = ("k_loc", "v_loc")
 
 # Physical page 0 is a permanently pinned dummy: free lanes' block tables
 # resolve to it so their masked garbage decodes have somewhere harmless to land.
@@ -92,20 +97,26 @@ def _zero_lane(arr: torch.Tensor, slot: int) -> None:
 class StateSpec:
     """One cache family present in a config's decode cache."""
 
-    kind: str                 # "paged_kv" | "recurrent"
+    kind: str                 # "paged_kv" | "ring" | "recurrent"
     keys: tuple[str, ...]
     zero_on_retire: bool
 
 
 def derive_state_specs(cfg: ModelConfig) -> tuple[StateSpec, ...]:
     """Decompose a config's decode-cache structure into typed state specs:
-    the KV pair, then every leftover leaf as recurrent state (zeroed on
-    retire). Built from the cache's shapes alone (no allocation)."""
+    the KV pair, gemma2's ring pair, then every leftover leaf as recurrent
+    state (zeroed on retire). Built from the cache's shapes alone (no
+    allocation)."""
     keys = {k for k in M.decode_cache_specs(cfg, 1, 8) if k != "pos"}
     specs: list[StateSpec] = []
+    claimed: set[str] = set()
     if set(KV_KEYS) <= keys:
         specs.append(StateSpec("paged_kv", KV_KEYS, False))
-    recurrent = tuple(sorted(keys - set(KV_KEYS)))
+        claimed |= set(KV_KEYS)
+    if set(RING_KEYS) <= keys:
+        specs.append(StateSpec("ring", RING_KEYS, False))
+        claimed |= set(RING_KEYS)
+    recurrent = tuple(sorted(keys - claimed))
     if recurrent:
         specs.append(StateSpec("recurrent", recurrent, True))
     return tuple(specs)
@@ -116,13 +127,15 @@ class AdmissionPolicy:
     """What the engine may do at admission, derived from the state specs, so
     the engine itself never branches on a cache family."""
 
-    ragged_batch_ok: bool  # False: recurrent states reject padded ragged batches
+    chunkable: bool        # False: rings admit only through one full prefill
+    ragged_batch_ok: bool  # False: recurrent/ring states reject padded ragged batches
     prefix_capable: bool   # True: KV is the whole state -> prefix reuse is sound
 
 
 def derive_policy(specs: tuple[StateSpec, ...]) -> AdmissionPolicy:
     kinds = {s.kind for s in specs}
-    return AdmissionPolicy(ragged_batch_ok=kinds == {"paged_kv"},
+    return AdmissionPolicy(chunkable="ring" not in kinds,
+                           ragged_batch_ok=kinds <= {"paged_kv", "static"},
                            prefix_capable=kinds == {"paged_kv"})
 
 
@@ -133,11 +146,12 @@ def derive_policy(specs: tuple[StateSpec, ...]) -> AdmissionPolicy:
 
 class LaneState:
     """One contiguous state of the pool: a dict of stacked (nL, B, ...) lane
-    leaves, as its spec names them. Dense KV (hybrid configs, where KV is not
-    the whole cache state, and pools built with ``paged=False``) is masked by
-    position; the Mamba2 ``ssd``/``conv_x``/``conv_bc`` leaves are not, so
-    their spec has ``zero_on_retire`` and a retired lane is zeroed before it
-    is reused."""
+    leaves, as its spec names them. Dense KV (hybrid and windowed configs,
+    where KV is not the whole cache state, and pools built with
+    ``paged=False``) and gemma2's W-slot rings are masked by position: copied
+    at insert, never zeroed. The Mamba2 ``ssd``/``conv_x``/``conv_bc`` leaves
+    are not, so their spec has ``zero_on_retire`` and a retired lane is
+    zeroed before it is reused."""
 
     def __init__(self, spec: StateSpec, leaves: dict):
         self.spec = spec
@@ -534,7 +548,8 @@ class CachePool:
     fill levels back (free lanes pinned to 0). ``stage_admission`` opens the
     chunk-prefill stream; the prefix index survives :meth:`reset`. Dense KV
     pages unless ``paged=False``; other cache structures (the hybrid's
-    Mamba2 states) keep contiguous lanes.
+    Mamba2 states, gemma2's rings beside its global lanes) keep contiguous
+    lanes.
     """
 
     def __init__(self, cfg: ModelConfig, max_len: int, n_slots: int, *,

@@ -4,9 +4,10 @@
 ``Engine.serve(requests)`` takes ``GenerationRequest`` objects and returns
 index-aligned ``GenerationResult`` objects. The decode cache is a
 :class:`~repro_torch.serve.cache.CachePool` (fully paged for the dense
-family, contiguous lanes for the hybrid or with ``paged=False``); the head of
-the queue is chunk-prefilled ahead into a staging stream and dropped into the
-next freed lane:
+family, contiguous lanes for the hybrid, for a windowed gemma2's rings or
+with ``paged=False``); the head of the queue is chunk-prefilled ahead into a
+staging stream (a ring pool, which cannot chunk, prefills it whole in one
+step) and dropped into the next freed lane:
 
 * **LBIM**    — the admission chunk rides in the same step as the decode
   (``core.interleave.fused_step``; the paper's MACT_LDB/MACB_LDT split);
@@ -59,6 +60,7 @@ from repro_torch.core.dispatch import DegradationLadder
 from repro_torch.core.pim_modes import (Mode, StepChoice, StepPlan, StepPolicy, StepSignals,
                                         plan_step)
 from repro_torch.device import tensor_device
+from repro_torch.models import model as M
 from repro_torch.serve import prng, sampling
 from repro_torch.serve.api import (FINISH_CANCELLED, FINISH_EOS, FINISH_FAILED,
                                    FINISH_LENGTH, FINISH_TIMEOUT, TERMINAL_STATES,
@@ -519,6 +521,12 @@ class Engine:
                 if results[r].admit_step is None:   # first admission only: a
                     results[r].admit_step = self._clock  # requeue never re-counts
                 p = ext_prompt(r)
+                if not pool.policy.chunkable:
+                    # ring configs: a W-slot ring is a decode-only structure and
+                    # cannot ingest a chunk, so admission is one full batch-1
+                    # prefill, a serialization point in every mode
+                    ready = self._prefill_one(r)
+                    continue
                 staging, skip = pool.stage_admission(p)
                 self._pending_reuse += skip
                 stream = _Prefill(req=r, toks=np.asarray([p], np.int32), cache=staging,
@@ -901,18 +909,41 @@ class Engine:
 
     # ------------------------------------------------------- admission paths
 
+    def _full_prefill(self, prompt: list) -> tuple[torch.Tensor, dict]:
+        """One request's whole span through ``M.prefill`` (float params): its
+        last-token logits (1, 1, V) and a batch-1 cache with a (1,) fill."""
+        logits, cache = M.prefill(self.serving.params, self._tokens([prompt]), self.cfg,
+                                  self.max_len)
+        cache["pos"] = cache["pos"].reshape(1)
+        return logits, cache
+
+    def _prefill_one(self, r: int) -> _Ready:
+        """Full batch-1 prefill of request ``r`` -> a parked ``_Ready`` (the
+        admission of a pool that cannot chunk). The span is prompt +
+        already-emitted tokens, so a preempted ring request resumes through
+        the path it was admitted by."""
+        p = list(self._reqs[r].prompt) + self._results[r].tokens
+        t_step = time.perf_counter()
+        logits, cache = self._full_prefill(p)
+        self._push_event(ScheduleEvent(plan_step(self.mode, False, True, len(p)), 0, len(p),
+                                       step_s=time.perf_counter() - t_step))
+        first = self._first_tokens(logits, [r], offsets=[len(self._results[r].tokens)])[0]
+        return _Ready(r, cache, first, prompt=p, ctx=len(p))
+
     def _admit_batch(self, queue, cur_tok, emit) -> bool:
         """Fill free lanes with one admission pass when nothing is decoding.
 
         The JAX engine runs one ragged ``M.prefill`` per group here; the port
         prefills each taken request through a staging stream in
         ``chunk``-token sub-steps of the batch-prefill form (float GEMMs,
-        dense attention), so a token's arithmetic is the same however
+        dense attention), or, where the pool cannot chunk (rings), through
+        its own ``M.prefill``, so a token's arithmetic is the same however
         requests are grouped. Groups and their events follow the JAX engine:
         one group, unless the pool's states cannot ride a right-padded ragged
-        batch (recurrent state) and the lengths differ — then one group per
-        request. Requests whose prompt hits the prefix store are not taken —
-        they admit through the chunk stream, which maps the shared blocks.
+        batch (recurrent state, rings) and the lengths differ — then one
+        group per request. Requests whose prompt hits the prefix store are
+        not taken — they admit through the chunk stream, which maps the
+        shared blocks.
         Returns False when no request was admissible here (an injected
         ``alloc_fail`` included: the queue head then admits through the chunk
         stream, the engine's recovery route)."""
@@ -941,11 +972,14 @@ class Engine:
             t_step = time.perf_counter()
             staged = []
             for r in group:
-                toks = self._tokens([ext[r]])
-                cache = pool.staging_step_prep(pool.begin_batch_admission(), len(ext[r]))
-                logits, cache = interleave.prefill_chunk_step(
-                    self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk,
-                    gemm=True)
+                if pool.policy.chunkable:
+                    toks = self._tokens([ext[r]])
+                    cache = pool.staging_step_prep(pool.begin_batch_admission(), len(ext[r]))
+                    logits, cache = interleave.prefill_chunk_step(
+                        self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk,
+                        gemm=True)
+                else:
+                    logits, cache = self._full_prefill(ext[r])
                 staged.append((r, cache, pool.park_staging(),
                                self._first_tokens(logits[:, -1:, :], [r],
                                                   offsets=[len(results[r].tokens)])[0]))

@@ -107,10 +107,12 @@ class SpecDecoder:
         self.k = int(k)
         # rollouts transiently run k-1 tokens past the target's max context
         self.max_len = int(max_len) + self.k + 1
-        # the port serves no ring cache (gemma2 waits for its slice), so every
-        # draft pool can ingest the multi-token catch-up feed
         self.pool = CachePool(draft.cfg, self.max_len, slots, prefix_cache=False,
                               paged=False, device=draft.device)
+        if not self.pool.policy.chunkable:
+            raise ValueError(
+                f"draft model {draft.cfg.name!r} has a ring cache: the "
+                f"catch-up feed is multi-token, which rings cannot ingest")
         self._lanes: dict[int, _DraftLane] = {}
         self._round: dict[int, _RoundState] = {}
         self._prefill_tokens = 0
@@ -167,8 +169,9 @@ class SpecDecoder:
         A valid lane is free; a stale or missing one costs one draft prefill
         of ``len(context) - 1`` tokens (returned).
 
-        The JAX package prefills with ``M.prefill``, which the port does not
-        have; its stand-in is the batch-prefill form the port admits with
+        The JAX package prefills with ``M.prefill``, which the port has for
+        the dense family only; the stand-in for every draft family is the
+        batch-prefill form the port admits with
         (``interleave.prefill_chunk_step(..., gemm=True)``: float GEMMs and
         dense attention over the whole span in one pass) into a fresh batch-1
         contiguous cache, whose ``pos`` is then the prefilled length."""

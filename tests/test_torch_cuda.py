@@ -673,3 +673,58 @@ def test_priority_preemption_resume_on_the_card_equals_the_cpu(dev, no_tf32, spe
     assert [(r.tokens, r.state, r.preemptions) for r in got] == \
         [(r.tokens, r.state, r.preemptions) for r in want]
     assert eng.health()["counters"]["failures"] == 0
+
+
+def test_window_starts_and_softcap_on_the_tensor_cores(dev, gen):
+    """gemma2-27b's attention shape (G 2, hd 128, bf16: the tensor-core
+    branch) with softcap 50, scale 144^-0.5 and every lane starting past 0,
+    as its local layers' windows give: B1 over 8-token pages (and B2 at 4
+    splits), B4 over contiguous lanes; ranges inside one chunk, across chunk
+    boundaries and one empty."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv, g, hd, nb, cap, scale = 4, 2, 2, 128, 80, 50.0, 144.0 ** -0.5
+    end = torch.tensor([640, 300, 17, 250], dtype=torch.int32, device=dev)
+    start = torch.tensor([120, 44, 17, 1], dtype=torch.int32, device=dev)
+    q, kp, vp, table = paged(gen, dev, b, hkv, g, hd, 8, nb, torch.bfloat16)
+    want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, cap, start=start)
+    torch.testing.assert_close(da.decode_attention_paged(q, kp, vp, table, end, start,
+                                                         scale=scale, softcap=cap), want, **TOL)
+    torch.testing.assert_close(da.decode_attention_paged_split(
+        q, kp, vp, table, end, start, num_splits=4, scale=scale, softcap=cap), want, **TOL)
+    q, k, v = contiguous(gen, dev, b, hkv, g, hd, nb * 8, torch.bfloat16)
+    out = da.decode_attention(q, k, v, end, start, scale=scale, softcap=cap)
+    torch.testing.assert_close(out, ref.decode_attention_ref(q, k, v, end, scale, cap,
+                                                             start=start), **TOL)
+    assert not out[2].any()
+
+
+def gemma2_pair(dev, **overrides):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("gemma2-27b", smoke=True).replace(dtype="float32",
+                                                        param_dtype="float32", **overrides)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, cpu, _to(cpu, dev)
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["paged", "ring"])
+@pytest.mark.parametrize("mode", ["BLOCKED", "HBCEM", "LBIM"])
+def test_gemma2_tokens_on_the_card_equal_the_cpu_path(dev, no_tf32, mode, ring):
+    """f32 gemma2 smoke (window 8, softcaps, tied embeddings) on the paged
+    pool (B1 with window starts) and on the ring pool (B4 over 8-slot rings
+    and full lanes, solo-prefill admission): the greedy tokens served on the
+    card equal those served on the CPU."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    cfg, cpu, cuda = gemma2_pair(dev, windowed_kv_cache=ring)
+    want, _ = serve_tokens(cfg, cpu, "cpu", Mode[mode])
+    reset_launches()
+    got, eng = serve_tokens(cfg, cuda, dev, Mode[mode])
+    assert eng.pool.paged != ring
+    counts = launch_counts()
+    assert counts["decode_attention" if ring else "decode_attention_paged"] > 0
+    assert got == want
