@@ -104,7 +104,22 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    health clean, as every serve. The kernel checks hold B1/B2/B4 and B3 at
    these serves' shapes (``check_dense_kernels``); ``kernel_time`` lines give
    B1 at (c)'s window-bound shape and B4 over (d)'s rings.
-8. A ``profile`` line per model (device time by kernel group, busy share), a
+8. ``moe``: the MoE family at full width, W8A8 (q/k/v/o as B3 GEMVs; the
+   stacked expert tables stay float, as in the JAX package), paged 8-token
+   pages, each model freed before the next: (a) olmoe-1b-7b (16 layers, 64
+   experts, top-8) over the 8 requests of the llama3-8b serve, 64-token
+   admission chunks, no prefix reuse, in BLOCKED, HBCEM and LBIM, in HBCEM
+   at 4 KV splits, and in HBCEM with prefix reuse (8-token chunks); (b)
+   phi3.5-moe (16 experts, top-2) at 16 of its 32 layers (all 32 in bf16
+   exceed the card) in HBCEM and LBIM. Launches exact (4 ``pim_gemv`` and
+   one attention call per layer and one-token forward), health clean;
+   tokens are not held equal across modes (the admission quantum changes
+   which picks drop, in the JAX engine too), the lines count the requests
+   that agree. A ``moe_route`` line per model runs the port's router and
+   keep rule on the first HBCEM chunk's and decode step's MoE inputs and
+   counts the picks kept and dropped per layer. The kernel checks hold B1/B2
+   and B3 at both models' serve shapes.
+9. A ``profile`` line per model (device time by kernel group, busy share), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -132,10 +147,12 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
     python3 chip_smoke.py --spec
     python3 chip_smoke.py --traffic
     python3 chip_smoke.py --dense
+    python3 chip_smoke.py --moe
 
 print only ``pim_gemv``'s ``kernel_time`` and ``kernel_check`` lines (B3),
-only the spec phase's lines, only the traffic phase's and the CLI's, or
-only the dense phase's (with its kernel checks and times).
+only the spec phase's lines, only the traffic phase's and the CLI's, only
+the dense phase's or only the MoE phase's (each with its kernel checks and
+times).
 """
 from __future__ import annotations
 
@@ -1040,13 +1057,20 @@ def serve_max_len(reqs) -> int:
     return max(len(r.prompt) + r.max_new_tokens for r in reqs)
 
 
+def decode_gemvs(cfg) -> int:
+    """W8A8 GEMVs of one attention layer's one-token forward: q/k/v/o and the
+    MLP's gate/up/down; a MoE layer's experts stay float (stacked 3-D tables,
+    as in the JAX package), so it runs the four attention projections only."""
+    return 4 if cfg.n_experts else 7
+
+
 def expected_launches(eng, cfg) -> dict[str, int]:
     """Launches one serve must make. Every forward of one token per lane (each
     decode step, each verify position of a spec round, and an admission chunk
-    of a single token) runs the seven decode GEMVs and one attention call per
-    attention layer (llama3-8b's 32 layers; zamba2-7b's 13 applications of its
-    shared block): the contiguous kernel for a contiguous pool; for a paged
-    pool the single-pass kernel, or the split kernel and the merge when
+    of a single token) runs the decode GEMVs (``decode_gemvs``) and one
+    attention call per attention layer (llama3-8b's 32 layers; zamba2-7b's 13
+    applications of its shared block): the contiguous kernel for a contiguous
+    pool; for a paged pool the single-pass kernel, or the split kernel and the merge when
     ``decode_kv_splits`` (clamped to the block table's width) is above 1.
     A spec serve's draft rollouts add, per round's event, each chained
     candidate (``spec_draft_steps``) and each catch-up of one token
@@ -1069,7 +1093,7 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     n_attn = _hybrid_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
     n = n_attn * fwd
     want = {k: 0 for k in launch_counts()}
-    want["pim_gemv"] = 7 * n if cfg.quantized_decode else 0
+    want["pim_gemv"] = decode_gemvs(cfg) * n if cfg.quantized_decode else 0
     if not eng.pool.paged:
         want["decode_attention"] = n
     elif min(cfg.decode_kv_splits, eng.pool.table_blocks) > 1:
@@ -1123,6 +1147,7 @@ def serve_setup_line(sm, reqs, t0) -> dict:
             "max_new_tokens": [r.max_new_tokens for r in reqs],
             "setup_s": time.perf_counter() - t0,
             "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9,
+            "free_GB": torch.cuda.mem_get_info()[0] / 1e9,
             "decode_weight_GB": wbytes / 1e9,
             "decode_step_bound_ms": 1e3 * wbytes / HBM_BYTES_PER_S}
 
@@ -1325,6 +1350,82 @@ def window_start(end: torch.Tensor, window: int) -> torch.Tensor:
     return (end - window).clamp_min(0).to(torch.int32)
 
 
+def check_gemv_exact(shapes: dict, gen, dev) -> list:
+    """B3 bit-exact at each config's (N, K) at B = SLOTS; the cases checked."""
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    cases = []
+    for arch, nks in shapes.items():
+        for n, k in nks:
+            w, x, ws, xs = gemv_inputs(n, k, SLOTS, gen, dev)
+            out, want = pim_gemv(w, x, ws, xs), pim_gemv_ref(w, x, ws, xs)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"pim_gemv {arch} ({n},{k}) B={SLOTS} is not bit-exact: "
+                                     f"max |err| {float((out - want).abs().max())}")
+            cases.append(["pim_gemv", arch, n, k, SLOTS, "bit-exact"])
+    return cases
+
+
+def check_paged_case(errs, what, q, kp, vp, table, end, start, scale, cap, splits) -> None:
+    """B1 against its plain version and lane by lane; with ``splits``, B2's
+    stage 1, the merge and the pair too. Raises outside the tolerance; keeps
+    the largest |err| per kernel in ``errs``."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale, softcap=cap)
+    want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, cap, start=start)
+    torch.cuda.synchronize()
+    errs["decode_attention_paged"] = max(errs["decode_attention_paged"],
+                                         _allclose(f"B1 {what}", out, want))
+    check_batch_invariant(f"B1 {what}", lambda i: da.decode_attention_paged(
+        q[i], kp, vp, table[i], end[i], start[i], scale=scale, softcap=cap), out, ATTN_B)
+    if not splits:
+        return
+    acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=splits,
+                                  scale=scale, softcap=cap)
+    racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, splits, scale, cap,
+                                          start=start)
+    merged = da.merge_splits(acc, m, l)
+    torch.cuda.synchronize()
+    errs["decode_attention_paged_split"] = max(
+        errs["decode_attention_paged_split"], _allclose(f"B2 acc {what}", acc, racc),
+        _allclose(f"B2 m {what}", m, rm), _allclose(f"B2 l {what}", l, rl))
+    errs["merge_splits"] = max(errs["merge_splits"], _allclose(
+        f"merge {what}", merged, ref.merge_splits(acc, m, l)))
+    _allclose(f"B2 pair vs B1 {what}", merged, want)
+    check_batch_invariant(f"B2 pair {what}", lambda i: da.decode_attention_paged_split(
+        q[i], kp, vp, table[i], end[i], start[i], num_splits=splits, scale=scale,
+        softcap=cap), da.decode_attention_paged_split(
+            q, kp, vp, table, end, start, num_splits=splits, scale=scale, softcap=cap),
+        ATTN_B)
+
+
+def check_serve_tables(archs, splits: int, gen, dev, errs) -> list:
+    """B1 (and, with ``splits``, B2) at each config's q (B, Hkv, G, hd) over the
+    block tables of its serve of ``make_requests`` (8-token pages), at that
+    serve's fills; the cases checked."""
+    from repro_torch.configs import get_config
+
+    cases = []
+    for arch in archs:
+        cfg = get_config(arch)
+        reqs = make_requests(cfg.vocab_size)
+        nb = -(-serve_max_len(reqs) // 8)
+        q, pools, table, _, _, scale = attn_inputs(gen, dev, nb=nb, g=cfg.q_per_kv,
+                                                   hd=cfg.head_dim, hkv=cfg.n_kv_heads)
+        for when, fills in serve_fills(reqs).items():
+            end = torch.tensor(fills, dtype=torch.int32, device=dev)
+            check_paged_case(errs, f"{arch} {when}", q, *pools[0], table, end,
+                             torch.zeros_like(end), scale, None, splits)
+            cases.append(["B1" + (f" + B2 ({splits} splits)" if splits else ""), arch,
+                          list(q.shape), nb, None, fills, "batch invariant"])
+        del pools
+    return cases
+
+
 def check_dense_kernels(gen, dev) -> dict:
     """The kernels at the dense serves' own shapes against their plain
     versions: B3 bit-exact at yi-9b's and codeqwen's (N, K) at B 4; B1 at
@@ -1339,62 +1440,11 @@ def check_dense_kernels(gen, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
-    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
-    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
 
     errs = dict.fromkeys(("pim_gemv", "decode_attention", "decode_attention_paged",
                           "decode_attention_paged_split", "merge_splits"), 0.0)
-    cases = []
-    for arch, shapes in DENSE_GEMV.items():
-        for n, k in shapes:
-            w, x, ws, xs = gemv_inputs(n, k, SLOTS, gen, dev)
-            out, want = pim_gemv(w, x, ws, xs), pim_gemv_ref(w, x, ws, xs)
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                raise AssertionError(f"pim_gemv {arch} ({n},{k}) B={SLOTS} is not bit-exact: "
-                                     f"max |err| {float((out - want).abs().max())}")
-            cases.append(["pim_gemv", arch, n, k, SLOTS, "bit-exact"])
-
-    def paged_case(what, q, kp, vp, table, end, start, scale, cap, splits):
-        out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale,
-                                        softcap=cap)
-        want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, cap, start=start)
-        torch.cuda.synchronize()
-        errs["decode_attention_paged"] = max(errs["decode_attention_paged"],
-                                             _allclose(f"B1 {what}", out, want))
-        check_batch_invariant(f"B1 {what}", lambda i: da.decode_attention_paged(
-            q[i], kp, vp, table[i], end[i], start[i], scale=scale, softcap=cap), out, ATTN_B)
-        if not splits:
-            return
-        acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=splits,
-                                      scale=scale, softcap=cap)
-        racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, splits, scale, cap,
-                                              start=start)
-        merged = da.merge_splits(acc, m, l)
-        torch.cuda.synchronize()
-        errs["decode_attention_paged_split"] = max(
-            errs["decode_attention_paged_split"], _allclose(f"B2 acc {what}", acc, racc),
-            _allclose(f"B2 m {what}", m, rm), _allclose(f"B2 l {what}", l, rl))
-        errs["merge_splits"] = max(errs["merge_splits"], _allclose(
-            f"merge {what}", merged, ref.merge_splits(acc, m, l)))
-        _allclose(f"B2 pair vs B1 {what}", merged, want)
-        check_batch_invariant(f"B2 pair {what}", lambda i: da.decode_attention_paged_split(
-            q[i], kp, vp, table[i], end[i], start[i], num_splits=splits, scale=scale,
-            softcap=cap), da.decode_attention_paged_split(
-                q, kp, vp, table, end, start, num_splits=splits, scale=scale, softcap=cap),
-            ATTN_B)
-
-    for arch in ("yi-9b", "codeqwen1.5-7b"):
-        cfg = get_config(arch)
-        reqs = make_requests(cfg.vocab_size)
-        nb = -(-serve_max_len(reqs) // 8)
-        q, pools, table, _, _, scale = attn_inputs(gen, dev, nb=nb, g=cfg.q_per_kv,
-                                                   hd=cfg.head_dim, hkv=cfg.n_kv_heads)
-        for when, fills in serve_fills(reqs).items():
-            end = torch.tensor(fills, dtype=torch.int32, device=dev)
-            paged_case(f"{arch} {when}", q, *pools[0], table, end, torch.zeros_like(end),
-                       scale, None, 0)
-            cases.append(["B1", arch, list(q.shape), nb, None, fills, "batch invariant"])
+    cases = check_gemv_exact(DENSE_GEMV, gen, dev)
+    cases += check_serve_tables(("yi-9b", "codeqwen1.5-7b"), 0, gen, dev, errs)
 
     cfg = get_config("gemma2-27b")
     reqs = gemma2_requests(cfg.vocab_size)
@@ -1405,8 +1455,8 @@ def check_dense_kernels(gen, dev) -> dict:
     for when, fills in serve_fills(reqs).items():
         end = torch.tensor(fills, dtype=torch.int32, device=dev)
         for layer, start in (("local", window_start(end, w)), ("global", torch.zeros_like(end))):
-            paged_case(f"gemma2-27b {layer} {when}", q, *pools[0], table, end, start, scale,
-                       cap, 4)
+            check_paged_case(errs, f"gemma2-27b {layer} {when}", q, *pools[0], table, end,
+                             start, scale, cap, 4)
             cases.append(["B1 + B2 (4 splits)", "gemma2-27b", list(q.shape), nb, cap, fills,
                           start.tolist(), "batch invariant"])
     del pools
@@ -1612,6 +1662,223 @@ def dense_phase(dev) -> dict:
           "gemma2-27b paged and ring)", "runs": 5, **total})
     check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged"),
                    "dense family")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: olmoe-1b-7b, phi3.5-moe
+# ---------------------------------------------------------------------------
+
+OLMOE, PHI35 = "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"
+# phi3.5-moe runs 16 of its 32 layers: all 32 in bf16 are 83.7 GB of weights
+# against the 85.0 GB the card reports, before the CUDA context, the int8
+# images and the KV
+PHI35_LAYERS = 16
+MOE_SPLITS = 4
+# admission chunk of the serves without prefix reuse (over 8-token pages): a
+# 64-token chunk has olmoe's capacity 10 (top-8 of 64 experts, factor 1.25)
+# and phi3.5's 10 (top-2 of 16), so its picks can drop; the prefix-reuse
+# serve keeps the engine's chunk of 8, its page size
+MOE_CHUNK = 64
+MOE_GEMV = {   # distinct (N, K) of each config's four decode GEMVs (q/k/v/o)
+    OLMOE: ((2048, 2048),),
+    PHI35: ((4096, 4096), (1024, 4096)),
+}
+
+
+def check_moe_kernels(gen, dev) -> dict:
+    """The kernels at the MoE serves' own shapes against their plain
+    versions: B3 bit-exact at olmoe's (2048, 2048) and phi3.5's (4096, 4096)
+    and (1024, 4096) at B 4; B1 and B2 (4 splits: stage 1, the merge and the
+    pair) at olmoe's q (4, 16, 1, 128) and phi3.5's (4, 8, 4, 128) over their
+    serves' 37-block tables at the serves' fills, also lane by lane. Returns
+    the largest |err| per kernel."""
+    errs = dict.fromkeys(("pim_gemv", "decode_attention", "decode_attention_paged",
+                          "decode_attention_paged_split", "merge_splits"), 0.0)
+    cases = check_gemv_exact(MOE_GEMV, gen, dev)
+    cases += check_serve_tables((OLMOE, PHI35), MOE_SPLITS, gen, dev, errs)
+    emit({"phase": "kernel_check", "kernel": "MoE family shapes", "cases": cases,
+          "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
+    return errs
+
+
+def time_moe_kernels(gen, dev) -> None:
+    """``kernel_time`` lines at the MoE serves' shapes: B1 over each serve's
+    37-block tables with its first four requests half way through their
+    decode, beside its bound, its plain version and SDPA; B3 at each (N, K)
+    at B 4, beside its bound, its plain version and ``torch._int_mm``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    for arch in (OLMOE, PHI35):
+        cfg = get_config(arch)
+        hkv, g, hd, b = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim, ATTN_B
+        reqs = make_requests(cfg.vocab_size)
+        nb = -(-serve_max_len(reqs) // 8)
+        fills = serve_fills(reqs)["half way"]
+        q, pools, table, _, _, scale = attn_inputs(
+            gen, dev, nb=nb, g=g, hd=hd, hkv=hkv,
+            copies=copies_for((b * nb + 1) * hkv * hd * 8 * 2 * 2))
+        end = torch.tensor(fills, dtype=torch.int32, device=dev)
+        start = torch.zeros_like(end)
+        bnd, by = attn_bound(end, start, b * hkv * g * hd * 4, hkv=hkv, g=g, hd=hd)
+        ms = cuda_ms([lambda p=p: da.decode_attention_paged(q, *p, table, end, start,
+                                                           scale=scale) for p in pools], 100)
+        emit({"phase": "kernel_time", "kernel": "decode_attention_paged",
+              "shape": f"{arch} serve", "q": list(q.shape), "table_blocks": nb, "end": fills,
+              "live_tokens": live_tokens(end, start), "ms": ms,
+              "plain_ms": cuda_ms([lambda p=p: ref.decode_attention_paged_ref(
+                  q, *p, table, end, scale, start=start) for p in pools[:2]], 10),
+              "library_ms": library_ms("decode_attention_paged",
+                                       sdpa_calls(q, pools, table, end, start, scale), 100),
+              "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+        del pools
+        for n, k in MOE_GEMV[arch]:
+            sets = [gemv_inputs(n, k, SLOTS, gen, dev) for _ in range(copies_for(n * k))]
+            xpad = [torch.zeros((32, k), dtype=torch.int8, device=dev) for _ in sets]
+            for xp, st in zip(xpad, sets):
+                xp[:SLOTS] = st[1]
+            ms = cuda_ms([lambda st=st: pim_gemv(*st) for st in sets], 60)
+            bnd, by = gemv_bound(n, k, SLOTS)
+            emit({"phase": "kernel_time", "kernel": "pim_gemv", "shape": f"{arch} serve",
+                  "n": n, "k": k, "b": SLOTS, "ms": ms,
+                  "plain_ms": cuda_ms([lambda st=st: pim_gemv_ref(*st) for st in sets[:2]], 6),
+                  "library_ms": library_ms("pim_gemv", [
+                      lambda xp=xp, st=st: torch._int_mm(xp, st[0].t())
+                      for xp, st in zip(xpad, sets)], 60),
+                  "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+            del sets, xpad
+
+
+class MoeRoute:
+    """While entered, keeps each layer's MoE input of the serve's first
+    admission chunk (one forward of B 1, T > 1) and of its first decode step
+    (B = SLOTS lanes, free lanes included); :meth:`line` then runs the port's
+    router and keep rule on them and counts the picks kept and dropped."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._einsum = moe, moe.moe_einsum
+        self.chunk, self.decode = [], []
+
+        def record(p, x, cfg):
+            b, t = x.shape[0], x.shape[1]
+            if b == 1 and t > 1 and len(self.chunk) < cfg.n_layers:
+                self.chunk.append((p, x.detach().clone()))
+            elif t == 1 and b == SLOTS and len(self.decode) < cfg.n_layers:
+                self.decode.append((p, x.detach().clone()))
+            return self._einsum(p, x, cfg)
+
+        moe.moe_einsum = record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_einsum = self._einsum
+        return False
+
+    def line(self, cfg, mode) -> dict:
+        moe = self._moe
+        out = {"phase": "moe_route", "arch": cfg.name, "mode": mode.value,
+               "capacity_factor": cfg.moe_capacity_factor, "top_k": cfg.top_k,
+               "n_experts": cfg.n_experts}
+        for what, calls in (("chunk", self.chunk), ("decode", self.decode)):
+            if len(calls) != cfg.n_layers:
+                raise AssertionError(f"moe_route: {len(calls)} {what} layers recorded")
+            kept, dropped = [], []
+            for p, x in calls:
+                x2d = x.reshape(-1, x.shape[-1])
+                n_groups, sg, cap = moe.capacity(x2d.shape[0], cfg)
+                _, idx, _ = moe._router(p, x2d, cfg)
+                _, keep = moe.keep_rule(idx.reshape(n_groups, sg, cfg.top_k),
+                                        cfg.n_experts, cap)
+                kept.append(int(keep.sum()))
+                dropped.append(int((~keep).sum()))
+            out[what] = {"tokens": int(calls[0][1].shape[0] * calls[0][1].shape[1]),
+                         "capacity": cap, "kept_per_layer": kept,
+                         "dropped_per_layer": dropped, "dropped_total": sum(dropped)}
+        self.chunk, self.decode = [], []    # the layers' params go with the model
+        return out
+
+
+def moe_phase(dev) -> dict:
+    """(a) olmoe-1b-7b at full width and depth (W8A8, paged 8-token pages, no
+    prefix reuse, 64-token admission chunks) over ``make_requests``' 8
+    requests in BLOCKED, HBCEM and LBIM, in HBCEM at 4 KV splits, and in
+    HBCEM once more with prefix reuse (8-token chunks); the HBCEM serve's
+    ``moe_route`` line; a profile of its decode. (b) phi3.5-moe at full width
+    and 16 of its 32 layers (W8A8, paged, 64-token chunks) in HBCEM and LBIM.
+    Tokens are not held equal across modes: a mode's admission quantum sets
+    how many tokens share a chunk's forward, and with it which picks drop, in
+    the JAX engine as here; the lines count the requests that agree. Each
+    model's weights are freed before the next is made."""
+    from contextlib import nullcontext
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.serving_model import ServingModel
+
+    total: dict[str, int] = {}
+
+    def serve(sm, mode, reqs, prefix_cache=False):
+        if prefix_cache:
+            eng = sm.engine(mode=mode, slots=SLOTS)
+        else:
+            eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=mode,
+                         chunk=MOE_CHUNK, serving=sm, prefix_cache=False,
+                         pool=sm.cache_pool(slots=SLOTS, prefix_cache=False, block_size=8))
+        toks, line = serve_run(sm, mode, reqs, eng=eng)
+        line["prefix_cache"] = prefix_cache
+        add_launches(total, line)
+        return toks, line
+
+    for arch, layers, modes in ((OLMOE, None, (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM)),
+                                (PHI35, PHI35_LAYERS, (Mode.HBCEM, Mode.LBIM))):
+        cfg = get_config(arch).replace(quantized_decode=True)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        free_card(f"{arch} init")
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        reqs = make_requests(cfg.vocab_size)
+        max_len = -(-serve_max_len(reqs) // 8) * 8
+        sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
+        torch.cuda.synchronize()
+        emit(serve_setup_line(sm, reqs, t0))
+        tokens = {}
+        for mode in modes:
+            route = MoeRoute() if mode is Mode.HBCEM else nullcontext()
+            with route:
+                tokens[mode], line = serve(sm, mode, reqs)
+            line["requests_equal_to_first_mode"] = sum(
+                a == b for a, b in zip(tokens[modes[0]], tokens[mode]))
+            emit(line)
+            if mode is Mode.HBCEM:
+                emit(route.line(cfg, mode))
+        if arch == OLMOE:
+            sm_split = ServingModel.prepare(cfg.replace(decode_kv_splits=MOE_SPLITS), params,
+                                            max_len=max_len, slots=SLOTS, device=dev)
+            toks, line = serve(sm_split, Mode.HBCEM, reqs)
+            line["requests_equal_to_single_pass"] = sum(
+                a == b for a, b in zip(tokens[Mode.HBCEM], toks))
+            emit(line)
+            del sm_split
+            toks, line = serve(sm, Mode.HBCEM, reqs, prefix_cache=True)
+            line["requests_equal_to_no_reuse"] = sum(
+                a == b for a, b in zip(tokens[Mode.HBCEM], toks))
+            emit(line)
+            profile_decode(sm, Mode.HBCEM, reqs)
+        del sm, params
+    free_card("MoE end")
+    emit({"phase": "serve_launches", "what": f"MoE family ({OLMOE} full depth, {PHI35} "
+          f"{PHI35_LAYERS} layers)", "runs": 7, **total})
+    check_launched(total, ("pim_gemv", "decode_attention_paged",
+                           "decode_attention_paged_split", "merge_splits"), "MoE family")
     return total
 
 
@@ -2069,12 +2336,12 @@ def serve_ab(dev) -> None:
         torch.cuda.empty_cache()
 
 
+_GEMM = "GEMM (prefill, lm_head, float decode products: bf16 projections, MoE experts)"
 KERNEL_GROUPS = (   # kernel-name fragment -> what it computes on the serve path
     ("pim_gemv", "pim_gemv (W8A8 decode GEMVs)"),
     ("contig_decode", "contiguous decode attention"),
     ("paged_decode", "paged decode attention"),
-    ("gemm", "GEMM (prefill chunks, lm_head)"), ("gemv", "GEMM (prefill chunks, lm_head)"),
-    ("nvjet", "GEMM (prefill chunks, lm_head)"), ("cutlass", "GEMM (prefill chunks, lm_head)"),
+    ("gemm", _GEMM), ("gemv", _GEMM), ("nvjet", _GEMM), ("cutlass", _GEMM),
     ("index", "page scatter / gather / embedding"),
     ("scatter", "page scatter / gather / embedding"),
     ("gather", "page scatter / gather / embedding"),
@@ -2164,9 +2431,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
-                    ["--traffic"], ["--dense"]):
+                    ["--traffic"], ["--dense"], ["--moe"]):
         print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
-              f"| --dense]", file=sys.stderr)
+              f"| --dense | --moe]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -2216,15 +2483,22 @@ def main(argv: list[str]) -> int:
         time_dense_attention(gen, dev)
         dense_phase(dev)
         return 0
+    if argv == ["--moe"]:
+        check_moe_kernels(gen, dev)
+        time_moe_kernels(gen, dev)
+        moe_phase(dev)
+        return 0
     errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"], **check_attention(gen, dev),
             "decode_attention": check_contig_attention(gen, dev),
             "ssd_scan": check_ssd_scan(gen, dev)}
-    for k, v in check_dense_kernels(gen, dev).items():
-        errs[k] = max(errs[k], v)
+    for check in (check_dense_kernels, check_moe_kernels):
+        for k, v in check(gen, dev).items():
+            errs[k] = max(errs[k], v)
     times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev),
              "decode_attention": time_contig_attention(gen, dev),
              "ssd_scan": time_ssd_scan(gen, dev)}
     time_dense_attention(gen, dev)
+    time_moe_kernels(gen, dev)
     host_cost(gen, dev)
     torch.cuda.empty_cache()
 
@@ -2233,12 +2507,14 @@ def main(argv: list[str]) -> int:
     for k, v in zamba2_phase(dev).items():
         counts[k] = counts.get(k, 0) + v
     torch.cuda.empty_cache()
-    for k, v in dense_phase(dev).items():
-        counts[k] = counts.get(k, 0) + v
+    for phase in (dense_phase, moe_phase):
+        for k, v in phase(dev).items():
+            counts[k] = counts.get(k, 0) + v
 
     work = {"pim_gemv": f"the 7 decode GEMVs of one llama3-8b layer at B={SLOTS}; launches "
-                        f"include the spec serves (draft and verify) and the W8A8 dense "
-                        f"serves (yi-9b, codeqwen1.5-7b)",
+                        f"include the spec serves (draft and verify), the W8A8 dense "
+                        f"serves (yi-9b, codeqwen1.5-7b) and the W8A8 MoE serves "
+                        f"(olmoe-1b-7b, phi3.5-moe: q/k/v/o only)",
             "decode_attention": f"one zamba2-7b shared-block layer, q ({ATTN_B},32,1,112), "
                                 f"bf16 lanes of {CONTIG_LMAX}, end {ATTN_END}, "
                                 f"start {ATTN_START}",

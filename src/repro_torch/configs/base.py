@@ -92,6 +92,15 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    @property
+    def token_coupled(self) -> bool:
+        """True when a token's arithmetic depends on the other tokens of its
+        forward: the MoE capacity dispatch drops the picks past an expert's
+        capacity among the tokens of one call. Such a config is served with
+        the JAX engine's grouping (one forward per admission chunk, one ragged
+        prefill per batch-admission group), never cut into sub-steps."""
+        return self.n_experts > 0
+
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

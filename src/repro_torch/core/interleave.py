@@ -12,6 +12,10 @@ its admission chunk). The admission quantum differs between modes, and a GEMM
 of a different row count may round differently on the card; cutting every
 chunk at the same token boundaries makes each token's arithmetic independent
 of the quantum, so greedy tokens stay identical across BLOCKED/HBCEM/LBIM.
+A token-coupled config (``ModelConfig.token_coupled``: the MoE capacity
+dispatch, where which picks drop depends on the tokens of the call) is never
+cut: a chunk is one forward over all its tokens, as the JAX package runs it,
+and its tokens may then differ between modes, as the JAX engine's do.
 """
 from __future__ import annotations
 
@@ -44,9 +48,10 @@ def prefill_chunk_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: Mod
 
     A chunk of more than one token takes the GEMM form in every sub-chunk,
     a one-token sub-chunk included, as the JAX package computes the whole
-    chunk as one multi-token step; a one-token chunk is a decode step."""
+    chunk as one multi-token step; a one-token chunk is a decode step. A
+    token-coupled config takes the whole chunk in one step."""
     t = tokens.shape[1]
-    step = t if not sub_chunk else int(sub_chunk)
+    step = t if not sub_chunk or cfg.token_coupled else int(sub_chunk)
     gemm = gemm or t > 1
     logits = None
     for lo in range(0, t, step):

@@ -83,6 +83,14 @@ def append_layer_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
     at offset ``(pos+t) % block`` of page ``table[b, (pos+t) // block]``: a K
     column write and a V row write inside the page. The pool guarantees
     residency before the step; free lanes all alias one dummy page.
+
+    Free lanes' one-token writes collide there, and on the card the winner of
+    colliding writes is unspecified. So every lane of a collision writes the
+    last such lane's K/V (what the JAX package's scatter and PyTorch's give on
+    the CPU), and the dummy page's content, which the free lanes then read,
+    does not depend on the device. A token-coupled config needs that, since a
+    free lane's MoE picks take live lanes' capacity; for the others a free
+    lane's output is thrown away.
     """
     b, _, t, _ = k_new.shape
     k_new = k_new.to(k_pages.dtype)
@@ -92,8 +100,11 @@ def append_layer_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
     if t == 1:
         page = table[torch.arange(b, device=table.device), pos // block]   # (B,)
         off = pos % block                                                  # (B,)
-        k_pages[page, :, :, off] = k_new[:, :, 0, :]     # in place
-        v_pages[page, :, off, :] = v_new[:, :, 0, :]     # in place
+        flat = page * block + off
+        lane = torch.arange(b, device=flat.device)
+        src = torch.where(flat[:, None] == flat[None, :], lane[None, :], -1).amax(1)
+        k_pages[page, :, :, off] = k_new[src, :, 0, :]     # in place
+        v_pages[page, :, off, :] = v_new[src, :, 0, :]     # in place
         return
     t_idx = pos[:, None] + torch.arange(t, device=pos.device)              # (B, T)
     page = torch.gather(table, 1, t_idx // block)

@@ -41,8 +41,7 @@ from repro_torch.serve.spec import SpecConfig
 
 # architectures of the JAX package the port does not serve yet -> ROADMAP item
 _UNPORTED_ARCHS = {
-    "seamless-m4t-large-v2": "A.9", "olmoe-1b-7b": "A.9", "phi3.5-moe-42b-a6.6b": "A.9",
-    "internvl2-2b": "A.9", "rwkv6-1.6b": "A.9",
+    "seamless-m4t-large-v2": "A.9", "internvl2-2b": "A.9", "rwkv6-1.6b": "A.9",
 }
 
 

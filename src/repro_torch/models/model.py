@@ -1,5 +1,5 @@
-"""Model zoo, dense and hybrid families: init / prefill / decode step (port of
-the dense and hybrid parts of ``repro.models.model``).
+"""Model zoo, dense, MoE and hybrid families: init / prefill / decode step (port
+of the dense, MoE and hybrid parts of ``repro.models.model``).
 
 Layers are a Python list of per-layer dicts and are walked with a Python
 loop. The JAX package carried the layer-stacked caches (page pool, contiguous
@@ -9,13 +9,15 @@ stacked tensor (``k_pages[i]``, ``k[i]``, ``k_loc[i]``, ``ssd[i]``) written in
 place, so a decode step never copies a stacked cache.
 
 Families: ``dense`` (llama3-8b, yi-9b, codeqwen1.5-7b and gemma2-27b; paged
-or contiguous KV) and ``hybrid`` (zamba2-7b: groups of ``attn_every`` Mamba2
-layers, each group followed by ONE weight-shared attention + MLP block whose
-KV lives in contiguous lanes). gemma2 adds per-layer sliding windows (its
-even, local layers attend to the last ``sliding_window`` tokens), attention
-and final-logit softcaps, post-block norms, tied embeddings and the embedding
-scale; with ``windowed_kv_cache`` its local layers keep W-slot rings
-(``k_loc``/``v_loc``) beside the global layers' full lanes.
+or contiguous KV), ``moe`` (olmoe-1b-7b, phi3.5-moe: the dense blocks with a
+top-k MoE FFN, ``models.moe``, in place of the MLP) and ``hybrid``
+(zamba2-7b: groups of ``attn_every`` Mamba2 layers, each group followed by ONE
+weight-shared attention + MLP block whose KV lives in contiguous lanes).
+gemma2 adds per-layer sliding windows (its even, local layers attend to the
+last ``sliding_window`` tokens), attention and final-logit softcaps,
+post-block norms, tied embeddings and the embedding scale; with
+``windowed_kv_cache`` its local layers keep W-slot rings (``k_loc``/``v_loc``)
+beside the global layers' full lanes.
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ from repro_torch.core import dispatch, kv_mapping
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid")
 # param subtrees whose leaves the JAX package stacks layer-first for lax.scan
 STACKED = ("layers", "mamba_layers")
 # hybrid recurrent-state leaves, stacked over all n_layers Mamba2 layers
@@ -58,8 +61,11 @@ def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig, device) -> d
         "attn_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
         "attn": attn_lib.init_attention(generator, cfg, device),
         "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
-        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.init_moe(generator, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device)
     if cfg.post_block_norm:
         p["post_attn_norm"] = L.init_rmsnorm(cfg.d_model, dtype, device)
         p["post_mlp_norm"] = L.init_rmsnorm(cfg.d_model, dtype, device)
@@ -104,7 +110,8 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     ``jax.tree_util.tree_map(np.asarray, ...)``): every leaf becomes a torch
     tensor on ``device`` and each layer-stacked ``(nL, ...)`` subtree
     (``"layers"``, the hybrid's ``"mamba_layers"``) is split into a list of
-    per-layer dicts."""
+    per-layer dicts. A layer's leaf is the stacked leaf's slice, whatever its
+    rank: the MoE expert tables ``(nL, E, d, f)`` become ``(E, d, f)``."""
     dev = resolve_device(device)
 
     def conv(t, layer=None):
@@ -222,18 +229,27 @@ def _post_norm(lp: dict, name: str, y: torch.Tensor, cfg: ModelConfig) -> torch.
 
 def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False) -> torch.Tensor:
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-    if gemm:
+    if cfg.family == "moe":
+        m = moe_lib.moe_einsum(lp["moe"], h, cfg)   # float experts in every form, as in JAX
+    elif gemm:
         m = L.mlp(lp["mlp"], h, linear_fn=attn_lib._dense_matmul)
     else:
         m = dispatch.mlp(lp["mlp"], h, cfg)  # W8A8 GEMVs under quantized_decode
     return x + _post_norm(lp, "post_mlp_norm", m, cfg)
 
 
-def _dense_block_decode(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] = None,
-                        gemm: bool = False):
+def _attn_residual(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] = None,
+                   gemm: bool = False):
+    """The attention half of a block over a contiguous cache: x + attention."""
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     a = attn_lib.attention_decode(lp["attn"], h, kc, vc, pos, cfg, window=window, gemm=gemm)
-    return _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=gemm)
+    return x + _post_norm(lp, "post_attn_norm", a, cfg)
+
+
+def _dense_block_decode(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] = None,
+                        gemm: bool = False):
+    return _mlp_tail(lp, _attn_residual(lp, x, kc, vc, pos, cfg, window=window, gemm=gemm),
+                     cfg, gemm=gemm)
 
 
 def _dense_block_decode_paged(lp, x, kp, vp, table, pos, cfg: ModelConfig,
@@ -351,35 +367,50 @@ def _hybrid_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelC
 # ===========================================================================
 
 
+def _prefill_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                     step: int) -> torch.Tensor:
+    """:func:`prefill`'s pass up to the final norm, layer by layer: each
+    layer's attention runs ``step`` queries at a time against the contiguous
+    ``cache`` (written in place), and its MLP tail never sees a slice: it
+    takes the layer's whole (B, S) batch, as the JAX ``prefill`` computes it
+    (which a MoE's capacity dispatch needs)."""
+    s = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    windows = layer_windows(cfg)
+    for i, lp in enumerate(params["layers"]):
+        parts = [_attn_residual(lp, x[:, lo:lo + step], cache["k"][i], cache["v"][i], lo, cfg,
+                                window=windows[i], gemm=True) for lo in range(0, s, step)]
+        x = _mlp_tail(lp, torch.cat(parts, dim=1), cfg, gemm=True)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
             seq_lens=None):
-    """Whole prompts of the dense family in one pass: tokens (B, S) ->
+    """Whole prompts of the dense and MoE families in one pass: tokens (B, S) ->
     (logits at each row's last token (B, 1, V), a fresh decode cache filled to
     S, ``pos`` the scalar S). ``seq_lens`` (B,) marks each row's true length in
     a right-padded ragged batch; its logits are read at ``seq_lens - 1``.
 
     The pass is the batch-prefill form of :func:`decode_step` (``gemm=True``:
     float GEMMs, dense masked attention with each layer's window) into a
-    fresh full-length contiguous cache, ``cfg.q_chunk`` queries at a time, so
-    one layer's f32 scores stay (B, Hq, q_chunk, max_len). A windowed gemma2
+    fresh full-length contiguous cache, layer by layer: the attention
+    ``cfg.q_chunk`` queries at a time, so one layer's f32 scores stay (B, Hq,
+    q_chunk, max_len), then the layer's MLP or MoE over all B·S tokens at
+    once, pads included, in row-major order, as the JAX ``prefill`` groups
+    them (:func:`_prefill_forward`). A windowed gemma2
     then places each local layer's last W tokens into their ring slots (slot
     ``t % W`` holds token ``t``; a prompt shorter than W leaves the surplus
     slots holding its last token, masked at decode by ``end = min(pos + 1,
     W)``) and keeps the global layers' lanes."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"prefill ports the dense family; the {cfg.family} family admits through "
-            f"chunked decode steps")
+            "prefill ports the dense and MoE families; the hybrid family admits "
+            "through chunked decode steps")
     b, s = tokens.shape
     full = init_decode_cache(cfg.replace(windowed_kv_cache=False), b, max_len,
                              device=tokens.device)
-    cache, hidden = full, []
-    step = max(int(cfg.q_chunk), 1)
-    for lo in range(0, s, step):
-        x, cache = _forward(params, cache, tokens[:, lo:lo + step], cfg, gemm=True)
-        hidden.append(x)
-    x = torch.cat(hidden, dim=1) if len(hidden) > 1 else hidden[0]
+    x = _prefill_forward(params, full, tokens, cfg, max(int(cfg.q_chunk), 1))
     if seq_lens is None:
         last = x[:, -1:, :]
     else:

@@ -29,7 +29,9 @@ Differences from the JAX package, none of which changes a token:
   equivalent and insert only transfers the table row.
 * Batch admission (an empty pool) fills pages through the same staging
   stream, one request at a time, instead of pagifying a contiguous prefill
-  cache: :meth:`CachePool.begin_batch_admission`.
+  cache: :meth:`CachePool.begin_batch_admission`. A token-coupled config
+  (MoE) admits as the JAX engine does, through one ragged prefill whose lanes
+  are cut into pages at insert (:meth:`PagedKVState.pagify`).
 * Contiguous lanes (:class:`LaneState`, one per :class:`StateSpec`) are
   written in place too: insert copies one lane, retire zeroes one lane of
   the recurrent leaves, and the decode step writes each layer's slice.
@@ -78,10 +80,10 @@ DUMMY_PAGE = 0
 # ===========================================================================
 
 
-def _copy_lane(dst: torch.Tensor, src: torch.Tensor, slot: int) -> None:
-    """Lane 0 of a batch-1 stacked (nL, 1, ...) leaf into lane ``slot`` of
+def _copy_lane(dst: torch.Tensor, src: torch.Tensor, slot: int, src_slot: int = 0) -> None:
+    """Lane ``src_slot`` of a stacked (nL, B, ...) leaf into lane ``slot`` of
     ``dst``, IN PLACE."""
-    dst[:, slot].copy_(src[:, 0])
+    dst[:, slot].copy_(src[:, src_slot])
 
 
 def _zero_lane(arr: torch.Tensor, slot: int) -> None:
@@ -157,9 +159,9 @@ class LaneState:
         self.spec = spec
         self.leaves = {k: leaves[k] for k in spec.keys}
 
-    def insert(self, src_cache: dict, slot: int) -> None:
+    def insert(self, src_cache: dict, slot: int, src_slot: int = 0) -> None:
         for k in self.spec.keys:
-            _copy_lane(self.leaves[k], src_cache[k], slot)
+            _copy_lane(self.leaves[k], src_cache[k], slot, src_slot)
 
     def retire(self, slot: int) -> None:
         if self.spec.zero_on_retire:
@@ -451,6 +453,32 @@ class PagedKVState:
         if handle is None:
             self.staging = None
 
+    def pagify(self, slot: int, src_cache: dict, src_slot: int, pos: int) -> None:
+        """Cut lane ``src_slot`` of a contiguous prefill cache (``k`` (nL, B,
+        H, hd, Lmax), ``v`` (nL, B, H, Lmax, hd)) into fresh pages for its
+        ``ceil(pos / block)`` blocks and give them to ``slot``, as the JAX
+        pool's ``_pagify_lane`` does for a batch-prefill admission. The lane
+        itself never enters the pool; its blocks move in one copy per leaf."""
+        self._drop_row(slot)
+        n = min(-(-int(pos) // self.block_size), self.n_blocks)
+        if n == 0:
+            return
+        for i in range(n):
+            self.block_tables[slot, i] = self._alloc_page()
+        bsz, span = self.block_size, n * self.block_size
+        k_lane, v_lane = src_cache["k"][:, src_slot], src_cache["v"][:, src_slot]
+        lpad = span - k_lane.shape[-1]
+        if lpad > 0:   # a max_len off the block grid: square the lane up to it
+            k_lane = torch.nn.functional.pad(k_lane, (0, lpad))
+            v_lane = torch.nn.functional.pad(v_lane, (0, 0, 0, lpad))
+        nl, h, hd = k_lane.shape[0], k_lane.shape[1], k_lane.shape[2]
+        idx = torch.as_tensor(self.block_tables[slot, :n], device=self.device)
+        kd = self.pages["k_pages"].dtype
+        self.pages["k_pages"][:, idx] = k_lane[..., :span].reshape(
+            nl, h, hd, n, bsz).permute(0, 3, 1, 2, 4).to(kd)
+        self.pages["v_pages"][:, idx] = v_lane[:, :, :span].reshape(
+            nl, h, n, bsz, hd).permute(0, 2, 1, 3, 4).to(kd)
+
     def retire(self, slot: int) -> None:
         self._drop_row(slot)
 
@@ -683,17 +711,27 @@ class CachePool:
             priority=getattr(request, "priority", 0) if priority is None else priority)
         return si
 
-    def insert(self, slot: int, prefilled: dict, *, prompt=None, handle=None) -> None:
-        """Drop a prefilled batch-1 cache into lane ``slot``. Paged pools take
-        the drained admission stream's table row (the open one, or a parked
-        ``handle``) and, with ``prompt``, harvest its full blocks into the
-        prefix index; contiguous pools copy the staging cache's lane."""
-        self._pos[slot] = int(prefilled["pos"].reshape(-1)[0])
+    def insert(self, slot: int, prefilled: dict, *, prompt=None, handle=None,
+               src_slot: int = 0) -> None:
+        """Drop lane ``src_slot`` of a prefilled cache into lane ``slot``. Paged
+        pools take the drained admission stream's table row (the open one, or
+        a parked ``handle``), or, from a contiguous prefill cache (``k``/``v``
+        lanes: a batch-prefill admission), cut the lane into fresh pages; with
+        ``prompt`` they harvest its full blocks into the prefix index.
+        Contiguous pools copy the lane."""
+        fills = prefilled["pos"].reshape(-1)
+        self._pos[slot] = int(fills[src_slot if fills.numel() > 1 else 0])
         if self._kv is None:
             for st in self.states:
-                st.insert(prefilled, slot)
+                st.insert(prefilled, slot, src_slot)
             return
-        self._kv.insert(slot, handle)
+        if "k_pages" in prefilled:
+            self._kv.insert(slot, handle)
+        else:
+            try:
+                self._kv.pagify(slot, prefilled, src_slot, int(self._pos[slot]))
+            except _PagesExhausted as e:
+                raise PoolExhausted(str(e), self.occupancy()) from None
         if self.prefix_cache and prompt is not None:
             self._kv.harvest(slot, prompt)
 

@@ -909,12 +909,19 @@ class Engine:
 
     # ------------------------------------------------------- admission paths
 
-    def _full_prefill(self, prompt: list) -> tuple[torch.Tensor, dict]:
-        """One request's whole span through ``M.prefill`` (float params): its
-        last-token logits (1, 1, V) and a batch-1 cache with a (1,) fill."""
-        logits, cache = M.prefill(self.serving.params, self._tokens([prompt]), self.cfg,
-                                  self.max_len)
-        cache["pos"] = cache["pos"].reshape(1)
+    def _full_prefill(self, prompts: list) -> tuple[torch.Tensor, dict]:
+        """Whole spans through one ``M.prefill`` (float params), right-padded
+        with token 0 to the longest as the JAX engine pads a group: each
+        span's last-token logits (g, 1, V) and a contiguous cache with its
+        fills ``pos`` (g,)."""
+        lens = [len(p) for p in prompts]
+        toks = np.zeros((len(prompts), max(lens)), np.int32)
+        for j, p in enumerate(prompts):
+            toks[j, :lens[j]] = p
+        seq_lens = self._tokens(lens)
+        logits, cache = M.prefill(self.serving.params, self._tokens(toks), self.cfg,
+                                  self.max_len, seq_lens=seq_lens if len(set(lens)) > 1 else None)
+        cache["pos"] = seq_lens
         return logits, cache
 
     def _prefill_one(self, r: int) -> _Ready:
@@ -924,7 +931,7 @@ class Engine:
         the path it was admitted by."""
         p = list(self._reqs[r].prompt) + self._results[r].tokens
         t_step = time.perf_counter()
-        logits, cache = self._full_prefill(p)
+        logits, cache = self._full_prefill([p])
         self._push_event(ScheduleEvent(plan_step(self.mode, False, True, len(p)), 0, len(p),
                                        step_s=time.perf_counter() - t_step))
         first = self._first_tokens(logits, [r], offsets=[len(self._results[r].tokens)])[0]
@@ -938,7 +945,11 @@ class Engine:
         ``chunk``-token sub-steps of the batch-prefill form (float GEMMs,
         dense attention), or, where the pool cannot chunk (rings), through
         its own ``M.prefill``, so a token's arithmetic is the same however
-        requests are grouped. Groups and their events follow the JAX engine:
+        requests are grouped. A token-coupled config (MoE: which picks drop
+        depends on the tokens of the call) runs the JAX form itself: one
+        ragged ``M.prefill`` per group, right-padded with token 0 to the
+        group's longest, whose lanes the pool cuts into pages at insert.
+        Groups and their events follow the JAX engine:
         one group, unless the pool's states cannot ride a right-padded ragged
         batch (recurrent state, rings) and the lengths differ — then one
         group per request. Requests whose prompt hits the prefix store are
@@ -970,26 +981,33 @@ class Engine:
                 if results[r].admit_step is None:
                     results[r].admit_step = self._clock
             t_step = time.perf_counter()
-            staged = []
-            for r in group:
-                if pool.policy.chunkable:
-                    toks = self._tokens([ext[r]])
-                    cache = pool.staging_step_prep(pool.begin_batch_admission(), len(ext[r]))
-                    logits, cache = interleave.prefill_chunk_step(
-                        self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk,
-                        gemm=True)
-                else:
-                    logits, cache = self._full_prefill(ext[r])
-                staged.append((r, cache, pool.park_staging(),
-                               self._first_tokens(logits[:, -1:, :], [r],
-                                                  offsets=[len(results[r].tokens)])[0]))
             glens = [len(ext[r]) for r in group]
+            staged = []   # (request, prefilled cache, its lane there, staging handle, first)
+            if self.cfg.token_coupled:
+                logits, cache = self._full_prefill([ext[r] for r in group])
+                first = self._first_tokens(logits, group,
+                                           offsets=[len(results[r].tokens) for r in group])
+                staged = [(r, cache, j, None, first[j]) for j, r in enumerate(group)]
+            else:
+                for r in group:
+                    if pool.policy.chunkable:
+                        toks = self._tokens([ext[r]])
+                        cache = pool.staging_step_prep(pool.begin_batch_admission(),
+                                                       len(ext[r]))
+                        logits, cache = interleave.prefill_chunk_step(
+                            self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk,
+                            gemm=True)
+                    else:
+                        logits, cache = self._full_prefill([ext[r]])
+                    staged.append((r, cache, 0, pool.park_staging(),
+                                   self._first_tokens(logits[:, -1:, :], [r],
+                                                      offsets=[len(results[r].tokens)])[0]))
             self._push_event(ScheduleEvent(plan_step(self.mode, False, True, sum(glens)),
                                            0, sum(glens),
                                            step_s=time.perf_counter() - t_step))
-            for r, cache, handle, first in staged:
+            for r, cache, lane, handle, first in staged:
                 si = pool.alloc(reqs[r], r, ctx=len(ext[r]), emitted=len(results[r].tokens))
-                pool.insert(si, cache, prompt=ext[r], handle=handle)
+                pool.insert(si, cache, prompt=ext[r], handle=handle, src_slot=lane)
                 results[r].state = RequestState.RUNNING
                 cur_tok[si] = first
                 emit(si, first)

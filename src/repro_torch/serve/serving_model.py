@@ -61,9 +61,9 @@ class ServingModel:
                    paged: Optional[bool] = None, spec_slack: int = 0):
         """A :class:`repro_torch.serve.cache.CachePool` on this artifact's
         device. ``paged=None`` pages whenever KV is the whole cache state
-        (the dense family); ``paged=False`` forces contiguous lanes for A/B
-        comparison; a hybrid's pool, and a windowed gemma2's (W-slot rings
-        beside its global layers' lanes), is contiguous either way.
+        (the dense and MoE families); ``paged=False`` forces contiguous lanes
+        for A/B comparison; a hybrid's pool, and a windowed gemma2's (W-slot
+        rings beside its global layers' lanes), is contiguous either way.
         ``spec_slack`` adds per-lane blocks for speculative verify rounds'
         transient ``k+1`` appends."""
         from repro_torch.serve.cache import CachePool

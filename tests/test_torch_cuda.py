@@ -728,3 +728,78 @@ def test_gemma2_tokens_on_the_card_equal_the_cpu_path(dev, no_tf32, mode, ring):
     counts = launch_counts()
     assert counts["decode_attention" if ring else "decode_attention_paged"] > 0
     assert got == want
+
+
+# --------------------------------------------------------------------------
+# the MoE family (olmoe-1b-7b, phi3.5-moe)
+# --------------------------------------------------------------------------
+
+# (N, K) of the W8A8 projections at full width: olmoe's wq/wk/wv/wo; phi3.5's
+# wq/wo and its wk/wv (8 KV heads of 128)
+MOE_GEMV = [(2048, 2048), (4096, 4096), (1024, 4096)]
+
+
+@pytest.mark.parametrize("n,k", MOE_GEMV)
+def test_pim_gemv_bit_exact_at_moe_shapes(dev, gen, n, k):
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    ops = gemv_operands(n, k, 4, gen, dev)
+    assert torch.equal(pim_gemv(*ops), pim_gemv_ref(*ops))
+
+
+@pytest.mark.parametrize("hkv,g,nb", [(16, 1, 50), (8, 4, 50)])   # olmoe; phi3.5
+def test_paged_decode_at_moe_shapes(dev, gen, hkv, g, nb):
+    """B1 and the B2 pair (4 splits) at the MoE serves' head layouts, hd 128,
+    bf16 pages of 8 tokens."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    q, kp, vp, table = paged(gen, dev, 4, hkv, g, 128, 8, nb, torch.bfloat16)
+    end, start = live_ranges(nb * 8, False, dev)
+    start = torch.zeros_like(start)
+    want = ref.decode_attention_paged_ref(q, kp, vp, table, end, 128 ** -0.5, None,
+                                          start=start)
+    out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=128 ** -0.5)
+    torch.testing.assert_close(out, want, **TOL)
+    pair = da.decode_attention_paged_split(q, kp, vp, table, end, start, num_splits=4,
+                                           scale=128 ** -0.5)
+    torch.testing.assert_close(pair, want, **TOL)
+
+
+MOE_PROMPTS = [[5] * 17, [3, 1, 4], [2, 7, 1, 8], [9, 9, 8, 2, 6, 5], [7] * 17,
+               [4, 4, 2, 1, 3, 5, 8, 9, 7]]
+MOE_BUDGETS = [5, 7, 3, 6, 4, 8]
+
+
+@pytest.mark.parametrize("mode", ["BLOCKED", "HBCEM", "LBIM"])
+def test_moe_tokens_on_the_card_equal_the_cpu_path(dev, no_tf32, mode):
+    """f32 olmoe smoke on the paged pool with four lanes, W8A8 off: picks drop
+    in decode steps (capacity 2 of 4 lanes, free lanes included, whose writes
+    collide in the dummy page), in chunks and in the padded batch admission;
+    the greedy tokens served on the card (B1) equal those served on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.api import GenerationRequest
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg = get_config("olmoe-1b-7b", smoke=True).replace(dtype="float32",
+                                                         param_dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def serve(params, device):
+        eng = ServingModel.prepare(cfg, params, max_len=32, slots=4, device=device).engine(
+            mode=Mode[mode], chunk=4)
+        res = eng.serve([GenerationRequest(prompt=p, max_new_tokens=b)
+                         for p, b in zip(MOE_PROMPTS, MOE_BUDGETS)])
+        assert eng.pool.check_invariants() == []
+        assert [len(r.tokens) for r in res] == MOE_BUDGETS
+        return [r.tokens for r in res]
+
+    want = serve(cpu, "cpu")
+    reset_launches()
+    got = serve(_to(cpu, dev), dev)
+    assert launch_counts()["decode_attention_paged"] > 0
+    assert got == want

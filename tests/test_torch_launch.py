@@ -77,6 +77,16 @@ def test_unported_arch_names_its_roadmap_item():
         cli.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu"])
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"])
+def test_cli_serves_the_moe_family(capsys, arch):
+    """The MoE family is served; rwkv6 (above) is still refused."""
+    assert cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+                     "--prompt-len", "10", "--max-new", "4", "--slots", "2",
+                     "--chunk", "4"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("  req") == 3 and "occupancy: slots 0/2" in out
+
+
 def test_device_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.parse_args(["--arch", "llama3-8b"]).device == "cuda"
@@ -92,7 +102,8 @@ def test_unported_archs_are_the_a9_families():
 
     assert set(cli._UNPORTED_ARCHS.values()) == {"A.9"}
     assert not set(cli._UNPORTED_ARCHS) & set(list_archs())
-    assert {"yi-9b", "codeqwen1.5-7b", "gemma2-27b"} <= set(list_archs())
+    assert {"yi-9b", "codeqwen1.5-7b", "gemma2-27b", "olmoe-1b-7b",
+            "phi3.5-moe-42b-a6.6b"} <= set(list_archs())
     for arch in cli._UNPORTED_ARCHS:
         with pytest.raises(NotImplementedError, match="A.9"):
             cli._config(arch, smoke=True)

@@ -275,13 +275,13 @@ def test_paged_decode_step_vs_jax(f32_model, tok, quantized, splits):
 
 def test_decode_step_refuses_contiguous_cache(f32_model):
     """Contiguous dense lanes are served now (tests/test_torch_contiguous.py),
-    and so are gemma2's sliding-window layers (tests/test_torch_gemma2.py); a
-    contiguous cache of a family that is not ported yet (moe, ROADMAP A.9)
-    is still refused."""
+    and so are gemma2's sliding-window layers (tests/test_torch_gemma2.py) and
+    the MoE family (tests/test_torch_moe.py); a contiguous cache of a family
+    that is not ported yet (ssm: rwkv6, ROADMAP A.9) is still refused."""
     jcfg, tcfg, _, tp = f32_model
-    moe = tcfg.replace(family="moe", n_experts=4, top_k=2)
+    ssm = tcfg.replace(family="ssm")
     cache = TM.init_decode_cache(tcfg, 1, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="A.9"):
-        TM.decode_step(tp, cache, torch.zeros((1, 1), dtype=torch.long), moe)
+        TM.decode_step(tp, cache, torch.zeros((1, 1), dtype=torch.long), ssm)
     _, cache = TM.decode_step(tp, cache, torch.ones((1, 1), dtype=torch.long), tcfg)
     assert int(cache["pos"]) == 1
