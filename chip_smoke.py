@@ -42,11 +42,12 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    one-token forward 7 ``pim_gemv`` and one attention call per attention
    layer: paged single pass at 1 split, split and merge at 4, the contiguous
    kernel for the contiguous pool, and no other kernel).
-4. ``zamba2``: full-width zamba2-7b (81 Mamba2 layers, one shared attention +
-   MLP block applied 13 times, bf16, W8A8) serves ragged greedy requests in
-   BLOCKED, HBCEM and LBIM with the same checks: identical tokens across
-   modes, exactly 7 x 13 ``pim_gemv`` and 13 contiguous attention launches per
-   one-token forward. The SSD scan kernel is not on this path, as in the JAX
+4. ``zamba2``: full-width zamba2-7b at 45 of its 81 Mamba2 layers
+   (``ZAMBA2_LAYERS``; one shared attention + MLP block applied 7 times, after
+   every 6 layers, then 3 layers without it; bf16, W8A8) serves ragged greedy
+   requests in BLOCKED, HBCEM and LBIM with the same checks: identical tokens
+   across modes, exactly 7 x 7 ``pim_gemv`` and 7 contiguous attention
+   launches per one-token forward. The SSD scan kernel is not on this path, as in the JAX
    package (the model scans with ``ssd_chunked``): the kernel phase launches it.
 5. ``spec``: full-width llama3-8b (bf16, W8A8, paged, 4 slots) serves one
    request set of 4 (prompts of 32-96 tokens, 16-24 new tokens; two greedy,
@@ -63,7 +64,8 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    token) the draft's 7 x 32 ``pim_gemv`` and 32 contiguous attention calls
    on its batch-1 lane. Lines give decode-step ms, tokens/s and the spec
    report.
-6. ``traffic``: full-width llama3-8b (bf16, W8A8, paged 8-token pages,
+6. ``traffic``: full-width llama3-8b at 4 of its 32 layers
+   (``TRAFFIC_LAYERS``; bf16, W8A8, paged 8-token pages,
    4 slots, 64-token admission chunks) serves a seeded 16-request Poisson
    trace (``serve.traffic.generate``: 0.25 arrivals a step, prompts of
    32-256 tokens, 8-48 new, priorities 0, 0, 1) four times: (a) HBCEM, every
@@ -87,7 +89,8 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    line must account for the plan.
 7. ``dense``: the rest of the dense family at full width, each model's
    weights freed before the next is made (``memory`` lines give the card's
-   free memory before each init): (a) yi-9b (48 layers, G 8, W8A8, paged) in
+   free memory before each init): (a) yi-9b (24 of its 48 layers,
+   ``YI_LAYERS``, G 8, W8A8, paged) in
    HBCEM and LBIM and (b) codeqwen1.5-7b (G 1 MHA with q/k/v biases, W8A8,
    paged) in HBCEM, each over the llama3-8b serve's 8 requests; then
    gemma2-27b in bf16 (54.46 GB of weights: its W8A8 images beside the bf16
@@ -119,7 +122,26 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    keep rule on the first HBCEM chunk's and decode step's MoE inputs and
    counts the picks kept and dropped per layer. The kernel checks hold B1/B2
    and B3 at both models' serve shapes.
-9. A ``profile`` line per model (device time by kernel group, busy share), a
+9. ``families``: the last serving families at full width and depth, each
+   model freed before the next: (a) rwkv6-1.6b (24 RWKV6 blocks, bf16; W8A8
+   is off for the attention-free ``ssm`` family, as in the JAX package) over
+   the llama3-8b serve's 8 requests in BLOCKED, HBCEM and LBIM on its
+   contiguous recurrent-state pool: tokens equal across modes and no
+   launch of any kernel of the port; (b) internvl2-2b (W8A8, paged 8-token
+   pages, no image: the engine passes none, as the JAX engine) over the same
+   requests in HBCEM and LBIM and in HBCEM at 4 KV splits, then the
+   model-level image-prefix ``prefill`` of 4 lanes (256 seeded patch
+   embeddings and prompts of 24-64 tokens) and 16 greedy ``decode_step``s
+   over its contiguous lanes (B4 at G 2 / hd 128); (c) seamless-m4t-large-v2
+   at model level (W8A8 decoder; encoder and cross attention float):
+   ``prefill`` of 4 lanes over 500 seeded frames and one BOS token, then 32
+   greedy steps (B4 at G 1 / hd 64, B3 at (1024, 1024), (8192, 1024) and
+   (1024, 8192)). Launches exact, health clean; ``family_decode`` lines give
+   the model-level runs' step ms, tokens/s and step bound. The kernel checks
+   hold B1/B2 at internvl2-2b's tables, B4 at both model-level runs' lanes,
+   B3 bit-exact at every shape (``check_family_kernels``).
+10. A ``profile`` line per model (device time by kernel group, busy share), a
+   ``phase_s`` line per phase of the full run (its wall seconds), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -148,14 +170,16 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
     python3 chip_smoke.py --traffic
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --moe
+    python3 chip_smoke.py --families
 
 print only ``pim_gemv``'s ``kernel_time`` and ``kernel_check`` lines (B3),
 only the spec phase's lines, only the traffic phase's and the CLI's, only
-the dense phase's or only the MoE phase's (each with its kernel checks and
-times).
+the dense phase's, only the MoE phase's or only the families phase's (each
+with its kernel checks and times).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -206,6 +230,14 @@ SLOTS = 4
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Emit the wall seconds the block took: where the run's time budget goes."""
+    t0 = time.perf_counter()
+    yield
+    emit({"phase": "phase_s", "name": name, "s": time.perf_counter() - t0})
 
 
 def nvidia_smi() -> str:
@@ -1064,6 +1096,19 @@ def decode_gemvs(cfg) -> int:
     return 4 if cfg.n_experts else 7
 
 
+def attention_layers(cfg) -> int:
+    """Attention layers of one forward, each one decode-attention call and, under
+    W8A8, ``decode_gemvs`` GEMVs: zamba2's shared-block applications, none for
+    rwkv6 (attention-free, its projections plain matmuls: it launches no kernel
+    of the port, as the JAX package reaches no Pallas kernel there), every
+    layer of the others (the audio decoder's)."""
+    from repro_torch.models.model import _hybrid_groups
+
+    if cfg.family == "ssm":
+        return 0
+    return _hybrid_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
+
+
 def expected_launches(eng, cfg) -> dict[str, int]:
     """Launches one serve must make. Every forward of one token per lane (each
     decode step, each verify position of a spec round, and an admission chunk
@@ -1075,7 +1120,8 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     A spec serve's draft rollouts add, per round's event, each chained
     candidate (``spec_draft_steps``) and each catch-up of one token
     (``spec_catchup_decodes``): a single-token forward of the draft on its
-    batch-1 contiguous lane (the GEMVs and the contiguous kernel); a longer
+    batch-1 contiguous lane (the GEMVs and the contiguous kernel; nothing for
+    an rwkv6 draft, ``attention_layers``); a longer
     catch-up, the lane resync prefill, longer
     chunks and the batch admission (never one token here: every prompt is
     longer) take GEMMs and dense attention and launch none of the port's
@@ -1084,14 +1130,11 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     before any launch (a serve without one must fail no step)."""
     from repro_torch.kernels import launch_counts
 
-    from repro_torch.models.model import _hybrid_groups
-
     events = [e for e in eng.events if not e.failed]
     one_tok = eng.pool.policy.chunkable   # a ring pool prefills even one token whole
     fwd = sum((e.verify_tokens // e.decode_batch if e.plan.spec else int(e.plan.decode))
               + int(one_tok and e.prefill_tokens == 1) for e in events)
-    n_attn = _hybrid_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
-    n = n_attn * fwd
+    n = attention_layers(cfg) * fwd
     want = {k: 0 for k in launch_counts()}
     want["pim_gemv"] = decode_gemvs(cfg) * n if cfg.quantized_decode else 0
     if not eng.pool.paged:
@@ -1103,7 +1146,7 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     if eng.spec_dec is not None:
         dcfg = eng.spec_dec.draft_cfg
         d_fwd = sum(e.spec_draft_steps + e.spec_catchup_decodes for e in events)
-        d_attn = _hybrid_groups(dcfg) if dcfg.family == "hybrid" else dcfg.n_layers
+        d_attn = attention_layers(dcfg)
         want["pim_gemv"] += 7 * d_attn * d_fwd if dcfg.quantized_decode else 0
         want["decode_attention"] += d_attn * d_fwd
     return want
@@ -1112,8 +1155,10 @@ def expected_launches(eng, cfg) -> dict[str, int]:
 def decode_weight_bytes(sm) -> int:
     """Weight bytes one decode step must read: int8 images (and scales) of
     the W8A8 projections, every other weight in its own type, the hybrid's
-    shared block once per application, and the lm_head. Embedding rows (one
-    per lane) are left out."""
+    shared block once per application, rwkv6's input norm, the audio
+    decoder's layers (of its cross attention only the q/o weights: its memory
+    K/V were projected at prefill; the encoder not at all), and the lm_head.
+    Embedding rows (one per lane) are left out."""
     from repro_torch.core.quant import PreparedLinear
     from repro_torch.models.model import _hybrid_groups
 
@@ -1132,6 +1177,11 @@ def decode_weight_bytes(sm) -> int:
     if cfg.family == "hybrid":
         return (nbytes(dp["mamba_layers"]) + _hybrid_groups(cfg) * nbytes(dp["shared_attn"])
                 + rest)
+    if cfg.family == "ssm":
+        return nbytes(dp["layers"]) + nbytes(dp["ln_in"]) + rest
+    if cfg.family == "audio":
+        return sum(nbytes(v) - nbytes([v["cross_attn"]["wk"], v["cross_attn"]["wv"]])
+                   for v in dp["dec_layers"]) + rest
     return nbytes(dp["layers"]) + rest
 
 
@@ -1283,22 +1333,41 @@ def serve_phase(dev) -> dict:
     profile_decode(sm, Mode.HBCEM, reqs)
     del sm
     torch.cuda.empty_cache()
-    for k, v in spec_phase(dev, cfg, params).items():
-        total[k] = total.get(k, 0) + v
+    with phase_clock("spec_phase"):
+        for k, v in spec_phase(dev, cfg, params).items():
+            total[k] = total.get(k, 0) + v
     torch.cuda.empty_cache()
-    for k, v in traffic_phase(dev, cfg, params).items():
-        total[k] = total.get(k, 0) + v
+    with phase_clock("traffic_phase"):
+        for k, v in traffic_phase(dev, *cut_depth(cfg, params, TRAFFIC_LAYERS)).items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
+# depth of llama3-8b in the traffic phase, of zamba2-7b and of yi-9b in the
+# dense phase: their serves are host-bound (the step's time grows with the
+# layers, not with what the phases check), and at full depth the whole run
+# outgrew its 700 s budget once the families phase was added (PERF.md §6).
+# zamba2-7b's 45 keep its shape: 7 shared-block applications after every 6
+# Mamba2 layers, then 3 layers without one, as 13 and 3 at 81
+TRAFFIC_LAYERS, YI_LAYERS, ZAMBA2_LAYERS = 4, 24, 45
+
+
+def cut_depth(cfg, params, n_layers: int):
+    """``cfg`` and ``params`` at their first ``n_layers`` layers, or all of a
+    shallower model's (the weights shared, not copied)."""
+    n = min(n_layers, cfg.n_layers)
+    return cfg.replace(n_layers=n), {**params, "layers": params["layers"][:n]}
+
+
 def zamba2_phase(dev) -> dict:
-    """zamba2-7b at full width: ragged greedy requests in the three modes."""
+    """zamba2-7b at full width and ``ZAMBA2_LAYERS`` of its 81 layers: ragged
+    greedy requests in the three modes."""
     from repro_torch.configs import get_config
     from repro_torch.core.pim_modes import Mode
     from repro_torch.models.model import init_params
     from repro_torch.serve.serving_model import ServingModel
 
-    cfg = get_config("zamba2-7b").replace(quantized_decode=True)
+    cfg = get_config("zamba2-7b").replace(quantized_decode=True, n_layers=ZAMBA2_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     reqs = zamba2_requests(cfg.vocab_size)
@@ -1601,8 +1670,11 @@ def dense_phase(dev) -> dict:
     from repro_torch.serve.serving_model import ServingModel
 
     total: dict[str, int] = {}
-    for arch, modes in (("yi-9b", (Mode.HBCEM, Mode.LBIM)), ("codeqwen1.5-7b", (Mode.HBCEM,))):
+    for arch, layers, modes in (("yi-9b", YI_LAYERS, (Mode.HBCEM, Mode.LBIM)),
+                                ("codeqwen1.5-7b", None, (Mode.HBCEM,))):
         cfg = get_config(arch).replace(quantized_decode=True)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
         free_card(f"{arch} init")
         t0 = time.perf_counter()
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -1705,13 +1777,13 @@ def check_moe_kernels(gen, dev) -> dict:
 def time_moe_kernels(gen, dev) -> None:
     """``kernel_time`` lines at the MoE serves' shapes: B1 over each serve's
     37-block tables with its first four requests half way through their
-    decode, beside its bound, its plain version and SDPA; B3 at each (N, K)
-    at B 4, beside its bound, its plain version and ``torch._int_mm``."""
+    decode, beside its bound, its plain version and SDPA, and at olmoe's
+    shape the B2 pair at 4 splits (stage 1 + merge, what its 4-split serve
+    launches) against the same bound and SDPA; B3 at each (N, K) at B 4
+    (``time_gemv_shapes``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
-    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
-    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
 
     for arch in (OLMOE, PHI35):
         cfg = get_config(arch)
@@ -1725,6 +1797,8 @@ def time_moe_kernels(gen, dev) -> None:
         end = torch.tensor(fills, dtype=torch.int32, device=dev)
         start = torch.zeros_like(end)
         bnd, by = attn_bound(end, start, b * hkv * g * hd * 4, hkv=hkv, g=g, hd=hd)
+        sdpa = library_ms("decode_attention_paged",
+                          sdpa_calls(q, pools, table, end, start, scale), 100)
         ms = cuda_ms([lambda p=p: da.decode_attention_paged(q, *p, table, end, start,
                                                            scale=scale) for p in pools], 100)
         emit({"phase": "kernel_time", "kernel": "decode_attention_paged",
@@ -1732,25 +1806,22 @@ def time_moe_kernels(gen, dev) -> None:
               "live_tokens": live_tokens(end, start), "ms": ms,
               "plain_ms": cuda_ms([lambda p=p: ref.decode_attention_paged_ref(
                   q, *p, table, end, scale, start=start) for p in pools[:2]], 10),
-              "library_ms": library_ms("decode_attention_paged",
-                                       sdpa_calls(q, pools, table, end, start, scale), 100),
-              "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+              "library_ms": sdpa, "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+        if arch == OLMOE:
+            ms = cuda_ms([lambda p=p: da.decode_attention_paged_split(
+                q, *p, table, end, start, num_splits=MOE_SPLITS, scale=scale)
+                for p in pools], 100)
+            emit({"phase": "kernel_time", "kernel": "decode_attention_paged_split + "
+                  "merge_splits", "shape": f"{arch} serve", "splits": MOE_SPLITS,
+                  "q": list(q.shape), "table_blocks": nb, "end": fills,
+                  "live_tokens": live_tokens(end, start), "ms": ms,
+                  "plain_ms": cuda_ms([lambda p=p: ref.decode_attention_paged_split_ref(
+                      q, *p, table, end, MOE_SPLITS, scale, start=start)
+                      for p in pools[:2]], 10),
+                  "library_ms": sdpa, "bound_ms": bnd, "bound_by": by,
+                  "roofline_share": bnd / ms})
         del pools
-        for n, k in MOE_GEMV[arch]:
-            sets = [gemv_inputs(n, k, SLOTS, gen, dev) for _ in range(copies_for(n * k))]
-            xpad = [torch.zeros((32, k), dtype=torch.int8, device=dev) for _ in sets]
-            for xp, st in zip(xpad, sets):
-                xp[:SLOTS] = st[1]
-            ms = cuda_ms([lambda st=st: pim_gemv(*st) for st in sets], 60)
-            bnd, by = gemv_bound(n, k, SLOTS)
-            emit({"phase": "kernel_time", "kernel": "pim_gemv", "shape": f"{arch} serve",
-                  "n": n, "k": k, "b": SLOTS, "ms": ms,
-                  "plain_ms": cuda_ms([lambda st=st: pim_gemv_ref(*st) for st in sets[:2]], 6),
-                  "library_ms": library_ms("pim_gemv", [
-                      lambda xp=xp, st=st: torch._int_mm(xp, st[0].t())
-                      for xp, st in zip(xpad, sets)], 60),
-                  "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
-            del sets, xpad
+    time_gemv_shapes(MOE_GEMV, gen, dev)
 
 
 class MoeRoute:
@@ -1879,6 +1950,368 @@ def moe_phase(dev) -> dict:
           f"{PHI35_LAYERS} layers)", "runs": 7, **total})
     check_launched(total, ("pim_gemv", "decode_attention_paged",
                            "decode_attention_paged_split", "merge_splits"), "MoE family")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the last serving families: rwkv6-1.6b, internvl2-2b, seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+RWKV6, INTERNVL2, SEAMLESS = "rwkv6-1.6b", "internvl2-2b", "seamless-m4t-large-v2"
+FAMILY_SPLITS = 4
+# internvl2-2b's model-level run: an image-prefix prefill of 4 lanes (256 stub
+# patch embeddings, N(0, 0.02), before prompts of 24-64 tokens), then greedy steps
+VLM_LANES, VLM_PROMPTS, VLM_STEPS = 4, (24, 64), 16
+# seamless-m4t-large-v2's: an encoder pass over 500 stub frames a lane (about
+# 10 s of speech at a 20 ms frame stride) and one BOS token, then greedy steps
+AUDIO_LANES, AUDIO_FRAMES, AUDIO_STEPS, AUDIO_BOS = 4, 500, 32, 1
+FAMILY_GEMV = {   # distinct (N, K) of each W8A8 config's seven decode GEMVs
+    INTERNVL2: ((2048, 2048), (1024, 2048), (8192, 2048), (2048, 8192)),
+    SEAMLESS: ((1024, 1024), (8192, 1024), (1024, 8192)),
+}
+
+
+def round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def vlm_prompt_lens() -> list[int]:
+    return np.random.default_rng(3).integers(VLM_PROMPTS[0], VLM_PROMPTS[1] + 1,
+                                             size=VLM_LANES).tolist()
+
+
+def vlm_lmax(cfg) -> int:
+    """Lanes of the image-prefix run: prefix + the longest prompt + the steps."""
+    return round8(cfg.n_prefix_tokens + max(vlm_prompt_lens()) + VLM_STEPS)
+
+
+def audio_lmax() -> int:
+    return round8(1 + AUDIO_STEPS)
+
+
+def family_fills(cfg) -> dict[str, list[int]]:
+    """Each lane's fill (``end``) at the first and the last decode step of the
+    model-level run of ``cfg`` (internvl2-2b or seamless-m4t-large-v2)."""
+    if cfg.family == "vlm":
+        base = [cfg.n_prefix_tokens + n for n in vlm_prompt_lens()]
+        steps = VLM_STEPS
+    else:
+        base, steps = [1] * AUDIO_LANES, AUDIO_STEPS
+    return {"first step": [b + 1 for b in base], "half way": [b + steps // 2 for b in base],
+            "last step": [b + steps for b in base]}
+
+
+def family_b4_shapes():
+    """(what, Hkv, G, hd, Lmax, fills) of the model-level runs' B4 launches."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch, lmax in ((INTERNVL2, vlm_lmax(get_config(INTERNVL2))), (SEAMLESS, audio_lmax())):
+        cfg = get_config(arch)
+        out.append((arch, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim, lmax, family_fills(cfg)))
+    return out
+
+
+def check_family_kernels(gen, dev) -> dict:
+    """The kernels at this phase's own shapes against their plain versions: B3
+    bit-exact at internvl2-2b's and seamless's (N, K) at B 4; B1 and B2 (4
+    splits: stage 1, the merge and the pair) at internvl2-2b's q (4, 8, 2, 128)
+    over its serve's 37-block tables at the serve's fills; B4 over the
+    image-prefix lanes (G 2 / hd 128) and seamless's self-KV lanes (G 1 /
+    hd 64) at their first and last steps' fills. The single-pass and pair
+    launches lane by lane too. Returns the largest |err| per kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    errs = dict.fromkeys(("pim_gemv", "decode_attention", "decode_attention_paged",
+                          "decode_attention_paged_split", "merge_splits"), 0.0)
+    cases = check_gemv_exact(FAMILY_GEMV, gen, dev)
+    cases += check_serve_tables((INTERNVL2,), FAMILY_SPLITS, gen, dev, errs)
+    for arch, hkv, g, hd, lmax, fills in family_b4_shapes():
+        q, lanes, _, _, scale = contig_inputs(gen, dev, hkv, g, hd, lmax)
+        k, v = lanes[0]
+        for when in ("first step", "last step"):
+            end = torch.tensor(fills[when], dtype=torch.int32, device=dev)
+            start = torch.zeros_like(end)
+            out = da.decode_attention(q, k, v, end, start, scale=scale)
+            want = ref.decode_attention_ref(q, k, v, end, scale, start=start)
+            torch.cuda.synchronize()
+            errs["decode_attention"] = max(errs["decode_attention"], _allclose(
+                f"B4 {arch} {when}", out, want))
+            check_batch_invariant(f"B4 {arch} {when}", lambda i: da.decode_attention(
+                q[i], k[i], v[i], end[i], start[i], scale=scale), out, ATTN_B)
+            cases.append(["B4", arch, list(q.shape), lmax, None, fills[when],
+                          "batch invariant"])
+        del lanes
+    emit({"phase": "kernel_check", "kernel": "rwkv6 / vlm / audio family shapes",
+          "cases": cases, "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": errs})
+    return errs
+
+
+def time_gemv_shapes(shapes: dict, gen, dev) -> None:
+    """B3 at each config's (N, K) at B 4, beside its bound, its plain version
+    and ``torch._int_mm`` (which takes at least 17 rows: x is padded to 32)."""
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
+
+    for arch, nks in shapes.items():
+        for n, k in nks:
+            sets = [gemv_inputs(n, k, SLOTS, gen, dev) for _ in range(copies_for(n * k))]
+            xpad = [torch.zeros((32, k), dtype=torch.int8, device=dev) for _ in sets]
+            for xp, st in zip(xpad, sets):
+                xp[:SLOTS] = st[1]
+            ms = cuda_ms([lambda st=st: pim_gemv(*st) for st in sets], 60)
+            bnd, by = gemv_bound(n, k, SLOTS)
+            emit({"phase": "kernel_time", "kernel": "pim_gemv", "shape": f"{arch} serve",
+                  "n": n, "k": k, "b": SLOTS, "ms": ms,
+                  "plain_ms": cuda_ms([lambda st=st: pim_gemv_ref(*st) for st in sets[:2]], 6),
+                  "library_ms": library_ms("pim_gemv", [
+                      lambda xp=xp, st=st: torch._int_mm(xp, st[0].t())
+                      for xp, st in zip(xpad, sets)], 60),
+                  "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+            del sets, xpad
+
+
+def time_family_kernels(gen, dev) -> None:
+    """``kernel_time`` lines at this phase's shapes: B1 over internvl2-2b's
+    serve tables (its first four requests half way through their decode); B4
+    over the image-prefix lanes and seamless's self-KV lanes half way through
+    their model-level decode; each beside its bound, its plain version and
+    SDPA; and B3 at every (N, K) (``time_gemv_shapes``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b = ATTN_B
+    cfg = get_config(INTERNVL2)
+    hkv, g, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    reqs = make_requests(cfg.vocab_size)
+    nb = -(-serve_max_len(reqs) // 8)
+    fills = serve_fills(reqs)["half way"]
+    q, pools, table, _, _, scale = attn_inputs(
+        gen, dev, nb=nb, g=g, hd=hd, hkv=hkv, copies=copies_for((b * nb + 1) * hkv * hd * 32))
+    end = torch.tensor(fills, dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    bnd, by = attn_bound(end, start, b * hkv * g * hd * 4, hkv=hkv, g=g, hd=hd)
+    ms = cuda_ms([lambda p=p: da.decode_attention_paged(q, *p, table, end, start,
+                                                       scale=scale) for p in pools], 100)
+    emit({"phase": "kernel_time", "kernel": "decode_attention_paged",
+          "shape": f"{INTERNVL2} serve", "q": list(q.shape), "table_blocks": nb, "end": fills,
+          "live_tokens": live_tokens(end, start), "ms": ms,
+          "plain_ms": cuda_ms([lambda p=p: ref.decode_attention_paged_ref(
+              q, *p, table, end, scale, start=start) for p in pools[:2]], 10),
+          "library_ms": library_ms("decode_attention_paged",
+                                   sdpa_calls(q, pools, table, end, start, scale), 100),
+          "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+    del pools
+    for arch, hkv, g, hd, lmax, ffills in family_b4_shapes():
+        q, lanes, _, _, scale = contig_inputs(gen, dev, hkv, g, hd, lmax,
+                                              copies=copies_for(b * hkv * hd * lmax * 4))
+        end = torch.tensor(ffills["half way"], dtype=torch.int32, device=dev)
+        start = torch.zeros_like(end)
+        bnd, by = attn_bound(end, start, b * hkv * g * hd * 4, hkv=hkv, g=g, hd=hd)
+        idx = torch.arange(lmax, device=dev)
+        mask = (idx[None, :] < end[:, None])[:, None, None]
+        qh = q.reshape(b, hkv * g, 1, hd)
+        sdpa_lanes = [(k.transpose(-1, -2).repeat_interleave(g, dim=1).contiguous(),
+                       v.repeat_interleave(g, dim=1).contiguous()) for k, v in lanes[:2]]
+        ms = cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, start, scale=scale)
+                      for kv in lanes], 100)
+        emit({"phase": "kernel_time", "kernel": "decode_attention",
+              "shape": f"{arch} model-level decode", "q": list(q.shape), "lmax": lmax,
+              "end": end.tolist(), "live_tokens": live_tokens(end, start), "ms": ms,
+              "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(
+                  q, *kv, end, scale, start=start) for kv in lanes[:2]], 10),
+              "library_ms": library_ms("decode_attention", [
+                  lambda kv=kv: F.scaled_dot_product_attention(qh, *kv, attn_mask=mask,
+                                                               scale=scale)
+                  for kv in sdpa_lanes], 100),
+              "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+        del lanes, sdpa_lanes
+    time_gemv_shapes(FAMILY_GEMV, gen, dev)
+
+
+def model_decode(sm, logits, cache, steps: int, what: str, cache_bytes: int, t_prefill: float,
+                 total: dict) -> dict:
+    """``steps`` greedy ``decode_step``s of ``sm``'s decode tree from a
+    prefilled contiguous cache, each timed to its tokens on the host (the
+    engine's step ends the same way). Launch counts are set to 0 just before
+    and read just after: per step, every decoder layer's B4 and its 7 B3
+    GEMVs, nothing else. Logits must stay finite, of shape (B, 1, V)."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import model as M
+
+    cfg = sm.cfg
+    b = logits.shape[0]
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    reset_launches()
+    step_ms, out = [], [tok.cpu()]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts = time.perf_counter()
+        logits, cache = M.decode_step(sm.decode_params, cache, tok, cfg)
+        tok = logits.argmax(-1)
+        out.append(tok.cpu())               # the step's tokens on the host
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        if tuple(logits.shape) != (b, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name} {what}: logits {tuple(logits.shape)} "
+                                 f"not finite or not (B, 1, V)")
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = attention_layers(cfg) * steps
+    want = {k: 0 for k in counts}
+    want["decode_attention"] = n
+    want["pim_gemv"] = decode_gemvs(cfg) * n if cfg.quantized_decode else 0
+    if counts != want:
+        raise AssertionError(f"{cfg.name} {what}: launches {counts}, {steps} steps imply "
+                             f"{want}")
+    add_launches(total, {"launches": counts})
+    wbytes = decode_weight_bytes(sm)
+    toks = torch.cat(out, dim=1)
+    return {"phase": "family_decode", "arch": cfg.name, "what": what, "lanes": b,
+            "steps": steps, "prefill_s": t_prefill, "wall_s": wall,
+            "tokens_per_s": b * steps / wall,
+            "decode_step_ms_median": statistics.median(step_ms),
+            "decode_weight_GB": wbytes / 1e9, "cache_read_GB": cache_bytes / 1e9,
+            "decode_step_bound_ms": 1e3 * (wbytes + cache_bytes) / HBM_BYTES_PER_S,
+            "distinct_tokens": int(toks.unique().numel()), "first_lane_tokens": toks[0].tolist(),
+            "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9, "launches": counts}
+
+
+def families_phase(dev) -> dict:
+    """(a) rwkv6-1.6b at full width and depth (bf16; W8A8 is off for the
+    ``ssm`` family, as in the JAX package) over ``make_requests``' 8 requests
+    in BLOCKED, HBCEM and LBIM on its contiguous recurrent-state pool: tokens
+    equal across modes, zero launches of every kernel (attention-free, plain
+    matmuls), a profile. (b) internvl2-2b (W8A8, paged 8-token pages) over the
+    same 8 requests in HBCEM and LBIM and in HBCEM at 4 KV splits (served
+    requests carry no image, as in the JAX engine), a profile; then the
+    model-level image-prefix ``prefill`` of 4 lanes (256 patch embeddings and
+    prompts of 24-64 tokens) and 16 greedy steps over its contiguous lanes
+    (B4 at G 2 / hd 128). (c) seamless-m4t-large-v2 (W8A8 decoder; encoder and
+    cross attention float) at model level: ``prefill`` of 4 lanes over 500
+    frames and one BOS token, then 32 greedy steps (B4 at G 1 / hd 64 over
+    the self-KV lanes, B3 at its three shapes). Each model is freed before
+    the next is made."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.serving_model import ServingModel
+
+    total: dict[str, int] = {}
+    # (a) rwkv6-1.6b
+    cfg = get_config(RWKV6)
+    free_card(f"{RWKV6} init")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    reqs = make_requests(cfg.vocab_size)
+    sm = ServingModel.prepare(cfg, params, max_len=serve_max_len(reqs), slots=SLOTS,
+                              device=dev)
+    torch.cuda.synchronize()
+    if sm.prequantized:
+        raise AssertionError("rwkv6 must not be pre-quantized")
+    emit(serve_setup_line(sm, reqs, t0))
+    tokens = {}
+    for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
+        tokens[mode], line = serve_run(sm, mode, reqs)
+        emit(line)
+        add_launches(total, line)
+    modes_agree(tokens, cfg.name)
+    profile_decode(sm, Mode.HBCEM, reqs)
+    del sm, params
+
+    # (b) internvl2-2b
+    cfg = get_config(INTERNVL2).replace(quantized_decode=True)
+    free_card(f"{INTERNVL2} init")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    reqs = make_requests(cfg.vocab_size)
+    max_len = round8(serve_max_len(reqs))
+    sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
+    torch.cuda.synchronize()
+    emit(serve_setup_line(sm, reqs, t0))
+    tokens = {}
+    for mode in (Mode.HBCEM, Mode.LBIM):
+        tokens[mode], line = serve_run(sm, mode, reqs)
+        line["requests_equal_to_hbcem"] = sum(
+            a == b for a, b in zip(tokens[Mode.HBCEM], tokens[mode]))
+        emit(line)
+        add_launches(total, line)
+    sm4 = ServingModel.prepare(cfg.replace(decode_kv_splits=FAMILY_SPLITS), params,
+                               max_len=max_len, slots=SLOTS, device=dev)
+    toks, line = serve_run(sm4, Mode.HBCEM, reqs)
+    line["requests_equal_to_single_pass"] = sum(
+        a == b for a, b in zip(tokens[Mode.HBCEM], toks))
+    emit(line)
+    add_launches(total, line)
+    del sm4
+    profile_decode(sm, Mode.HBCEM, reqs)
+    lens = vlm_prompt_lens()
+    lmax = vlm_lmax(cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prefix = (torch.randn((VLM_LANES, cfg.n_prefix_tokens, cfg.d_model), generator=gen,
+                          device=dev) * 0.02).to(torch.bfloat16)
+    toks = torch.randint(1, cfg.vocab_size, (VLM_LANES, max(lens)), generator=gen, device=dev)
+    for i, n in enumerate(lens):
+        toks[i, n:] = 0                      # right-padded, as the engine pads a group
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(sm.params, toks, cfg, lmax, seq_lens=seq_lens,
+                              prefix_embeds=prefix)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cache["pos"] = seq_lens + cfg.n_prefix_tokens    # each lane decodes from its own end
+    last = family_fills(cfg)["last step"]
+    kv_bytes = sum(last) * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    line = model_decode(sm, logits, cache, VLM_STEPS, f"image-prefix prefill "
+                        f"({cfg.n_prefix_tokens} patch embeddings, prompts {lens}), "
+                        f"contiguous lanes of {lmax}", kv_bytes, t_prefill, total)
+    line["n_prefix_tokens"], line["prompt_lens"] = cfg.n_prefix_tokens, lens
+    emit(line)
+    del sm, params, cache, prefix
+
+    # (c) seamless-m4t-large-v2
+    cfg = get_config(SEAMLESS).replace(quantized_decode=True)
+    free_card(f"{SEAMLESS} init")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    lmax = audio_lmax()
+    sm = ServingModel.prepare(cfg, params, max_len=lmax, slots=AUDIO_LANES, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_setup", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "quantized_decode": cfg.quantized_decode, "max_len": lmax,
+          "lanes": AUDIO_LANES, "src_frames": AUDIO_FRAMES,
+          "setup_s": time.perf_counter() - t0,
+          "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9,
+          "free_GB": torch.cuda.mem_get_info()[0] / 1e9})
+    gen = torch.Generator(device=dev).manual_seed(8)
+    frames = torch.randn((AUDIO_LANES, AUDIO_FRAMES, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    bos = torch.full((AUDIO_LANES, 1), AUDIO_BOS, dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(sm.params, bos, cfg, lmax, src_frames=frames)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cache["pos"] = torch.ones((AUDIO_LANES,), dtype=torch.int32, device=dev)
+    memory_bytes = cache["cross_k"].numel() * cache["cross_k"].element_size() * 2
+    line = model_decode(sm, logits, cache, AUDIO_STEPS,
+                        f"encoder over {AUDIO_FRAMES} frames, one BOS token, self-KV lanes "
+                        f"of {lmax}", memory_bytes, t_prefill, total)
+    line["src_frames"] = AUDIO_FRAMES
+    emit(line)
+    del sm, params, cache, frames
+    free_card("families end")
+    emit({"phase": "serve_launches", "what": f"rwkv6 / vlm / audio families ({RWKV6} 3 "
+          f"serves, {INTERNVL2} 3 serves and a model-level decode, {SEAMLESS} a "
+          f"model-level decode)", "runs": 8, **total})
+    check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged",
+                           "decode_attention_paged_split", "merge_splits"), "families")
     return total
 
 
@@ -2431,9 +2864,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
-                    ["--traffic"], ["--dense"], ["--moe"]):
+                    ["--traffic"], ["--dense"], ["--moe"], ["--families"]):
         print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
-              f"| --dense | --moe]", file=sys.stderr)
+              f"| --dense | --moe | --families]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -2470,9 +2903,11 @@ def main(argv: list[str]) -> int:
         from repro_torch.models.model import init_params
 
         cfg = get_config("llama3-8b").replace(quantized_decode=True)
-        phase = spec_phase if argv == ["--spec"] else traffic_phase
-        phase(dev, cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                                    device=dev))
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        if argv == ["--spec"]:
+            spec_phase(dev, cfg, params)
+        else:   # the full run's weights (the head is drawn after every layer), cut
+            traffic_phase(dev, *cut_depth(cfg, params, TRAFFIC_LAYERS))
         return 0
     if argv == ["--ab"]:
         host_cost(gen, dev)
@@ -2488,33 +2923,40 @@ def main(argv: list[str]) -> int:
         time_moe_kernels(gen, dev)
         moe_phase(dev)
         return 0
-    errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"], **check_attention(gen, dev),
-            "decode_attention": check_contig_attention(gen, dev),
-            "ssd_scan": check_ssd_scan(gen, dev)}
-    for check in (check_dense_kernels, check_moe_kernels):
-        for k, v in check(gen, dev).items():
-            errs[k] = max(errs[k], v)
-    times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev),
-             "decode_attention": time_contig_attention(gen, dev),
-             "ssd_scan": time_ssd_scan(gen, dev)}
-    time_dense_attention(gen, dev)
-    time_moe_kernels(gen, dev)
-    host_cost(gen, dev)
-    torch.cuda.empty_cache()
+    if argv == ["--families"]:
+        check_family_kernels(gen, dev)
+        time_family_kernels(gen, dev)
+        families_phase(dev)
+        return 0
+    with phase_clock("kernel checks"):
+        errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"],
+                **check_attention(gen, dev),
+                "decode_attention": check_contig_attention(gen, dev),
+                "ssd_scan": check_ssd_scan(gen, dev)}
+        for check in (check_dense_kernels, check_moe_kernels, check_family_kernels):
+            for k, v in check(gen, dev).items():
+                errs[k] = max(errs[k], v)
+    with phase_clock("kernel times"):
+        times = {"pim_gemv": time_pim_gemv(gen, dev), **time_attention(gen, dev),
+                 "decode_attention": time_contig_attention(gen, dev),
+                 "ssd_scan": time_ssd_scan(gen, dev)}
+        time_dense_attention(gen, dev)
+        time_moe_kernels(gen, dev)
+        time_family_kernels(gen, dev)
+        host_cost(gen, dev)
 
-    counts = serve_phase(dev)
-    torch.cuda.empty_cache()
-    for k, v in zamba2_phase(dev).items():
-        counts[k] = counts.get(k, 0) + v
-    torch.cuda.empty_cache()
-    for phase in (dense_phase, moe_phase):
-        for k, v in phase(dev).items():
-            counts[k] = counts.get(k, 0) + v
+    counts: dict[str, int] = {}
+    for phase in (serve_phase, zamba2_phase, dense_phase, moe_phase, families_phase):
+        torch.cuda.empty_cache()
+        with phase_clock(phase.__name__):   # serve_phase's includes spec and traffic
+            for k, v in phase(dev).items():
+                counts[k] = counts.get(k, 0) + v
 
     work = {"pim_gemv": f"the 7 decode GEMVs of one llama3-8b layer at B={SLOTS}; launches "
                         f"include the spec serves (draft and verify), the W8A8 dense "
-                        f"serves (yi-9b, codeqwen1.5-7b) and the W8A8 MoE serves "
-                        f"(olmoe-1b-7b, phi3.5-moe: q/k/v/o only)",
+                        f"serves (yi-9b, codeqwen1.5-7b, internvl2-2b), the W8A8 MoE "
+                        f"serves (olmoe-1b-7b, phi3.5-moe: q/k/v/o only) and the "
+                        f"model-level decodes (internvl2-2b, seamless-m4t-large-v2)",
             "decode_attention": f"one zamba2-7b shared-block layer, q ({ATTN_B},32,1,112), "
                                 f"bf16 lanes of {CONTIG_LMAX}, end {ATTN_END}, "
                                 f"start {ATTN_START}",

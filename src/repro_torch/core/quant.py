@@ -30,6 +30,11 @@ class PreparedLinear(NamedTuple):
 
 # Leaves routed through the serving decode's dispatched linears.
 DECODE_LINEAR_SUFFIXES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# Subtrees that never reach the dispatched decode linears, so int8 images of
+# them would be dead weight: the audio encoder runs once per request on the
+# float tree, and the cross-attention q/o take the float weights at decode
+# (its K/V of the memory are projected at prefill).
+PREFILL_ONLY_SUBTREES = ("enc_layers", "cross_attn")
 
 
 def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
@@ -40,7 +45,8 @@ def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
 
 def prepare_decode_params(params, path_suffixes=DECODE_LINEAR_SUFFIXES):
     """Return ``params`` with every decode-linear leaf swapped for a
-    :class:`PreparedLinear`. The port's params keep one dict per layer
+    :class:`PreparedLinear`, but under the :data:`PREFILL_ONLY_SUBTREES`,
+    which are shared as they are. The port's params keep one dict per layer
     (``params["layers"]`` is a list), so stacked layers quantize per layer
     by construction. Unmatched leaves are shared, not copied."""
 
@@ -48,7 +54,9 @@ def prepare_decode_params(params, path_suffixes=DECODE_LINEAR_SUFFIXES):
         if isinstance(tree, dict):
             out = {}
             for k, v in tree.items():
-                if (k in path_suffixes and isinstance(v, torch.Tensor)
+                if k in PREFILL_ONLY_SUBTREES:
+                    out[k] = v
+                elif (k in path_suffixes and isinstance(v, torch.Tensor)
                         and v.dim() == 2):
                     ql = quantize_weight(v)
                     out[k] = PreparedLinear(w=v, w_q=ql.w_q, w_scale=ql.w_scale)

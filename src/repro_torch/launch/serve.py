@@ -16,7 +16,9 @@ seeded Poisson arrival process (R arrivals per engine step), ``--trace FILE``
 replays a saved ``serve.traffic`` trace, and ``--mode-policy auto`` installs
 the per-step SLO-aware policy in place of the ``--mode`` pin. Every run
 prints the tokens, the latency summary on the engine-step clock, and the
-health counters with the pool's occupancy.
+health counters with the pool's occupancy. Every arch of the JAX package is
+registered; ``seamless-m4t-large-v2`` fails at admission, as the JAX CLI does
+(served requests carry no source frames).
 
 ``main(argv)`` runs in-process and returns 0.
 """
@@ -38,18 +40,6 @@ from repro_torch.serve.api import GenerationRequest, SamplingParams
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.serving_model import ServingModel
 from repro_torch.serve.spec import SpecConfig
-
-# architectures of the JAX package the port does not serve yet -> ROADMAP item
-_UNPORTED_ARCHS = {
-    "seamless-m4t-large-v2": "A.9", "internvl2-2b": "A.9", "rwkv6-1.6b": "A.9",
-}
-
-
-def _config(arch: str, smoke: bool):
-    if arch in _UNPORTED_ARCHS:
-        raise NotImplementedError(f"{arch} is not ported yet (ROADMAP {_UNPORTED_ARCHS[arch]})")
-    return get_config(arch, smoke=smoke)
-
 
 def _params(cfg, seed: int, device: torch.device) -> dict:
     return init_params(cfg, torch.Generator(device=device).manual_seed(seed), device=device)
@@ -146,7 +136,7 @@ def build_requests(args, vocab: int) -> list[GenerationRequest]:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     dev = resolve_device(args.device)   # cuda without a card raises here
-    cfg = _config(args.arch, args.smoke)
+    cfg = get_config(args.arch, smoke=args.smoke)
     if args.quantized_decode:
         cfg = cfg.replace(quantized_decode=True)
     reqs = build_requests(args, cfg.vocab_size)
@@ -158,7 +148,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"prepared {cfg.name}: device={dev} prequantized={sm.prequantized}")
     spec = None
     if args.spec_draft is not None:
-        dcfg = _config(args.spec_draft, args.smoke)
+        dcfg = get_config(args.spec_draft, smoke=args.smoke)
         dsm = sm if dcfg.name == cfg.name else ServingModel.prepare(
             dcfg, _params(dcfg, 1, dev), slots=args.slots, max_len=max_len, device=dev)
         spec = SpecConfig(draft=dsm, k=args.spec_k)

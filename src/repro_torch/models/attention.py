@@ -1,5 +1,6 @@
-"""Attention: GQA + RoPE over CD-PIM KV, contiguous lanes or block pages (port
-of the decode part of ``repro.models.attention``).
+"""Attention: GQA + RoPE over CD-PIM KV, contiguous lanes or block pages, and
+the encoder-decoder's full-sequence and cross attention (port of
+``repro.models.attention``).
 
 Single-token decode steps go through ``core.dispatch`` (the CUDA flash-decode
 kernels on the card, the plain versions on the CPU) with each lane's live
@@ -8,7 +9,11 @@ window``) and gemma2's W-slot ring lanes (:func:`attention_decode_ring`) run
 the same kernels; with ``cfg.quantized_decode`` the decode-time qkv/o
 projections run as W8A8 PIM GEMVs. Multi-token chunk-prefill steps gather the
 lanes and run the dense masked einsum in plain PyTorch, as the JAX package
-computes them outside any Pallas kernel.
+computes them outside any Pallas kernel. The audio encoder's bidirectional
+attention (:func:`attention_dense`) and the decoder's cross attention over the
+fixed encoder memory (:func:`attention_cross`, :func:`project_memory_kv`) are
+plain PyTorch too, on the float weights: the JAX package has no kernel for
+them either.
 """
 from __future__ import annotations
 
@@ -99,6 +104,58 @@ def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     pr = torch.softmax(s, dim=-1).to(dtype)
     y = kv_mapping.read_output(pr, v_cache, "cdpim")
     return y.reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
+
+
+def attention_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder's bidirectional attention over x (B, T, d), ``cfg.q_chunk``
+    queries at a time (a T that the chunk does not divide runs as one chunk);
+    every query reads every key. Float weights only (``raw_weight``)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, torch.arange(t, device=x.device).expand(b, t))
+    qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
+    cq = min(cfg.q_chunk, t)
+    if t % cq != 0:
+        cq = t                                   # ragged tail: one chunk
+    outs = []
+    for lo in range(0, t, cq):
+        s = torch.einsum("bkgtd,bksd->bkgts", qg[:, :, :, lo:lo + cq], k).float() * _scale(cfg)
+        pr = torch.softmax(softcap(s, cfg.attn_softcap), dim=-1).to(x.dtype)
+        outs.append(torch.einsum("bkgts,bksd->bkgtd", pr, v))
+    y = torch.cat(outs, dim=3).reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
+    return _dense_matmul(p["wo"], y)
+
+
+def attention_cross(p: dict, x: torch.Tensor, memory_kv: tuple[torch.Tensor, torch.Tensor],
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention of x (B, T, d) against the fixed encoder memory K/V
+    (B, Hkv, S, hd) each: no RoPE, no mask; float q/o weights."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    q = _dense_matmul(p["wq"], x)
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    qg = q.reshape(b, t, cfg.n_heads, hd).transpose(1, 2).reshape(
+        b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
+    k, v = memory_kv
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k).float() * _scale(cfg)
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    y = torch.einsum("bkgts,bksd->bkgtd", pr, v)
+    y = y.reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
+    return _dense_matmul(p["wo"], y)
+
+
+def project_memory_kv(p: dict, mem: torch.Tensor, cfg: ModelConfig):
+    """Encoder memory (B, S, d) -> cross-attention K/V (B, Hkv, S, hd) each,
+    computed once per request."""
+    b, s, _ = mem.shape
+    hd = cfg.head_dim
+    k = _dense_matmul(p["wk"], mem)
+    v = _dense_matmul(p["wv"], mem)
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2),
+            v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2))
 
 
 def _live_start(end: torch.Tensor, window: Optional[int]) -> Optional[torch.Tensor]:

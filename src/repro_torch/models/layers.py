@@ -1,5 +1,5 @@
-"""Shared model layers: norms, RoPE, gated MLP, embeddings (port of
-``repro.models.layers``). Params are plain dicts of tensors."""
+"""Shared model layers: norms, RoPE, gated MLP, embeddings, RWKV's token
+shift (port of ``repro.models.layers``). Params are plain dicts of tensors."""
 from __future__ import annotations
 
 import math
@@ -41,6 +41,21 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = (xf * xf).mean(dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32: the mean of squared deviations (the population
+    variance), then scale and bias, cast back to ``x``'s dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -127,3 +142,9 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def token_shift(x: torch.Tensor) -> torch.Tensor:
+    """RWKV-style shift right by one along the time axis of (B, T, D): row t
+    holds token t - 1, row 0 zeros."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1, :]

@@ -1,18 +1,24 @@
-"""Model zoo, dense, MoE and hybrid families: init / prefill / decode step (port
-of the dense, MoE and hybrid parts of ``repro.models.model``).
+"""Model zoo: init / prefill / decode step for every family of the JAX package
+(port of ``repro.models.model``).
 
 Layers are a Python list of per-layer dicts and are walked with a Python
 loop. The JAX package carried the layer-stacked caches (page pool, contiguous
-lanes, rings, SSD states) through ``lax.scan`` and rebuilt them per layer with
-``dynamic_update_index_in_dim``; here each layer's slice is a view of the
-stacked tensor (``k_pages[i]``, ``k[i]``, ``k_loc[i]``, ``ssd[i]``) written in
-place, so a decode step never copies a stacked cache.
+lanes, rings, recurrent states) through ``lax.scan`` and rebuilt them per
+layer with ``dynamic_update_index_in_dim``; here each layer's slice is a view
+of the stacked tensor (``k_pages[i]``, ``k[i]``, ``k_loc[i]``, ``ssd[i]``,
+``wkv[i]``) written in place, so a decode step never copies a stacked cache.
 
 Families: ``dense`` (llama3-8b, yi-9b, codeqwen1.5-7b and gemma2-27b; paged
-or contiguous KV), ``moe`` (olmoe-1b-7b, phi3.5-moe: the dense blocks with a
-top-k MoE FFN, ``models.moe``, in place of the MLP) and ``hybrid``
-(zamba2-7b: groups of ``attn_every`` Mamba2 layers, each group followed by ONE
-weight-shared attention + MLP block whose KV lives in contiguous lanes).
+or contiguous KV), ``vlm`` (internvl2-2b: the dense backbone, whose
+``prefill`` prepends precomputed patch embeddings), ``moe`` (olmoe-1b-7b,
+phi3.5-moe: the dense blocks with a top-k MoE FFN, ``models.moe``, in place
+of the MLP), ``ssm`` (rwkv6-1.6b: RWKV6 blocks, ``models.rwkv``, whose decode
+state is recurrent only), ``hybrid`` (zamba2-7b: groups of ``attn_every``
+Mamba2 layers, each group followed by ONE weight-shared attention + MLP block
+whose KV lives in contiguous lanes) and ``audio`` (seamless-m4t-large-v2: a
+bidirectional encoder over precomputed frames, run once by ``prefill``, and
+a causal decoder with self-KV lanes and cross attention over the encoder
+memory's per-layer K/V, ``cross_k``/``cross_v``).
 gemma2 adds per-layer sliding windows (its even, local layers attend to the
 last ``sliding_window`` tokens), attention and final-logit softcaps,
 post-block norms, tied embeddings and the embedding scale; with
@@ -32,11 +38,12 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 # param subtrees whose leaves the JAX package stacks layer-first for lax.scan
-STACKED = ("layers", "mamba_layers")
+STACKED = ("layers", "mamba_layers", "enc_layers", "dec_layers")
 # hybrid recurrent-state leaves, stacked over all n_layers Mamba2 layers
 SSM_STATE_KEYS = ("ssd", "conv_x", "conv_bc")
 # a global layer's window under gemma2's local/global pattern: wider than any
@@ -50,9 +57,7 @@ GLOBAL_WINDOW = 2**30
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A.9); the port "
-            f"serves the families {FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r}; the families are {FAMILIES}")
 
 
 def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -72,6 +77,17 @@ def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig, device) -> d
     return p
 
 
+def _init_encdec_layer(generator: torch.Generator, cfg: ModelConfig, device,
+                       cross: bool) -> dict:
+    """An encoder (or, ``cross``, decoder) layer: a dense layer, the decoder's
+    with a cross-attention norm and block."""
+    p = _init_dense_layer(generator, cfg, device)
+    if cross:
+        p["cross_norm"] = L.init_rmsnorm(cfg.d_model, torch_dtype(cfg.param_dtype), device)
+        p["cross_attn"] = attn_lib.init_attention(generator, cfg, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     """Random params with the JAX package's distributions (``layers.py:19-26``),
     drawn from ``generator``, which must live on ``device``."""
@@ -84,7 +100,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
             {"norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
              "ssm": ssm_lib.init_ssm(generator, cfg, dev)} for _ in range(cfg.n_layers)]
         params["shared_attn"] = _init_dense_layer(generator, cfg.replace(family="dense"), dev)
-    else:
+    elif cfg.family == "ssm":    # rwkv6
+        params["layers"] = [
+            {"block": rwkv_lib.init_rwkv_block(generator, cfg, dev),
+             "ln1": L.init_layernorm(cfg.d_model, dtype, dev),
+             "ln2": L.init_layernorm(cfg.d_model, dtype, dev)} for _ in range(cfg.n_layers)]
+        params["ln_in"] = L.init_layernorm(cfg.d_model, dtype, dev)
+    elif cfg.family == "audio":  # seamless enc-dec
+        params["enc_layers"] = [_init_encdec_layer(generator, cfg, dev, cross=False)
+                                for _ in range(cfg.n_encoder_layers)]
+        params["dec_layers"] = [_init_encdec_layer(generator, cfg, dev, cross=True)
+                                for _ in range(cfg.n_layers)]
+        params["enc_norm"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
+    else:                        # dense / vlm / moe
         params["layers"] = [_init_dense_layer(generator, cfg, dev)
                             for _ in range(cfg.n_layers)]
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
@@ -109,9 +137,11 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     """Carry the JAX package's ``init_params`` tree over (after
     ``jax.tree_util.tree_map(np.asarray, ...)``): every leaf becomes a torch
     tensor on ``device`` and each layer-stacked ``(nL, ...)`` subtree
-    (``"layers"``, the hybrid's ``"mamba_layers"``) is split into a list of
-    per-layer dicts. A layer's leaf is the stacked leaf's slice, whatever its
-    rank: the MoE expert tables ``(nL, E, d, f)`` become ``(E, d, f)``."""
+    (``"layers"``, the hybrid's ``"mamba_layers"``, the encoder-decoder's
+    ``"enc_layers"``/``"dec_layers"``) is split into a list of per-layer
+    dicts. A layer's leaf is the stacked leaf's slice, whatever its rank: the
+    MoE expert tables ``(nL, E, d, f)`` become ``(E, d, f)``, RWKV's
+    ``mix_w2`` ``(nL, 5, 32, d)`` becomes ``(5, 32, d)``."""
     dev = resolve_device(device)
 
     def conv(t, layer=None):
@@ -166,12 +196,16 @@ def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
     return [cfg.sliding_window] * cfg.n_layers
 
 
-def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                      src_len: int = 0) -> dict:
     """A fresh contiguous decode cache: K (nL, B, Hkv, hd, Lmax) column-wise and
     V (nL, B, Hkv, Lmax, hd) row-wise (the hybrid keeps one KV layer per
     shared-block application and adds the stacked Mamba2 states; a windowed
     gemma2 keeps ``k_loc``/``v_loc`` rings of ``min(sliding_window, max_len)``
-    slots for its local layers and ``k``/``v`` lanes for its global ones),
+    slots for its local layers and ``k``/``v`` lanes for its global ones; the
+    audio decoder adds ``cross_k``/``cross_v`` (nL, B, Hkv, ``src_len``, hd)
+    for the encoder memory; rwkv6 keeps its recurrent state only: ``wkv``
+    (nL, B, H, 64, 64) f32 and the ``att_tail``/``ffn_tail`` (nL, B, d)),
     fill ``pos`` 0 (a scalar, as in the JAX package)."""
     _check_family(cfg)
     kvd = kv_cache_dtype(cfg)
@@ -184,6 +218,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -
                                      kvd, device)
         return {"k_loc": loc["k"], "v_loc": loc["v"], "k": glob["k"], "v": glob["v"],
                 "pos": glob["pos"]}
+    if cfg.family == "ssm":
+        st = rwkv_lib.init_rwkv_state(batch, cfg, device=device)
+        cache = {k: v.expand(cfg.n_layers, *v.shape).clone() for k, v in st.items()}
+        cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+        return cache
     n_kv = cfg.n_layers
     cache: dict = {}
     if cfg.family == "hybrid":
@@ -192,6 +231,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -
         cache = {k: v.expand(cfg.n_layers, *v.shape).clone() for k, v in st.items()}
     cache.update(kv_mapping.init_cache(n_kv, batch, cfg.n_kv_heads, cfg.head_dim, max_len,
                                        kvd, device))
+    if cfg.family == "audio":
+        for key in ("cross_k", "cross_v"):
+            cache[key] = torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, src_len,
+                                      cfg.head_dim), dtype=kvd, device=device)
     return cache
 
 
@@ -271,12 +314,14 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
 
     ``cache`` is fully paged (``k_pages``/``v_pages`` (nL, P, H, ...),
     ``block_table`` (B, NB)), contiguous (``k``/``v`` (nL, B, H, ...), plus
-    the hybrid's Mamba2 states), or a windowed gemma2's rings and global lanes
-    (``k_loc``/``v_loc``/``k``/``v``, one token a step), with ``pos`` the
+    the hybrid's Mamba2 states or the audio decoder's encoder memory
+    ``cross_k``/``cross_v``), a windowed gemma2's rings and global lanes
+    (``k_loc``/``v_loc``/``k``/``v``, one token a step), or rwkv6's recurrent
+    state alone (``wkv``/``att_tail``/``ffn_tail``), with ``pos`` the
     per-lane fill (B,) or a scalar. Every cache tensor is written IN PLACE
     and the returned cache shares them, with ``pos`` advanced by T.
     ``gemm=True`` runs the batch-prefill form (float GEMMs, dense attention at
-    any T).
+    any T); rwkv6 has no other form.
     """
     x, new_cache = _forward(params, cache, tokens, cfg, gemm=gemm)
     return logits_fn(params, x, cfg), new_cache
@@ -288,6 +333,10 @@ def _forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     _check_family(cfg)
     if cfg.family == "hybrid":
         return _hybrid_forward(params, cache, tokens, cfg, gemm=gemm)
+    if cfg.family == "ssm":
+        return _rwkv_forward(params, cache, tokens, cfg)
+    if cfg.family == "audio":
+        return _audio_forward(params, cache, tokens, cfg, gemm=gemm)
     if "k_loc" in cache:
         return _windowed_forward(params, cache, tokens, cfg)
     pos = cache["pos"]
@@ -362,20 +411,77 @@ def _hybrid_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelC
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
 
 
+def _rwkv_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """rwkv6: the input layernorm, then each RWKV6 block over the T tokens
+    from its layer's state, written back IN PLACE into that layer's slice of
+    the stacked ``wkv``/``att_tail``/``ffn_tail`` (no kernel: the JAX
+    package has none for it either)."""
+    x = L.layernorm(params["ln_in"], L.embed(params["embed"], tokens), cfg.norm_eps)
+    for i, lp in enumerate(params["layers"]):
+        st = {k: cache[k][i] for k in rwkv_lib.STATE_KEYS}
+        x, st2 = rwkv_lib.rwkv_block(lp["block"], x, st, cfg, lp["ln1"], lp["ln2"],
+                                     cfg.norm_eps)
+        for k in rwkv_lib.STATE_KEYS:
+            st[k].copy_(st2[k])                          # in place
+    new_cache = {k: cache[k] for k in rwkv_lib.STATE_KEYS}
+    new_cache["pos"] = cache["pos"] + tokens.shape[1]
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
+
+
+def _audio_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                   *, gemm: bool = False):
+    """The audio decoder: per layer, self attention over its contiguous lanes
+    (written in place; one token takes B4 and, under W8A8, the B3 GEMVs),
+    cross attention over the layer's encoder memory K/V, then the MLP."""
+    if cache["cross_k"].shape[-2] == 0:
+        raise ValueError("the audio decoder's cache holds no encoder memory: it is "
+                         "filled by prefill(..., src_frames=...), which takes the "
+                         "source frames (the engine's admission passes none)")
+    pos = cache["pos"]
+    x = L.embed(params["embed"], tokens)
+    for i, lp in enumerate(params["dec_layers"]):
+        x = _attn_residual(lp, x, cache["k"][i], cache["v"][i], pos, cfg, gemm=gemm)
+        h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+        x = x + attn_lib.attention_cross(lp["cross_attn"], h,
+                                         (cache["cross_k"][i], cache["cross_v"][i]), cfg)
+        x = _mlp_tail(lp, x, cfg, gemm=gemm)
+    new_cache = {k: cache[k] for k in ("k", "v", "cross_k", "cross_v")}
+    new_cache["pos"] = pos + tokens.shape[1]
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
+
+
+def _audio_encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The bidirectional encoder over stub frames (B, S, d) -> memory (B, S, d)."""
+    h = frames
+    for lp in params["enc_layers"]:
+        h = h + attn_lib.attention_dense(lp["attn"], L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps),
+                                         cfg)
+        h = h + L.mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps),
+                      linear_fn=attn_lib._dense_matmul)
+    return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+
+def project_cross_kv(params: dict, mem: torch.Tensor, cfg: ModelConfig):
+    """Every decoder layer's cross-attention K/V of the encoder memory:
+    (k, v), each (nL, B, Hkv, S, hd)."""
+    kvs = [attn_lib.project_memory_kv(lp["cross_attn"], mem, cfg)
+           for lp in params["dec_layers"]]
+    return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+
+
 # ===========================================================================
 # prefill
 # ===========================================================================
 
 
-def _prefill_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
+def _prefill_forward(params: dict, cache: dict, x: torch.Tensor, cfg: ModelConfig,
                      step: int) -> torch.Tensor:
-    """:func:`prefill`'s pass up to the final norm, layer by layer: each
-    layer's attention runs ``step`` queries at a time against the contiguous
-    ``cache`` (written in place), and its MLP tail never sees a slice: it
-    takes the layer's whole (B, S) batch, as the JAX ``prefill`` computes it
-    (which a MoE's capacity dispatch needs)."""
-    s = tokens.shape[1]
-    x = _embed(params, tokens, cfg)
+    """:func:`prefill`'s pass over the embedded inputs x (B, S, d) up to the
+    final norm, layer by layer: each layer's attention runs ``step`` queries
+    at a time against the contiguous ``cache`` (written in place), and its
+    MLP tail never sees a slice: it takes the layer's whole (B, S) batch, as
+    the JAX ``prefill`` computes it (which a MoE's capacity dispatch needs)."""
+    s = x.shape[1]
     windows = layer_windows(cfg)
     for i, lp in enumerate(params["layers"]):
         parts = [_attn_residual(lp, x[:, lo:lo + step], cache["k"][i], cache["v"][i], lo, cfg,
@@ -384,44 +490,81 @@ def _prefill_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: Model
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
-            seq_lens=None):
-    """Whole prompts of the dense and MoE families in one pass: tokens (B, S) ->
-    (logits at each row's last token (B, 1, V), a fresh decode cache filled to
-    S, ``pos`` the scalar S). ``seq_lens`` (B,) marks each row's true length in
-    a right-padded ragged batch; its logits are read at ``seq_lens - 1``.
+def _last_hidden(x: torch.Tensor, seq_lens) -> torch.Tensor:
+    """Each row's last-token hidden state (B, 1, d): row i reads position
+    ``seq_lens[i] - 1`` (None: the last position)."""
+    if seq_lens is None:
+        return x[:, -1:, :]
+    idx = torch.as_tensor(seq_lens, device=x.device).long() - 1
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
 
-    The pass is the batch-prefill form of :func:`decode_step` (``gemm=True``:
-    float GEMMs, dense masked attention with each layer's window) into a
-    fresh full-length contiguous cache, layer by layer: the attention
-    ``cfg.q_chunk`` queries at a time, so one layer's f32 scores stay (B, Hq,
-    q_chunk, max_len), then the layer's MLP or MoE over all B·S tokens at
-    once, pads included, in row-major order, as the JAX ``prefill`` groups
-    them (:func:`_prefill_forward`). A windowed gemma2
-    then places each local layer's last W tokens into their ring slots (slot
-    ``t % W`` holds token ``t``; a prompt shorter than W leaves the surplus
-    slots holding its last token, masked at decode by ``end = min(pos + 1,
-    W)``) and keeps the global layers' lanes."""
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
+            seq_lens=None, *, prefix_embeds: Optional[torch.Tensor] = None,
+            src_frames: Optional[torch.Tensor] = None):
+    """Whole prompts in one pass: tokens (B, S) -> (logits at each row's last
+    token (B, 1, V), a fresh decode cache filled to S, ``pos`` the scalar S).
+    ``seq_lens`` (B,) marks each row's true length in a right-padded ragged
+    batch; its logits are read at ``seq_lens - 1``.
+
+    The dense, vlm and MoE pass is the batch-prefill form of
+    :func:`decode_step` (``gemm=True``: float GEMMs, dense masked attention
+    with each layer's window) into a fresh full-length contiguous cache,
+    layer by layer: the attention ``cfg.q_chunk`` queries at a time, so one
+    layer's f32 scores stay (B, Hq, q_chunk, max_len), then the layer's MLP
+    or MoE over all B·S tokens at once, pads included, in row-major order, as
+    the JAX ``prefill`` groups them (:func:`_prefill_forward`). A windowed
+    gemma2 then places each local layer's last W tokens into their ring slots
+    (slot ``t % W`` holds token ``t``; a prompt shorter than W leaves the
+    surplus slots holding its last token, masked at decode by ``end = min(pos
+    + 1, W)``) and keeps the global layers' lanes.
+
+    ``prefix_embeds`` (B, P, d), vlm only: precomputed patch embeddings put
+    before the tokens; positions, the cache fill, ``pos`` (S + P) and
+    ``seq_lens`` (read at P + seq_lens - 1) all shift by P. ``src_frames``
+    (B, S_src, d), required by the audio family: the encoder runs over them,
+    each decoder layer's cross K/V of its memory fills ``cross_k``/``cross_v``
+    and the decoder runs over the tokens (usually one BOS each). rwkv6 runs
+    its blocks over the tokens from zero state; the cache is the final
+    state (pads included, as in the JAX package)."""
     _check_family(cfg)
     if cfg.family == "hybrid":
         raise NotImplementedError(
-            "prefill ports the dense and MoE families; the hybrid family admits "
-            "through chunked decode steps")
+            "prefill of the hybrid family is not ported (ROADMAP A.10); the engine "
+            "admits zamba2 through chunked decode steps")
+    if prefix_embeds is not None and cfg.family != "vlm":
+        raise ValueError(f"prefix_embeds is the vlm family's input, not {cfg.family!r}'s")
+    if cfg.family == "audio" and src_frames is None:
+        raise ValueError("the audio family's prefill needs src_frames (B, S, d_model): "
+                         "the encoder's input")
     b, s = tokens.shape
-    full = init_decode_cache(cfg.replace(windowed_kv_cache=False), b, max_len,
-                             device=tokens.device)
-    x = _prefill_forward(params, full, tokens, cfg, max(int(cfg.q_chunk), 1))
-    if seq_lens is None:
-        last = x[:, -1:, :]
-    else:
-        idx = torch.as_tensor(seq_lens, device=x.device).long() - 1
-        last = x[torch.arange(b, device=x.device), idx][:, None, :]
-    logits = logits_fn(params, last, cfg)
-    pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
+    dev = tokens.device
+    if cfg.family == "ssm":
+        x, cache = _rwkv_forward(params, init_decode_cache(cfg, b, max_len, device=dev),
+                                 tokens, cfg)
+        return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
+    if cfg.family == "audio":
+        mem = _audio_encode(params, src_frames.to(torch_dtype(cfg.dtype)), cfg)
+        cache = init_decode_cache(cfg, b, max_len, device=dev, src_len=mem.shape[1])
+        cross_k, cross_v = project_cross_kv(params, mem, cfg)
+        cache["cross_k"].copy_(cross_k)
+        cache["cross_v"].copy_(cross_v)
+        x, cache = _audio_forward(params, cache, tokens, cfg, gemm=True)
+        return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
+    x = _embed(params, tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        if seq_lens is not None:
+            seq_lens = torch.as_tensor(seq_lens, device=dev) + prefix_embeds.shape[1]
+    s = x.shape[1]
+    full = init_decode_cache(cfg.replace(windowed_kv_cache=False), b, max_len, device=dev)
+    x = _prefill_forward(params, full, x, cfg, max(int(cfg.q_chunk), 1))
+    logits = logits_fn(params, _last_hidden(x, seq_lens), cfg)
+    pos = torch.tensor(s, dtype=torch.int32, device=dev)
     if not windowed_cache_applicable(cfg):
         return logits, {"k": full["k"], "v": full["v"], "pos": pos}
     w = min(cfg.sliding_window, max_len)
-    slots = torch.arange(w, device=tokens.device)
+    slots = torch.arange(w, device=dev)
     t_idx = (s - w + (slots - (s - w)) % w) if s >= w else slots.clamp_max(s - 1)
     return logits, {"k_loc": full["k"][0::2].index_select(-1, t_idx),
                     "v_loc": full["v"][0::2].index_select(-2, t_idx),

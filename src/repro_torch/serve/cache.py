@@ -5,10 +5,13 @@ Which states a pool holds is derived from the config's decode-cache structure
 (:func:`derive_state_specs`), and so is the admission policy
 (:func:`derive_policy`): dense KV alone pages; a hybrid (zamba2) keeps its
 shared block's KV in contiguous lanes beside recurrent Mamba2 states that are
-zeroed on retire, and admits ragged batches one request at a time; a windowed
+zeroed on retire, and admits ragged batches one request at a time; rwkv6
+keeps recurrent state alone (no KV at all), with the same policy; a windowed
 gemma2 (``windowed_kv_cache``) keeps its global layers' KV in contiguous
 lanes beside W-slot rings, which cannot ingest a chunk, so each request
-admits through one full prefill.
+admits through one full prefill; the audio decoder keeps its self-KV lanes
+beside the static encoder memory (``cross_k``/``cross_v``: copied at insert,
+never appended to, never zeroed).
 
 :class:`PagedKVState` owns ONE physical page pool in the paper's §III-C dual
 layout — K pages column-wise ``(hd, Bsz)``, V pages row-wise ``(Bsz, hd)``,
@@ -44,8 +47,11 @@ Differences from the JAX package, none of which changes a token:
   :meth:`CachePool.extract_lane` returns a COPY of a contiguous lane (the
   JAX view was safe because its updates were functional): a draft rollout
   writes into the copy, and the pool changes only when the round commits.
-* Static states (audio cross-attention memory) wait for their slice
-  (ROADMAP A.9).
+* The audio family's pool is built as the JAX package builds it, with an
+  encoder memory of length 0: only ``models.model.prefill(src_frames=)``
+  fills one, and the engine's admission passes no frames, so an audio serve
+  fails at admission (a ``ValueError`` naming ``src_frames`` here, a
+  ``KeyError: 'src_frames'`` in the JAX engine).
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ FREE, ACTIVE = "free", "active"
 # retired, so a new family's novel keys are zero-on-retire by default.
 KV_KEYS = ("k", "v")
 RING_KEYS = ("k_loc", "v_loc")
+STATIC_KEYS = ("cross_k", "cross_v")
 
 # Physical page 0 is a permanently pinned dummy: free lanes' block tables
 # resolve to it so their masked garbage decodes have somewhere harmless to land.
@@ -99,16 +106,16 @@ def _zero_lane(arr: torch.Tensor, slot: int) -> None:
 class StateSpec:
     """One cache family present in a config's decode cache."""
 
-    kind: str                 # "paged_kv" | "ring" | "recurrent"
+    kind: str                 # "paged_kv" | "ring" | "recurrent" | "static"
     keys: tuple[str, ...]
     zero_on_retire: bool
 
 
 def derive_state_specs(cfg: ModelConfig) -> tuple[StateSpec, ...]:
     """Decompose a config's decode-cache structure into typed state specs:
-    the KV pair, gemma2's ring pair, then every leftover leaf as recurrent
-    state (zeroed on retire). Built from the cache's shapes alone (no
-    allocation)."""
+    the KV pair, gemma2's ring pair, the audio decoder's static encoder
+    memory, then every leftover leaf as recurrent state (zeroed on retire).
+    Built from the cache's shapes alone (no allocation)."""
     keys = {k for k in M.decode_cache_specs(cfg, 1, 8) if k != "pos"}
     specs: list[StateSpec] = []
     claimed: set[str] = set()
@@ -118,6 +125,10 @@ def derive_state_specs(cfg: ModelConfig) -> tuple[StateSpec, ...]:
     if set(RING_KEYS) <= keys:
         specs.append(StateSpec("ring", RING_KEYS, False))
         claimed |= set(RING_KEYS)
+    static = tuple(sorted(set(STATIC_KEYS) & keys))
+    if static:
+        specs.append(StateSpec("static", static, False))
+        claimed |= set(static)
     recurrent = tuple(sorted(keys - claimed))
     if recurrent:
         specs.append(StateSpec("recurrent", recurrent, True))
@@ -150,10 +161,12 @@ class LaneState:
     """One contiguous state of the pool: a dict of stacked (nL, B, ...) lane
     leaves, as its spec names them. Dense KV (hybrid and windowed configs,
     where KV is not the whole cache state, and pools built with
-    ``paged=False``) and gemma2's W-slot rings are masked by position: copied
-    at insert, never zeroed. The Mamba2 ``ssd``/``conv_x``/``conv_bc`` leaves
-    are not, so their spec has ``zero_on_retire`` and a retired lane is
-    zeroed before it is reused."""
+    ``paged=False``) and gemma2's W-slot rings are masked by position, and
+    the audio decoder's static encoder memory is read whole by its own
+    request only: these are copied at insert, never zeroed. Recurrent leaves
+    (Mamba2's ``ssd``/``conv_x``/``conv_bc``, rwkv6's ``wkv``/``att_tail``/
+    ``ffn_tail``) are not masked, so their spec has ``zero_on_retire`` and a
+    retired lane is zeroed before it is reused."""
 
     def __init__(self, spec: StateSpec, leaves: dict):
         self.spec = spec
@@ -576,8 +589,8 @@ class CachePool:
     fill levels back (free lanes pinned to 0). ``stage_admission`` opens the
     chunk-prefill stream; the prefix index survives :meth:`reset`. Dense KV
     pages unless ``paged=False``; other cache structures (the hybrid's
-    Mamba2 states, gemma2's rings beside its global lanes) keep contiguous
-    lanes.
+    Mamba2 states, rwkv6's recurrent state, gemma2's rings beside its global
+    lanes, the audio decoder's encoder memory) keep contiguous lanes.
     """
 
     def __init__(self, cfg: ModelConfig, max_len: int, n_slots: int, *,

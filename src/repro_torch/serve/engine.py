@@ -3,11 +3,12 @@
 
 ``Engine.serve(requests)`` takes ``GenerationRequest`` objects and returns
 index-aligned ``GenerationResult`` objects. The decode cache is a
-:class:`~repro_torch.serve.cache.CachePool` (fully paged for the dense
-family, contiguous lanes for the hybrid, for a windowed gemma2's rings or
-with ``paged=False``); the head of the queue is chunk-prefilled ahead into a
-staging stream (a ring pool, which cannot chunk, prefills it whole in one
-step) and dropped into the next freed lane:
+:class:`~repro_torch.serve.cache.CachePool` (fully paged for the dense, vlm
+and MoE families, contiguous lanes for the hybrid, for rwkv6's recurrent
+state, for a windowed gemma2's rings or with ``paged=False``); the head of
+the queue is chunk-prefilled ahead into a staging stream (a ring pool, which
+cannot chunk, prefills it whole in one step) and dropped into the next freed
+lane:
 
 * **LBIM**    — the admission chunk rides in the same step as the decode
   (``core.interleave.fused_step``; the paper's MACT_LDB/MACB_LDT split);
@@ -15,6 +16,12 @@ step) and dropped into the next freed lane:
   as a separate step half;
 * **BLOCKED** — admission preempts: decodes stall until the pending request
   is fully loaded.
+
+A recurrent request (zamba2, rwkv6) is staged in ``chunk``-token sub-steps
+of its own where the JAX engine runs one ``M.prefill`` over an equal-length
+group: its state moves forward a token at a time either way, so the tokens
+are the same. The audio family is not served: admission has no source
+frames, so its first admission raises, as the JAX engine's does.
 
 Prefix reuse, per-request ``max_new_tokens``/``eos_id`` retirement, the
 starvation-aware admission quantum, ``RequestState`` transitions and the

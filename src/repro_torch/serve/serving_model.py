@@ -4,8 +4,11 @@
 ``ServingModel.prepare`` fixes every load-time decision once: the device
 (``None`` means CUDA; without a card the caller must pass ``device="cpu"``),
 the backend check, and, under ``cfg.quantized_decode``, the weight-stationary
-int8 images of the qkv/o/MLP weights (``core.quant.prepare_decode_params``),
-so decode steps feed the PIM GEMV kernel without re-quantizing weights.
+int8 images of the qkv/o/MLP weights (``core.quant.prepare_decode_params``;
+not of the audio encoder's or the cross attention's, which decode never
+feeds to a GEMV), so decode steps feed the PIM GEMV kernel without
+re-quantizing weights. The attention-free ``ssm`` family (rwkv6) decodes
+with plain matmuls, so it is never pre-quantized.
 Engines are cheap views: ``sm.engine(mode=...)`` — prepare once, serve many.
 """
 from __future__ import annotations
@@ -52,6 +55,7 @@ class ServingModel:
                              f"with init_params(..., device=) or params_from_numpy(..., device=)")
         if prequantize is None:
             prequantize = cfg.quantized_decode
+        prequantize = bool(prequantize) and cfg.family != "ssm"
         decode_params = quant.prepare_decode_params(params) if prequantize else params
         return cls(cfg=cfg, params=params, decode_params=decode_params, max_len=max_len,
                    slots=slots, prequantized=bool(prequantize), device=dev)
@@ -61,9 +65,11 @@ class ServingModel:
                    paged: Optional[bool] = None, spec_slack: int = 0):
         """A :class:`repro_torch.serve.cache.CachePool` on this artifact's
         device. ``paged=None`` pages whenever KV is the whole cache state
-        (the dense and MoE families); ``paged=False`` forces contiguous lanes
-        for A/B comparison; a hybrid's pool, and a windowed gemma2's (W-slot
-        rings beside its global layers' lanes), is contiguous either way.
+        (the dense, vlm and MoE families); ``paged=False`` forces contiguous
+        lanes for A/B comparison; a hybrid's pool, a windowed gemma2's (W-slot
+        rings beside its global layers' lanes), rwkv6's (recurrent state
+        only) and the audio decoder's (self-KV beside the encoder memory) are
+        contiguous either way.
         ``spec_slack`` adds per-lane blocks for speculative verify rounds'
         transient ``k+1`` appends."""
         from repro_torch.serve.cache import CachePool

@@ -170,7 +170,7 @@ class SpecDecoder:
         of ``len(context) - 1`` tokens (returned).
 
         The JAX package prefills with ``M.prefill``, which the port has for
-        the dense and MoE families only; the stand-in for every draft family is the
+        every family but the hybrid; the stand-in for every draft family is the
         batch-prefill form the port admits with
         (``interleave.prefill_chunk_step(..., gemm=True)``: float GEMMs and
         dense attention over the whole span in one pass) into a fresh batch-1

@@ -803,3 +803,144 @@ def test_moe_tokens_on_the_card_equal_the_cpu_path(dev, no_tf32, mode):
     got = serve(_to(cpu, dev), dev)
     assert launch_counts()["decode_attention_paged"] > 0
     assert got == want
+
+
+# --------------------------------------------------------------------------
+# the last serving families: rwkv6, internvl2 (vlm), seamless (audio)
+# --------------------------------------------------------------------------
+
+
+def family_pair(arch, **overrides):
+    """An f32 smoke config of ``arch`` and its seeded CPU params."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32", param_dtype="float32",
+                                               **overrides)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.mark.parametrize("arch,quantized", [("rwkv6-1.6b", False), ("internvl2-2b", False),
+                                            ("internvl2-2b", True)])
+@pytest.mark.parametrize("mode", ["BLOCKED", "HBCEM", "LBIM"])
+def test_family_tokens_on_the_card_equal_the_cpu_path(dev, no_tf32, arch, quantized, mode):
+    """f32 smoke serves, the card against the CPU: rwkv6 on its recurrent-state
+    pool launches no kernel of the port (attention-free, plain matmuls);
+    internvl2-2b on the paged pool runs B1 (and, W8A8, B3)."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.api import GenerationRequest
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg, cpu = family_pair(arch, quantized_decode=quantized)
+
+    def serve(params, device):
+        eng = ServingModel.prepare(cfg, params, max_len=64, slots=2, device=device).engine(
+            mode=Mode[mode], chunk=4)
+        res = eng.serve([GenerationRequest(prompt=p, max_new_tokens=b)
+                         for p, b in zip(SERVE_PROMPTS, SERVE_BUDGETS)])
+        assert eng.pool.check_invariants() == []
+        assert [len(r.tokens) for r in res] == SERVE_BUDGETS
+        return [r.tokens for r in res], eng
+
+    want, _ = serve(cpu, "cpu")
+    reset_launches()
+    got, eng = serve(_to(cpu, dev), dev)
+    counts = launch_counts()
+    if cfg.family == "ssm":
+        assert not eng.pool.paged and not any(counts.values())
+    else:
+        assert eng.pool.paged and counts["decode_attention_paged"] > 0
+        assert (counts["pim_gemv"] > 0) == quantized
+    assert got == want
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_audio_decode_logits_per_step_on_the_card(dev, no_tf32, quantized):
+    """f32 seamless smoke at model level: the encoder prefill over stub frames,
+    then greedy decode steps (B4 over the self-KV lanes, B3 under W8A8), the
+    card against the CPU, each step restarted from the CPU's cache."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import model as TM
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg, cpu = family_pair("seamless-m4t-large-v2", quantized_decode=quantized)
+    sm_cpu = ServingModel.prepare(cfg, cpu, max_len=24, slots=3, device="cpu")
+    sm_dev = ServingModel.prepare(cfg, _to(cpu, dev), max_len=24, slots=3, device=dev)
+    frames = torch.randn((3, 37, cfg.d_model), generator=torch.Generator().manual_seed(4))
+    bos = torch.ones((3, 1), dtype=torch.long)
+    want, cache = TM.prefill(sm_cpu.params, bos, cfg, 24, src_frames=frames)
+    got, _ = TM.prefill(sm_dev.params, bos.to(dev), cfg, 24, src_frames=frames.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    tok = want.argmax(-1)
+    reset_launches()
+    for step in range(5):
+        dev_cache = _to(cache, dev)
+        want, cache = TM.decode_step(sm_cpu.decode_params, cache, tok, cfg)
+        got, _ = TM.decode_step(sm_dev.decode_params, dev_cache, tok.to(dev), cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+        tok = want.argmax(-1)
+    counts = launch_counts()
+    assert counts["decode_attention"] == 5 * cfg.n_layers
+    assert counts["pim_gemv"] == (5 * 7 * cfg.n_layers if quantized else 0)
+
+
+@pytest.mark.parametrize("mode", ["HBCEM", "LBIM"])
+def test_rwkv6_draft_for_llama_target_on_the_card(dev, no_tf32, mode):
+    """The cross-family draft on the card (f32 smoke, vocab 256 both): spec
+    tokens equal the plain serve's and the CPU path's; the target verifies
+    through B1, the rwkv6 draft launches nothing."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.api import GenerationRequest
+    from repro_torch.serve.serving_model import ServingModel
+    from repro_torch.serve.spec import SpecConfig
+
+    tcfg, tcpu, _ = smoke_pair(dev, dtype="float32", param_dtype="float32")
+    dcfg, dcpu = family_pair("rwkv6-1.6b")
+
+    def serve(device, spec):
+        target = ServingModel.prepare(tcfg, _to(tcpu, device), max_len=64, slots=2,
+                                      device=device)
+        draft = ServingModel.prepare(dcfg, _to(dcpu, device), max_len=64, slots=2,
+                                     device=device)
+        eng = target.engine(mode=Mode[mode], chunk=4,
+                            spec=SpecConfig(draft=draft, k=3) if spec else None)
+        res = eng.serve([GenerationRequest(prompt=p, max_new_tokens=b)
+                         for p, b in zip(SERVE_PROMPTS, SERVE_BUDGETS)])
+        assert eng.pool.check_invariants() == []
+        return [r.tokens for r in res], eng
+
+    want, _ = serve("cpu", True)
+    plain, _ = serve(dev, False)
+    reset_launches()
+    got, eng = serve(dev, True)
+    rep = eng.schedule_report()["spec"]
+    assert rep["rounds"] > 0 and rep["draft_steps"] > 0
+    counts = launch_counts()
+    assert counts["decode_attention_paged"] > 0 and counts["decode_attention"] == 0
+    assert got == plain == want
+
+
+@pytest.mark.parametrize("lmax,fills", [(40, [2, 17, 33, 40]), (336, [281, 300, 336, 1]),
+                                        (512, [0, 257, 512, 100])])
+def test_contiguous_decode_at_g1_hd64(dev, gen, lmax, fills):
+    """B4 at seamless-m4t-large-v2's decoder shape (16 KV heads of 64, one
+    query head each: the bf16 tensor-core branch at its narrowest head) over
+    its self-KV lanes and longer ones, against the plain version, each lane
+    alone too."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    q, k, v = contiguous(gen, dev, 4, 16, 1, 64, lmax, torch.bfloat16)
+    end = torch.tensor(fills, dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    out = da.decode_attention(q, k, v, end, start, scale=0.125)
+    want = ref.decode_attention_ref(q, k, v, end, 0.125, start=start)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **TOL)
+    for i in range(4):
+        alone = da.decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], end[i:i + 1],
+                                    start[i:i + 1], scale=0.125)
+        assert torch.equal(alone, out[i:i + 1])

@@ -72,14 +72,25 @@ def test_deadline_times_out_and_health_counts_it(capsys):
     assert "timed_out" in out
 
 
-def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cli.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu"])
+def test_cli_serves_rwkv6_and_seamless_fails_at_admission(capsys):
+    """No arch of the JAX package is refused any more: rwkv6 (ROADMAP A.9's
+    last refusal here) serves through the CLI, and seamless-m4t-large-v2
+    fails at admission, as the JAX CLI does (``KeyError: 'src_frames'``
+    there)."""
+    assert cli.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu", "--requests", "3",
+                     "--prompt-len", "10", "--max-new", "4", "--slots", "2",
+                     "--chunk", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "prepared rwkv6-1.6b-smoke: device=cpu prequantized=False" in out
+    assert out.count("  req") == 3 and "occupancy: slots 0/2 pages 0/0" in out
+    with pytest.raises(ValueError, match="src_frames"):
+        cli.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu",
+                  "--requests", "2", "--prompt-len", "6", "--max-new", "2"])
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"])
 def test_cli_serves_the_moe_family(capsys, arch):
-    """The MoE family is served; rwkv6 (above) is still refused."""
+    """The MoE family is served, as rwkv6 (above) and every other arch."""
     assert cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
                      "--prompt-len", "10", "--max-new", "4", "--slots", "2",
                      "--chunk", "4"]) == 0
@@ -94,16 +105,21 @@ def test_device_defaults_to_cuda(monkeypatch):
         cli.main(["--arch", "llama3-8b", "--smoke"])
 
 
-def test_unported_archs_are_the_a9_families():
-    """The dense family is served (yi-9b, codeqwen1.5-7b and gemma2-27b too,
-    their smoke serves in ``test_torch_dense_configs.py``); what the CLI
-    still refuses are the families of ROADMAP A.9, each naming it."""
-    from repro_torch.configs import list_archs
+def test_cli_registry_equals_jax_and_serves_internvl2(capsys):
+    """The CLI refuses no arch: its registry is the JAX package's, the A.9
+    families included. internvl2-2b serves W8A8 on the paged pool (its
+    requests carry no image, as in the JAX engine); every arch's config is
+    what ``--arch`` resolves."""
+    from repro.configs import list_archs as j_list_archs
+    from repro_torch.configs import get_config, list_archs
 
-    assert set(cli._UNPORTED_ARCHS.values()) == {"A.9"}
-    assert not set(cli._UNPORTED_ARCHS) & set(list_archs())
-    assert {"yi-9b", "codeqwen1.5-7b", "gemma2-27b", "olmoe-1b-7b",
-            "phi3.5-moe-42b-a6.6b"} <= set(list_archs())
-    for arch in cli._UNPORTED_ARCHS:
-        with pytest.raises(NotImplementedError, match="A.9"):
-            cli._config(arch, smoke=True)
+    assert not hasattr(cli, "_UNPORTED_ARCHS")
+    assert list_archs() == sorted(j_list_archs())
+    assert {"rwkv6-1.6b", "internvl2-2b", "seamless-m4t-large-v2"} <= set(list_archs())
+    assert cli.main(["--arch", "internvl2-2b", "--smoke", "--device", "cpu", "--requests", "3",
+                     "--prompt-len", "10", "--max-new", "4", "--slots", "2", "--chunk", "4",
+                     "--quantized-decode"]) == 0
+    out = capsys.readouterr().out
+    assert "prepared internvl2-2b-smoke: device=cpu prequantized=True" in out
+    assert out.count("  req") == 3 and "occupancy: slots 0/2" in out
+    assert get_config("internvl2-2b", smoke=True).family == "vlm"

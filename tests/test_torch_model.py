@@ -273,15 +273,30 @@ def test_paged_decode_step_vs_jax(f32_model, tok, quantized, splits):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_decode_step_refuses_contiguous_cache(f32_model):
-    """Contiguous dense lanes are served now (tests/test_torch_contiguous.py),
-    and so are gemma2's sliding-window layers (tests/test_torch_gemma2.py) and
-    the MoE family (tests/test_torch_moe.py); a contiguous cache of a family
-    that is not ported yet (ssm: rwkv6, ROADMAP A.9) is still refused."""
+def test_decode_step_refuses_unknown_family_and_decodes_rwkv6_state(f32_model):
+    """Every family of the JAX package is ported now (contiguous dense lanes
+    in tests/test_torch_contiguous.py, rwkv6 in tests/test_torch_rwkv.py):
+    what is still refused is a family outside ``FAMILIES``, as the JAX
+    ``init_params`` refuses it; rwkv6's contiguous state cache decodes, and
+    the dense contiguous cache still does."""
     jcfg, tcfg, _, tp = f32_model
-    ssm = tcfg.replace(family="ssm")
+    bogus = tcfg.replace(family="diffusion")
+    with pytest.raises(ValueError, match="diffusion"):
+        JM.init_params(jax.random.PRNGKey(0), jcfg.replace(family="diffusion"))
+    for call in (lambda: TM.init_params(bogus, torch.Generator(), device="cpu"),
+                 lambda: TM.init_decode_cache(bogus, 1, 16, device="cpu"),
+                 lambda: TM.decode_step(tp, TM.init_decode_cache(tcfg, 1, 16, device="cpu"),
+                                        torch.zeros((1, 1), dtype=torch.long), bogus)):
+        with pytest.raises(ValueError, match="diffusion"):
+            call()
+    rcfg = t_get_config("rwkv6-1.6b", smoke=True).replace(dtype="float32",
+                                                         param_dtype="float32")
+    rp = TM.init_params(rcfg, torch.Generator().manual_seed(0), device="cpu")
+    rcache = TM.init_decode_cache(rcfg, 2, 16, device="cpu")
+    assert set(rcache) == {"wkv", "att_tail", "ffn_tail", "pos"}
+    logits, rcache = TM.decode_step(rp, rcache, torch.ones((2, 1), dtype=torch.long), rcfg)
+    assert logits.shape == (2, 1, rcfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert int(rcache["pos"]) == 1 and rcache["wkv"].abs().sum() > 0
     cache = TM.init_decode_cache(tcfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TM.decode_step(tp, cache, torch.zeros((1, 1), dtype=torch.long), ssm)
     _, cache = TM.decode_step(tp, cache, torch.ones((1, 1), dtype=torch.long), tcfg)
     assert int(cache["pos"]) == 1
