@@ -9,24 +9,28 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    versions, and the seconds the kernels took to build from
    ``src/repro_torch/kernels/*/csrc`` (nvcc, one process per source).
 2. ``kernel_check``: every CUDA kernel against its plain PyTorch version on the
-   card, at the main paths' full-width shapes: ``pim_gemv`` bit-exact (also
-   past the llama3-8b shapes: K 36,864, gemma2-27b's w_down, whose x is staged
-   in K tiles, at B 8 and 16, and an odd K at B 16: batch groups); the
-   paged attention kernels (llama3-8b), the contiguous attention kernel
+   card, at the main paths' full-width shapes: ``pim_gemv`` bit-exact, each
+   call counted once, and every path of the kernel hit (tensor-core tiles at
+   one K split and at eight, batch groups, zeros read past a ragged N and K,
+   the plain kernel for an odd K and for an unaligned x; each case names its
+   path); the paged attention kernels (llama3-8b), the contiguous attention kernel
    (llama3-8b, G 4 / hd 128, and zamba2-7b, G 1 / hd 112) and the SSD scan
    (zamba2-7b's H 112, P 64, N 64, chunk 256, also against the model's own
    ``ssd_chunked``, at three times the log decays, and at N 128, two column
    tiles, against the plain version) within the f32
    tolerances below; the single-pass kernels (paged and contiguous), the split
    pair and the scan must also give each lane of a batch the same bits as that
-   lane computed alone. The scan is a scores kernel per (lane, 32-step
+   lane computed alone. B1, the B2 pair and B4 also over fp8 e4m3 K/V (the
+   JAX package's ``kv_dtype="float8_e4m3fn"``) at llama3-8b's and zamba2-7b's
+   shapes, lanes alone too. The scan is a scores kernel per (lane, 32-step
    sub-chunk) and a walk per (head, 64 state rows, lane) with its products on
    the tensor cores as three TF32 products each; its bound is its bytes, and
    its line also gives the earlier f32-core bound and the model's own scan
    (``chunked_torch_ms``). ``kernel_time`` lines give
    each kernel's time beside its bound, its plain version's time and one
    PyTorch library call's time (a yardstick the port never calls), the split
-   pair's (stage 1 + merge) time, and the paged kernels' and B4's times at the
+   pair's (stage 1 + merge) time, B1 over fp8 pages beside its byte bound
+   (half of bf16's), and the paged kernels' and B4's times at the
    serves' own regimes (short fills in 37-block tables; zamba2's Lmax).
    ``host_cost`` lines give what one attention call costs the host at the
    serves' shapes, alone and over one decode step.
@@ -156,9 +160,9 @@ zamba2-7b), with the serves' checks. Run from two checkouts in turn
 
     python3 chip_smoke.py --attn
 
-builds the kernels and prints only the attention ``kernel_time`` lines (B1,
-B2 stage 1, the merge and the pair; B4), to compare builds of the attention
-kernels in one call.
+builds the kernels and prints only the fp8 attention check and the attention
+``kernel_time`` lines (B1, B2 stage 1, the merge and the pair; B4), to compare
+builds of the attention kernels in one call.
 
     python3 chip_smoke.py --ssd
 
@@ -172,7 +176,9 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --families
 
-print only ``pim_gemv``'s ``kernel_time`` and ``kernel_check`` lines (B3),
+print only ``pim_gemv``'s ``kernel_time`` lines (llama3-8b's layer at B 1, 4,
+8, then every serve shape at B 1 to 8 beside ``torch._int_mm``) and its
+``kernel_check`` lines (B3; also at every serve shape),
 only the spec phase's lines, only the traffic phase's and the CLI's, only
 the dense phase's, only the MoE phase's or only the families phase's (each
 with its kernel checks and times).
@@ -220,11 +226,14 @@ GEMV_LAYER = [  # (N, K, launches per layer) of llama3-8b's seven decode GEMVs
     (14336, 4096, 2),    # w_gate, w_up
     (4096, 14336, 1),    # w_down
 ]
-GEMV_RAGGED = (3001, 4100)   # N odd, K % 16 != 0: the kernel's masked edge path
-# past the llama3-8b shapes, as the Pallas op takes any B and K: x staged in K
-# tiles (gemma2-27b's w_down, K 36,864, at B 8: 295 KB), batch groups (B 16),
-# both at once, and an odd K in batch groups
-GEMV_WIDE = ((4096, 36864, 8), (4096, 36864, 16), (4096, 4096, 16), (3001, 4100, 16))
+GEMV_RAGGED = (3001, 4100)   # N odd, K % 16 != 0: the plain kernel
+# past the llama3-8b shapes, as the Pallas op takes any B and K: gemma2-27b's
+# w_down (K 36,864) at B 8 and in batch groups (B 16, 17), batch groups of the
+# serve shapes (B 9, 16, 17), a tile past N and a K tile past K (zeros read
+# past both edges), K splits at narrow N, and an odd K in batch groups
+GEMV_WIDE = ((4096, 36864, 8), (4096, 36864, 16), (4096, 36864, 17), (4096, 4096, 9),
+             (4096, 4096, 16), (14336, 4096, 17), (1024, 4096, 9), (1000, 4112, 5),
+             (512, 4096, 3), (1024, 1024, 8), (3001, 4100, 16))
 SLOTS = 4
 
 
@@ -310,36 +319,58 @@ def library_ms(name: str, fns, iters: int):
         return None
 
 
-def check_pim_gemv(gen, dev) -> dict:
+def gemv_path(n, k, b, vec=True) -> str:
+    """How B3 cuts the call: tensor-core tiles with their K splits and batch
+    groups, or the plain kernel (``pim_gemv.plan``)."""
+    from repro_torch.kernels.pim_gemv.pim_gemv import plan
+
+    p = plan(n, k, b, vec)
+    if not p["tensor_cores"]:
+        return f"plain, {p['groups']} group(s)"
+    return (f"tensor cores, {p['row_tiles']} tiles x {p['splits']} split(s) x "
+            f"{p['groups']} group(s)")
+
+
+def gemv_exact(n, k, b, gen, dev, unaligned: bool = False) -> str:
+    """One B3 call bit-exact against the plain version and counted once; its
+    path. ``unaligned``: x one byte off a 16-byte boundary."""
     from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
     from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
 
-    worst = 0.0
+    w, x, ws, xs = gemv_inputs(n, k, b, gen, dev)
+    if unaligned:
+        x = torch.empty(b * k + 1, dtype=torch.int8, device=dev)[1:].view(b, k).copy_(x)
+    before = pim_gemv.launches
+    out, ref = pim_gemv(w, x, ws, xs), pim_gemv_ref(w, x, ws, xs)
+    torch.cuda.synchronize()
+    if pim_gemv.launches != before + 1:
+        raise AssertionError(f"pim_gemv ({n},{k}) B={b}: {pim_gemv.launches - before} "
+                             f"launches counted for one call")
+    if not torch.equal(out, ref):
+        raise AssertionError(f"pim_gemv ({n},{k}) B={b} is not bit-exact: max |err| "
+                             f"{float((out - ref).abs().max())}")
+    return gemv_path(n, k, b, vec=not unaligned and k % 16 == 0)
+
+
+def check_pim_gemv(gen, dev) -> dict:
+    """B3 bit-exact at llama3-8b's shapes and a ragged one at B 1, 4, 8, past
+    them (``GEMV_WIDE``) and with an unaligned x; every path of the kernel
+    (one K split and several, batch groups, the plain kernel) must be hit."""
+    cases = []
     for n, k in [(n, k) for n, k, _ in GEMV_LAYER] + [GEMV_RAGGED]:
         for b in (1, 4, 8):
-            w, x, ws, xs = gemv_inputs(n, k, b, gen, dev)
-            out = pim_gemv(w, x, ws, xs)
-            ref = pim_gemv_ref(w, x, ws, xs)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            worst = max(worst, err)
-            if not torch.equal(out, ref):
-                raise AssertionError(f"pim_gemv ({n},{k}) B={b} is not bit-exact: "
-                                     f"max |err| {err}")
+            cases.append([n, k, b, gemv_exact(n, k, b, gen, dev)])
     for n, k, b in GEMV_WIDE:
-        w, x, ws, xs = gemv_inputs(n, k, b, gen, dev)
-        out = pim_gemv(w, x, ws, xs)
-        ref = pim_gemv_ref(w, x, ws, xs)
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"pim_gemv ({n},{k}) B={b} is not bit-exact: max |err| "
-                                 f"{float((out - ref).abs().max())}")
-        del w, x, ws, xs, out, ref
-    emit({"phase": "kernel_check", "kernel": "pim_gemv", "exact": True,
-          "shapes": [[n, k] for n, k, _ in GEMV_LAYER] + [list(GEMV_RAGGED)],
-          "batches": [1, 4, 8], "wide_cases": [list(c) for c in GEMV_WIDE],
-          "max_abs_err": worst})
-    return {"max_abs_err": worst}
+        cases.append([n, k, b, gemv_exact(n, k, b, gen, dev)])
+    for n, k, b in ((4096, 4096, 4), (1024, 4096, 8)):
+        cases.append([n, k, b, "unaligned x: " + gemv_exact(n, k, b, gen, dev, True)])
+    paths = " | ".join(c[3] for c in cases)
+    for want in ("x 1 split(s)", "x 8 split(s)", "x 3 group(s)", "plain"):
+        if want not in paths:
+            raise AssertionError(f"pim_gemv checks hit no '{want}' path: {paths}")
+    emit({"phase": "kernel_check", "kernel": "pim_gemv", "exact": True, "cases": cases,
+          "max_abs_err": 0.0})
+    return {"max_abs_err": 0.0}
 
 
 def time_pim_gemv(gen, dev) -> dict:
@@ -363,9 +394,9 @@ def time_pim_gemv(gen, dev) -> dict:
                                           for xp, s in zip(xpad, sets)], 60)
             bnd, by = gemv_bound(n, k, b)
             emit({"phase": "kernel_time", "kernel": "pim_gemv", "n": n, "k": k, "b": b,
-                  "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-                  "bound_by": by, "weight_GBps": n * k / ms / 1e6,
-                  "roofline_share": bnd / ms})
+                  "path": gemv_path(n, k, b), "ms": ms, "plain_ms": plain,
+                  "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                  "weight_GBps": n * k / ms / 1e6, "roofline_share": bnd / ms})
             if b == SLOTS:
                 layer["ms"] += per_layer * ms
                 layer["plain_ms"] += per_layer * plain
@@ -414,10 +445,10 @@ def live_tokens(end, start) -> int:
 
 
 def attn_bound(end, start, n_out_bytes: int, hkv=ATTN_HKV, g=ATTN_G,
-               hd=ATTN_HD) -> tuple[float, str]:
+               hd=ATTN_HD, kv_bytes: int = 2) -> tuple[float, str]:
     b = int(end.numel())
     toks = live_tokens(end, start)
-    nbytes = (toks * hkv * hd * 2 * 2                 # live K and V, bf16
+    nbytes = (toks * hkv * hd * 2 * kv_bytes          # live K and V (bf16: 2 bytes)
               + b * hkv * g * hd * 2 + n_out_bytes
               + b * 4 * 2)                            # start / end
     flops = 4 * toks * hkv * g * hd                   # q.K and p.V
@@ -560,6 +591,70 @@ def check_attention(gen, dev) -> dict:
     return errs
 
 
+F8 = torch.float8_e4m3fn
+
+
+def check_fp8_attention(gen, dev) -> dict:
+    """B1, the B2 pair (4 splits: stage 1's partials and the merge) and B4
+    over fp8 e4m3 K/V at llama3-8b's G 4 / hd 128 (q bf16, as the serves give
+    it; 2048-token lanes of 8 chunks, a ragged lane, an empty one, a start > 0,
+    dead splits) and B4 at zamba2-7b's G 1 / hd 112, against the plain versions
+    (both widen e4m3 to f32 exactly), each lane alone too. Returns the largest
+    |err| per kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    errs = dict.fromkeys(("decode_attention", "decode_attention_paged",
+                          "decode_attention_paged_split", "merge_splits"), 0.0)
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    q, pools, table, end, start, scale = attn_inputs(gen, dev)
+    kp, vp = (t.to(F8) for t in pools[0])
+    out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale)
+    want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, start=start)
+    torch.cuda.synchronize()
+    note("decode_attention_paged", _allclose("fp8 decode_attention_paged", out, want))
+    acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=4, scale=scale)
+    racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, 4, scale, start=start)
+    merged = da.merge_splits(acc, m, l)
+    torch.cuda.synchronize()
+    note("decode_attention_paged_split",
+         max(_allclose(f"fp8 split {w}", a, r) for w, a, r in
+             (("acc", acc, racc), ("m", m, rm), ("l", l, rl))))
+    note("merge_splits", _allclose("fp8 split + merge", merged, want))
+    dead = rl == 0
+    if not (bool(dead.any()) and bool((m[dead] == ref.NEG_INF).all())
+            and not bool(acc[dead].any())):
+        raise AssertionError("fp8 splits: the dead splits are not the identity partial")
+    if bool(out[2].any()) or bool(merged[2].any()):
+        raise AssertionError("fp8: an empty range must give exact zeros")
+    check_batch_invariant("fp8 decode_attention_paged", lambda i: da.decode_attention_paged(
+        q[i], kp, vp, table[i], end[i], start[i], scale=scale), out, ATTN_B)
+    check_batch_invariant("fp8 decode_attention_paged_split, 4 splits",
+                          lambda i: da.decode_attention_paged_split(
+                              q[i], kp, vp, table[i], end[i], start[i], num_splits=4,
+                              scale=scale), merged, ATTN_B)
+    cases = [["B1 + B2 pair", list(q.shape), "pages of 8", ATTN_NB, "batch invariant"]]
+    for name, hkv, g, hd in CONTIG_SHAPES:
+        q, lanes, end, start, scale = contig_inputs(gen, dev, hkv, g, hd)
+        k, v = (t.to(F8) for t in lanes[0])
+        out = da.decode_attention(q, k, v, end, start, scale=scale)
+        want = ref.decode_attention_ref(q, k, v, end, scale, start=start)
+        torch.cuda.synchronize()
+        note("decode_attention", _allclose(f"fp8 decode_attention {name}", out, want))
+        if bool(out[2].any()):
+            raise AssertionError("fp8: an empty range must give exact zeros")
+        check_batch_invariant(f"fp8 decode_attention {name}", lambda i: da.decode_attention(
+            q[i], k[i], v[i], end[i], start[i], scale=scale), out, ATTN_B)
+        cases.append(["B4", name, list(q.shape), CONTIG_LMAX, "batch invariant"])
+    emit({"phase": "kernel_check", "kernel": "decode attention, fp8 e4m3 K/V", "cases": cases,
+          "end": ATTN_END, "start": ATTN_START, "splits": 4, "rtol": ATTN_RTOL,
+          "atol": ATTN_ATOL, "max_abs_err": errs})
+    return errs
+
+
 def sdpa_calls(q, pools, table, end, start, scale) -> list:
     """The library yardstick of paged attention: SDPA over lanes materialized
     from the pages and expanded to the query heads beforehand (boolean
@@ -651,6 +746,17 @@ def time_attention(gen, dev) -> dict:
           "roofline_share": bnd / ms})
     line("decode_attention_paged_split + merge_splits", s, pair, pair_ref, sdpa)
     del parts
+
+    # B1 over the same pages in fp8 e4m3: half the K/V bytes of bf16
+    f8_pools = [(kp.to(F8), vp.to(F8)) for kp, vp in pools]
+    bnd, by = attn_bound(end, start, out_bytes, kv_bytes=1)
+    ms = cuda_ms([lambda p=p: single(*p) for p in f8_pools], 100)
+    emit({"phase": "kernel_time", "kernel": "decode_attention_paged", "kv": "fp8 e4m3",
+          "splits": 1, "table_blocks": table.shape[1], "live_tokens": live_tokens(end, start),
+          "ms": ms, "bf16_ms": res["decode_attention_paged"]["ms"],
+          "plain_ms": cuda_ms([lambda p=p: single_ref(*p) for p in f8_pools[:2]], 10),
+          "library_ms": None, "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+    del f8_pools
 
     # the serve's own regime: block tables as wide as its max_len (296 tokens)
     # holding under 50 tokens a lane, as in the profiled decode-heavy serve
@@ -805,7 +911,20 @@ def time_contig_attention(gen, dev) -> dict:
               "live_tokens": live_tokens(end, start), **row,
               "roofline_share": row["bound_ms"] / row["ms"]})
         rows[name] = row
-        del lanes, sdpa_lanes
+        # the same lanes in fp8 e4m3: half the K/V bytes
+        f8_lanes = [(k.to(F8), v.to(F8)) for k, v in lanes]
+        bnd, by = attn_bound(end, start, ATTN_B * hkv * g * hd * 4, hkv=hkv, g=g, hd=hd,
+                             kv_bytes=1)
+        ms = cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, start, scale=scale)
+                      for kv in f8_lanes], 100)
+        emit({"phase": "kernel_time", "kernel": "decode_attention", "shape": name,
+              "kv": "fp8 e4m3", "q": [ATTN_B, hkv, g, hd], "lmax": CONTIG_LMAX,
+              "live_tokens": live_tokens(end, start), "ms": ms, "bf16_ms": row["ms"],
+              "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(
+                  q, *kv, end, scale, start=start) for kv in f8_lanes[:2]], 10),
+              "library_ms": None, "bound_ms": bnd, "bound_by": by,
+              "roofline_share": bnd / ms})
+        del lanes, sdpa_lanes, f8_lanes
 
     # the zamba2 serve's own regime: lanes as long as its max_len, each
     # request half way through its decode, as the serve launches the kernel
@@ -1421,20 +1540,8 @@ def window_start(end: torch.Tensor, window: int) -> torch.Tensor:
 
 def check_gemv_exact(shapes: dict, gen, dev) -> list:
     """B3 bit-exact at each config's (N, K) at B = SLOTS; the cases checked."""
-    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
-    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
-
-    cases = []
-    for arch, nks in shapes.items():
-        for n, k in nks:
-            w, x, ws, xs = gemv_inputs(n, k, SLOTS, gen, dev)
-            out, want = pim_gemv(w, x, ws, xs), pim_gemv_ref(w, x, ws, xs)
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                raise AssertionError(f"pim_gemv {arch} ({n},{k}) B={SLOTS} is not bit-exact: "
-                                     f"max |err| {float((out - want).abs().max())}")
-            cases.append(["pim_gemv", arch, n, k, SLOTS, "bit-exact"])
-    return cases
+    return [["pim_gemv", arch, n, k, SLOTS, "bit-exact", gemv_exact(n, k, SLOTS, gen, dev)]
+            for arch, nks in shapes.items() for n, k in nks]
 
 
 def check_paged_case(errs, what, q, kp, vp, table, end, start, scale, cap, splits) -> None:
@@ -2048,27 +2155,31 @@ def check_family_kernels(gen, dev) -> dict:
     return errs
 
 
-def time_gemv_shapes(shapes: dict, gen, dev) -> None:
-    """B3 at each config's (N, K) at B 4, beside its bound, its plain version
-    and ``torch._int_mm`` (which takes at least 17 rows: x is padded to 32)."""
+def time_gemv_shapes(shapes: dict, gen, dev, batches=(SLOTS,)) -> None:
+    """B3 at each config's (N, K) at each of ``batches``, beside its bound, its
+    plain version and ``torch._int_mm`` (which takes at least 17 rows: x is
+    padded to 32)."""
     from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
     from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
 
     for arch, nks in shapes.items():
         for n, k in nks:
-            sets = [gemv_inputs(n, k, SLOTS, gen, dev) for _ in range(copies_for(n * k))]
+            sets = [gemv_inputs(n, k, max(batches), gen, dev) for _ in range(copies_for(n * k))]
             xpad = [torch.zeros((32, k), dtype=torch.int8, device=dev) for _ in sets]
-            for xp, st in zip(xpad, sets):
-                xp[:SLOTS] = st[1]
-            ms = cuda_ms([lambda st=st: pim_gemv(*st) for st in sets], 60)
-            bnd, by = gemv_bound(n, k, SLOTS)
-            emit({"phase": "kernel_time", "kernel": "pim_gemv", "shape": f"{arch} serve",
-                  "n": n, "k": k, "b": SLOTS, "ms": ms,
-                  "plain_ms": cuda_ms([lambda st=st: pim_gemv_ref(*st) for st in sets[:2]], 6),
-                  "library_ms": library_ms("pim_gemv", [
-                      lambda xp=xp, st=st: torch._int_mm(xp, st[0].t())
-                      for xp, st in zip(xpad, sets)], 60),
-                  "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+            for b in batches:
+                for xp, st in zip(xpad, sets):
+                    xp[:b] = st[1][:b]
+                bsets = [(w, x[:b], ws, xs[:b]) for w, x, ws, xs in sets]
+                ms = cuda_ms([lambda st=st: pim_gemv(*st) for st in bsets], 60)
+                lib = library_ms("pim_gemv", [lambda xp=xp, st=st: torch._int_mm(xp, st[0].t())
+                                              for xp, st in zip(xpad, bsets)], 60)
+                bnd, by = gemv_bound(n, k, b)
+                emit({"phase": "kernel_time", "kernel": "pim_gemv", "shape": f"{arch} serve",
+                      "n": n, "k": k, "b": b, "path": gemv_path(n, k, b), "ms": ms,
+                      "plain_ms": cuda_ms([lambda st=st: pim_gemv_ref(*st)
+                                           for st in bsets[:2]], 6),
+                      "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                      "roofline_share": bnd / ms})
             del sets, xpad
 
 
@@ -2887,6 +2998,7 @@ def main(argv: list[str]) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     if argv == ["--attn"]:
+        check_fp8_attention(gen, dev)
         time_attention(gen, dev)
         time_contig_attention(gen, dev)
         return 0
@@ -2896,7 +3008,13 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--gemv"]:     # timed first, as --ssd
         time_pim_gemv(gen, dev)
+        for shapes in ({"llama3-8b": [(n, k) for n, k, _ in GEMV_LAYER]}, DENSE_GEMV, MOE_GEMV,
+                       FAMILY_GEMV):   # every serve shape at B 1 to 8
+            time_gemv_shapes(shapes, gen, dev, batches=range(1, 9))
         check_pim_gemv(gen, dev)
+        for shapes in (DENSE_GEMV, MOE_GEMV, FAMILY_GEMV):
+            emit({"phase": "kernel_check", "kernel": "pim_gemv serve shapes",
+                  "cases": check_gemv_exact(shapes, gen, dev)})
         return 0
     if argv in (["--spec"], ["--traffic"]):
         from repro_torch.configs import get_config
@@ -2933,7 +3051,8 @@ def main(argv: list[str]) -> int:
                 **check_attention(gen, dev),
                 "decode_attention": check_contig_attention(gen, dev),
                 "ssd_scan": check_ssd_scan(gen, dev)}
-        for check in (check_dense_kernels, check_moe_kernels, check_family_kernels):
+        for check in (check_fp8_attention, check_dense_kernels, check_moe_kernels,
+                      check_family_kernels):
             for k, v in check(gen, dev).items():
                 errs[k] = max(errs[k], v)
     with phase_clock("kernel times"):

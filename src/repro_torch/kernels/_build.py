@@ -24,8 +24,10 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
+# --split-compile=0: the device code's optimization in parallel over the host's
+# cores (the attention source, 54 kernel instantiations, took 74 s in one thread)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "--split-compile=0"]
 
 
 class KernelBuildError(RuntimeError):

@@ -96,12 +96,19 @@
 // an all-dead lane gives zeros, not NaN, because exp(NEG_INF - NEG_INF) = 1 is
 // multiplied by l = 0.
 //
+// K/V types: bf16, f32, or fp8 e4m3 (``kv_dtype="float8_e4m3fn"``, as the Pallas bodies
+// take it: they upcast whatever K/V they load, :63-65, :265-267). An fp8 tile takes
+// the CUDA-core walk: plain loads of one byte an element into the stages, widened to
+// f32 in registers (e4m3 -> f32 is exact), so the arithmetic is the f32 walk's over
+// the same values. The copy-engine boxes and the tensor-core walk are bf16 only.
+//
 // Limits: hd <= 256, G <= 16, any page size Bsz or Lmax. G == 1 and G <= 4 with
 // hd <= 128 take narrow instantiations (zamba2: G 1, hd 112; llama3-8b: G 4, hd 128),
 // the rest a wide one on the CUDA cores. A query head beyond G holds zeros and is
 // never stored; a d beyond hd is never stored.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,6 +126,7 @@ constexpr int kBlockReserve = 1024;    // the SM's own shared memory per residen
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -915,11 +923,15 @@ int launch_chunked_shaped(const void* q, const void* kc, const void* vc, const v
 #undef REPRO_SHAPE
 }
 
+// K/V element type codes of the C entry points (the wrapper's ``_KV_CODES``)
+constexpr int kKvBf16 = 0, kKvF32 = 1, kKvFp8 = 2;
+
 template <bool kPaged, bool kSplit>
 int launch_typed(const void* q, const void* kc, const void* vc, const void* table,
                  const void* start, const void* end, void* out, void* ws, int batch, int hkv,
                  int g, int hd, int bsz, int nb, int n_pages, int bps, int n_splits,
-                 float scale, float softcap, int has_cap, int q_f32, int kv_f32, void* stream) {
+                 float scale, float softcap, int has_cap, int q_f32, int kv_dtype,
+                 void* stream) {
   if (hd < 1 || hd > 256 || g < 1 || g > 16 || bsz < 1 || nb < 1 ||
       (kSplit && (bps < 1 || n_splits < 1 || (n_splits - 1) * bps >= nb)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -929,9 +941,12 @@ int launch_typed(const void* q, const void* kc, const void* vc, const void* tabl
                                                         ws, batch, hkv, g, hd, bsz, nb,     \
                                                         n_pages, bps, n_splits, scale,      \
                                                         softcap, has_cap, s)
-  if (q_f32 && kv_f32) REPRO_LAUNCH(float, float);
+  if (kv_dtype == kKvF32 && q_f32) REPRO_LAUNCH(float, float);
+  if (kv_dtype == kKvF32) REPRO_LAUNCH(__nv_bfloat16, float);
+  if (kv_dtype == kKvFp8 && q_f32) REPRO_LAUNCH(float, __nv_fp8_e4m3);
+  if (kv_dtype == kKvFp8) REPRO_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3);
+  if (kv_dtype != kKvBf16) return static_cast<int>(cudaErrorInvalidValue);
   if (q_f32) REPRO_LAUNCH(float, __nv_bfloat16);
-  if (kv_f32) REPRO_LAUNCH(__nv_bfloat16, float);
   REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
 #undef REPRO_LAUNCH
 }
@@ -948,10 +963,10 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
                                    const void* table, const void* start, const void* end,
                                    void* out, void* ws, int batch, int hkv, int g, int hd,
                                    int bsz, int nb, int n_pages, float scale, float softcap,
-                                   int has_cap, int q_f32, int kv_f32, void* stream) {
+                                   int has_cap, int q_f32, int kv_dtype, void* stream) {
   return launch_typed<true, false>(q, kp, vp, table, start, end, out, ws, batch, hkv, g, hd,
                                    bsz, nb, n_pages, 0, 0, scale, softcap, has_cap, q_f32,
-                                   kv_f32, stream);
+                                   kv_dtype, stream);
 }
 
 // B2 stage 1 over n_splits splits of bps blocks (the caller applies the realized-split
@@ -961,10 +976,10 @@ extern "C" int paged_split_launch(const void* q, const void* kp, const void* vp,
                                   const void* table, const void* start, const void* end,
                                   void* parts, int batch, int hkv, int g, int hd, int bsz, int nb,
                                   int n_pages, int bps, int n_splits, float scale, float softcap,
-                                  int has_cap, int q_f32, int kv_f32, void* stream) {
+                                  int has_cap, int q_f32, int kv_dtype, void* stream) {
   return launch_typed<true, true>(q, kp, vp, table, start, end, nullptr, parts, batch, hkv, g,
                                   hd, bsz, nb, n_pages, bps, n_splits, scale, softcap, has_cap,
-                                  q_f32, kv_f32, stream);
+                                  q_f32, kv_dtype, stream);
 }
 
 // B4: single pass over contiguous lanes, K (B, Hkv, hd, Lmax) and V (B, Hkv, Lmax, hd);
@@ -973,10 +988,10 @@ extern "C" int paged_split_launch(const void* q, const void* kp, const void* vp,
 extern "C" int contig_decode_launch(const void* q, const void* k, const void* v,
                                     const void* start, const void* end, void* out, void* ws,
                                     int batch, int hkv, int g, int hd, int lmax, float scale,
-                                    float softcap, int has_cap, int q_f32, int kv_f32,
+                                    float softcap, int has_cap, int q_f32, int kv_dtype,
                                     void* stream) {
   return launch_typed<false, false>(q, k, v, nullptr, start, end, out, ws, batch, hkv, g, hd,
-                                    lmax, 1, batch, 0, 0, scale, softcap, has_cap, q_f32, kv_f32,
+                                    lmax, 1, batch, 0, 0, scale, softcap, has_cap, q_f32, kv_dtype,
                                     stream);
 }
 

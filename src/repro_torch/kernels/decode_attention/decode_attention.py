@@ -32,6 +32,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import ref
 
 _FLOATS = (torch.float32, torch.bfloat16)
+# K/V element types and their codes in the C entry points: fp8 e4m3 pages or
+# lanes are widened in registers, as the Pallas bodies upcast what they load
+_KV_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float8_e4m3fn: 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,6 +58,7 @@ def _check_inputs(q, k, v, end, start, block_table=None):
     """Shape/type/device checks for the CUDA path, shared by the layouts: paged
     K (P, Hkv, hd, Bsz) / V (P, Hkv, Bsz, hd) with a block table (B, NB), or
     contiguous K (B, Hkv, hd, Lmax) / V (B, Hkv, Lmax, hd) without one.
+    q is bf16 or f32; K/V (one dtype) bf16, f32 or fp8 e4m3.
     Returns (int32 table or None, int32 start, int32 end, q, k, v), contiguous."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention kernels take CUDA tensors, got {q.device}")
@@ -68,8 +72,10 @@ def _check_inputs(q, k, v, end, start, block_table=None):
         raise ValueError(f"v_{name} {tuple(v.shape)} is not {(p, hkv, bsz, hd)}")
     if paged and (block_table.dim() != 2 or block_table.shape[0] != b):
         raise ValueError(f"block_table {tuple(block_table.shape)} is not ({b}, NB)")
-    if q.dtype not in _FLOATS or k.dtype not in _FLOATS or v.dtype != k.dtype:
-        raise TypeError(f"unsupported dtypes q {q.dtype}, K/V {k.dtype}/{v.dtype}")
+    if q.dtype not in _FLOATS or k.dtype not in _KV_CODES or v.dtype != k.dtype:
+        raise TypeError(f"unsupported dtypes q {q.dtype}, K/V {k.dtype}/{v.dtype}: q takes "
+                        f"{', '.join(map(str, _FLOATS))}; K/V one of "
+                        f"{', '.join(map(str, _KV_CODES))}")
     if hd > 256 or g > 16:
         raise ValueError(f"kernel supports hd <= 256 and G <= 16 (got {hd}, {g})")
     dev = q.device
@@ -120,7 +126,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start_b.data_ptr(),
         end_b.data_ptr(), out.data_ptr(), _ptr(ws), b, hkv, g, hd, lmax, float(scale), cap,
         has_cap,
-        int(q.dtype == torch.float32), int(k_cache.dtype == torch.float32),
+        int(q.dtype == torch.float32), _KV_CODES[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention")
     decode_attention.launches += 1
@@ -146,7 +152,7 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
         start_b.data_ptr(), end_b.data_ptr(), out.data_ptr(), _ptr(ws), b, hkv, g, hd,
         k_pages.shape[-1], table.shape[1], k_pages.shape[0], float(scale), cap, has_cap,
-        int(q.dtype == torch.float32), int(k_pages.dtype == torch.float32),
+        int(q.dtype == torch.float32), _KV_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention_paged")
     decode_attention_paged.launches += 1
@@ -173,7 +179,7 @@ def split_partials(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
         start_b.data_ptr(), end_b.data_ptr(), parts.data_ptr(), b, hkv, g, hd,
         k_pages.shape[-1], table.shape[1], k_pages.shape[0], bps, n_splits, float(scale),
-        cap, has_cap, int(q.dtype == torch.float32), int(k_pages.dtype == torch.float32),
+        cap, has_cap, int(q.dtype == torch.float32), _KV_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention_paged_split")
     split_partials.launches += 1

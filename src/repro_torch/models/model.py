@@ -543,13 +543,16 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
         x, cache = _rwkv_forward(params, init_decode_cache(cfg, b, max_len, device=dev),
                                  tokens, cfg)
         return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
-    if cfg.family == "audio":
+    if cfg.family == "audio":   # K/V in the compute dtype until stored, as below
         mem = _audio_encode(params, src_frames.to(torch_dtype(cfg.dtype)), cfg)
-        cache = init_decode_cache(cfg, b, max_len, device=dev, src_len=mem.shape[1])
+        cache = init_decode_cache(cfg.replace(kv_dtype=""), b, max_len, device=dev,
+                                  src_len=mem.shape[1])
         cross_k, cross_v = project_cross_kv(params, mem, cfg)
         cache["cross_k"].copy_(cross_k)
         cache["cross_v"].copy_(cross_v)
         x, cache = _audio_forward(params, cache, tokens, cfg, gemm=True)
+        kvd = kv_cache_dtype(cfg)
+        cache.update({k: cache[k].to(kvd) for k in ("k", "v", "cross_k", "cross_v")})
         return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
     x = _embed(params, tokens, cfg)
     if prefix_embeds is not None:
@@ -557,8 +560,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
         if seq_lens is not None:
             seq_lens = torch.as_tensor(seq_lens, device=dev) + prefix_embeds.shape[1]
     s = x.shape[1]
-    full = init_decode_cache(cfg.replace(windowed_kv_cache=False), b, max_len, device=dev)
+    # the pass attends over K/V in the compute dtype, and the cache takes its own
+    # dtype only when stored (an fp8 ``kv_dtype``), as the JAX prefill casts its
+    # collected K/V; with kv_dtype == dtype the casts below return the tensors
+    full = init_decode_cache(cfg.replace(windowed_kv_cache=False, kv_dtype=""), b, max_len,
+                             device=dev)
     x = _prefill_forward(params, full, x, cfg, max(int(cfg.q_chunk), 1))
+    kvd = kv_cache_dtype(cfg)
+    full = {"k": full["k"].to(kvd), "v": full["v"].to(kvd)}
     logits = logits_fn(params, _last_hidden(x, seq_lens), cfg)
     pos = torch.tensor(s, dtype=torch.int32, device=dev)
     if not windowed_cache_applicable(cfg):

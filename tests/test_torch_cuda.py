@@ -35,34 +35,63 @@ def gemv_operands(n, k, b, gen, dev):
     return w, x, ws, xs
 
 
-@pytest.mark.parametrize("n,k,b", [(1, 16, 1), (37, 64, 3), (256, 1000, 8), (1024, 4096, 4),
-                                   (300, 14336, 8), (5, 7, 2),
-                                   # x staged in K tiles (8 K > 227 KB): gemma2-27b's w_down
-                                   (4096, 36864, 8), (257, 36870, 5),
-                                   # batch groups past 8 rows, whole and tiled
-                                   (1024, 4096, 16), (300, 4100, 11), (96, 36864, 17)])
-def test_pim_gemv_bit_exact(dev, gen, n, k, b):
+# distinct (N, K) of the W8A8 decode GEMVs the serves launch: llama3-8b,
+# internvl2-2b, seamless-m4t-large-v2, yi-9b, codeqwen1.5-7b (olmoe's and
+# phi3.5-moe's are among them)
+SERVE_GEMV = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+              (2048, 2048), (1024, 2048), (8192, 2048), (2048, 8192),
+              (1024, 1024), (8192, 1024), (1024, 8192),
+              (512, 4096), (11008, 4096), (4096, 11008), (13440, 4096), (4096, 13440)]
+
+
+def _gemv_exact(n, k, b, gen, dev, x=None):
+    """One call against the plain version, bit for bit, and exactly one launch."""
     from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
     from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
 
-    ops = gemv_operands(n, k, b, gen, dev)
+    w, x0, ws, xs = gemv_operands(n, k, b, gen, dev)
+    x = x0 if x is None else x
     before = pim_gemv.launches
-    out = pim_gemv(*ops)
+    out = pim_gemv(w, x, ws, xs)
     torch.cuda.synchronize()
     assert pim_gemv.launches == before + 1
-    assert torch.equal(out, pim_gemv_ref(*ops))
-
-
-def test_pim_gemv_unaligned_activation_takes_the_byte_path(dev, gen):
-    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
-    from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref
-
-    w, _, ws, xs = gemv_operands(64, 128, 2, gen, dev)
-    buf = torch.randint(-127, 128, (2 * 128 + 1,), generator=gen, device=dev,
-                        dtype=torch.int8)
-    x = buf[1:].view(2, 128)            # 1 byte off a 16-byte boundary
-    out = pim_gemv(w, x, ws, xs)
     assert torch.equal(out, pim_gemv_ref(w, x, ws, xs))
+
+
+@pytest.mark.parametrize("n,k,b", [(1, 16, 1), (37, 64, 3), (256, 1000, 8), (1024, 4096, 4),
+                                   (300, 14336, 8), (5, 7, 2),
+                                   # long K: gemma2-27b's w_down, and an odd one
+                                   (4096, 36864, 8), (257, 36870, 5), (4096, 36864, 17),
+                                   # batch groups past 8 rows
+                                   (1024, 4096, 16), (300, 4100, 11), (96, 36864, 17),
+                                   (4096, 4096, 9), (14336, 4096, 17),
+                                   # zeros read past a ragged N and K; one tile
+                                   (1000, 4112, 5), (64, 128, 1),
+                                   # an odd K (the plain kernel) at the check's ragged shape
+                                   (3001, 4100, 1), (3001, 4100, 4), (3001, 4100, 8),
+                                   (3001, 4100, 16)] +
+                         [(n, k, b) for n, k in SERVE_GEMV for b in (1, 4, 8)])
+def test_pim_gemv_bit_exact(dev, gen, n, k, b):
+    """Every serve shape at B 1, 4, 8 and shapes past them; the path the
+    kernel takes: the tensor cores where the copy engine can read the
+    operands (K % 16 == 0, K >= 128, N >= 64), else the plain kernel."""
+    from repro_torch.kernels.pim_gemv.pim_gemv import plan
+
+    p = plan(n, k, b)
+    assert p["tensor_cores"] == (k % 16 == 0 and k >= 128 and n >= 64)
+    assert p["groups"] == -(-b // 8)
+    _gemv_exact(n, k, b, gen, dev)
+
+
+@pytest.mark.parametrize("n,k,b", [(64, 128, 2), (4096, 4096, 4), (1024, 4096, 8)])
+def test_pim_gemv_unaligned_activation_takes_the_byte_path(dev, gen, n, k, b):
+    """x one byte off a 16-byte boundary: the copy engine cannot read it, so
+    the plain kernel runs, bit-exact."""
+    from repro_torch.kernels.pim_gemv.pim_gemv import plan
+
+    buf = torch.randint(-127, 128, (b * k + 1,), generator=gen, device=dev, dtype=torch.int8)
+    assert not plan(n, k, b, vec=False)["tensor_cores"]
+    _gemv_exact(n, k, b, gen, dev, x=buf[1:].view(b, k))
 
 
 def test_pim_gemv_refuses_bad_operands(dev, gen):
@@ -944,3 +973,210 @@ def test_contiguous_decode_at_g1_hd64(dev, gen, lmax, fills):
         alone = da.decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], end[i:i + 1],
                                     start[i:i + 1], scale=0.125)
         assert torch.equal(alone, out[i:i + 1])
+
+
+# --------------------------------------------------------------------------
+# B3's K splits
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,b", [(1024, 4096, 4), (1024, 1024, 1), (2048, 8192, 8),
+                                   (4096, 14336, 4), (512, 4096, 17)])
+def test_pim_gemv_split_k_sums_every_split(dev, gen, n, k, b):
+    """Narrow N takes K splits (a cluster per row tile whose blocks sum their
+    int32 partials through distributed shared memory): all splits hold K
+    tiles and the sum is exact."""
+    from repro_torch.kernels.pim_gemv.pim_gemv import plan
+
+    p = plan(n, k, b)
+    k_tiles = -(-k // 128)
+    assert p["tensor_cores"] and 1 < p["splits"] <= 8
+    assert (p["splits"] - 1) * p["k_tiles_per_split"] < k_tiles <= p["splits"] * p[
+        "k_tiles_per_split"]
+    _gemv_exact(n, k, b, gen, dev)
+
+
+# --------------------------------------------------------------------------
+# fp8 e4m3 K/V: B1, the B2 pair and B4, the pool's ops, the engine
+# --------------------------------------------------------------------------
+
+F8 = torch.float8_e4m3fn
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nb,edges", [(256, False), (37, False), (100, True)])
+def test_fp8_paged_decode_and_split_match_plain(dev, gen, qdtype, nb, edges):
+    """B1 and the B2 pair (4 splits) over fp8 pages at llama3-8b's G 4 / hd 128:
+    a lane of 8 chunks (nb 256), an empty lane, dead splits, start > 0, each
+    lane alone too. Both sides widen e4m3 to f32 exactly and accumulate in f32
+    in other orders: the f32 tolerance."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv, g, hd, bsz = 4, 8, 4, 128, 8
+    q, kp, vp, table = paged(gen, dev, b, hkv, g, hd, bsz, nb, torch.float32)
+    q, kp, vp = q.to(qdtype), kp.to(F8), vp.to(F8)
+    end, start = live_ranges(nb * bsz, edges, dev)
+    scale = hd ** -0.5
+    before = (da.decode_attention_paged.launches, da.split_partials.launches,
+              da.merge_splits.launches)
+    out = da.decode_attention_paged(q, kp, vp, table, end, start, scale=scale)
+    acc, m, l = da.split_partials(q, kp, vp, table, end, start, num_splits=4, scale=scale)
+    merged = da.merge_splits(acc, m, l)
+    torch.cuda.synchronize()
+    assert (da.decode_attention_paged.launches, da.split_partials.launches,
+            da.merge_splits.launches) == tuple(c + 1 for c in before)
+    want = ref.decode_attention_paged_ref(q, kp, vp, table, end, scale, start=start)
+    torch.testing.assert_close(out, want, **TOL)
+    racc, rm, rl = ref.split_partials_ref(q, kp, vp, table, end, 4, scale, start=start)
+    for a, r in ((acc, racc), (m, rm), (l, rl)):
+        torch.testing.assert_close(a, r, **TOL)
+    dead = rl == 0
+    assert dead.any() and bool((m[dead] == ref.NEG_INF).all()) and not acc[dead].any()
+    torch.testing.assert_close(merged, want, **TOL)
+    assert not out[2].any() and not merged[2].any()
+    for i in range(b):
+        alone = da.decode_attention_paged(q[i:i + 1], kp, vp, table[i:i + 1], end[i:i + 1],
+                                          start[i:i + 1], scale=scale)
+        assert torch.equal(alone, out[i:i + 1]), f"lane {i}"
+        parts = da.split_partials(q[i:i + 1], kp, vp, table[i:i + 1], end[i:i + 1],
+                                  start[i:i + 1], num_splits=4, scale=scale)
+        assert torch.equal(da.merge_splits(*parts), merged[i:i + 1]), f"lane {i}"
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,hd,lmax", [(4, 128, 2048), (4, 128, 296), (1, 112, 600)])
+def test_fp8_contiguous_decode_matches_plain(dev, gen, qdtype, g, hd, lmax):
+    """B4 over fp8 lanes: llama3-8b's shape (8 chunks; the contiguous serve's
+    Lmax 296) and zamba2-7b's G 1 / hd 112, an empty lane and start > 0, each
+    lane alone too."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    b, hkv = 4, 4
+    q, k, v = contiguous(gen, dev, b, hkv, g, hd, lmax, torch.float32)
+    q, k, v = q.to(qdtype), k.to(F8), v.to(F8)
+    end, start = live_ranges(lmax, False, dev)
+    before = da.decode_attention.launches
+    out = da.decode_attention(q, k, v, end, start, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    torch.testing.assert_close(out, ref.decode_attention_ref(q, k, v, end, hd ** -0.5,
+                                                             start=start), **TOL)
+    assert not out[2].any()
+    for i in range(b):
+        alone = da.decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], end[i:i + 1],
+                                    start[i:i + 1], scale=hd ** -0.5)
+        assert torch.equal(alone, out[i:i + 1]), f"lane {i}"
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
+    assert got.dtype == want.dtype == F8
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+def test_fp8_pool_ops_on_the_card_move_the_cpu_bits(dev):
+    """Every op an fp8 decode step runs on the pool, on the card and on the
+    CPU from the same inputs: the page scatter (one token, with free lanes
+    colliding on the dummy page, and a chunk), the contiguous append, the
+    gather of lanes from pages, a copy-on-write page copy, the staging
+    stream's pagify into fresh pages, and a contiguous lane's copy and
+    zeroing: the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import kv_mapping as kv
+    from repro_torch.serve import cache as C
+
+    g = torch.Generator().manual_seed(7)
+    b, h, hd, bsz, nb = 4, 2, 16, 4, 5
+    kp = (torch.randn((b * nb + 1, h, hd, bsz), generator=g) * 0.5).to(F8)
+    vp = (torch.randn((b * nb + 1, h, bsz, hd), generator=g) * 0.5).to(F8)
+    table = (torch.randperm(b * nb, generator=g) + 1).reshape(b, nb).to(torch.int32)
+    table[2:] = 0                                     # two free lanes on the dummy page
+    for t, pos in ((1, [3, 9, 0, 0]), (3, [0, 5, 2, 7])):
+        kn = torch.randn((b, h, t, hd), generator=g)
+        vn = torch.randn((b, h, t, hd), generator=g)
+        tab = table if t == 1 else (torch.randperm(b * nb, generator=g) + 1).reshape(
+            b, nb).to(torch.int32)
+        pos = torch.tensor(pos, dtype=torch.int32)
+        sides = [[x.clone() for x in (kp, vp)], [x.to(dev) for x in (kp, vp)]]
+        for (k_, v_), d in zip(sides, ("cpu", dev)):
+            kv.append_layer_paged(k_, v_, kn.to(d), vn.to(d), pos.to(d), tab.to(d), bsz)
+        for want, got in zip(sides[0], sides[1]):
+            _same_bits(got, want)
+        for want, got in zip(kv.materialize_lanes(*sides[0], tab),
+                             kv.materialize_lanes(*sides[1], tab.to(dev))):
+            _same_bits(got, want)
+    lanes = [(torch.randn((b, h, hd, 32), generator=g) * 0.5).to(F8),
+             (torch.randn((b, h, 32, hd), generator=g) * 0.5).to(F8)]
+    kn, vn = torch.randn((b, h, 2, hd), generator=g), torch.randn((b, h, 2, hd), generator=g)
+    pos = torch.tensor([0, 5, 30, 31], dtype=torch.int32)
+    sides = [[x.clone() for x in lanes], [x.to(dev) for x in lanes]]
+    for (k_, v_), d in zip(sides, ("cpu", dev)):
+        kv.append_layer(k_, v_, kn.to(d), vn.to(d), pos.to(d))
+    for want, got in zip(*sides):
+        _same_bits(got, want)
+
+    # the pool's own page and lane surgery (a smoke config's shapes, fp8 pages)
+    cfg = get_config("llama3-8b", smoke=True).replace(kv_dtype="float8_e4m3fn")
+    src = {"k": (torch.randn((cfg.n_layers, 2, cfg.n_kv_heads, cfg.head_dim, 30),
+                             generator=g) * 0.5).to(F8),
+           "v": (torch.randn((cfg.n_layers, 2, cfg.n_kv_heads, 30, cfg.head_dim),
+                             generator=g) * 0.5).to(F8)}
+    states = []
+    for d in ("cpu", dev):
+        st = C.PagedKVState(cfg, 2, 32, 8, store_pages=4, prefix_cache=False, dtype=F8,
+                            device=torch.device(d))
+        st.pagify(0, {k: x.to(d) for k, x in src.items()}, 1, 27)   # 4 fresh pages
+        st.pagify(1, {k: x.to(d) for k, x in src.items()}, 0, 13)
+        row = st.fork_row(0)
+        st.ensure_residency(0, 27)              # the shared write block: copy on write
+        assert st.block_tables[0, 3] != row[3]
+        st.drop_fork_row(row)
+        states.append(st)
+    assert (states[0].block_tables == states[1].block_tables).all()
+    for key in ("k_pages", "v_pages"):
+        _same_bits(states[1].pages[key], states[0].pages[key])
+    leaves = [[x.clone() for x in src.values()], [x.to(dev) for x in src.values()]]
+    for ls in leaves:
+        for leaf in ls:
+            C._copy_lane(leaf, leaf.clone(), 0, 1)
+            C._zero_lane(leaf, 1)
+    for want, got in zip(*leaves):
+        _same_bits(got, want)
+
+
+@pytest.mark.parametrize("paged,splits,mode", [
+    (True, 1, "BLOCKED"), (True, 1, "HBCEM"), (True, 1, "LBIM"), (True, 4, "HBCEM"),
+    (False, 1, "LBIM")])
+def test_fp8_engine_tokens_on_the_card_equal_the_cpu_path(dev, no_tf32, paged, splits, mode):
+    """f32 smoke with an fp8 KV cache: the greedy tokens served on the card
+    (B1, the B2 pair at four splits, B4 over the contiguous pool, all on fp8
+    K/V) equal those served on the CPU by the plain versions."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.api import GenerationRequest
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg, cpu, cuda = smoke_pair(dev, dtype="float32", param_dtype="float32",
+                                kv_dtype="float8_e4m3fn", decode_kv_splits=splits)
+
+    def serve(params, device):
+        sm = ServingModel.prepare(cfg, params, max_len=64, slots=2, device=device)
+        pool = sm.cache_pool(paged=paged, block_size=4)
+        assert pool.views()["k_pages" if paged else "k"].dtype == F8
+        eng = Engine(sm.cfg, sm.params, max_len=64, slots=2, mode=Mode[mode], chunk=4,
+                     serving=sm, pool=pool)
+        res = eng.serve([GenerationRequest(prompt=p, max_new_tokens=b)
+                         for p, b in zip(SERVE_PROMPTS, SERVE_BUDGETS)])
+        assert eng.pool.check_invariants() == []
+        return [r.tokens for r in res]
+
+    want = serve(cpu, "cpu")
+    reset_launches()
+    got = serve(cuda, dev)
+    counts = launch_counts()
+    name = ("decode_attention" if not paged else "decode_attention_paged" if splits == 1
+            else "decode_attention_paged_split")
+    assert counts[name] > 0
+    assert got == want
