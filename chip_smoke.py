@@ -144,7 +144,24 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    the model-level runs' step ms, tokens/s and step bound. The kernel checks
    hold B1/B2 at internvl2-2b's tables, B4 at both model-level runs' lanes,
    B3 bit-exact at every shape (``check_family_kernels``).
-10. A ``profile`` line per model (device time by kernel group, busy share), a
+10. ``train``: the training path (``repro_torch.train``; no kernel of the
+   port may launch, as the JAX training path reaches no ``pallas_call``):
+   (a) internvl2-2b at full width and depth (bf16, per-layer ``remat`` from
+   its config, seeded weights, AdamW) takes 4 ``train_step``s over
+   ``SyntheticLM`` batches of B 8 x S 1024, then one whose batch adds 256
+   seeded patch embeddings; each ``train_step`` line gives a finite loss and
+   grad norm, step ms (ending in a sync), tokens/s, ``mfu`` (6 x params x
+   positions over the step's seconds and the bf16 dense peak) and peak
+   allocated memory. (b) ``train_parity`` lines: llama3-8b, olmoe-1b-7b,
+   zamba2-7b and rwkv6-1.6b at f32 smoke, the same seeded weights and batch
+   on the card and on the CPU: loss within rtol 1e-4, every gradient leaf
+   within rtol 1e-4 and an atol of 1e-5 of its max, one AdamW step. (c)
+   ``examples/train_100m.py``'s ~125 M llama, B 8 x S 256 through
+   ``train.loop.run``: 60 steps whose loss must fall, then a run stopped at
+   step 30 and resumed from its checkpoint (a temporary directory, removed)
+   to step 60, whose params must equal the uninterrupted run's within
+   ``tests/test_train.py``'s tolerance (``train_resume`` line).
+11. A ``profile`` line per model (device time by kernel group, busy share), a
    ``phase_s`` line per phase of the full run (its wall seconds), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.
@@ -175,13 +192,15 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --families
+    python3 chip_smoke.py --train
 
 print only ``pim_gemv``'s ``kernel_time`` lines (llama3-8b's layer at B 1, 4,
 8, then every serve shape at B 1 to 8 beside ``torch._int_mm``) and its
 ``kernel_check`` lines (B3; also at every serve shape),
 only the spec phase's lines, only the traffic phase's and the CLI's, only
 the dense phase's, only the MoE phase's or only the families phase's (each
-with its kernel checks and times).
+with its kernel checks and times), or only the training phase's (no kernel
+check: the phase launches none).
 """
 from __future__ import annotations
 
@@ -2951,6 +2970,205 @@ def profile_decode(sm, mode, reqs) -> None:
 
 
 # ---------------------------------------------------------------------------
+# training: the full-sequence forward, autograd, AdamW, checkpoints
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internvl2-2b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS = 4              # text-only steps, then one step with the image prefix
+PARITY_ARCHS = ("llama3-8b", "olmoe-1b-7b", "zamba2-7b", "rwkv6-1.6b")
+# the CPU parity tests' batch shape: at S 64 zamba2's f32 gradients stray from
+# f64 by more than the tolerance on the CPU itself (PERF.md, Findings)
+PARITY_BATCH, PARITY_SEQ = 2, 16
+# examples/train_100m.py's ~100M llama (on the llama3-8b smoke config's dtypes)
+LLAMA_100M = dict(name="llama-100m", n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
+                  d_head=64, d_ff=2048, vocab_size=32000, q_chunk=256, remat=False)
+RESUME_BATCH, RESUME_SEQ = 8, 256
+RESUME_STEPS, RESUME_STOP = 60, 30
+RESUME_RTOL, RESUME_ATOL = 2e-2, 1e-3   # tests/test_train.py's crash-resume tolerance
+
+
+def n_params(params) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def train_steps(dev) -> None:
+    """(a) internvl2-2b at full width and depth (bf16, ``remat`` from its
+    config, seeded weights): ``TRAIN_STEPS`` steps over ``SyntheticLM``
+    batches of B 8 x S 1024, then one whose batch adds 256 seeded patch
+    embeddings. Each step ends in a sync; its line gives loss, grad norm,
+    step ms, tokens/s, mfu (6 x params x positions through the stack over the
+    step's seconds and ``PEAK_BF16_FLOPS``, the recompute not counted) and
+    the peak of allocated memory since the phase began."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    free_card(f"{TRAIN_ARCH} training")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt_state = init_opt_state(params)
+    torch.cuda.synchronize()
+    n = n_params(params)
+    emit({"phase": "train_setup", "arch": cfg.name, "layers": cfg.n_layers, "d": cfg.d_model,
+          "params": n, "remat": cfg.remat, "dtype": cfg.dtype,
+          "state_GB": torch.cuda.memory_allocated() / 1e9,
+          "setup_s": time.perf_counter() - t0})
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    opt = AdamWConfig()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for step in range(TRAIN_STEPS + 1):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+        prefix = 0
+        if step == TRAIN_STEPS:
+            prefix = cfg.n_prefix_tokens
+            batch["prefix_embeds"] = 0.02 * torch.randn(
+                (TRAIN_BATCH, prefix, cfg.d_model), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = train_step(params, opt_state, batch, cfg, opt, 1)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{cfg.name} step {step}: loss {loss}, grad norm {gnorm}")
+        positions = TRAIN_BATCH * (TRAIN_SEQ + prefix)
+        emit({"phase": "train_step", "arch": cfg.name, "step": step, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "prefix": prefix, "loss": loss, "grad_norm": gnorm,
+              "step_ms": dt * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+              "mfu": 6 * n * positions / dt / PEAK_BF16_FLOPS,
+              "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    del params, opt_state
+
+
+def train_parity(dev) -> None:
+    """(b) For each of ``PARITY_ARCHS`` at f32 smoke, the same seeded
+    weights and ``SyntheticLM`` batch (B 2 x S 16) on the card and on the CPU: the loss within rtol
+    1e-4, every gradient leaf within rtol 1e-4 and an atol of 1e-5 of its
+    max |g|, and one AdamW step over the card's gradients against the CPU's
+    step over the same gradients (rtol 1e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update, init_opt_state,
+                                             tree_leaves, tree_map)
+    from repro_torch.train.train_step import value_and_grad
+
+    for arch in PARITY_ARCHS:
+        cfg = get_config(arch, smoke=True).replace(dtype="float32", param_dtype="float32")
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=PARITY_SEQ,
+                                      global_batch=PARITY_BATCH))
+        batch = {k: torch.from_numpy(v) for k, v in data.batch_at(0).items()}
+        loss_d, grads_d = value_and_grad(card, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        loss_c, grads_c = value_and_grad(cpu, batch, cfg)
+        if not math.isclose(float(loss_d), float(loss_c), rel_tol=1e-4):
+            raise AssertionError(f"{arch}: loss {float(loss_d)} on the card, "
+                                 f"{float(loss_c)} on the CPU")
+        worst = 0.0
+        for gd, gc in zip(tree_leaves(grads_d), tree_leaves(grads_c)):
+            gd = gd.cpu()
+            tol = 1e-4 * gc.abs() + 1e-5 * float(gc.abs().max())
+            if not bool(((gd - gc).abs() <= tol).all()):
+                raise AssertionError(f"{arch}: a gradient leaf {tuple(gc.shape)} differs by "
+                                     f"{float((gd - gc).abs().max())}")
+            worst = max(worst, float((gd - gc).abs().max()))
+        opt = AdamWConfig(warmup_steps=1, total_steps=10)
+        new_d, _, _ = adamw_update(card, grads_d, init_opt_state(card), opt)
+        new_c, _, _ = adamw_update(cpu, tree_map(lambda t: t.cpu(), grads_d),
+                                   init_opt_state(cpu), opt)
+        step_err = max(float((pd.cpu() - pc).abs().max())
+                       for pd, pc in zip(tree_leaves(new_d), tree_leaves(new_c)))
+        for pd, pc in zip(tree_leaves(new_d), tree_leaves(new_c)):
+            if not torch.allclose(pd.cpu(), pc, rtol=1e-5, atol=1e-7):
+                raise AssertionError(f"{arch}: the AdamW step differs by {step_err}")
+        emit({"phase": "train_parity", "arch": cfg.name, "loss_card": float(loss_d),
+              "loss_cpu": float(loss_c), "grad_max_abs_err": worst,
+              "adamw_max_abs_err": step_err, "leaves": len(tree_leaves(grads_c))})
+
+
+def train_resume(dev) -> None:
+    """(c) ``examples/train_100m.py``'s ~100M llama, B 8 x S 256 through
+    ``train.loop.run``: ``RESUME_STEPS`` steps uninterrupted, whose loss must
+    fall (the example's own assertion); then a run stopped at
+    ``RESUME_STOP`` (its checkpoint written) and a second run that resumes
+    from it to ``RESUME_STEPS``; its params must equal the uninterrupted
+    run's within ``tests/test_train.py``'s tolerance. The checkpoints go to
+    a temporary directory the phase removes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import TrainConfig, run
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+
+    cfg = get_config("llama3-8b", smoke=True).replace(**LLAMA_100M)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=RESUME_SEQ, global_batch=RESUME_BATCH)
+    opt = AdamWConfig(lr=6e-4, warmup_steps=RESUME_STEPS // 20 + 1, total_steps=RESUME_STEPS)
+    quiet = dict(log=lambda *a: None, device=dev)
+    t0 = time.perf_counter()
+    p_full, _, hist = run(cfg, dc, TrainConfig(steps=RESUME_STEPS, log_every=0, opt=opt),
+                          **quiet)
+    full_s = time.perf_counter() - t0
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"{cfg.name}: loss {hist[0]['loss']} -> {hist[-1]['loss']}")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        run(cfg, dc, TrainConfig(steps=RESUME_STOP, ckpt_dir=ckpt, ckpt_every=RESUME_STEPS,
+                                 log_every=0, opt=opt), **quiet)
+        stop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_res, _, hist_res = run(cfg, dc, TrainConfig(steps=RESUME_STEPS, ckpt_dir=ckpt,
+                                                      ckpt_every=RESUME_STEPS + 1, log_every=0,
+                                                      opt=opt), **quiet)
+        resume_s = time.perf_counter() - t0
+        ckpt_GB = sum(f.stat().st_size for f in Path(ckpt).rglob("*") if f.is_file()) / 1e9
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if hist_res[0]["step"] != RESUME_STOP:
+        raise AssertionError(f"the resumed run began at step {hist_res[0]['step']}")
+    err = 0.0
+    for a, b in zip(tree_leaves(p_full), tree_leaves(p_res)):
+        a, b = a.float(), b.float()
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=RESUME_RTOL, atol=RESUME_ATOL):
+            raise AssertionError(f"{cfg.name}: resumed params differ by {err}")
+    dts = sorted(h["dt"] for h in hist[1:])
+    emit({"phase": "train_resume", "arch": cfg.name, "params": n_params(p_full),
+          "batch": RESUME_BATCH, "seq": RESUME_SEQ, "steps": RESUME_STEPS,
+          "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+          "step_ms_median": 1e3 * statistics.median(dts), "run_s": full_s,
+          "stop_run_s": stop_s, "resume_run_s": resume_s, "ckpt_dir_GB": ckpt_GB,
+          "resumed_at": hist_res[0]["step"], "params_max_abs_diff": err})
+
+
+def train_phase(dev) -> dict:
+    """(a) ``train_steps``, (b) ``train_parity``, (c) ``train_resume``; no
+    kernel of the port may launch (the JAX training path reaches no
+    ``pallas_call``). Returns the (zero) launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    reset_launches()
+    train_steps(dev)
+    train_parity(dev)
+    train_resume(dev)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the training path launched kernels: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
@@ -2975,9 +3193,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
-                    ["--traffic"], ["--dense"], ["--moe"], ["--families"]):
+                    ["--traffic"], ["--dense"], ["--moe"], ["--families"], ["--train"]):
         print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
-              f"| --dense | --moe | --families]", file=sys.stderr)
+              f"| --dense | --moe | --families | --train]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -3046,6 +3264,10 @@ def main(argv: list[str]) -> int:
         time_family_kernels(gen, dev)
         families_phase(dev)
         return 0
+    if argv == ["--train"]:
+        with phase_clock("train_phase"):
+            train_phase(dev)
+        return 0
     with phase_clock("kernel checks"):
         errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"],
                 **check_attention(gen, dev),
@@ -3065,7 +3287,8 @@ def main(argv: list[str]) -> int:
         host_cost(gen, dev)
 
     counts: dict[str, int] = {}
-    for phase in (serve_phase, zamba2_phase, dense_phase, moe_phase, families_phase):
+    for phase in (serve_phase, zamba2_phase, dense_phase, moe_phase, families_phase,
+                  train_phase):
         torch.cuda.empty_cache()
         with phase_clock(phase.__name__):   # serve_phase's includes spec and traffic
             for k, v in phase(dev).items():

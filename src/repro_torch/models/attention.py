@@ -9,11 +9,12 @@ window``) and gemma2's W-slot ring lanes (:func:`attention_decode_ring`) run
 the same kernels; with ``cfg.quantized_decode`` the decode-time qkv/o
 projections run as W8A8 PIM GEMVs. Multi-token chunk-prefill steps gather the
 lanes and run the dense masked einsum in plain PyTorch, as the JAX package
-computes them outside any Pallas kernel. The audio encoder's bidirectional
-attention (:func:`attention_dense`) and the decoder's cross attention over the
-fixed encoder memory (:func:`attention_cross`, :func:`project_memory_kv`) are
-plain PyTorch too, on the float weights: the JAX package has no kernel for
-them either.
+computes them outside any Pallas kernel. The full-sequence attention of
+training and the full forward (:func:`attention_dense`: causal, gemma2's
+local windows, the audio encoder's bidirectional form) and the decoder's
+cross attention over the fixed encoder memory (:func:`attention_cross`,
+:func:`project_memory_kv`) are plain PyTorch einsums too, on the float
+weights: the JAX package has no kernel for them either.
 """
 from __future__ import annotations
 
@@ -106,24 +107,54 @@ def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     return y.reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
 
 
-def attention_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The encoder's bidirectional attention over x (B, T, d), ``cfg.q_chunk``
-    queries at a time (a T that the chunk does not divide runs as one chunk);
-    every query reads every key. Float weights only (``raw_weight``)."""
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
+               causal: bool) -> torch.Tensor:
+    """(Tq, Tk) additive f32 bias from the causal and sliding-window
+    constraints: 0 where a query may read a key, ``NEG_INF`` elsewhere."""
+    ok = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def attention_dense(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    window: Optional[int] = None, causal: bool = True,
+                    positions: Optional[torch.Tensor] = None, return_kv: bool = False):
+    """Full-sequence attention over x (B, T, d), the training and full
+    forward's form (causal; gemma2's local layers pass their ``window``) and
+    the audio encoder's (``causal=False``). Queries run ``cfg.q_chunk`` at a
+    time (a T the chunk does not divide runs as one chunk) with f32 scores,
+    the softcap, the mask bias and an f32 softmax cast back to x's dtype;
+    under ``cfg.causal_block_skip`` a causal chunk i reads only the keys
+    before ``(i + 1)·chunk``, which the mask would hide anyway. ``positions``
+    (B, T) are the RoPE positions (default 0..T-1). Returns y (B, T, d), and
+    with ``return_kv`` also (k, v), each (B, Hkv, T, hd) after RoPE. Float
+    weights only (``raw_weight``)."""
     b, t, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = _project_qkv(p, x, cfg, torch.arange(t, device=x.device).expand(b, t))
+    if positions is None:
+        positions = torch.arange(t, device=x.device).expand(b, t)
+    q, k, v = _project_qkv(p, x, cfg, positions)
     qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
     cq = min(cfg.q_chunk, t)
     if t % cq != 0:
         cq = t                                   # ragged tail: one chunk
+    skip = causal and cfg.causal_block_skip and cq < t
+    k_pos = torch.arange(t, device=x.device)
     outs = []
     for lo in range(0, t, cq):
-        s = torch.einsum("bkgtd,bksd->bkgts", qg[:, :, :, lo:lo + cq], k).float() * _scale(cfg)
-        pr = torch.softmax(softcap(s, cfg.attn_softcap), dim=-1).to(x.dtype)
-        outs.append(torch.einsum("bkgts,bksd->bkgtd", pr, v))
+        klen = lo + cq if skip else t
+        s = torch.einsum("bkgtd,bksd->bkgts", qg[:, :, :, lo:lo + cq],
+                         k[:, :, :klen]).float() * _scale(cfg)
+        s = softcap(s, cfg.attn_softcap)
+        s = s + _mask_bias(k_pos[lo:lo + cq], k_pos[:klen], window, causal)
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        outs.append(torch.einsum("bkgts,bksd->bkgtd", pr, v[:, :, :klen]))
     y = torch.cat(outs, dim=3).reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
-    return _dense_matmul(p["wo"], y)
+    out = _dense_matmul(p["wo"], y)
+    return (out, (k, v)) if return_kv else out
 
 
 def attention_cross(p: dict, x: torch.Tensor, memory_kv: tuple[torch.Tensor, torch.Tensor],

@@ -1,24 +1,37 @@
-"""Model zoo: init / prefill / decode step for every family of the JAX package
-(port of ``repro.models.model``).
+"""Model zoo: init, the full-sequence forward and loss of training, prefill
+and the decode step, for every family of the JAX package (port of
+``repro.models.model``).
 
 Layers are a Python list of per-layer dicts and are walked with a Python
-loop. The JAX package carried the layer-stacked caches (page pool, contiguous
-lanes, rings, recurrent states) through ``lax.scan`` and rebuilt them per
-layer with ``dynamic_update_index_in_dim``; here each layer's slice is a view
-of the stacked tensor (``k_pages[i]``, ``k[i]``, ``k_loc[i]``, ``ssd[i]``,
-``wkv[i]``) written in place, so a decode step never copies a stacked cache.
+loop. Two forms walk them:
+
+* the full-sequence form (:func:`forward`, :func:`loss_fn`; the hybrid
+  :func:`prefill`): every token at once, causal attention in query chunks
+  (``attention.attention_dense``), no cache; with ``cfg.remat`` each layer's
+  body (a hybrid group: its Mamba2 layers and the shared block) runs under
+  ``torch.utils.checkpoint`` and is recomputed in the backward pass, where
+  the JAX package applies ``jax.checkpoint``. :func:`loss_fn` is the chunked
+  f32 softmax cross-entropy that never forms (B, S, V) logits at once;
+* the cache-walking form (:func:`decode_step`, the other families'
+  :func:`prefill`): the JAX package carried the layer-stacked caches (page
+  pool, contiguous lanes, rings, recurrent states) through ``lax.scan`` and
+  rebuilt them per layer with ``dynamic_update_index_in_dim``; here each
+  layer's slice is a view of the stacked tensor (``k_pages[i]``, ``k[i]``,
+  ``k_loc[i]``, ``ssd[i]``, ``wkv[i]``) written in place, so a decode step
+  never copies a stacked cache.
 
 Families: ``dense`` (llama3-8b, yi-9b, codeqwen1.5-7b and gemma2-27b; paged
 or contiguous KV), ``vlm`` (internvl2-2b: the dense backbone, whose
-``prefill`` prepends precomputed patch embeddings), ``moe`` (olmoe-1b-7b,
-phi3.5-moe: the dense blocks with a top-k MoE FFN, ``models.moe``, in place
-of the MLP), ``ssm`` (rwkv6-1.6b: RWKV6 blocks, ``models.rwkv``, whose decode
-state is recurrent only), ``hybrid`` (zamba2-7b: groups of ``attn_every``
-Mamba2 layers, each group followed by ONE weight-shared attention + MLP block
-whose KV lives in contiguous lanes) and ``audio`` (seamless-m4t-large-v2: a
-bidirectional encoder over precomputed frames, run once by ``prefill``, and
-a causal decoder with self-KV lanes and cross attention over the encoder
-memory's per-layer K/V, ``cross_k``/``cross_v``).
+``forward`` and ``prefill`` prepend precomputed patch embeddings), ``moe``
+(olmoe-1b-7b, phi3.5-moe: the dense blocks with a top-k MoE FFN,
+``models.moe``, in place of the MLP), ``ssm`` (rwkv6-1.6b: RWKV6 blocks,
+``models.rwkv``, whose decode state is recurrent only), ``hybrid``
+(zamba2-7b: groups of ``attn_every`` Mamba2 layers, each group followed by ONE
+weight-shared attention + MLP block whose KV lives in contiguous lanes) and
+``audio`` (seamless-m4t-large-v2: a bidirectional encoder over precomputed
+frames, run once by ``prefill``, and a causal decoder with self-KV lanes and
+cross attention over the encoder memory's per-layer K/V,
+``cross_k``/``cross_v``).
 gemma2 adds per-layer sliding windows (its even, local layers attend to the
 last ``sliding_window`` tokens), attention and final-logit softcaps,
 post-block norms, tied embeddings and the embedding scale; with
@@ -27,10 +40,11 @@ beside the global layers' full lanes.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_mapping
@@ -158,6 +172,37 @@ def params_from_numpy(tree: Any, device=None) -> Any:
                 leaf = next(iter(leaf.values()))
             out[key] = [conv(tree[key], i) for i in range(np.asarray(leaf).shape[0])]
     return out
+
+
+def stack_layers(tree: dict, stack: Callable) -> dict:
+    """``tree`` (shaped like the params: the layer lists under
+    :data:`STACKED` keys) with each layer list merged leaf by leaf into one
+    leaf, ``stack(per-layer leaves)``: the JAX package's layer-stacked
+    layout."""
+    def merge(layers):
+        if isinstance(layers[0], dict):
+            return {k: merge([lp[k] for lp in layers]) for k in layers[0]}
+        return stack(layers)
+
+    return {k: merge(v) if k in STACKED and v else v for k, v in tree.items()}
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch leaf -> numpy on the host; numpy has no bfloat16, so a bf16
+    leaf widens to f32, losslessly (as the checkpoint stores it)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(tree: dict) -> dict:
+    """The inverse of :func:`params_from_numpy`: every leaf of a params tree
+    (or of a tree shaped like it: gradients, AdamW moments) as a numpy array
+    (bf16 widened to f32), each layer list re-stacked ``(nL, ...)`` under its
+    key as the JAX package stacks it."""
+    def conv(t):
+        return {k: conv(v) for k, v in t.items()} if isinstance(t, dict) else _leaf_to_numpy(t)
+
+    return conv(stack_layers(tree, lambda leaves: torch.stack([x.detach() for x in leaves])))
 
 
 def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -452,12 +497,15 @@ def _audio_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelCo
 
 def _audio_encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The bidirectional encoder over stub frames (B, S, d) -> memory (B, S, d)."""
+    def body(lp, h):
+        h = h + attn_lib.attention_dense(lp["attn"], L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps),
+                                         cfg, causal=False)
+        return h + L.mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps),
+                         linear_fn=attn_lib._dense_matmul)
+
     h = frames
     for lp in params["enc_layers"]:
-        h = h + attn_lib.attention_dense(lp["attn"], L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps),
-                                         cfg)
-        h = h + L.mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps),
-                      linear_fn=attn_lib._dense_matmul)
+        h = _remat(body, cfg)(lp, h)
     return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -467,6 +515,172 @@ def project_cross_kv(params: dict, mem: torch.Tensor, cfg: ModelConfig):
     kvs = [attn_lib.project_memory_kv(lp["cross_attn"], mem, cfg)
            for lp in params["dec_layers"]]
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+
+
+# ===========================================================================
+# full-sequence forward (training; the hybrid prefill) and loss
+# ===========================================================================
+
+
+def _remat(fn: Callable, cfg: ModelConfig, collect: bool = False) -> Callable:
+    """``fn`` recomputed in the backward pass (``torch.utils.checkpoint``)
+    where ``cfg.remat`` is set and nothing is collected from it: where the
+    JAX package wraps a layer body in ``jax.checkpoint``."""
+    if not cfg.remat or collect:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _dense_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, window: Optional[int] = None,
+                 return_kv: bool = False):
+    """One pre-norm block over the whole sequence x (B, S, d): causal
+    attention (gemma2's local layers with their ``window``: the JAX
+    package's ``_windowed_attn`` is this attention with the window its layer
+    flag selects, a global layer's window covering every key), the optional
+    post-norms, then the MLP or, for MoE, ``moe_einsum`` over all B·S tokens.
+    With ``return_kv`` also the layer's (k, v) (B, Hkv, S, hd)."""
+    h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    out = attn_lib.attention_dense(lp["attn"], h, cfg, window=window, return_kv=return_kv)
+    a, kv = out if return_kv else (out, None)
+    x = _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=True)
+    return (x, kv) if return_kv else x
+
+
+def _scan_layers(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense, vlm and MoE stack over the whole sequence, each layer with
+    its window (:func:`layer_windows`)."""
+    for lp, window in zip(params["layers"], layer_windows(cfg)):
+        x = _remat(_dense_block, cfg)(lp, x, cfg, window)
+    return x
+
+
+def _rwkv_forward_seq(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """rwkv6 over the whole sequence from zero state: the input layernorm,
+    then every RWKV6 block (its final state dropped)."""
+    x = L.layernorm(params["ln_in"], x, cfg.norm_eps)
+    st0 = rwkv_lib.init_rwkv_state(x.shape[0], cfg, device=x.device)
+
+    def body(lp, h):
+        return rwkv_lib.rwkv_block(lp["block"], h, st0, cfg, lp["ln1"], lp["ln2"],
+                                   cfg.norm_eps)[0]
+
+    for lp in params["layers"]:
+        x = _remat(body, cfg)(lp, x)
+    return x
+
+
+def _hybrid_forward_seq(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                        collect: bool = False):
+    """zamba2 over the whole sequence from zero state: groups of
+    ``attn_every`` Mamba2 layers (``ssm_forward``), each followed by the
+    shared attention + MLP block, then the trailing Mamba2 layers. Returns
+    (x, states, kvs): with ``collect`` the final Mamba2 states stacked over
+    all layers (``ssd``/``conv_x``/``conv_bc``, (nL, B, ...)) and the shared
+    block's K/V per application ((G, B, Hkv, S, hd) each, None for no
+    group), else (x, None, None), each group under ``cfg.remat``."""
+    acfg = cfg.replace(family="dense")
+    n_groups = _hybrid_groups(cfg)
+    st0 = ssm_lib.init_ssm_state(x.shape[0], cfg, device=x.device)
+    states, kvs = [], []
+
+    def mamba(li, h):
+        lp = params["mamba_layers"][li]
+        y, st = ssm_lib.ssm_forward(lp["ssm"], L.rmsnorm(lp["norm"], h, cfg.norm_eps), cfg, st0)
+        if collect:
+            states.append(st)
+        return h + y
+
+    def group(gi, h):
+        for li in range(gi * cfg.attn_every, (gi + 1) * cfg.attn_every):
+            h = mamba(li, h)
+        if not collect:
+            return _dense_block(params["shared_attn"], h, acfg)
+        h, kv = _dense_block(params["shared_attn"], h, acfg, return_kv=True)
+        kvs.append(kv)
+        return h
+
+    for gi in range(n_groups):
+        x = _remat(group, cfg, collect)(gi, x)
+    for li in range(n_groups * cfg.attn_every, cfg.n_layers):
+        x = mamba(li, x)
+    if not collect:
+        return x, None, None
+    stacked = {k: torch.stack([st[k] for st in states]) for k in SSM_STATE_KEYS}
+    kv = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])) if kvs else None
+    return x, stacked, kv
+
+
+def _audio_decode_stack(params: dict, x: torch.Tensor, cross_kv, cfg: ModelConfig):
+    """The audio decoder over the whole sequence: per layer causal self
+    attention, cross attention over that layer's encoder-memory K/V
+    (``cross_kv``: (k, v), each (nL, B, Hkv, S_src, hd)), then the MLP."""
+    def body(lp, ck, cv, h):
+        h = h + attn_lib.attention_dense(lp["attn"], L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps),
+                                         cfg)
+        h = h + attn_lib.attention_cross(lp["cross_attn"],
+                                         L.rmsnorm(lp["cross_norm"], h, cfg.norm_eps), (ck, cv),
+                                         cfg)
+        return h + L.mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps),
+                         linear_fn=attn_lib._dense_matmul)
+
+    for lp, ck, cv in zip(params["dec_layers"], *cross_kv):
+        x = _remat(body, cfg)(lp, ck, cv, x)
+    return x
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The full-sequence forward: ``batch`` {``tokens`` (B, S), and for vlm
+    optionally ``prefix_embeds`` (B, P, d), for audio ``src_frames`` (B, S_src,
+    d)} -> final-normed hidden states (B, S, d). gemma scales the embeddings
+    by sqrt(d_model) rounded to the activation dtype; vlm runs the stack over
+    the prefix and the tokens and keeps the tokens' rows; audio encodes the
+    frames, projects each decoder layer's cross K/V and runs the decoder."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    if cfg.family == "audio":
+        mem = _audio_encode(params, batch["src_frames"].to(torch_dtype(cfg.dtype)), cfg)
+        x = _audio_decode_stack(params, L.embed(params["embed"], tokens),
+                                project_cross_kv(params, mem, cfg), cfg)
+    elif cfg.family == "ssm":
+        x = _rwkv_forward_seq(params, L.embed(params["embed"], tokens), cfg)
+    elif cfg.family == "hybrid":
+        x, _, _ = _hybrid_forward_seq(params, L.embed(params["embed"], tokens), cfg)
+    else:
+        x = _embed(params, tokens, cfg)
+        prefix = batch.get("prefix_embeds") if cfg.family == "vlm" else None
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        x = _scan_layers(params, x, cfg)
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:, :]
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy over the B·S positions of ``batch``
+    (``labels`` (B, S) beside the :func:`forward` inputs), in f32: the head
+    (tied: the embedding) runs ``chunk`` positions at a time (one chunk if
+    it does not divide S), with the final-logit softcap, so (B, S, V) logits
+    never exist at once. MoE adds 0.01 x :func:`moe.aux_load_balance_loss` of
+    layer 0's router over the first min(S, 512) final-normed hidden states,
+    as the JAX package computes it."""
+    x = forward(params, batch, cfg)
+    labels = batch["labels"].long()
+    b, s, _ = x.shape
+    w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    c = min(chunk, s)
+    if s % c != 0:
+        c = s
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, c):
+        logits = L.softcap((x[:, lo:lo + c] @ w).float(), cfg.logit_softcap)
+        gold = torch.gather(logits, -1, labels[:, lo:lo + c, None])[..., 0]
+        total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
+    loss = total / (b * s)
+    if cfg.family == "moe":
+        loss = loss + 0.01 * moe_lib.aux_load_balance_loss(params["layers"][0]["moe"],
+                                                           x[:, :min(s, 512)], cfg)
+    return loss
 
 
 # ===========================================================================
@@ -526,12 +740,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     each decoder layer's cross K/V of its memory fills ``cross_k``/``cross_v``
     and the decoder runs over the tokens (usually one BOS each). rwkv6 runs
     its blocks over the tokens from zero state; the cache is the final
-    state (pads included, as in the JAX package)."""
+    state (pads included, as in the JAX package). The hybrid runs its
+    full-sequence form (:func:`_hybrid_forward_seq`) from zero state and
+    keeps each Mamba2 layer's final state and each shared-block
+    application's K/V, stored in the cache's dtype (pads included, as in
+    the JAX package)."""
     _check_family(cfg)
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "prefill of the hybrid family is not ported (ROADMAP A.10); the engine "
-            "admits zamba2 through chunked decode steps")
     if prefix_embeds is not None and cfg.family != "vlm":
         raise ValueError(f"prefix_embeds is the vlm family's input, not {cfg.family!r}'s")
     if cfg.family == "audio" and src_frames is None:
@@ -542,6 +756,18 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     if cfg.family == "ssm":
         x, cache = _rwkv_forward(params, init_decode_cache(cfg, b, max_len, device=dev),
                                  tokens, cfg)
+        return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
+    if cfg.family == "hybrid":
+        x, states, kvs = _hybrid_forward_seq(params, L.embed(params["embed"], tokens), cfg,
+                                             collect=True)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        cache = init_decode_cache(cfg, b, max_len, device=dev)
+        for k in SSM_STATE_KEYS:
+            cache[k].copy_(states[k])
+        if kvs is not None:   # K/V in the compute dtype until stored, as the JAX prefill
+            cache["k"][..., :s].copy_(kvs[0].transpose(-1, -2))
+            cache["v"][..., :s, :].copy_(kvs[1])
+        cache["pos"] = torch.tensor(s, dtype=torch.int32, device=dev)
         return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
     if cfg.family == "audio":   # K/V in the compute dtype until stored, as below
         mem = _audio_encode(params, src_frames.to(torch_dtype(cfg.dtype)), cfg)

@@ -126,3 +126,15 @@ def moe_einsum(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = torch.einsum("gsk,gskd->gsd", w.float(), picked.float()).to(x.dtype)
     return y.reshape(shape)
 
+
+
+def aux_load_balance_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balance loss of one router over x (..., d): the
+    expert count times the sum over experts of (the share of tokens whose
+    first pick it is) x (its mean router probability); 1 for a uniform
+    router. ``loss_fn`` feeds it layer 0's router and the final-normed hidden
+    states, as the JAX package does."""
+    _, idx, probs = _router(p, x.reshape(-1, x.shape[-1]), cfg)
+    e = cfg.n_experts
+    frac_tokens = F.one_hot(idx[:, 0], e).float().mean(dim=0)
+    return e * (frac_tokens * probs.mean(dim=0)).sum()

@@ -107,8 +107,10 @@ def ssd_chunked(xh: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Ten
         bc, cc = bs[:, i].float(), cs[:, i].float()
         al = torch.cumsum(ac, dim=1)                                  # (B,Q,H)
         ldiff = al[:, :, None, :] - al[:, None, :, :]                 # (B,Q,Q,H)
-        lmat = torch.where(mask[None, :, :, None], torch.exp(ldiff),
-                           torch.zeros((), device=xh.device))
+        # exp of the masked log decays, -inf above the diagonal: the values of
+        # the JAX package's where(mask, exp(ldiff), 0), whose backward turns an
+        # overflowed exp above the diagonal into NaN gradients (ROADMAP C)
+        lmat = torch.exp(ldiff.masked_fill(~mask[None, :, :, None], float("-inf")))
         g = torch.einsum("bqn,bsn->bqs", cc, bc)
         y_intra = torch.einsum("bqs,bqsh,bshp->bqhp", g, lmat, xc)
         y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cc, s, torch.exp(al))

@@ -2,8 +2,11 @@
 (``--device cpu --smoke``): the traffic flags (``--arrival-rate``, ``--trace``
 replay, ``--mode-policy auto``), fault plans (``--faults``) and deadlines
 drive the ported engine, and every run prints its tokens, the latency summary
-and the health line with occupancy, as the JAX package's CLI does."""
+and the health line with occupancy, as the JAX package's CLI does. The
+training CLI (``repro_torch.launch.train``) prints the JAX training CLI's
+final line and resumes from its checkpoints."""
 import ast
+import os
 import re
 
 import pytest
@@ -103,6 +106,33 @@ def test_device_defaults_to_cuda(monkeypatch):
     assert cli.parse_args(["--arch", "llama3-8b"]).device == "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--arch", "llama3-8b", "--smoke"])
+
+
+def test_train_cli_on_the_cpu(capsys, tmp_path):
+    """``python -m repro_torch.launch.train --smoke --device cpu --steps 3``
+    prints the JAX CLI's final line; rerun over its checkpoint directory it
+    resumes at the saved step and has nothing left to run past it."""
+    from repro_torch.launch import train as train_cli
+
+    argv = ["--arch", "llama3-8b", "--smoke", "--device", "cpu", "--steps", "3",
+            "--ckpt-dir", str(tmp_path)]
+    assert train_cli.main(argv) == 0
+    out = capsys.readouterr().out
+    m = re.search(r"^final loss (\d+\.\d{4}) \(start (\d+\.\d{4})\) over 3 steps$", out, re.M)
+    assert m, out
+    assert os.path.isdir(tmp_path / "step_00000003")
+    assert train_cli.main(argv[:-2] + ["--steps", "4", "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "[resume] restored step 3, continuing at 3" in out and "over 1 steps" in out
+
+
+def test_train_device_defaults_to_cuda(monkeypatch):
+    from repro_torch.launch import train as train_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert train_cli.parse_args(["--arch", "llama3-8b"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--arch", "llama3-8b", "--smoke", "--steps", "1"])
 
 
 def test_cli_registry_equals_jax_and_serves_internvl2(capsys):
