@@ -45,7 +45,18 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    just after it; they must equal what that serve's schedule implies (per
    one-token forward 7 ``pim_gemv`` and one attention call per attention
    layer: paged single pass at 1 split, split and merge at 4, the contiguous
-   kernel for the contiguous pool, and no other kernel).
+   kernel for the contiguous pool, and no other kernel). ``priced`` lines
+   then price each serve's own ``ScheduleEvent``s with the port's pimsim
+   (``replay_events`` for pimsim's LLaMA-7B on the CD-PIM design of the
+   paper's Jetson and iPhone devices, and the same requests'
+   ``wave_baseline_events`` at 4 slots): ``total_s``, ``decode_busy_s``,
+   ``prefill_busy_s``, ``overlap_saved_s``, ``stall_s`` and ``idle_steps``
+   are simulated seconds of that LPDDR5-PIM edge device model, not of the
+   card; ``replay_host_ms`` is the host time of the replay. The JAX suite's
+   event contracts must hold on the card's events: continuous HBCEM and
+   LBIM decode busy time below the wave's, LBIM ``total_s`` at most
+   BLOCKED's with ``overlap_saved_s`` >= 0 (a failure writes the events to
+   ``chiprun_out/`` and fails the run).
 4. ``zamba2``: full-width zamba2-7b at 45 of its 81 Mamba2 layers
    (``ZAMBA2_LAYERS``; one shared attention + MLP block applied 7 times, after
    every 6 layers, then 3 layers without it; bf16, W8A8) serves ragged greedy
@@ -67,7 +78,8 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    single-token draft feed (each chained candidate, and a catch-up of one
    token) the draft's 7 x 32 ``pim_gemv`` and 32 contiguous attention calls
    on its batch-1 lane. Lines give decode-step ms, tokens/s and the spec
-   report.
+   report; ``priced`` lines price the four serves' events self-drafted
+   (``draft_model=None``).
 6. ``traffic``: full-width llama3-8b at 4 of its 32 layers
    (``TRAFFIC_LAYERS``; bf16, W8A8, paged 8-token pages,
    4 slots, 64-token admission chunks) serves a seeded 16-request Poisson
@@ -87,8 +99,13 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    kernel error. The kernel checks hold B1 at these serves' own tables (37
    blocks, 38 with the spec slack) and B4 at the spec draft's Lmax 300
    without softcap, at the trace's fills, each lane alone too; the traffic
-   engines refuse pools of any other shape. Then ``python -m
-   repro_torch.launch.serve`` in-process at smoke size with
+   engines refuse pools of any other shape. ``priced`` lines give (a)-(d)
+   through ``serve.traffic.priced_latency`` (TTFT/TPOT p50 and p95 in
+   simulated seconds, SLO attainment against benchmarks/traffic.py's
+   targets: 1.10 x (a)'s priced TTFT p95 and 1.50 x its TPOT p95 per
+   device; the self-draft priced as LLaMA-1B); the replay's idle steps must
+   be the engine's and the same events priced twice must give equal dicts.
+   Then ``python -m repro_torch.launch.serve`` in-process at smoke size with
    ``--arrival-rate``, ``--mode-policy auto`` and ``--faults 1``; its health
    line must account for the plan.
 7. ``dense``: the rest of the dense family at full width, each model's
@@ -160,7 +177,18 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    ``train.loop.run``: 60 steps whose loss must fall, then a run stopped at
    step 30 and resumed from its checkpoint (a temporary directory, removed)
    to step 60, whose params must equal the uninterrupted run's within
-   ``tests/test_train.py``'s tolerance (``train_resume`` line).
+   ``tests/test_train.py``'s tolerance (``train_resume`` line). The phase
+   runs in a world-size-1 NCCL process group started on a ``HashStore`` (no
+   network port) with a (1, 1) ``("data", "model")`` mesh, and adds the
+   ``dist`` lines: after (a), ``quantize_grad``/``dequantize_grad`` over
+   every leaf of the full-width gradients of (a)'s last batch (every error
+   within half its row's scale, int8 bytes a quarter of f32's, error
+   feedback over 4 steps within 1 % of the gradient in norm, the pass's
+   device ms by CUDA events) and the same batch's loss with
+   ``seq_parallel=True``, equal bit for bit; in (c), the newest checkpoint
+   restored under ``param_shardings``/``opt_state_shardings`` as DTensors,
+   every leaf's ``full_tensor()`` and one ``loss_fn`` on the gathered params
+   equal to the plain restore's bit for bit.
 11. A ``profile`` line per model (device time by kernel group, busy share), a
    ``phase_s`` line per phase of the full run (its wall seconds), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
@@ -193,14 +221,17 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --families
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --dist
 
 print only ``pim_gemv``'s ``kernel_time`` lines (llama3-8b's layer at B 1, 4,
 8, then every serve shape at B 1 to 8 beside ``torch._int_mm``) and its
 ``kernel_check`` lines (B3; also at every serve shape),
 only the spec phase's lines, only the traffic phase's and the CLI's, only
 the dense phase's, only the MoE phase's or only the families phase's (each
-with its kernel checks and times), or only the training phase's (no kernel
-check: the phase launches none).
+with its kernel checks and times), only the training phase's (no kernel
+check: the phase launches none), or only the ``dist`` checks (on internvl2-2b
+with seeded weights over the training phase's last batch, and on a
+checkpoint of the ~125 M llama written by two steps of ``train.loop.run``).
 """
 from __future__ import annotations
 
@@ -1340,12 +1371,14 @@ def serve_setup_line(sm, reqs, t0) -> dict:
             "decode_step_bound_ms": 1e3 * wbytes / HBM_BYTES_PER_S}
 
 
-def serve_run(sm, mode, reqs, *, paged: bool = True, eng=None) -> tuple[list, dict]:
+def serve_run(sm, mode, reqs, *, paged: bool = True, eng=None,
+              events: list | None = None) -> tuple[list, dict]:
     """One serve, with the launch counts of this serve alone (set to 0 just
     before it, read just after) held to what its schedule implies, and a
     clean health report. A pool with prefix reuse must reuse the shared
     prefix; ``paged=False`` serves through a contiguous pool without prefix
-    reuse; ``eng`` serves on an engine built by the caller."""
+    reuse; ``eng`` serves on an engine built by the caller; ``events``, where
+    given, receives the serve's ``ScheduleEvent``s (for pricing)."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve.api import FINISH_EOS, FINISH_LENGTH, RequestState
     from repro_torch.serve.engine import Engine
@@ -1397,6 +1430,8 @@ def serve_run(sm, mode, reqs, *, paged: bool = True, eng=None) -> tuple[list, di
             "fused_steps": rep["fused_steps"], "prefill_tokens": rep["prefill_tokens"],
             "reused_prefix_tokens": rep["reused_prefix_tokens"],
             "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9, "launches": counts}
+    if events is not None:
+        events.extend(eng.events)
     del eng
     return [r.tokens for r in results], line
 
@@ -1424,6 +1459,142 @@ def modes_agree(tokens: dict, what: str) -> list:
     return ref_toks
 
 
+# ---------------------------------------------------------------------------
+# pricing: the serves' own ScheduleEvents through the port's pimsim, the
+# paper's timing model of an LPDDR5-PIM edge device (HBCEM/LBIM). Its seconds
+# are that model's, simulated: no number of a ``priced`` line is a time of the
+# card but ``replay_host_ms``, the host time of the replay itself.
+
+PRICE_MODEL = "llama-7b"       # pimsim's LLaMA-7B prices the llama3-8b serves
+PRICE_DRAFT = "llama-1b"       # the traffic phase's self-draft, priced as benchmarks/traffic.py
+PRICE_DEVICES = ("jetson-agx-orin-64gb", "iphone-15-pro")
+PRICE_DESIGN = "cd-pim"
+SIMULATED = ("simulated seconds of pimsim's LPDDR5-PIM edge device model (the paper's), "
+             "not of the card")
+PRICED_KEYS = ("total_s", "decode_busy_s", "prefill_busy_s", "overlap_saved_s", "stall_s",
+               "idle_steps")
+
+
+def replay(events, dev_name: str):
+    """The events priced by ``pimsim.replay_events`` on ``dev_name``, a spec
+    round's rollout on the target's model (and the host ms the replay took)."""
+    from repro_torch import pimsim
+
+    t0 = time.perf_counter()
+    rep = pimsim.replay_events(events, pimsim.MODELS[PRICE_MODEL], pimsim.DEVICES[dev_name],
+                               pimsim.DESIGNS[PRICE_DESIGN])
+    return rep, (time.perf_counter() - t0) * 1e3
+
+
+def priced_line(what: str, events, dev_name: str, replay_json: dict, host_ms: float,
+                **extra) -> None:
+    emit({"phase": "priced", "serve": what, "model": PRICE_MODEL, "device_model": dev_name,
+          "design": PRICE_DESIGN, "units": SIMULATED, "events": len(events),
+          **{k: replay_json[k] for k in PRICED_KEYS}, "replay_host_ms": host_ms, **extra})
+
+
+def dump_events(events: dict[str, list]) -> list[str]:
+    """Each named serve's events as JSON under ``chiprun_out/``, to price with
+    both packages on the CPU."""
+    import dataclasses
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    paths = []
+    for name, evs in events.items():
+        path = out / f"priced_events_{name.replace(' ', '_')}.json"
+        path.write_text(json.dumps([dataclasses.asdict(e) for e in evs], default=str))
+        paths.append(str(path.relative_to(ROOT)))
+    return paths
+
+
+def pricing_contract(ok: bool, what: str, events: dict[str, list]) -> None:
+    """A pricing contract of the JAX suite, held on the card's own events; a
+    failure writes the serves' events out and raises."""
+    if not ok:
+        raise AssertionError(f"pricing contract failed on the card's events: {what}; "
+                             f"events in {dump_events(events)}")
+
+
+def price_serves(reqs, events: dict[str, list]) -> None:
+    """The serve phase's five serves and the same requests' wave baseline at
+    SLOTS slots (``wave_baseline_events``), priced on both devices, with the
+    JAX suite's contracts on the card's events: continuous HBCEM and LBIM
+    decode busy time below the wave's (``test_continuous_batching.py:69``),
+    LBIM no slower than BLOCKED with a non-negative overlap (:126)."""
+    from repro_torch.serve.engine import wave_baseline_events, wave_baseline_report
+
+    lens, news = [len(r.prompt) for r in reqs], [r.max_new_tokens for r in reqs]
+    wave_events = wave_baseline_events(lens, news, SLOTS)
+    wave_steps = wave_baseline_report(lens, news, SLOTS)
+    for dev_name in PRICE_DEVICES:
+        reps = {}
+        for name, evs in {**events, "wave baseline": wave_events}.items():
+            rep, ms = replay(evs, dev_name)
+            decode = [e for e in evs if e.plan.decode]
+            priced_line(name, evs, dev_name, rep.to_json(), ms, decode_steps=len(decode),
+                        decode_slot_steps=sum(e.decode_batch for e in decode),
+                        **({"wave_report": wave_steps} if name == "wave baseline" else {}))
+            reps[name] = rep
+        wave = reps["wave baseline"]
+        for mode in ("hbcem", "lbim"):
+            pricing_contract(reps[mode].decode_busy_s < wave.decode_busy_s,
+                             f"{mode} decode_busy_s {reps[mode].decode_busy_s} is not below the "
+                             f"wave baseline's {wave.decode_busy_s} on {dev_name}",
+                             {mode: events[mode], "wave baseline": wave_events})
+        lb, bl = reps["lbim"], reps["blocked"]
+        pricing_contract(lb.total_s <= bl.total_s + 1e-9 and lb.overlap_saved_s >= 0.0,
+                         f"LBIM total_s {lb.total_s} (overlap {lb.overlap_saved_s}) against "
+                         f"BLOCKED {bl.total_s} on {dev_name}",
+                         {"lbim": events["lbim"], "blocked": events["blocked"]})
+
+
+def price_spec(events: dict[str, list]) -> None:
+    """The spec phase's four serves priced on both devices, self-drafted
+    (``draft_model=None``: the rollout priced on the target's model)."""
+    for dev_name in PRICE_DEVICES:
+        for name, evs in events.items():
+            rep, ms = replay(evs, dev_name)
+            priced_line(f"spec {name}", evs, dev_name, rep.to_json(), ms, draft_model=None,
+                        spec_rounds=rep.spec_rounds, spec_accepted=rep.spec_accepted,
+                        spec_saved_s=rep.spec_saved_s)
+
+
+def price_traffic(runs: dict[str, tuple]) -> None:
+    """The traffic serves through ``serve.traffic.priced_latency`` on both
+    devices, with benchmarks/traffic.py's SLO targets (1.10 x the HBCEM serve
+    (a)'s priced TTFT p95, 1.50 x its TPOT p95, per device) and its draft
+    pricing (the self-draft's rollout as LLaMA-1B), and the JAX suite's
+    contracts on the card's events: the replay's idle steps are the engine's
+    (``test_traffic.py:187``), the same events priced twice give equal dicts
+    (:150-153)."""
+    from repro_torch import pimsim
+    from repro_torch.serve.traffic import priced_latency
+
+    price = dict(model=pimsim.MODELS[PRICE_MODEL], design=pimsim.DESIGNS[PRICE_DESIGN],
+                 draft_model=pimsim.MODELS[PRICE_DRAFT])
+    for dev_name in PRICE_DEVICES:
+        dev = pimsim.DEVICES[dev_name]
+        base = priced_latency(runs["a"][0].events, runs["a"][1], dev=dev, **price)
+        slo = {"ttft_slo_s": 1.10 * base["ttft_s"]["p95"],
+               "tpot_slo_s": 1.50 * base["tpot_s"]["p95"]}
+        for name, (eng, res) in runs.items():
+            t0 = time.perf_counter()
+            p = priced_latency(eng.events, res, dev=dev, **price, **slo)
+            ms = (time.perf_counter() - t0) * 1e3
+            again = priced_latency(list(eng.events), res, dev=dev, **price, **slo)
+            idle = eng.schedule_report()["idle_steps"]
+            pricing_contract(p == again and p["idle_steps"] == idle,
+                             f"traffic {name} on {dev_name}: priced twice equal {p == again}, "
+                             f"idle steps {p['idle_steps']} against the engine's {idle}",
+                             {f"traffic {name}": eng.events})
+            priced_line(f"traffic {name}", eng.events, dev_name, p["replay"], ms,
+                        draft_model=PRICE_DRAFT,
+                        **{f"{k}_{q}": p[k].get(q) for k in ("ttft_s", "tpot_s")
+                           for q in ("p50", "p95")},
+                        slo=p["slo"], engine_idle_steps=idle)
+
+
 def serve_phase(dev) -> dict:
     """llama3-8b: paged in the three modes, paged with 4 KV splits, and the
     contiguous pool in LBIM; then the spec and traffic phases on the same
@@ -1445,13 +1616,15 @@ def serve_phase(dev) -> dict:
 
     total: dict[str, int] = {}
     tokens = {}
+    events: dict[str, list] = {}
     for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
-        tokens[mode], line = serve_run(sm, mode, reqs)
+        tokens[mode], line = serve_run(sm, mode, reqs, events=events.setdefault(mode.value, []))
         emit(line)
         add_launches(total, line)
     ref_toks = modes_agree(tokens, cfg.name)
 
-    contig_toks, line = serve_run(sm, Mode.LBIM, reqs, paged=False)
+    contig_toks, line = serve_run(sm, Mode.LBIM, reqs, paged=False,
+                                  events=events.setdefault("lbim contiguous", []))
     line["requests_equal_to_paged_lbim"] = sum(
         a == b for a, b in zip(tokens[Mode.LBIM], contig_toks))
     emit(line)
@@ -1459,11 +1632,13 @@ def serve_phase(dev) -> dict:
     del sm
     sm4 = ServingModel.prepare(cfg.replace(decode_kv_splits=4), params, max_len=max_len,
                                slots=SLOTS, device=dev)
-    split_toks, line = serve_run(sm4, Mode.LBIM, reqs)
+    split_toks, line = serve_run(sm4, Mode.LBIM, reqs,
+                                 events=events.setdefault("lbim splits 4", []))
     line["requests_equal_to_single_pass"] = sum(a == b for a, b in zip(ref_toks, split_toks))
     emit(line)
     add_launches(total, line)
     emit({"phase": "serve_launches", "arch": cfg.name, "runs": 5, **total})
+    price_serves(reqs, events)
     check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged",
                            "decode_attention_paged_split", "merge_splits"), cfg.name)
     del sm4
@@ -2481,10 +2656,10 @@ def spec_draft_lmax(reqs) -> int:
     return serve_max_len(reqs) + SPEC_K + 1
 
 
-def spec_serve(sm, mode, reqs, spec: bool) -> tuple[list, dict]:
+def spec_serve(sm, mode, reqs, spec: bool, events: list | None = None) -> tuple[list, dict]:
     """One serve of ``reqs`` with or without self-draft speculation; launch
     counts of this serve alone held to what its schedule events imply; both
-    pools audited."""
+    pools audited. ``events``, where given, receives the serve's events."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve.api import RequestState
     from repro_torch.serve.spec import SpecConfig
@@ -2531,6 +2706,8 @@ def spec_serve(sm, mode, reqs, spec: bool) -> tuple[list, dict]:
             "accepted_by_request": [r.spec_accepted for r in results],
             "proposed_by_request": [r.spec_proposed for r in results],
             "launches": counts}
+    if events is not None:
+        events.extend(eng.events)
     return [r.tokens for r in results], line
 
 
@@ -2545,11 +2722,14 @@ def spec_phase(dev, cfg, params) -> dict:
     sm = ServingModel.prepare(cfg, params, max_len=serve_max_len(reqs), slots=SLOTS,
                               device=dev)
     total: dict[str, int] = {}
+    events: dict[str, list] = {}
     for mode in (Mode.HBCEM, Mode.LBIM):
-        plain, line = spec_serve(sm, mode, reqs, spec=False)
+        plain, line = spec_serve(sm, mode, reqs, spec=False,
+                                 events=events.setdefault(mode.value, []))
         emit(line)
         add_launches(total, line)
-        toks, line = spec_serve(sm, mode, reqs, spec=True)
+        toks, line = spec_serve(sm, mode, reqs, spec=True,
+                                events=events.setdefault(f"{mode.value} spec", []))
         if toks != plain:
             diff = [i for i, (a, b) in enumerate(zip(plain, toks)) if a != b]
             raise AssertionError(f"spec {mode.value}: tokens differ from the non-spec serve "
@@ -2569,6 +2749,7 @@ def spec_phase(dev, cfg, params) -> dict:
         add_launches(total, line)
     emit({"phase": "serve_launches", "arch": cfg.name, "what": "spec phase", "runs": 4,
           **total})
+    price_spec(events)
     check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged"),
                    f"{cfg.name} spec")
     del sm
@@ -2860,6 +3041,8 @@ def traffic_phase(dev, cfg, params) -> dict:
     line["failed_requests"] = failed
     emit(line)
     add_launches(total, line)
+    price_traffic({"a": (eng_a, res_a), "b": (eng_b, res_b), "c": (eng_c, res_c),
+                   "d": (eng_d, res_d)})
     del sm
     for k, v in run_cli(dev).items():
         total[k] = total.get(k, 0) + v
@@ -2994,14 +3177,15 @@ def n_params(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
 
-def train_steps(dev) -> None:
+def train_steps(dev, mesh=None) -> None:
     """(a) internvl2-2b at full width and depth (bf16, ``remat`` from its
     config, seeded weights): ``TRAIN_STEPS`` steps over ``SyntheticLM``
     batches of B 8 x S 1024, then one whose batch adds 256 seeded patch
     embeddings. Each step ends in a sync; its line gives loss, grad norm,
     step ms, tokens/s, mfu (6 x params x positions through the stack over the
     step's seconds and ``PEAK_BF16_FLOPS``, the recompute not counted) and
-    the peak of allocated memory since the phase began."""
+    the peak of allocated memory since the phase began. With a ``mesh`` (the
+    ``dist`` group's), ``dist_grads`` then runs on the last step's batch."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.train.data import DataConfig, SyntheticLM
@@ -3025,12 +3209,7 @@ def train_steps(dev) -> None:
     opt = AdamWConfig()
     gen = torch.Generator(device=dev).manual_seed(7)
     for step in range(TRAIN_STEPS + 1):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
-        prefix = 0
-        if step == TRAIN_STEPS:
-            prefix = cfg.n_prefix_tokens
-            batch["prefix_embeds"] = 0.02 * torch.randn(
-                (TRAIN_BATCH, prefix, cfg.d_model), generator=gen, device=dev)
+        batch, prefix = train_batch(cfg, data, step, gen, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt_state, m = train_step(params, opt_state, batch, cfg, opt, 1)
@@ -3045,7 +3224,23 @@ def train_steps(dev) -> None:
               "step_ms": dt * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
               "mfu": 6 * n * positions / dt / PEAK_BF16_FLOPS,
               "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
-    del params, opt_state
+    del opt_state
+    if mesh is not None:
+        dist_grads(cfg, params, batch)
+    del params
+
+
+def train_batch(cfg, data, step: int, gen, dev) -> tuple[dict, int]:
+    """``SyntheticLM``'s batch ``step`` on the card; the step after the last
+    text-only one adds ``n_prefix_tokens`` seeded patch embeddings. Returns
+    the batch and its prefix length."""
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+    prefix = 0
+    if step == TRAIN_STEPS:
+        prefix = cfg.n_prefix_tokens
+        batch["prefix_embeds"] = 0.02 * torch.randn(
+            (TRAIN_BATCH, prefix, cfg.d_model), generator=gen, device=dev)
+    return batch, prefix
 
 
 def train_parity(dev) -> None:
@@ -3095,14 +3290,15 @@ def train_parity(dev) -> None:
               "adamw_max_abs_err": step_err, "leaves": len(tree_leaves(grads_c))})
 
 
-def train_resume(dev) -> None:
+def train_resume(dev, mesh=None) -> None:
     """(c) ``examples/train_100m.py``'s ~100M llama, B 8 x S 256 through
     ``train.loop.run``: ``RESUME_STEPS`` steps uninterrupted, whose loss must
     fall (the example's own assertion); then a run stopped at
     ``RESUME_STOP`` (its checkpoint written) and a second run that resumes
     from it to ``RESUME_STEPS``; its params must equal the uninterrupted
     run's within ``tests/test_train.py``'s tolerance. The checkpoints go to
-    a temporary directory the phase removes."""
+    a temporary directory the phase removes; with a ``mesh``, ``dist_restore``
+    reads the newest of them first."""
     import shutil
     import tempfile
 
@@ -3133,6 +3329,8 @@ def train_resume(dev) -> None:
                                                       opt=opt), **quiet)
         resume_s = time.perf_counter() - t0
         ckpt_GB = sum(f.stat().st_size for f in Path(ckpt).rglob("*") if f.is_file()) / 1e9
+        if mesh is not None:
+            dist_restore(dev, mesh, ckpt, cfg, dc)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     if hist_res[0]["step"] != RESUME_STOP:
@@ -3153,19 +3351,208 @@ def train_resume(dev) -> None:
 
 
 def train_phase(dev) -> dict:
-    """(a) ``train_steps``, (b) ``train_parity``, (c) ``train_resume``; no
+    """(a) ``train_steps``, (b) ``train_parity``, (c) ``train_resume``, with
+    the ``dist`` checks inside (a) and (c) on a world-size-1 NCCL group; no
     kernel of the port may launch (the JAX training path reaches no
     ``pallas_call``). Returns the (zero) launch counts."""
     from repro_torch.kernels import launch_counts, reset_launches
 
     reset_launches()
-    train_steps(dev)
-    train_parity(dev)
-    train_resume(dev)
+    with dist_group(dev) as mesh:
+        train_steps(dev, mesh)
+        train_parity(dev)
+        train_resume(dev, mesh)
     counts = launch_counts()
     if any(counts.values()):
         raise AssertionError(f"the training path launched kernels: {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# dist/ on one rank: a world-size-1 NCCL group and a (1, 1) ("data", "model")
+# mesh; the sharding rules, the int8 gradient compression and seq_parallel
+
+
+DIST_EF_STEPS = 4            # error-feedback steps over the real gradients
+DIST_EF_RTOL = 0.01          # tests/test_collectives.py:23's bound on the mean's error
+# |dequantize(quantize(g)) - g| <= scale / 2 in exact arithmetic; the f32
+# quotient, round and product add a few ulps of |g| <= 127 scale
+DIST_ERR_OVER_SCALE = 0.5 + 2.0**-14
+
+
+@contextlib.contextmanager
+def dist_group(dev):
+    """A world-size-1 NCCL process group on a ``HashStore`` (no network port)
+    and its (1, 1) ``("data", "model")`` mesh; the group is destroyed on
+    exit."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0, world_size=1,
+                             device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device=dev)
+    finally:
+        tdist.destroy_process_group()
+
+
+def dist_grads(cfg, params, batch) -> None:
+    """(b) ``quantize_grad``/``dequantize_grad`` over every leaf of the real
+    full-width gradients of ``batch`` (one ``value_and_grad``): every element's
+    error within half its row's scale, the int8 bytes a quarter of the f32
+    bytes, and ``tests/test_collectives.py:23``'s error feedback over
+    ``DIST_EF_STEPS`` steps (the mean of the dequantized sums within
+    ``DIST_EF_RTOL`` of the gradient, in norm over all leaves); the quantize
+    pass timed on the card with CUDA events. (c) The same loss with
+    ``seq_parallel=True`` (the identity on one rank), bit for bit."""
+    from repro_torch.dist.collectives import dequantize_grad, quantize_grad
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import value_and_grad
+
+    loss, grads = value_and_grad(params, batch, cfg)
+    leaves = tree_leaves(grads)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    qs = [quantize_grad(g) for g in leaves]
+    end.record()
+    torch.cuda.synchronize()
+    pass_ms = start.elapsed_time(end)
+    elems = sum(g.numel() for g in leaves)
+    in_bytes = sum(g.numel() * g.element_size() for g in leaves)
+    q_bytes = sum(q.numel() * q.element_size() for q, _ in qs)
+    s_bytes = sum(sc.numel() * sc.element_size() for _, sc in qs)
+    worst = 0.0
+    for g, (q, sc) in zip(leaves, qs):
+        if q.dtype != torch.int8 or 4 * q.numel() * q.element_size() != g.numel() * 4:
+            raise AssertionError(f"a {tuple(g.shape)} leaf quantized to {q.dtype} {q.shape}")
+        ratio = float(((dequantize_grad(q, sc) - g.float()).abs() / sc).max())
+        worst = max(worst, ratio)
+    if worst > DIST_ERR_OVER_SCALE:
+        raise AssertionError(f"quantize_grad: an error of {worst} scales")
+    num = den = 0.0
+    for g in leaves:
+        gf = g.float()
+        err, total = torch.zeros_like(gf), torch.zeros_like(gf)
+        for _ in range(DIST_EF_STEPS):
+            corrected = gf + err
+            deq = dequantize_grad(*quantize_grad(corrected))
+            err = corrected - deq
+            total += deq
+        num += float(((total / DIST_EF_STEPS - gf) ** 2).sum())
+        den += float((gf * gf).sum())
+    ef_rel = math.sqrt(num / den)
+    if not ef_rel < DIST_EF_RTOL:
+        raise AssertionError(f"error feedback over {DIST_EF_STEPS} steps: rel {ef_rel}")
+    emit({"phase": "dist", "check": "quantize_grad", "arch": cfg.name,
+          "grad_leaves": len(qs), "elements": elems, "grad_bytes": in_bytes,
+          "f32_bytes": elems * 4, "int8_bytes": q_bytes, "scale_bytes": s_bytes,
+          "pass_device_ms": pass_ms,
+          "pass_bound_ms": 1e3 * (in_bytes + q_bytes + s_bytes) / HBM_BYTES_PER_S,
+          "max_err_over_scale": worst, "ef_steps": DIST_EF_STEPS, "ef_rel_err": ef_rel})
+    del grads, leaves, qs
+    loss_sp, grads_sp = value_and_grad(params, batch, cfg.replace(seq_parallel=True))
+    del grads_sp
+    same = bool(torch.equal(loss_sp, loss))
+    emit({"phase": "dist", "check": "seq_parallel", "arch": cfg.name, "loss": float(loss),
+          "loss_seq_parallel": float(loss_sp), "equal_bits": same})
+    if not same:
+        raise AssertionError(f"seq_parallel changed the loss: {float(loss_sp)} against "
+                             f"{float(loss)}")
+
+
+def dist_restore(dev, mesh, ckpt: str, cfg, dc) -> None:
+    """(a) The newest checkpoint in ``ckpt`` restored plainly and under the
+    mesh's shardings (``param_shardings``, ``opt_state_shardings``: every
+    stacked array distributed as a DTensor, the layer lists its slices):
+    every leaf's ``full_tensor()`` equal to the plain restore's bit for bit,
+    and ``loss_fn`` on the restored params, gathered with ``full_tensor()``,
+    equal to the plain params' loss bit for bit. (The port's model code has
+    no tensor-parallel form: DTensor's propagation through it stops at a
+    view that flattens a sharded head dim, so the loss runs on the gathered
+    params.)"""
+    from repro_torch.dist.sharding import opt_state_shardings, param_shardings
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.train import checkpoint
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import init_opt_state, tree_leaves, tree_map
+
+    step = checkpoint.latest_step(ckpt)
+    like = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt_like = init_opt_state(like)
+    t0 = time.perf_counter()
+    p1, o1, _ = checkpoint.restore(ckpt, step, like, opt_like)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    psh, osh = param_shardings(like, mesh), opt_state_shardings(opt_like, mesh)
+    t0 = time.perf_counter()
+    p2, o2, _ = checkpoint.restore(ckpt, step, like, opt_like, shardings=psh, opt_shardings=osh)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    plain = tree_leaves(p1) + tree_leaves(o1.m) + tree_leaves(o1.v) + [o1.step]
+    sharded = tree_leaves(p2) + tree_leaves(o2.m) + tree_leaves(o2.v) + [o2.step]
+    for a, b in zip(plain, sharded):
+        full = b.full_tensor()
+        if full.dtype != a.dtype or not torch.equal(full, a):
+            raise AssertionError(f"sharded restore: a {tuple(a.shape)} leaf differs")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(dc).batch_at(0).items()}
+    with torch.no_grad():
+        loss = loss_fn(p1, batch, cfg)
+        t0 = time.perf_counter()
+        loss_sh = loss_fn(tree_map(lambda t: t.full_tensor(), p2), batch, cfg)
+        torch.cuda.synchronize()
+        loss_sh_s = time.perf_counter() - t0
+    same = bool(torch.equal(loss_sh, loss))
+    w = p2["layers"][0]["mlp"]["w_gate"]
+    emit({"phase": "dist", "check": "sharded_restore", "arch": cfg.name, "step": step,
+          "mesh": "(1, 1) data x model, nccl world 1", "leaves": len(plain),
+          "w_gate_placements": str(w.placements),
+          "w_down_moment_spec": str(osh.m["layers"]["mlp"]["w_down"].spec),
+          "restore_plain_s": plain_s, "restore_sharded_s": sharded_s, "loss": float(loss),
+          "loss_sharded": float(loss_sh), "loss_sharded_s": loss_sh_s, "equal_bits": same})
+    if not same:
+        raise AssertionError(f"sharded restore: loss {float(loss_sh)} against {float(loss)}")
+
+
+def dist_phase(dev) -> None:
+    """``--dist``: the dist checks alone. (b) and (c) on internvl2-2b at full
+    width with seeded weights over the train phase's last batch; (a) on a
+    checkpoint of the ~125 M llama written by two steps of ``train.loop.run``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.loop import TrainConfig, run
+    from repro_torch.train.optimizer import AdamWConfig
+
+    reset_launches()
+    with dist_group(dev) as mesh:
+        cfg = get_config(TRAIN_ARCH)
+        free_card(f"{TRAIN_ARCH} dist checks")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        batch, _ = train_batch(cfg, data, TRAIN_STEPS, gen, dev)
+        dist_grads(cfg, params, batch)
+        del params, batch
+        torch.cuda.empty_cache()
+        cfg = get_config("llama3-8b", smoke=True).replace(**LLAMA_100M)
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=RESUME_SEQ, global_batch=RESUME_BATCH)
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            run(cfg, dc, TrainConfig(steps=2, ckpt_dir=ckpt, ckpt_every=RESUME_STEPS, log_every=0,
+                                     opt=AdamWConfig(warmup_steps=1, total_steps=2)),
+                log=lambda *a: None, device=dev)
+            dist_restore(dev, mesh, ckpt, cfg, dc)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    if any(launch_counts().values()):
+        raise AssertionError(f"the dist checks launched kernels: {launch_counts()}")
 
 
 # ---------------------------------------------------------------------------
@@ -3193,9 +3580,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
-                    ["--traffic"], ["--dense"], ["--moe"], ["--families"], ["--train"]):
+                    ["--traffic"], ["--dense"], ["--moe"], ["--families"], ["--train"],
+                    ["--dist"]):
         print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
-              f"| --dense | --moe | --families | --train]", file=sys.stderr)
+              f"| --dense | --moe | --families | --train | --dist]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -3267,6 +3655,10 @@ def main(argv: list[str]) -> int:
     if argv == ["--train"]:
         with phase_clock("train_phase"):
             train_phase(dev)
+        return 0
+    if argv == ["--dist"]:
+        with phase_clock("dist_phase"):
+            dist_phase(dev)
         return 0
     with phase_clock("kernel checks"):
         errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"],

@@ -1,0 +1,224 @@
+"""Sharding rules for params, optimizer state, batches and KV caches (port of
+``repro.dist.sharding``), over ``torch.distributed`` device meshes.
+
+Megatron-style tensor parallelism over the ``model`` axis:
+
+* column-parallel weights (``w_gate``/``w_up``/``wq``/``wk``/``wv``/...) shard
+  their OUTPUT dim; row-parallel weights (``w_down``/``wo``/...) shard their
+  INPUT (contracted) dim: one all-reduce per block.
+* MoE expert tables shard the EXPERT dim (expert parallelism).
+* the embedding table shards its vocab rows; the LM head its vocab columns.
+* any dim not divisible by :data:`MODEL_SHARD` stays replicated: weights are
+  never silently padded.
+
+Optimizer moments additionally fold the ``data`` axis into their first
+replicated dim (ZeRO-1: each data rank owns a slice of the f32 state).
+Decode KV caches shard batch over the data axes when the batch is wide, and
+fold ALL mesh axes into the sequence dim for batch-1 long-context decode.
+
+**Specs.** A spec is a tuple with one entry per leading tensor dim: ``None``
+(replicated), an axis name, or a tuple of axis names in the mesh's dim order
+(the dim is split over all of them, the first outermost). It equals
+``tuple(PartitionSpec(...))`` of the JAX package's spec. :class:`NamedSharding`
+pairs it with a mesh; its ``placements`` are DTensor's, one per mesh dim:
+``Shard(d)`` where the spec puts that axis on dim ``d`` (on both mesh dims for
+a two-axis entry), else ``Replicate()``.
+
+**Stacked trees.** The rules read a leaf's tree path and shape. The JAX
+package stacks each layer list ``(nL, ...)``; the port keeps per-layer
+lists. So the rules run on the stacked tree (``models.model.stack_layers``,
+the layout of ``models.model.param_specs`` and of the checkpoints), where
+paths and specs equal the JAX package's leaf for leaf; a per-layer tree is
+stacked first, on the ``meta`` device. A per-layer leaf takes its stacked
+leaf's spec without the first (layer) entry: it is the slice ``dt[i]`` of the
+distributed stacked tensor (``train.checkpoint.restore``). Where a rule put a
+mesh axis on the layer dim (ZeRO-1 folds ``data`` there on a stacked moment),
+that slice is replicated over the axis: DTensor gathers it on the select.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.launch.mesh import all_axes, axis_size, batch_axes
+from repro_torch.models.model import STACKED, stack_layers
+from repro_torch.train.optimizer import OptState
+
+MODEL_SHARD = 16  # `model` mesh-axis size every production mesh uses
+
+# row-parallel weights: contract the sharded input dim (Megatron pair rule)
+_ROW_PARALLEL = {"w_down", "wo", "w_out", "w_b", "cm_wv"}
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: the counterpart of ``jax.sharding.NamedSharding``."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        """DTensor placements, one per mesh dim, for ``distribute_tensor``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = all_axes(self.mesh)
+        out = [Replicate()] * len(names)
+        for dim, e in enumerate(self.spec):
+            axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+            if list(axes) != sorted(axes, key=names.index):
+                raise ValueError(f"spec {self.spec}: the axes {axes} of dim {dim} are not "
+                                 f"in the mesh's dim order {names}")
+            for a in axes:
+                out[names.index(a)] = Shard(dim)
+        return tuple(out)
+
+
+def _shape(leaf) -> tuple:
+    """A leaf's shape: a tensor's (meta or not), or a ``(shape, dtype)`` pair
+    of ``models.model.decode_cache_specs``."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf[0])
+
+
+def _map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` over the leaves of nested dicts, ``path`` their keys
+    joined by ``/`` (the JAX package's ``_path_str``)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
+def stacked(tree: dict) -> dict:
+    """``tree`` with each per-layer list under a :data:`STACKED` key stacked
+    ``(nL, ...)`` on the ``meta`` device (no copy); a stacked tree as it is."""
+    if not any(isinstance(tree.get(k), list) for k in STACKED):
+        return tree
+    return stack_layers(tree, lambda leaves: torch.empty(
+        (len(leaves), *leaves[0].shape), dtype=leaves[0].dtype, device="meta"))
+
+
+def _divisible(shape, dim: int) -> bool:
+    return shape[dim] % MODEL_SHARD == 0
+
+
+def param_pspec(path: str, leaf) -> tuple:
+    """Spec of one parameter leaf addressed by its (stacked-tree) path."""
+    shape = _shape(leaf)
+    nd = len(shape)
+    parts = path.split("/")
+    name = parts[-1]
+    if nd <= 1 or name in ("scale", "bias") or "norm" in path:
+        return ()
+    if "embed" in parts:  # (V, d): shard vocab rows
+        return ("model", *([None] * (nd - 1)))
+    if "lm_head" in parts:  # (d, V): shard vocab columns
+        return (*([None] * (nd - 1)), "model")
+    if "moe" in parts:  # (L?, E, d, f) expert tables: expert parallelism
+        e_dim = nd - 3
+        if _divisible(shape, e_dim):
+            spec = [None] * nd
+            spec[e_dim] = "model"
+            return tuple(spec)
+        return ()
+    if name in _ROW_PARALLEL:  # (..., in, out): shard the contracted input dim
+        if _divisible(shape, nd - 2):
+            return (*([None] * (nd - 2)), "model", None)
+        return ()
+    # default column-parallel: shard the output (last) dim
+    if _divisible(shape, nd - 1):
+        return (*([None] * (nd - 1)), "model")
+    return ()
+
+
+def param_shardings(params: dict, mesh) -> dict:
+    """NamedSharding tree mirroring the stacked form of a params tree."""
+    return _map_with_path(lambda path, leaf: NamedSharding(mesh, param_pspec(path, leaf)),
+                          stacked(params))
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def _fold(axes: tuple):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _with_data_axis(spec: tuple, leaf, mesh) -> tuple:
+    """ZeRO-1: fold the data axes into the first replicated dim of a moment."""
+    ba = batch_axes(mesh)
+    nb = axis_size(mesh, ba)
+    shape = _shape(leaf)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for dim, e in enumerate(entries):
+        if e is None and shape[dim] % max(nb, 1) == 0:
+            entries[dim] = _fold(ba)
+            return tuple(entries)
+    return spec
+
+
+def opt_state_shardings(opt_state: OptState, mesh) -> OptState:
+    """Shardings for OptState(step, m, v): param rules + ZeRO-1 data folding."""
+    def moments(tree):
+        return _map_with_path(
+            lambda path, leaf: NamedSharding(
+                mesh, _with_data_axis(param_pspec(path, leaf), leaf, mesh)
+                if len(_shape(leaf)) >= 1 else ()),
+            stacked(tree))
+
+    return OptState(step=replicated(mesh), m=moments(opt_state.m), v=moments(opt_state.v))
+
+
+def batch_shardings(cfg, spec, mesh, batch: dict) -> dict:
+    """Model inputs shard their leading (global-batch) dim over the data axes."""
+    ba = batch_axes(mesh)
+    nb = axis_size(mesh, ba)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        if len(shape) >= 1 and shape[0] % nb == 0:
+            return NamedSharding(mesh, (_fold(ba), *([None] * (len(shape) - 1))))
+        return replicated(mesh)
+
+    return _map_with_path(one, batch)
+
+
+# KV-cache leaves and where their sequence (L) axis lives under the cdpim
+# dual layout: K column-wise (L last), V / cross-KV row-wise (L second-last).
+_KV_L_AXIS = {"k": -1, "k_loc": -1, "v": -2, "v_loc": -2,
+              "cross_k": -2, "cross_v": -2}
+
+
+def cache_shardings(cfg, spec, mesh, cache: dict) -> dict:
+    """Decode-cache shardings (``cache``: ``models.model.init_decode_cache``'s
+    tree, or ``decode_cache_specs``' shapes).
+
+    Wide-batch decode shards the batch dim (axis 1 of every (nL, B, ...)
+    leaf) over the data axes. Batch-1 long-context decode instead folds ALL
+    mesh axes into the KV sequence dim: the 500k-token cache is the only
+    tensor large enough to occupy the whole mesh.
+    """
+    ba = batch_axes(mesh)
+    nb = axis_size(mesh, ba)
+    ndev = mesh.size()
+    fold = all_axes(mesh)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        nd = len(shape)
+        if nd == 0:
+            return replicated(mesh)
+        name = path.split("/")[-1]
+        wide = spec.global_batch > 1 and spec.global_batch % nb == 0
+        if wide and nd >= 3 and shape[1] == spec.global_batch:
+            return NamedSharding(mesh, (None, _fold(ba), *([None] * (nd - 2))))
+        if name in _KV_L_AXIS and nd >= 4:
+            l_ax = nd + _KV_L_AXIS[name]
+            if shape[l_ax] % ndev == 0:
+                entries = [None] * nd
+                entries[l_ax] = _fold(fold)
+                return NamedSharding(mesh, tuple(entries))
+        return replicated(mesh)
+
+    return _map_with_path(one, cache)

@@ -102,9 +102,12 @@ def _init_encdec_layer(generator: torch.Generator, cfg: ModelConfig, device,
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                device=None) -> dict:
     """Random params with the JAX package's distributions (``layers.py:19-26``),
-    drawn from ``generator``, which must live on ``device``."""
+    drawn from ``generator``, which must live on ``device``. On the ``meta``
+    device nothing is drawn and ``generator`` is ``None``
+    (:func:`param_specs`)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -136,7 +139,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     return params
 
 
-def _leaf_to_torch(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def param_specs(cfg: ModelConfig) -> dict:
+    """The params tree without storage: :func:`init_params`'s leaves built on
+    the ``meta`` device (their shapes and dtypes, nothing drawn), each layer
+    list stacked ``(nL, ...)`` under its key as the JAX package's
+    ``param_specs`` stacks it (:func:`stack_layers`)."""
+    return stack_layers(init_params(cfg, None, device="meta"), torch.stack)
+
+
+def leaf_to_torch(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """numpy leaf -> torch tensor; an ``ml_dtypes.bfloat16`` array (which
     ``torch.from_numpy`` rejects) goes through its uint16 bits."""
     arr = np.ascontiguousarray(arr)
@@ -162,7 +173,7 @@ def params_from_numpy(tree: Any, device=None) -> Any:
         if isinstance(t, dict):
             return {k: conv(v, layer) for k, v in t.items()}
         arr = np.asarray(t)
-        return _leaf_to_torch(arr if layer is None else arr[layer], dev)
+        return leaf_to_torch(arr if layer is None else arr[layer], dev)
 
     out = {k: conv(v) for k, v in tree.items() if k not in STACKED}
     for key in STACKED:
@@ -185,6 +196,23 @@ def stack_layers(tree: dict, stack: Callable) -> dict:
         return stack(layers)
 
     return {k: merge(v) if k in STACKED and v else v for k, v in tree.items()}
+
+
+def unstack_layers(tree: dict) -> dict:
+    """The inverse of :func:`stack_layers`: each stacked ``(nL, ...)``
+    subtree under a :data:`STACKED` key as a list of per-layer dicts whose
+    leaves are the stacked leaves' slices ``t[i]``."""
+    def layer(node, i):
+        return {k: layer(v, i) for k, v in node.items()} if isinstance(node, dict) else node[i]
+
+    out = dict(tree)
+    for key in STACKED:
+        if key in tree:
+            leaf = tree[key]
+            while isinstance(leaf, dict):
+                leaf = next(iter(leaf.values()))
+            out[key] = [layer(tree[key], i) for i in range(leaf.shape[0])]
+    return out
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -538,7 +566,13 @@ def _dense_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, window: Optional[i
     package's ``_windowed_attn`` is this attention with the window its layer
     flag selects, a global layer's window covering every key), the optional
     post-norms, then the MLP or, for MoE, ``moe_einsum`` over all B·S tokens.
-    With ``return_kv`` also the layer's (k, v) (B, Hkv, S, hd)."""
+    With ``return_kv`` also the layer's (k, v) (B, Hkv, S, hd).
+
+    The JAX package constrains ``x`` here to shard its sequence dim over the
+    ``model`` axis when ``cfg.seq_parallel`` is set (``_sp_constraint``), a
+    layout hint that is the identity without a mesh. The port runs on one
+    rank, where it is the identity too, so ``seq_parallel`` changes nothing
+    here and adds no constraint."""
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     out = attn_lib.attention_dense(lp["attn"], h, cfg, window=window, return_kv=return_kv)
     a, kv = out if return_kv else (out, None)

@@ -142,8 +142,9 @@ class GenerationResult:
 
     **Latency marks** (engine-step clock; the raw material for the TTFT/TPOT
     percentile telemetry in ``schedule_report()`` and the pimsim-priced
-    ``serve.traffic`` reports): ``arrival_step`` is when the request became
-    visible to admission, ``admit_step`` when admission work FIRST started
+    ``serve.traffic.priced_latency`` report, which maps each mark onto
+    ``pimsim.replay_events``' simulated timeline): ``arrival_step`` is when
+    the request became visible to admission, ``admit_step`` when admission work FIRST started
     for it (set once — a preempted-then-requeued request keeps its original
     mark, so queue-wait is never double-counted), ``first_token_step`` when
     its first token emitted, ``finish_step`` when it reached a terminal

@@ -84,7 +84,10 @@ class ScheduleEvent:
     """One engine step: the JAX engine's event fields, plus the port's
     ``clock``, ``failed``, ``step_s`` and its finer spec counters. The JAX
     engine's ``attempts`` and ``degraded`` are always 1 and False here (the
-    port's ladder has one rung, so a step runs once), and are left out."""
+    port's ladder has one rung, so a step runs once), and are left out:
+    ``pimsim.replay_events`` reads both with those defaults, so the port's
+    events price as the JAX engine's do at its floor. The replay does not
+    read ``failed``, as the JAX replay reads no such field."""
     plan: StepPlan
     decode_batch: int       # active decode lanes this step
     prefill_tokens: int     # admission-prefill tokens consumed this step
@@ -1080,3 +1083,47 @@ class Engine:
             "draft_prefill_tokens": sum(e.draft_prefill_tokens for e in spec_events),
             "verify_tokens": sum(e.verify_tokens for e in spec_events),
         }
+
+
+def wave_baseline_report(prompt_lens: Sequence[int], max_news: Sequence[int],
+                         slots: int) -> dict:
+    """Decode-step accounting of the OLD wave engine for the same request set.
+
+    Waves of ``slots`` requests in submission order; every wave decodes to its
+    batch-max ``max_new`` (first token comes from prefill, so a wave costs
+    ``max(max_new) - 1`` decode steps) and per-request budgets are enforced by
+    truncation only. ``idle_slot_steps`` counts slot-steps that produce no
+    kept token: empty lanes plus lanes decoding past their own budget.
+    """
+    decode_steps = slot_steps = idle = 0
+    reqs = list(zip(prompt_lens, max_news))
+    for w0 in range(0, len(reqs), slots):
+        wave = reqs[w0: w0 + slots]
+        steps_w = max(mn for _, mn in wave) - 1
+        decode_steps += steps_w
+        slot_steps += len(wave) * steps_w
+        idle += (slots - len(wave)) * steps_w
+        idle += sum(steps_w - (mn - 1) for _, mn in wave)
+    return {"decode_steps": decode_steps, "decode_slot_steps": slot_steps,
+            "idle_slot_steps": idle}
+
+
+def wave_baseline_events(prompt_lens: Sequence[int], max_news: Sequence[int],
+                         slots: int, mode: Mode = Mode.HBCEM) -> list:
+    """The OLD wave engine's ``ScheduleEvent`` stream, so
+    ``pimsim.replay_events`` can price the wave schedule against a continuous
+    one. Every wave decodes its FULL width to the batch-max budget: the
+    over-decoded slot-steps are the work continuous batching reclaims by
+    retiring lanes mid-flight.
+    """
+    events = []
+    reqs = list(zip(prompt_lens, max_news))
+    for w0 in range(0, len(reqs), slots):
+        wave = reqs[w0: w0 + slots]
+        ptoks = sum(pl for pl, _ in wave)
+        events.append(ScheduleEvent(plan_step(mode, False, True, ptoks), 0, ptoks))
+        for t in range(max(mn for _, mn in wave) - 1):
+            ctx = max(pl + 1 + t for pl, _ in wave)
+            events.append(ScheduleEvent(plan_step(mode, True, False, 0),
+                                        len(wave), 0, ctx))
+    return events

@@ -12,9 +12,11 @@ telemetry (the port's own copy of ``repro.serve.traffic``).
 * :func:`latency_summary` — TTFT, TPOT and queue-wait p50/p95/p99 over the
   engine's latency marks, and step-budget SLO attainment; what
   ``Engine.schedule_report()`` embeds.
-
-The JAX package's ``priced_latency`` (seconds on pimsim's simulated
-timeline) needs pimsim, which the port has not taken over (ROADMAP A.12).
+* :func:`priced_latency` — the same percentiles and SLO attainment in
+  SIMULATED SECONDS: the event stream replayed through the port's own
+  ``pimsim.replay_events`` and each latency mark mapped onto the simulated
+  timeline with ``pimsim.clock_to_time``. The seconds are those of the
+  paper's LPDDR5-PIM edge device model, not of the card the engine ran on.
 
 Percentiles are nearest-rank (no interpolation), so integer step marks stay
 integers and replays stay bit-identical.
@@ -205,3 +207,63 @@ def latency_summary(results: Sequence, requests: Optional[Sequence] = None) -> d
         out["slo"] = {"declared": declared, "met": met,
                       "attainment": met / len(results) if results else 1.0}
     return out
+
+
+# ------------------------------------------------------ priced (sim-seconds)
+
+
+def priced_latency(events: Sequence, results: Sequence, model, dev, design,
+                   draft_model=None, ttft_slo_s: Optional[float] = None,
+                   tpot_slo_s: Optional[float] = None) -> dict:
+    """TTFT/TPOT percentiles and SLO attainment in SIMULATED SECONDS.
+
+    Replays ``events`` through :func:`repro_torch.pimsim.replay_events` (the
+    calibrated CD-PIM timing model for ``model`` on ``dev``/``design``) and
+    maps every latency mark (arrival, first token, finish) onto the replay's
+    per-event timeline with :func:`repro_torch.pimsim.clock_to_time`. An LBIM
+    fused step and an HBCEM split step advance the engine clock identically
+    but the timeline differently, so mode choices move these numbers.
+
+    SLO attainment (when ``ttft_slo_s``/``tpot_slo_s`` are given) is the
+    fraction of ALL requests that FINISHED and met every declared target: a
+    timed-out, failed or cancelled request never attains.
+    """
+    from repro_torch.pimsim import clock_to_time, replay_events
+    rep = replay_events(events, model, dev, design, draft_model=draft_model)
+    tl = rep.timeline
+    ttfts: list[float] = []
+    tpots: list[float] = []
+    met = 0
+    for r in results:
+        arr_t = clock_to_time(tl, r.arrival_step)
+        ttft_s = tpot_s = None
+        if r.first_token_step is not None:
+            ttft_s = clock_to_time(tl, r.first_token_step) - arr_t
+            ttfts.append(ttft_s)
+        if (r.first_token_step is not None and r.finish_step is not None
+                and len(r.tokens) >= 2):
+            tpot_s = ((clock_to_time(tl, r.finish_step)
+                       - clock_to_time(tl, r.first_token_step))
+                      / (len(r.tokens) - 1))
+            tpots.append(tpot_s)
+        ok = r.state is RequestState.FINISHED
+        if ok and ttft_slo_s is not None:
+            ok = ttft_s is not None and ttft_s <= ttft_slo_s
+        if ok and tpot_slo_s is not None and len(r.tokens) >= 2:
+            ok = tpot_s is not None and tpot_s <= tpot_slo_s
+        met += bool(ok)
+    n = len(results)
+    return {
+        "total_s": rep.total_s,
+        "idle_steps": rep.idle_steps,
+        "ttft_s": _summary(ttfts),
+        "tpot_s": _summary(tpots),
+        "slo": {
+            "ttft_slo_s": ttft_slo_s,
+            "tpot_slo_s": tpot_slo_s,
+            "met": met,
+            "requests": n,
+            "attainment": met / n if n else 1.0,
+        },
+        "replay": rep.to_json(),
+    }

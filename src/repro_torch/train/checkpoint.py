@@ -17,7 +17,11 @@
   arrays are missing or incomplete to ``*.bad`` and falls back to the
   newest valid step.
 * **Restore** checks every array's shape against the ``*_like`` trees and
-  casts it to their dtypes, on their device.
+  casts it to their dtypes, on their device. Given shardings
+  (``dist.sharding.param_shardings`` / ``opt_state_shardings``: the elastic
+  re-shard), each stacked array goes onto its mesh instead, as a DTensor
+  (``distribute_tensor`` with the sharding's placements), and each layer
+  list is rebuilt from the slices of its stacked DTensor.
 """
 from __future__ import annotations
 
@@ -112,39 +116,68 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, params_like: dict, opt_like: OptState):
+def restore(ckpt_dir: str, step: int, params_like: dict, opt_like: OptState,
+            shardings: dict | None = None, opt_shardings: OptState | None = None):
     """Load step ``step`` into the shapes, dtypes and device of
-    ``params_like``/``opt_like``. Returns (params, opt_state, extra)."""
+    ``params_like``/``opt_like``. Returns (params, opt_state, extra).
+
+    ``shardings`` (``dist.sharding.param_shardings`` of the params: the
+    stacked tree's ``NamedSharding``s) restores every params array onto its
+    mesh as a DTensor with the sharding's placements, and ``opt_shardings``
+    (``opt_state_shardings``) the optimizer state: the elastic re-mesh on
+    restore. A layer list is rebuilt from its stacked DTensor's slices."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     data = np.load(os.path.join(path, "arrays.npz"))
 
-    def rebuild(like, prefix: str):
+    def rebuild(like, prefix: str, shard_tree=None):
         """The params-shaped ``like`` read from ``prefix``: the stacked arrays
-        shape-checked, split per layer, cast to ``like``'s dtypes."""
+        shape-checked, cast to ``like``'s dtypes and split per layer (as
+        slices of DTensors on ``shard_tree``'s meshes, where given)."""
         spec = M.stack_layers(like, lambda leaves: torch.empty(
-            (len(leaves), *leaves[0].shape), device="meta"))
+            (len(leaves), *leaves[0].shape), dtype=leaves[0].dtype, device="meta"))
+        shard_flat = _flatten(shard_tree) if shard_tree is not None else {}
         flat = {}
         for k, v in _flatten(spec).items():
             arr = data[f"{prefix}/{k}"]
             if arr.shape != tuple(v.shape):
                 raise ValueError(f"shape mismatch for {k}: {arr.shape} vs {tuple(v.shape)}")
             flat[k] = arr
+            if shard_tree is not None:
+                sharding = shard_flat[k]
+                t = M.leaf_to_torch(arr, torch.device(sharding.mesh.device_type))
+                flat[k] = _distribute(t.to(v.dtype), sharding)
 
         def unflatten(node, pre=""):
             if isinstance(node, dict):
                 return {k: unflatten(v, f"{pre}{k}/") for k, v in node.items()}
             return flat[pre[:-1]]
 
+        if shard_tree is not None:
+            tree = M.unstack_layers(unflatten(spec))
+            return tree_map(lambda ref, t: t, like, tree)              # like's key order
         tree = M.params_from_numpy(unflatten(spec), device=tensor_device(like))
         return tree_map(lambda ref, t: t.to(ref.dtype), like, tree)   # like's key order
 
-    params = rebuild(params_like, "params")
+    params = rebuild(params_like, "params", shardings)
     step_arr = data["opt/step"]
     if step_arr.shape != tuple(opt_like.step.shape):
         raise ValueError(f"shape mismatch for step: {step_arr.shape}")
-    opt = OptState(step=torch.as_tensor(step_arr).to(opt_like.step.dtype).to(
-                       opt_like.step.device),
-                   m=rebuild(opt_like.m, "opt/m"), v=rebuild(opt_like.v, "opt/v"))
+    opt_step = torch.as_tensor(step_arr).to(opt_like.step.dtype)
+    if opt_shardings is not None:
+        opt_step = _distribute(opt_step.to(opt_shardings.step.mesh.device_type),
+                               opt_shardings.step)
+    else:
+        opt_step = opt_step.to(opt_like.step.device)
+    opt = OptState(step=opt_step,
+                   m=rebuild(opt_like.m, "opt/m", opt_shardings and opt_shardings.m),
+                   v=rebuild(opt_like.v, "opt/v", opt_shardings and opt_shardings.v))
     with open(os.path.join(path, MANIFEST)) as f:
         man = json.load(f)
     return params, opt, man["extra"]
+
+
+def _distribute(t: torch.Tensor, sharding):
+    """``t`` distributed over ``sharding.mesh`` with ``sharding.placements``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, sharding.mesh, list(sharding.placements))

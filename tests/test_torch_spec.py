@@ -5,7 +5,9 @@ The contract is the reference's: a spec engine's tokens equal the non-spec
 engine's at every temperature (greedy, sampled, W8A8 target; BLOCKED/HBCEM/
 LBIM; prefix reuse on and off), and the draft only changes the cost. Here the
 port's spec tokens, events and ``schedule_report()["spec"]`` must also equal
-the JAX spec engine's with the same draft, both pools must pass
+the JAX spec engine's with the same draft, and the port's pimsim must price
+the port's spec events as the JAX pimsim prices the JAX spec engine's, with a
+real draft spec and self-drafted (A.5); both pools must pass
 ``check_invariants()`` and end empty. Then the copy-on-write fork protocol of
 the paged pool, which the port's in-place page writes make load-bearing.
 """
@@ -125,6 +127,26 @@ def test_spec_greedy_equals_plain_and_jax(models, mode, prefix):
     assert rep == jeng.schedule_report()["spec"]
     assert rep["enabled"] and rep["rounds"] >= 1 and rep["accepted"] > 0
     assert _events(teng) == _events(jeng)
+    _spec_priced_as_jax(teng, jeng)
+
+
+def _spec_priced_as_jax(teng, jeng):
+    """A.5's pricing contract: the port's pimsim over the port's spec events
+    equals the JAX package's pimsim over the JAX spec engine's events, report
+    and timeline, with a real draft spec and self-drafted (``None``)."""
+    import repro.pimsim as jsim
+    import repro_torch.pimsim as tsim
+
+    for draft in ("llama-1b", None):
+        for mname, dname in (("llama-7b", "jetson-agx-orin-64gb"),
+                             ("llama-1b", "iphone-15-pro")):
+            sims = [pkg.replay_events(eng.events, pkg.MODELS[mname], pkg.DEVICES[dname],
+                                      pkg.CDPIM,
+                                      draft_model=draft and pkg.MODELS[draft])
+                    for pkg, eng in ((tsim, teng), (jsim, jeng))]
+            assert sims[0].to_json() == sims[1].to_json()
+            assert sims[0].timeline == sims[1].timeline
+            assert sims[0].spec_rounds == teng.schedule_report()["spec"]["rounds"]
 
 
 @pytest.mark.parametrize("mode", MODES)
