@@ -189,7 +189,26 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    restored under ``param_shardings``/``opt_state_shardings`` as DTensors,
    every leaf's ``full_tensor()`` and one ``loss_fn`` on the gathered params
    equal to the plain restore's bit for bit.
-11. A ``profile`` line per model (device time by kernel group, busy share), a
+11. ``cost``: the launch tooling (``repro_torch.launch``) on the card. B3
+   through ``quant.w8a8_linear`` on CUDA tensors, bit for bit its plain
+   version, at (256 -> 512) and llama3-8b's (4,096 -> 14,336) at B 4, and
+   ``quant_error`` on the card under 0.02. Then the llama3-8b ``decode_32k``
+   rank cell: one data group's share of the (data=16, model=16) mesh at full
+   width and depth (the port has no tensor-parallel form), 8 of the shape's
+   128 lanes of 32,768 slots filled with seeded bf16 K/V
+   (``launch.hillclimb.rank_cell``), every lane full, no
+   prefill, float linears (the config's ``quantized_decode`` is off): B4 held
+   at this shape against its plain version on layer 0 and lane by lane, and
+   timed there (``kernel_time`` lines: bf16 over the 32 layers' lanes beside
+   its plain version and SDPA, fp8 e4m3 over four layers' lanes); the
+   step's ``launch.costrun.CostCounter`` count on the card, which must equal
+   the same cell's count on ``meta``; then a warm-up and 10 timed steps
+   (``launch.hillclimb.time_steps``), exactly 32 B4 launches each (the 352
+   added to the kernels line). The ``rank_cell``
+   line gives the step's median ms, peak memory, the count, its three
+   roofline terms at the H100's rates and ``roofline_share`` (memory term
+   over the step).
+12. A ``profile`` line per model (device time by kernel group, busy share), a
    ``phase_s`` line per phase of the full run (its wall seconds), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.
@@ -222,6 +241,7 @@ builds the kernels and prints only the SSD scan's ``kernel_time`` and
     python3 chip_smoke.py --families
     python3 chip_smoke.py --train
     python3 chip_smoke.py --dist
+    python3 chip_smoke.py --cost
 
 print only ``pim_gemv``'s ``kernel_time`` lines (llama3-8b's layer at B 1, 4,
 8, then every serve shape at B 1 to 8 beside ``torch._int_mm``) and its
@@ -231,7 +251,12 @@ the dense phase's, only the MoE phase's or only the families phase's (each
 with its kernel checks and times), only the training phase's (no kernel
 check: the phase launches none), or only the ``dist`` checks (on internvl2-2b
 with seeded weights over the training phase's last batch, and on a
-checkpoint of the ~125 M llama written by two steps of ``train.loop.run``).
+checkpoint of the ~125 M llama written by two steps of ``train.loop.run``),
+or the cost phase (11), then ``launch.hillclimb`` on the rank cell with fp8
+e4m3 K/V against bf16 (each counted on ``meta`` and timed on the card), then
+the 40-cell dry run and cost count on ``meta`` with the roofline table at the
+H100's rates (``cost_cell`` lines; about 15 minutes of host time, most of it
+rwkv6's per-token scan, no card).
 """
 from __future__ import annotations
 
@@ -251,12 +276,13 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12          # outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit) and
+# the kernels' work formulas live in the package (launch.roofline, kernels.work)
+from repro_torch.kernels import work  # noqa: E402
+from repro_torch.launch.roofline import (HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                         PEAK_F32_FLOPS, PEAK_FLOPS as PEAK_BF16_FLOPS,
+                                         PEAK_INT8_OPS, PEAK_TF32_FLOPS, bound)
+
 TF32_PIECES = 3                 # the SSD kernel's products: lo*hi + hi*lo + hi*hi
 L2_BYTES = 50 * 2**20
 
@@ -349,15 +375,8 @@ def gemv_inputs(n, k, b, gen, dev):
     return w, x, ws, xs
 
 
-def bound(nbytes: int, ops: int, peak_ops: float) -> tuple[float, str]:
-    """Least time for the work (ms) and what sets it: the bytes that must move
-    (each input read once, each output written once) or the operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def gemv_bound(n, k, b) -> tuple[float, str]:
-    return bound(n * k + b * k + 4 * n + 4 * b + 4 * b * n, 2 * b * n * k, PEAK_INT8_OPS)
+    return bound(*work.gemv_work(n, k, b), PEAK_INT8_OPS)
 
 
 def library_ms(name: str, fns, iters: int):
@@ -496,13 +515,10 @@ def live_tokens(end, start) -> int:
 
 def attn_bound(end, start, n_out_bytes: int, hkv=ATTN_HKV, g=ATTN_G,
                hd=ATTN_HD, kv_bytes: int = 2) -> tuple[float, str]:
-    b = int(end.numel())
-    toks = live_tokens(end, start)
-    nbytes = (toks * hkv * hd * 2 * kv_bytes          # live K and V (bf16: 2 bytes)
-              + b * hkv * g * hd * 2 + n_out_bytes
-              + b * 4 * 2)                            # start / end
-    flops = 4 * toks * hkv * g * hd                   # q.K and p.V
-    return bound(nbytes, flops, PEAK_BF16_FLOPS)
+    """The live tokens' work (``kernels.work.attn_work``) over the card's
+    peaks; q in bf16."""
+    return bound(*work.attn_work(live_tokens(end, start), int(end.numel()), hkv, g, hd,
+                                 n_out_bytes, kv_bytes=kv_bytes), PEAK_BF16_FLOPS)
 
 
 def _allclose(name, out, ref) -> float:
@@ -786,7 +802,7 @@ def time_attention(gen, dev) -> dict:
         "decode_attention_paged_split", s, split1, split1_ref, sdpa, part_bytes,
         library_note="SDPA, against stage 1 + merge together")
     parts = [split1(*p) for p in pools[:8]]
-    bnd, by = bound(part_bytes + out_bytes, 3 * b * hkv * n_real * g * hd, PEAK_BF16_FLOPS)
+    bnd, by = bound(*work.merge_work(b, hkv, n_real, g, hd), PEAK_BF16_FLOPS)
     ms = cuda_ms([lambda pt=pt: da.merge_splits(*pt) for pt in parts], 200)
     res["merge_splits"] = {
         "ms": ms, "plain_ms": cuda_ms([lambda pt=pt: ref.merge_splits(*pt) for pt in parts], 50),
@@ -1022,40 +1038,28 @@ def ssd_inputs(gen, dev, b, t, decay=1.0, n=SSD_N):
     return x, a, bm, cm, s0
 
 
-def chunked_flops(b, t, q, shared_scores: bool) -> int:
-    """Flops of the chunked algorithm at chunk ``q`` (two a multiply-add): the
-    scores C B^T and the masked intra-chunk product over the visible lower
-    triangle, the carried-state product and the state update; the scores
-    once per (lane, chunk) where they are shared by the heads."""
-    n_chunks = -(-t // q)
-    tri = q * (q + 1) // 2
-    scores = 2 * b * n_chunks * tri * SSD_N * (1 if shared_scores else SSD_H)
-    return scores + 2 * b * SSD_H * n_chunks * (tri * SSD_P + 2 * q * SSD_P * SSD_N)
-
-
 def ssd_work(b, t) -> dict:
     """Work of one scan. ``bytes``: each input read once, y and the final
     state written once. The operations, two ways: the recurrence (the
     definition, ``ssd_scan_ref``) takes 5*P*N flops per step and head (decay,
     outer-product update, output) on the f32 CUDA cores; the chunked products
     at the kernel's sub-chunk (scores shared by the heads) take
-    ``chunked_flops``, run as three TF32 products on the tensor cores
+    ``kernels.work.ssd_chunked_flops``, run as three TF32 products on the tensor cores
     (``tensor_flops``). The operations' least time is the faster of the two;
     ``bound_f32_cores_ms`` keeps the bound earlier runs reported (the fewer
     flops of the recurrence and the 256-chunk algorithm, all at the f32 rate)."""
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     sub = getattr(ss, "SUB_CHUNK", 32)
-    recurrence = 5 * b * t * SSD_H * SSD_P * SSD_N
-    chunked = chunked_flops(b, t, sub, shared_scores=True)
+    nbytes, recurrence = work.ssd_work(b, t, SSD_H, SSD_P, SSD_N)
+    chunked = work.ssd_chunked_flops(b, t, sub, SSD_H, SSD_P, SSD_N, shared_scores=True)
     tensor = TF32_PIECES * chunked
-    nbytes = 4 * (b * t * SSD_H * SSD_P * 2 + b * t * SSD_H + 2 * b * t * SSD_N
-                  + 2 * b * SSD_H * SSD_P * SSD_N)
     ops, peak, ops_by = min((tensor, PEAK_TF32_FLOPS, "tensor cores, TF32 x3"),
                             (recurrence, PEAK_F32_FLOPS, "f32 cores, recurrence"),
                             key=lambda o: o[0] / o[1])
     bnd, by = bound(nbytes, ops, peak)
-    old = min(recurrence, chunked_flops(b, t, min(SSD_Q, t), shared_scores=False))
+    old = min(recurrence, work.ssd_chunked_flops(b, t, min(SSD_Q, t), SSD_H, SSD_P, SSD_N,
+                                                 shared_scores=False))
     return {"bytes": nbytes, "recurrence_flops": recurrence, "sub_chunk": sub,
             "chunked_flops": chunked, "tensor_flops": tensor, "ops_by": ops_by,
             "ops_ms": 1e3 * ops / peak, "bound_ms": bnd, "bound_by": by,
@@ -3556,6 +3560,199 @@ def dist_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the launch tooling's cost count and the llama3-8b decode_32k rank cell
+# ---------------------------------------------------------------------------
+
+RANK_ARCH, RANK_SHAPE = "llama3-8b", "decode_32k"
+RANK_STEPS = 10
+# ((K, N), B): tests/test_kernels.py's W8A8 case, and llama3-8b's w_up at 4 slots
+W8A8_SHAPES = (((256, 512), 4), ((4096, 14336), SLOTS))
+QUANT_ERROR_MAX = 0.02  # tests/test_kernels.py's bound on W8A8's relative error
+
+
+def check_w8a8(gen, dev) -> None:
+    """B3 through ``quant.w8a8_linear`` on the card, bit for bit its plain
+    version (``use_kernel=False``) on the same operands; ``quant_error`` on the
+    card under :data:`QUANT_ERROR_MAX`."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import launch_counts
+
+    cases = []
+    for (k, n), b in W8A8_SHAPES:
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        x = torch.randn((b, k), generator=gen, device=dev)
+        ql = quant.quantize_weight(w)
+        before = launch_counts()["pim_gemv"]
+        y = quant.w8a8_linear(ql, x)
+        want = quant.w8a8_linear(ql, x, use_kernel=False)
+        torch.cuda.synchronize()
+        if launch_counts()["pim_gemv"] != before + 1 or not torch.equal(y, want):
+            raise AssertionError(f"w8a8_linear ({k} -> {n}) x B {b}: the kernel's result "
+                                 f"differs from its plain version or it did not launch once")
+        err = quant.quant_error(w, x, device=dev)
+        if not err < QUANT_ERROR_MAX:
+            raise AssertionError(f"quant_error {err} at ({k} -> {n}) is not below "
+                                 f"{QUANT_ERROR_MAX}")
+        cases.append({"k": k, "n": n, "b": b, "bit_exact": True, "quant_error": err})
+    emit({"phase": "kernel_check", "kernel": "pim_gemv via quant.w8a8_linear", "cases": cases})
+
+
+def check_rank_attention(cfg, cache, gen, dev) -> float:
+    """B4 at the rank cell's shape (layer 0's lanes, Lmax 32,768 in 128
+    chunks) against its plain version, and each lane alone against the batch."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    k, v = cache["k"][0], cache["v"][0]
+    b, hkv, hd, lmax = k.shape
+    q = torch.randn((b, hkv, cfg.q_per_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    end = torch.full((b,), lmax, dtype=torch.int32, device=dev)
+    scale = hd ** -0.5
+    out = da.decode_attention(q, k, v, end, scale=scale)
+    want = ref.decode_attention_ref(q, k, v, end, scale)
+    torch.cuda.synchronize()
+    err = _allclose(f"decode_attention rank cell lmax={lmax}", out, want)
+    check_batch_invariant(f"decode_attention rank cell lmax={lmax}",
+                          lambda i: da.decode_attention(q[i], k[i], v[i], end[i], scale=scale),
+                          out, b)
+    emit({"phase": "kernel_check", "kernel": "decode_attention (contiguous)",
+          "cases": [[RANK_ARCH, hkv, cfg.q_per_kv, hd, lmax, None, "batch invariant",
+                     [lmax] * b]], "cache": "bf16", "rtol": ATTN_RTOL, "atol": ATTN_ATOL,
+          "max_abs_err": err})
+    return err
+
+
+def time_rank_attention(cfg, cache, dev) -> None:
+    """B4 at the rank cell's shape, cycling the 32 layers' lanes (1.07 GB
+    each): the kernel, its plain version, SDPA (GQA, K made row-wise) and B4
+    over four layers' lanes in fp8 e4m3."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    k_all, v_all = cache["k"], cache["v"]
+    _, b, hkv, hd, lmax = k_all.shape
+    g = cfg.q_per_kv
+    q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    end = torch.full((b,), lmax, dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    scale = hd ** -0.5
+    out_bytes = b * hkv * g * hd * 4
+    lanes = list(zip(k_all, v_all))
+    bnd, by = attn_bound(end, start, out_bytes, hkv=hkv, g=g, hd=hd)
+    qh = q.reshape(b, hkv * g, 1, hd)
+    sdpa = [(k.transpose(-1, -2).contiguous(), v) for k, v in lanes[:2]]
+    row = {"ms": cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, scale=scale)
+                          for kv in lanes], len(lanes)),
+           "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(q, *kv, end, scale)
+                                for kv in lanes[:2]], 2),
+           "library_ms": library_ms("decode_attention", [
+               lambda kv=kv: F.scaled_dot_product_attention(qh, *kv, scale=scale,
+                                                            enable_gqa=True)
+               for kv in sdpa], 8),
+           "bound_ms": bnd, "bound_by": by}
+    del sdpa
+    emit({"phase": "kernel_time", "kernel": "decode_attention", "shape": "rank cell",
+          "q": [b, hkv, g, hd], "lmax": lmax, "live_tokens": live_tokens(end, start), **row,
+          "roofline_share": bnd / row["ms"]})
+    f8 = [(k.to(F8), v.to(F8)) for k, v in lanes[:4]]
+    bnd, by = attn_bound(end, start, out_bytes, hkv=hkv, g=g, hd=hd, kv_bytes=1)
+    ms = cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, scale=scale) for kv in f8],
+                 16)
+    emit({"phase": "kernel_time", "kernel": "decode_attention", "shape": "rank cell",
+          "kv": "fp8 e4m3", "q": [b, hkv, g, hd], "lmax": lmax,
+          "live_tokens": live_tokens(end, start), "ms": ms, "bf16_ms": row["ms"],
+          "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(q, *kv, end, scale)
+                               for kv in f8[:2]], 2),
+          "library_ms": None, "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
+
+
+def cost_phase(dev) -> dict:
+    """B3 through ``w8a8_linear``; then the rank cell
+    (``launch.hillclimb.rank_cell``, as the hillclimb builds and fills it): B4
+    checked at its shape and timed there (``time_rank_attention``), its
+    ``CostCounter`` count on the card, which must equal the ``meta`` count of
+    the same cell, its step's median ms over :data:`RANK_STEPS` steps after a
+    warm-up (``launch.hillclimb.time_steps``; every launch counted, the
+    warm-up's too), peak memory, and the meta count's roofline terms at the
+    card's rates."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import costrun, hillclimb
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    check_w8a8(gen, dev)
+    free_card("the rank cell")
+    cfg = get_config(RANK_ARCH)
+    batch = hillclimb.rank_batch(RANK_SHAPE)
+    params, step, cache = hillclimb.rank_cell(cfg, RANK_SHAPE, dev)
+    err = check_rank_attention(cfg, cache, gen, dev)
+    time_rank_attention(cfg, cache, dev)
+    card = costrun.count(step)
+    meta = costrun.count(costrun.build_cell(cfg, RANK_SHAPE, batch=batch))
+    if card != meta:
+        raise AssertionError(f"the rank cell counts differently on the card and on meta: "
+                             f"{card} != {meta}")
+    reset_launches()
+    timed = hillclimb.time_steps(step, RANK_STEPS)
+    counts = launch_counts()
+    layers = attention_layers(cfg)
+    if counts != {**{k: 0 for k in counts}, "decode_attention": layers * (RANK_STEPS + 1)}:
+        raise AssertionError(f"the rank cell's steps launched {counts}, not "
+                             f"{layers} x {RANK_STEPS + 1} decode_attention")
+    t = hillclimb.terms(meta)
+    emit({"phase": "rank_cell", "arch": RANK_ARCH, "shape": RANK_SHAPE, "batch": batch,
+          "lmax": cache["k"].shape[-1], "kv": str(cache["k"].dtype), "gpu": nvidia_smi(),
+          "step_ms": timed["step_ms"], "steps_ms": timed["steps_ms"],
+          "peak_GB": timed["peak_gb"],
+          "launches": counts, "count_card": card, "count_meta_equal": True,
+          "t_compute_ms": 1e3 * t["t_compute_s"], "t_memory_ms": 1e3 * t["t_memory_s"],
+          "t_collective_ms": 1e3 * t["t_collective_s"],
+          "roofline_share": 1e3 * t["t_memory_s"] / timed["step_ms"], "b4_max_abs_err": err})
+    del params, step, cache
+    free_card("after the rank cell")
+    return {"decode_attention": counts["decode_attention"]}
+
+
+def cost_sweep() -> None:
+    """The 40-cell dry run and cost count on ``meta`` (no card), and the
+    roofline table at the H100's rates."""
+    from repro_torch.configs import SHAPES, list_archs
+    from repro_torch.launch import costrun, dryrun, roofline
+
+    costs, drs = {}, {}
+    for arch in list_archs():
+        for shape in SHAPES:
+            drs[f"{arch}|{shape}|pod"] = dryrun.run_cell(arch, shape, False)
+            costs[f"{arch}|{shape}"] = costrun.run_cell(arch, shape)
+            emit({"phase": "cost_cell", "cell": f"{arch}|{shape}",
+                  "status": costs[f"{arch}|{shape}"]["status"],
+                  "dryrun": {k: drs[f"{arch}|{shape}|pod"].get(k)
+                             for k in ("status", "memory", "cost", "collectives")},
+                  "cost": {k: costs[f"{arch}|{shape}"].get(k)
+                           for k in ("flops", "bytes", "transcendentals", "kernels")}})
+    print(roofline.fmt_table(roofline.analyze(costs, drs)), flush=True)
+
+
+def cost_hillclimb(dev) -> None:
+    """``launch.hillclimb`` on the rank cell: bf16 K/V against fp8 e4m3 (the
+    JAX package's ``kv_dtype="float8_e4m3fn"``), each counted and timed on the
+    card (B4's fp8 lanes)."""
+    from repro_torch.launch import hillclimb
+
+    free_card("the hillclimb")
+    rows = {}
+    for name, change in (("bf16", None), ("fp8", {"kv_dtype": "float8_e4m3fn"})):
+        rows[name] = hillclimb.measure(RANK_ARCH, RANK_SHAPE, change, "cuda")
+        emit({"phase": "hillclimb", "kv": name, "gpu": nvidia_smi(), **rows[name]})
+    dom = max(("t_compute_s", "t_memory_s", "t_collective_s"), key=lambda k: rows["bf16"][k])
+    emit({"phase": "hillclimb_verdict", "dominant_term": dom,
+          "delta_dominant": rows["fp8"][dom] / rows["bf16"][dom] - 1,
+          "rank_cell_memory_ms": [1e3 * rows[k]["rank_cell"]["t_memory_s"] for k in rows],
+          "card_step_ms": [rows[k]["card"]["step_ms"] for k in rows]})
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
@@ -3581,9 +3778,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
                     ["--traffic"], ["--dense"], ["--moe"], ["--families"], ["--train"],
-                    ["--dist"]):
+                    ["--dist"], ["--cost"]):
         print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
-              f"| --dense | --moe | --families | --train | --dist]", file=sys.stderr)
+              f"| --dense | --moe | --families | --train | --dist | --cost]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -3660,6 +3857,14 @@ def main(argv: list[str]) -> int:
         with phase_clock("dist_phase"):
             dist_phase(dev)
         return 0
+    if argv == ["--cost"]:
+        with phase_clock("cost_phase"):
+            cost_phase(dev)
+        with phase_clock("cost_hillclimb"):
+            cost_hillclimb(dev)
+        with phase_clock("cost_sweep"):
+            cost_sweep()
+        return 0
     with phase_clock("kernel checks"):
         errs = {"pim_gemv": check_pim_gemv(gen, dev)["max_abs_err"],
                 **check_attention(gen, dev),
@@ -3680,7 +3885,7 @@ def main(argv: list[str]) -> int:
 
     counts: dict[str, int] = {}
     for phase in (serve_phase, zamba2_phase, dense_phase, moe_phase, families_phase,
-                  train_phase):
+                  train_phase, cost_phase):
         torch.cuda.empty_cache()
         with phase_clock(phase.__name__):   # serve_phase's includes spec and traffic
             for k, v in phase(dev).items():
@@ -3693,7 +3898,9 @@ def main(argv: list[str]) -> int:
                         f"model-level decodes (internvl2-2b, seamless-m4t-large-v2)",
             "decode_attention": f"one zamba2-7b shared-block layer, q ({ATTN_B},32,1,112), "
                                 f"bf16 lanes of {CONTIG_LMAX}, end {ATTN_END}, "
-                                f"start {ATTN_START}",
+                                f"start {ATTN_START}; launches include the llama3-8b "
+                                f"decode_32k rank cell's {RANK_STEPS} steps of 32 at "
+                                f"Lmax 32,768",
             "decode_attention_paged": "one layer, q (4,8,4,128), bf16 pages of 8 tokens, "
                                       f"end {ATTN_END}, start {ATTN_START}",
             "decode_attention_paged_split": "as above, 4 splits (stage 1); library_ms is "

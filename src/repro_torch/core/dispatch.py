@@ -8,6 +8,10 @@
   CUDA the port never serves from the plain version in place of a kernel;
 * ``"pallas"`` / ``"interpret"`` — TPU backends of the JAX package; they raise.
 
+``meta`` tensors (a cost count, ``launch.costrun``) resolve to ``"meta"``: the
+kernel ops return shapes and compute nothing. The engine and its ladder
+refuse ``meta``.
+
 There is no silent kernel -> reference rung: a kernel that fails on a CUDA
 tensor raises.
 
@@ -41,10 +45,11 @@ _TPU_BACKENDS = ("pallas", "interpret")
 
 
 def resolve_backend(cfg, device) -> str:
-    """Concrete backend for tensors on ``device``: ``"kernel"`` (CUDA) or
-    ``"reference"`` (CPU). Unknown names raise; so does ``reference`` on CUDA
-    and any TPU backend. The wrappers themselves follow the tensor's device;
-    this validates ``cfg.attn_backend`` against it."""
+    """Concrete backend for tensors on ``device``: ``"kernel"`` (CUDA),
+    ``"reference"`` (CPU) or ``"meta"`` (shapes only). Unknown names raise; so
+    does ``reference`` on CUDA and any TPU backend. The wrappers themselves
+    follow the tensor's device; this validates ``cfg.attn_backend`` against
+    it."""
     name = cfg.attn_backend
     if name in _TPU_BACKENDS:
         raise ValueError(f"backend {name!r} is a TPU (Pallas) backend; the PyTorch "
@@ -59,6 +64,8 @@ def resolve_backend(cfg, device) -> str:
         return "kernel"
     if dev.type == "cpu":
         return "reference"
+    if dev.type == "meta":
+        return "meta"
     raise ValueError(f"unsupported device {dev}")
 
 
@@ -74,6 +81,9 @@ class DegradationLadder:
     ``Engine.health()`` reports."""
 
     def __init__(self, cfg, device):
+        if torch.device(device).type == "meta":
+            raise ValueError("the engine does not run on meta tensors: count a cell "
+                             "through the model functions (launch.costrun)")
         self._base = {op: resolve_backend(cfg, device) for op in LADDER_OPS}
         self.counters = {op: {"fallbacks": 0, "nan_trips": 0, "kernel_faults": 0}
                          for op in LADDER_OPS}
@@ -153,3 +163,19 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Gated MLP through the dispatched (possibly W8A8) linears."""
     from repro_torch.models import layers as L  # local import: avoid a cycle at init
     return L.mlp(p, x, linear_fn=lambda w, xx: linear(w, xx, cfg))
+
+
+def projected_decode_attn_bytes(batch: int, n_kv_heads: int, head_dim: int, lmax: int,
+                                pos: int, *, block_l: int = 512, itemsize: int = 2,
+                                dispatched: bool = True) -> int:
+    """Decode-step cache traffic model for one attention layer (the JAX
+    package's, int for int): the dispatched kernel streams only the live K/V
+    tiles of ``block_l`` tokens, so its traffic follows ``pos``; the dense path
+    reads the whole ``Lmax`` cache every step."""
+    bl = min(block_l, lmax)
+    if dispatched:
+        live_tiles = -(-max(pos, 0) // bl)            # ceil(pos / BL)
+        cols = min(live_tiles * bl, -(-lmax // bl) * bl)
+    else:
+        cols = lmax
+    return 2 * batch * n_kv_heads * head_dim * cols * itemsize  # K + V streams

@@ -6,8 +6,12 @@ Contiguous lanes keep K column-wise ``(B, H, hd, Lmax)`` and V row-wise
 ``(nL, P, H, hd, Bsz)``, V ``(nL, P, H, Bsz, hd)``. Where the JAX package
 updated caches functionally (``.at[].set``, ``dynamic_update_slice``), the port
 writes IN PLACE: a decode step must not copy a multi-gigabyte cache per layer.
-Every in-place write is marked as such below. Only the cdpim layout is ported;
-the fixed-mapping ablation layouts stay in the JAX package.
+Every in-place write is marked as such below.
+
+The fixed-mapping baselines the paper compares against (``row_row``: K and V
+both ``(.., Lmax, hd)``; ``col_col``: both ``(.., hd, Lmax)``) are kept for the
+ablation: :func:`init_cache`, :func:`cache_specs`, :func:`append_layer`,
+:func:`read_scores` and :func:`read_output` take every layout.
 """
 from __future__ import annotations
 
@@ -18,38 +22,60 @@ import torch
 Layout = Literal["cdpim", "row_row", "col_col"]
 
 
+def _kv_shapes(n_layers, batch, n_kv_heads, head_dim, max_len, layout: Layout):
+    lanes, rows, cols = ((n_layers, batch, n_kv_heads), (max_len, head_dim),
+                         (head_dim, max_len))
+    if layout not in ("cdpim", "row_row", "col_col"):
+        raise ValueError(f"unknown layout {layout!r}; expected cdpim, row_row or col_col")
+    k = rows if layout == "row_row" else cols
+    v = cols if layout == "col_col" else rows
+    return (*lanes, *k), (*lanes, *v)
+
+
 def init_cache(n_layers: int, batch: int, n_kv_heads: int, head_dim: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> dict:
-    """An empty layer-stacked cdpim cache: K (nL, B, H, hd, Lmax) column-wise,
-    V (nL, B, H, Lmax, hd) row-wise, fill level ``pos`` 0."""
+               dtype=torch.bfloat16, device=None, layout: Layout = "cdpim") -> dict:
+    """An empty layer-stacked cache, fill level ``pos`` 0: cdpim K (nL, B, H,
+    hd, Lmax) column-wise and V (nL, B, H, Lmax, hd) row-wise; ``row_row``
+    both (.., Lmax, hd); ``col_col`` both (.., hd, Lmax)."""
+    k_shape, v_shape = _kv_shapes(n_layers, batch, n_kv_heads, head_dim, max_len, layout)
     return {
-        "k": torch.zeros((n_layers, batch, n_kv_heads, head_dim, max_len), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((n_layers, batch, n_kv_heads, max_len, head_dim), dtype=dtype,
-                         device=device),
+        "k": torch.zeros(k_shape, dtype=dtype, device=device),
+        "v": torch.zeros(v_shape, dtype=dtype, device=device),
         "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "layout": layout,
     }
 
 
+def cache_specs(n_layers: int, batch: int, n_kv_heads: int, head_dim: int, max_len: int,
+                dtype=torch.bfloat16, layout: Layout = "cdpim") -> dict:
+    """:func:`init_cache` on the ``meta`` device: shapes and dtypes, no storage."""
+    return init_cache(n_layers, batch, n_kv_heads, head_dim, max_len, dtype, "meta", layout)
+
+
 def append_layer(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
-                 v_new: torch.Tensor, pos) -> None:
+                 v_new: torch.Tensor, pos, layout: Layout = "cdpim") -> None:
     """Write T new tokens' K/V at fill ``pos`` of one layer's lanes IN PLACE.
 
-    ``k_cache`` (B, H, hd, Lmax) takes columns ``pos .. pos+T-1`` (a column
-    write per token), ``v_cache`` (B, H, Lmax, hd) rows; ``k_new``/``v_new``
-    (B, H, T, hd); ``pos`` a scalar or (B,) per-lane fill. As in the JAX
-    package's ``dynamic_update_slice``, a window running past Lmax is moved
-    back to end at Lmax.
+    ``k_new``/``v_new`` (B, H, T, hd); ``pos`` a scalar or (B,) per-lane fill.
+    A column-wise cache (B, H, hd, Lmax) takes columns ``pos .. pos+T-1`` (a
+    column write per token), a row-wise one (B, H, Lmax, hd) rows: cdpim
+    writes K columns and V rows, ``row_row`` rows of both, ``col_col`` columns
+    of both. As in the JAX package's ``dynamic_update_slice``, a window
+    running past Lmax is moved back to end at Lmax.
     """
     b, _, t, _ = k_new.shape
-    lmax = k_cache.shape[-1]
+    k_cols = layout in ("cdpim", "col_col")
+    lmax = k_cache.shape[-1] if k_cols else k_cache.shape[-2]
     pos = torch.as_tensor(pos, device=k_cache.device).long().reshape(-1).expand(b)
     start = pos.clamp(0, lmax - t)                                        # (B,)
     idx = start[:, None] + torch.arange(t, device=k_cache.device)         # (B, T)
     lanes = torch.arange(b, device=k_cache.device)[:, None]
     # separated advanced indices put the (B, T) index dims in front
-    k_cache[lanes, :, :, idx] = k_new.to(k_cache.dtype).transpose(1, 2)   # in place
-    v_cache[lanes, :, idx, :] = v_new.to(v_cache.dtype).transpose(1, 2)   # in place
+    for cache, new, cols in ((k_cache, k_new, k_cols), (v_cache, v_new, layout == "col_col")):
+        if cols:
+            cache[lanes, :, :, idx] = new.to(cache.dtype).transpose(1, 2)   # in place
+        else:
+            cache[lanes, :, idx, :] = new.to(cache.dtype).transpose(1, 2)   # in place
 
 
 def init_paged_cache(n_layers: int, n_pages: int, n_kv_heads: int, head_dim: int,
@@ -153,16 +179,16 @@ def store_block(pages: dict, phys: int, k_block: torch.Tensor,
 def read_scores(q: torch.Tensor, k_cache: torch.Tensor,
                 layout: Layout = "cdpim") -> torch.Tensor:
     """Score GEMV: q (B,Hkv,G,T,hd) × K-cache -> (B,Hkv,G,T,Lmax). The cdpim
-    layout contracts the minor ``hd`` axis against K columns."""
-    if layout != "cdpim":
-        raise NotImplementedError(f"layout {layout!r} is not ported (cdpim only)")
-    return torch.matmul(q, k_cache.to(q.dtype)[:, :, None])
+    and ``col_col`` layouts contract the minor ``hd`` axis against K columns;
+    ``row_row`` contracts against (Lmax, hd) rows."""
+    k = k_cache.to(q.dtype)[:, :, None]
+    return torch.matmul(q, k if layout in ("cdpim", "col_col") else k.transpose(-1, -2))
 
 
 def read_output(p: torch.Tensor, v_cache: torch.Tensor,
                 layout: Layout = "cdpim") -> torch.Tensor:
-    """Output GEMV: probs (B,Hkv,G,T,Lmax) × V-cache -> (B,Hkv,G,T,hd). The
-    cdpim layout contracts the major ``L`` axis against V rows."""
-    if layout != "cdpim":
-        raise NotImplementedError(f"layout {layout!r} is not ported (cdpim only)")
-    return torch.matmul(p, v_cache.to(p.dtype)[:, :, None])
+    """Output GEMV: probs (B,Hkv,G,T,Lmax) × V-cache -> (B,Hkv,G,T,hd). The cdpim
+    and ``row_row`` layouts contract the major ``L`` axis against V rows;
+    ``col_col`` against (hd, Lmax) columns."""
+    v = v_cache.to(p.dtype)[:, :, None]
+    return torch.matmul(p, v if layout in ("cdpim", "row_row") else v.transpose(-1, -2))

@@ -10,7 +10,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.pim_gemv.ref import quantize_ref
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.pim_gemv.ops import pim_gemv_int8
+from repro_torch.kernels.pim_gemv.ref import pim_gemv_ref, quantize_ref
 
 
 class QuantizedLinear(NamedTuple):
@@ -73,3 +75,24 @@ def prepare_decode_params(params, path_suffixes=DECODE_LINEAR_SUFFIXES):
 def raw_weight(w) -> torch.Tensor:
     """Float view of a maybe-prepared weight leaf (GEMM/prefill operand)."""
     return w.w if isinstance(w, PreparedLinear) else w
+
+
+def w8a8_linear(ql: QuantizedLinear, x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+    """x (..., K) float -> (..., N) f32 through the int8 datapath: B3 on CUDA
+    tensors, its plain version on the CPU; ``use_kernel=False`` takes the
+    plain version on any device (the JAX package's oracle path)."""
+    shape = x.shape
+    x_q, x_s = quantize_ref(x.reshape(-1, shape[-1]), axis=1)
+    gemv = pim_gemv_int8 if use_kernel else pim_gemv_ref
+    return gemv(ql.w_q, x_q, ql.w_scale, x_s).reshape(*shape[:-1], -1)
+
+
+def quant_error(w: torch.Tensor, x: torch.Tensor, device: DeviceLike = None) -> float:
+    """Relative error of the W8A8 path against the f32 matmul (an accuracy
+    audit; the plain path, as the JAX package's ``use_kernel=False``), with
+    ``w`` (K, N) and ``x`` (..., K) on ``device`` (``None``: CUDA)."""
+    dev = resolve_device(device)
+    w, x = w.to(dev), x.to(dev)
+    y_q = w8a8_linear(quantize_weight(w), x, use_kernel=False)
+    y = x.float() @ w.float()
+    return float(torch.linalg.norm(y_q - y) / torch.linalg.norm(y).clamp_min(1e-9))

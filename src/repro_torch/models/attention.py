@@ -86,15 +86,17 @@ def _scale(cfg: ModelConfig) -> float:
 
 def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                       positions: torch.Tensor, cfg: ModelConfig, dtype,
-                      window: Optional[int] = None) -> torch.Tensor:
+                      window: Optional[int] = None,
+                      layout: kv_mapping.Layout = "cdpim") -> torch.Tensor:
     """Dense masked attention of T new tokens against contiguous lanes (the
-    JAX package's multi-token decode form): q (B, Hq, T, hd), K (B, Hkv, hd,
-    L), V (B, Hkv, L, hd), query positions (B, T); a ``window`` also masks
-    keys at or before ``q_pos - window``. Returns (B, T, Hq*hd)."""
+    JAX package's multi-token decode form): q (B, Hq, T, hd), K and V in
+    ``layout`` (cdpim: K (B, Hkv, hd, L), V (B, Hkv, L, hd)), query positions
+    (B, T); a ``window`` also masks keys at or before ``q_pos - window``.
+    Returns (B, T, Hq*hd)."""
     b, _, t, hd = q.shape
-    lmax = k_cache.shape[-1]
+    lmax = k_cache.shape[-1] if layout in ("cdpim", "col_col") else k_cache.shape[-2]
     qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
-    s = kv_mapping.read_scores(qg, k_cache, "cdpim").float() * _scale(cfg)
+    s = kv_mapping.read_scores(qg, k_cache, layout).float() * _scale(cfg)
     s = softcap(s, cfg.attn_softcap)
     k_pos = torch.arange(lmax, device=q.device)
     valid = k_pos[None, None, :] <= positions[:, :, None]                 # (B, T, L)
@@ -103,7 +105,7 @@ def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
     s = s + bias[:, None, None, :, :]
     pr = torch.softmax(s, dim=-1).to(dtype)
-    y = kv_mapping.read_output(pr, v_cache, "cdpim")
+    y = kv_mapping.read_output(pr, v_cache, layout)
     return y.reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
 
 
@@ -205,14 +207,17 @@ def attention_decode(
     *,
     window: Optional[int] = None,
     gemm: bool = False,
+    layout: kv_mapping.Layout = "cdpim",
 ) -> torch.Tensor:
     """One step against contiguous dual-layout lanes. The new tokens' K/V are
     written into the lanes IN PLACE; returns the attention block's output
-    (B, T, d). A single-token step takes the dispatched decode-attention
-    kernel over each lane's live range ``[max(end - window, 0), end)``, end =
-    pos + 1 (``window`` None: from 0); ``T > 1`` (chunked admission) and
-    ``gemm=True`` (the batch-prefill form) take the dense masked softmax with
-    float GEMMs, the window in its mask."""
+    (B, T, d). A single-token step on the cdpim layout takes the dispatched
+    decode-attention kernel over each lane's live range ``[max(end - window,
+    0), end)``, end = pos + 1 (``window`` None: from 0); ``T > 1`` (chunked
+    admission), ``gemm=True`` (the batch-prefill form, float GEMMs) and the
+    fixed-mapping ablation layouts ``row_row``/``col_col`` (``layout``; no
+    kernel, as in the JAX package) take the dense masked softmax, the window
+    in its mask."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     pos_b = torch.as_tensor(pos, device=x.device).to(torch.int32).reshape(-1).expand(b)
@@ -220,9 +225,9 @@ def attention_decode(
     lin = _decode_linear(cfg) if (t == 1 and not gemm) else None
     q, k_new, v_new = _project_qkv(p, x, cfg, positions, linear_fn=lin)
 
-    kv_mapping.append_layer(k_cache, v_cache, k_new, v_new, pos_b)
+    kv_mapping.append_layer(k_cache, v_cache, k_new, v_new, pos_b, layout)
 
-    if t == 1 and not gemm:
+    if t == 1 and not gemm and layout == "cdpim":
         end = pos_b + 1
         o = dispatch.decode_attention(
             q[:, :, 0, :], k_cache, v_cache, end, start=_live_start(end, window),
@@ -230,7 +235,7 @@ def attention_decode(
         y = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
         return lin(p["wo"], y)
 
-    y = _masked_attention(q, k_cache, v_cache, positions, cfg, x.dtype, window)
+    y = _masked_attention(q, k_cache, v_cache, positions, cfg, x.dtype, window, layout)
     return (lin or _dense_matmul)(p["wo"], y)
 
 

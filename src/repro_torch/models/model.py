@@ -304,6 +304,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
         cache = {k: v.expand(cfg.n_layers, *v.shape).clone() for k, v in st.items()}
     cache.update(kv_mapping.init_cache(n_kv, batch, cfg.n_kv_heads, cfg.head_dim, max_len,
                                        kvd, device))
+    cache.pop("layout")
     if cfg.family == "audio":
         for key in ("cross_k", "cross_v"):
             cache[key] = torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, src_len,

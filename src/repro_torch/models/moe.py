@@ -91,12 +91,19 @@ def capacity(t: int, cfg: ModelConfig) -> tuple[int, int, int]:
     return n_groups, sg, cap
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64), computed the same way on every device:
+    ``F.one_hot`` reads its indices to check them on the CPU only, which a
+    cost count (``launch.costrun``) would see there and not on the card."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def keep_rule(idx: torch.Tensor, n_experts: int, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     """idx (G, S, k) -> (slot (G, S, k), keep (G, S, k)): a pick's slot in its
     expert's buffer is the number of earlier picks of that expert in the group,
     token-major then pick order; it is kept when the slot is below ``cap``."""
     g, s, k = idx.shape
-    onehot = F.one_hot(idx, n_experts).reshape(g, s * k, n_experts)
+    onehot = one_hot(idx, n_experts).reshape(g, s * k, n_experts)
     before = torch.cumsum(onehot, dim=1) - onehot
     slot = (before * onehot).sum(dim=-1).reshape(g, s, k)
     return slot, slot < cap
@@ -136,5 +143,5 @@ def aux_load_balance_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.T
     states, as the JAX package does."""
     _, idx, probs = _router(p, x.reshape(-1, x.shape[-1]), cfg)
     e = cfg.n_experts
-    frac_tokens = F.one_hot(idx[:, 0], e).float().mean(dim=0)
+    frac_tokens = one_hot(idx[:, 0], e).float().mean(dim=0)
     return e * (frac_tokens * probs.mean(dim=0)).sum()

@@ -9,6 +9,9 @@ not of the audio encoder's or the cross attention's, which decode never
 feeds to a GEMV), so decode steps feed the PIM GEMV kernel without
 re-quantizing weights. The attention-free ``ssm`` family (rwkv6) decodes
 with plain matmuls, so it is never pre-quantized.
+The slot pool's dual-layout cache specs (column-wise K ``(.., hd, L)``,
+row-wise V ``(.., L, hd)``: the paper's §III-C mapping) are laid out at load
+(``cache_specs``), and :meth:`ServingModel.init_pool` allocates them.
 Engines are cheap views: ``sm.engine(mode=...)`` — prepare once, serve many.
 """
 from __future__ import annotations
@@ -30,7 +33,8 @@ from repro_torch.serve.api import GenerationRequest, GenerationResult
 class ServingModel:
     """Load-time artifact: config, float params (GEMM operand), the prepared
     decode tree (``PreparedLinear`` leaves when pre-quantized), and the
-    device everything lives on."""
+    device everything lives on; ``cache_specs`` is the slot pool's layout,
+    ``{leaf: (shape, dtype)}`` (``models.model.decode_cache_specs``)."""
 
     cfg: ModelConfig
     params: dict
@@ -39,6 +43,7 @@ class ServingModel:
     slots: int
     prequantized: bool
     device: torch.device
+    cache_specs: dict
 
     @classmethod
     def prepare(cls, cfg: ModelConfig, params: dict, *, max_len: int = 256,
@@ -58,7 +63,22 @@ class ServingModel:
         prequantize = bool(prequantize) and cfg.family != "ssm"
         decode_params = quant.prepare_decode_params(params) if prequantize else params
         return cls(cfg=cfg, params=params, decode_params=decode_params, max_len=max_len,
-                   slots=slots, prequantized=bool(prequantize), device=dev)
+                   slots=slots, prequantized=bool(prequantize), device=dev,
+                   cache_specs=M.decode_cache_specs(cfg, slots, max_len))
+
+    @property
+    def backend(self) -> str:
+        """The backend every kernel op of this artifact resolves to on its
+        device: ``"kernel"`` on the card, ``"reference"`` on the CPU."""
+        return dispatch.resolve_backend(self.cfg, self.device)
+
+    def init_pool(self, slots: Optional[int] = None) -> dict:
+        """A fresh slot-pool decode cache in the prepared dual layout on the
+        artifact's device, its fill ``pos`` a per-lane (slots,) vector."""
+        n = self.slots if slots is None else slots
+        cache = M.init_decode_cache(self.cfg, n, self.max_len, device=self.device)
+        cache["pos"] = cache["pos"].reshape(-1).expand(n).clone()
+        return cache
 
     def cache_pool(self, *, slots: Optional[int] = None, prefix_cache: bool = True,
                    block_size: int = 8, prefix_pages: Optional[int] = None,

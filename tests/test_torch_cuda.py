@@ -1250,3 +1250,41 @@ def test_bf16_remat_train_step_on_the_card(dev):
                                cfg, AdamWConfig(), 1)
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
     assert {t.dtype for t in tree_leaves(new)} == {torch.bfloat16} and int(state.step) == 1
+
+
+# --------------------------------------------------------------------------
+# the launch tooling's count and the W8A8 linear on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lead", [(4,), (2, 3)])
+def test_w8a8_linear_on_the_card_is_its_plain_version(dev, gen, lead):
+    from repro_torch.core import quant
+    from repro_torch.kernels.pim_gemv.pim_gemv import pim_gemv
+
+    w = torch.randn((4096, 1024), generator=gen, device=dev) * 0.02
+    x = torch.randn((*lead, 4096), generator=gen, device=dev)
+    ql = quant.quantize_weight(w)
+    before = pim_gemv.launches
+    y = quant.w8a8_linear(ql, x)
+    assert pim_gemv.launches == before + 1
+    assert torch.equal(y, quant.w8a8_linear(ql, x, use_kernel=False))
+    assert quant.quant_error(w, x, device=dev) < 0.02
+
+
+@pytest.mark.parametrize("arch,shape", [("llama3-8b", "decode_32k"), ("zamba2-7b", "decode_32k"),
+                                        ("olmoe-1b-7b", "prefill_32k")])
+def test_a_cell_counts_the_same_on_the_card_and_on_meta(dev, monkeypatch, arch, shape):
+    """A smoke cell (B 2; decode over 64 slots, prefill of 16 tokens), W8A8
+    decode: the card's count, kernels launched, equals the meta count."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import costrun
+
+    spec = costrun.SHAPES[shape]
+    monkeypatch.setitem(costrun.SHAPES, shape, dataclasses.replace(
+        spec, global_batch=2, seq_len=64 if spec.kind == "decode" else 16))
+    cfg = get_config(arch, smoke=True).replace(quantized_decode=True)
+    assert costrun.count(costrun.build_cell(cfg, shape, device=dev)) == \
+        costrun.count(costrun.build_cell(cfg, shape))

@@ -103,8 +103,17 @@ def test_read_scores_and_output_vs_jax():
     np.testing.assert_allclose(o.numpy(), np.asarray(jkv.read_output(jnp.asarray(p.numpy()),
                                                                      jnp.asarray(v))),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tkv.read_scores(t(q), t(k), "row_row")
+    # the fixed-mapping baselines: row-wise K, column-wise V
+    k_rows = np.ascontiguousarray(np.swapaxes(k, -1, -2))
+    v_cols = np.ascontiguousarray(np.swapaxes(v, -1, -2))
+    np.testing.assert_allclose(
+        tkv.read_scores(t(q), t(k_rows), "row_row").numpy(),
+        np.asarray(jkv.read_scores(jnp.asarray(q), jnp.asarray(k_rows), "row_row")),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        tkv.read_output(p, t(v_cols), "col_col").numpy(),
+        np.asarray(jkv.read_output(jnp.asarray(p.numpy()), jnp.asarray(v_cols), "col_col")),
+        rtol=1e-5, atol=1e-5)
 
 
 # --------------------------------------------------------------------------

@@ -283,8 +283,14 @@ def test_the_port_imports_no_jax_and_nothing_of_repro():
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "tools = {'repro_torch.launch.' + t for t in ('dryrun', 'costrun', 'roofline',\n"
+        "                                             'hillclimb', 'mesh')}\n"
+        "assert tools | {'repro_torch.kernels.work'} <= set(names), names\n"
+        "import torch.distributed\n"
+        "assert not torch.distributed.is_initialized()   # importing starts no group\n"
         "import chip_smoke\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root / "src"), str(root)]))
     subprocess.run([sys.executable, "-c", code], env=env, cwd=root, check=True, timeout=300)
