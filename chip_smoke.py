@@ -56,7 +56,22 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    event contracts must hold on the card's events: continuous HBCEM and
    LBIM decode busy time below the wave's, LBIM ``total_s`` at most
    BLOCKED's with ``overlap_saved_s`` >= 0 (a failure writes the events to
-   ``chiprun_out/`` and fails the run).
+   ``chiprun_out/`` and fails the run). Every serve of the run is captured
+   (``core.interleave.StepGraphs``): each step program runs as a CUDA graph
+   from its key's second call, and a serve in which any other step ran
+   eagerly fails; each serve line adds ``captured``, ``graphs``,
+   ``captures``, ``replays``, ``eager_steps``, ``capture_s`` and
+   ``graph_pool_GB``. The ``graphs`` phase follows the three paged serves:
+   HBCEM and LBIM each against its eager twin under ``interleave.eager()``
+   (``graphs_ab`` lines: greedy tokens, every step's plan and the launch
+   counts equal; both serves' decode-step ms and tokens/s), then one
+   ``lbim_overlap`` line: an LBIM serve traced with torch.profiler after its
+   graphs are captured, over its fused steps the decode branch's and the
+   prefill branch's device ms (a kernel's branch is its stream), the ms in
+   which kernels of both ran at once and the steps' span; the captured
+   serve's busy share beside the eager one's; and each fused step's device
+   ms (CUDA events) beside its two halves', each captured and timed alone
+   over the same inputs.
 4. ``zamba2``: full-width zamba2-7b at 45 of its 81 Mamba2 layers
    (``ZAMBA2_LAYERS``; one shared attention + MLP block applied 7 times, after
    every 6 layers, then 3 layers without it; bf16, W8A8) serves ragged greedy
@@ -203,8 +218,11 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    its plain version and SDPA, fp8 e4m3 over four layers' lanes); the
    step's ``launch.costrun.CostCounter`` count on the card, which must equal
    the same cell's count on ``meta``; then a warm-up and 10 timed steps
-   (``launch.hillclimb.time_steps``), exactly 32 B4 launches each (the 352
-   added to the kernels line). The ``rank_cell``
+   (``launch.hillclimb.time_steps``), exactly 32 B4 launches each, then the
+   same step through ``core.interleave``'s captured decode program
+   (``launch.hillclimb.captured_step``: a first eager call, a capture, 10
+   timed replays; 736 B4 launches in all, added to the kernels line). The
+   ``rank_cell``
    line gives the step's median ms, peak memory, the count, its three
    roofline terms at the H100's rates and ``roofline_share`` (memory term
    over the step).
@@ -232,6 +250,13 @@ builds of the attention kernels in one call.
 
 builds the kernels and prints only the SSD scan's ``kernel_time`` and
 ``kernel_check`` lines (B5), to compare builds of the scan in one call.
+
+    python3 chip_smoke.py --graphs
+
+serves every served family in every mode at the default run's depths (the
+serve, zamba2, dense, MoE and families phases' engine serves; no spec,
+traffic or profile), each captured and then under ``interleave.eager()``:
+one ``graphs_ab`` line per serve, tokens, plans and launches equal.
 
     python3 chip_smoke.py --gemv
     python3 chip_smoke.py --spec
@@ -1375,24 +1400,95 @@ def serve_setup_line(sm, reqs, t0) -> dict:
             "decode_step_bound_ms": 1e3 * wbytes / HBM_BYTES_PER_S}
 
 
-def serve_run(sm, mode, reqs, *, paged: bool = True, eng=None,
-              events: list | None = None) -> tuple[list, dict]:
+# ``--graphs``: every serve_run serve is followed by its eager twin
+# (``graphs_ab``); the default run holds only llama3-8b's to it (graphs_phase)
+GRAPHS_AB = False
+
+
+def graph_stats(eng) -> dict:
+    """The engine's captured step programs (``core.interleave.StepGraphs``)
+    for a serve line: graphs held, captures, replays, steps run eagerly (each
+    key's first call; every step under ``interleave.eager()``), host seconds
+    spent capturing and the graphs' pool bytes."""
+    from repro_torch.core import interleave
+
+    st = eng.graphs.stats()
+    return {"captured": interleave.capture_enabled() and eng.graphs.device.type == "cuda",
+            "graphs": st["graphs"],
+            "captures": st["captures"], "replays": st["replays"],
+            "eager_steps": st["eager_steps"], "capture_s": st["capture_s"],
+            "graph_pool_GB": st["pool_bytes"] / 1e9}
+
+
+def check_captured(eng, what: str) -> None:
+    """A captured serve ran eagerly only each key's first call."""
+    from repro_torch.core import interleave
+
+    st = eng.graphs.stats()
+    if (eng.graphs.device.type == "cuda" and interleave.capture_enabled()
+            and st["eager_steps"] != st["keys"]):
+        raise AssertionError(f"{what}: {st['eager_steps']} steps ran eagerly, but only the "
+                             f"first call of each of {st['keys']} keys may: {st}")
+
+
+def serve_engine(sm, mode, *, paged: bool = True):
+    """The engine a serve_run serve uses: the artifact's (prefix reuse, 8-token
+    chunks), or with ``paged=False`` one over a contiguous pool."""
+    from repro_torch.serve.engine import Engine
+
+    if paged:
+        return sm.engine(mode=mode, slots=SLOTS)
+    pool = sm.cache_pool(slots=SLOTS, prefix_cache=False, paged=False)
+    return Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=mode,
+                  serving=sm, prefix_cache=False, pool=pool)
+
+
+def graphs_ab(sm, mode, reqs, captured_tokens, captured_events, captured_line, *,
+              paged: bool = True, make_engine=None) -> dict:
+    """The eager twin of a captured serve: the same requests on a like engine
+    (``make_engine()``, else :func:`serve_engine`) under
+    ``interleave.eager()``. Greedy tokens, every step's plan and the launch
+    counts must equal the captured serve's; the ``graphs_ab`` line gives both
+    serves' decode-step ms and tokens/s."""
+    from repro_torch.core import interleave
+
+    events: list = []
+    with interleave.eager():
+        tokens, line = serve_run(sm, mode, reqs, paged=paged, events=events,
+                                 make_engine=make_engine)
+    out = {"phase": "graphs_ab", "arch": sm.cfg.name, "mode": mode.value,
+           "pool": line["pool"], "kv_splits": sm.cfg.decode_kv_splits,
+           "tokens_equal": tokens == captured_tokens,
+           "plans_equal": [e.plan for e in events] == [e.plan for e in captured_events],
+           "launches_equal": line["launches"] == captured_line["launches"],
+           "captured_decode_step_ms": captured_line["decode_step_ms_median"],
+           "eager_decode_step_ms": line["decode_step_ms_median"],
+           "captured_tokens_per_s": captured_line["tokens_per_s"],
+           "eager_tokens_per_s": line["tokens_per_s"],
+           "captured_wall_s": captured_line["wall_s"], "eager_wall_s": line["wall_s"],
+           "eager_steps": line["eager_steps"], "steps": line["steps"]}
+    emit(out)
+    if not (out["tokens_equal"] and out["plans_equal"] and out["launches_equal"]):
+        raise AssertionError(f"{sm.cfg.name} {mode.value}: the captured serve differs from "
+                             f"its eager twin: {out}")
+    return out
+
+
+def serve_run(sm, mode, reqs, *, paged: bool = True, events: list | None = None,
+              make_engine=None) -> tuple[list, dict]:
     """One serve, with the launch counts of this serve alone (set to 0 just
     before it, read just after) held to what its schedule implies, and a
     clean health report. A pool with prefix reuse must reuse the shared
     prefix; ``paged=False`` serves through a contiguous pool without prefix
-    reuse; ``eng`` serves on an engine built by the caller; ``events``, where
-    given, receives the serve's ``ScheduleEvent``s (for pricing)."""
+    reuse; ``make_engine()`` builds the engine instead (and ``--graphs``'
+    eager twin another); ``events``, where given, receives the serve's
+    ``ScheduleEvent``s (for pricing). A captured serve (the default) must run
+    only each key's first call eagerly."""
+    from repro_torch.core import interleave
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve.api import FINISH_EOS, FINISH_LENGTH, RequestState
-    from repro_torch.serve.engine import Engine
 
-    if eng is None and paged:
-        eng = sm.engine(mode=mode, slots=SLOTS)
-    elif eng is None:
-        pool = sm.cache_pool(slots=SLOTS, prefix_cache=False, paged=False)
-        eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=mode,
-                     serving=sm, prefix_cache=False, pool=pool)
+    eng = make_engine() if make_engine is not None else serve_engine(sm, mode, paged=paged)
     if eng.pool.paged != (paged and eng.pool.policy.prefix_capable):
         raise AssertionError(f"{sm.cfg.name}: pool paged={eng.pool.paged}")
     torch.cuda.synchronize()
@@ -1416,6 +1512,7 @@ def serve_run(sm, mode, reqs, *, paged: bool = True, eng=None,
     if eng.pool.prefix_cache and rep["reused_prefix_tokens"] <= 0:
         raise AssertionError("the shared prefix was not reused")
     check_clean(f"{sm.cfg.name} {mode.value}", eng, eng.health())
+    check_captured(eng, f"{sm.cfg.name} {mode.value}")
     want = expected_launches(eng, sm.cfg)
     if counts != want:
         raise AssertionError(f"{sm.cfg.name} {mode.value} splits={sm.cfg.decode_kv_splits} "
@@ -1433,11 +1530,18 @@ def serve_run(sm, mode, reqs, *, paged: bool = True, eng=None,
             "pure_decode_steps": len(decode), "steps": rep["steps"],
             "fused_steps": rep["fused_steps"], "prefill_tokens": rep["prefill_tokens"],
             "reused_prefix_tokens": rep["reused_prefix_tokens"],
-            "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9, "launches": counts}
+            "gpu_mem_GB": torch.cuda.memory_allocated() / 1e9, "launches": counts,
+            **graph_stats(eng)}
+    if events is None and GRAPHS_AB:
+        events = []
     if events is not None:
         events.extend(eng.events)
     del eng
-    return [r.tokens for r in results], line
+    tokens = [r.tokens for r in results]
+    if GRAPHS_AB and interleave.capture_enabled():
+        graphs_ab(sm, mode, reqs, tokens, events, line, paged=paged,
+                  make_engine=make_engine)
+    return tokens, line
 
 
 def add_launches(total: dict, line: dict) -> None:
@@ -1621,11 +1725,16 @@ def serve_phase(dev) -> dict:
     total: dict[str, int] = {}
     tokens = {}
     events: dict[str, list] = {}
+    lines = {}
     for mode in (Mode.BLOCKED, Mode.HBCEM, Mode.LBIM):
-        tokens[mode], line = serve_run(sm, mode, reqs, events=events.setdefault(mode.value, []))
-        emit(line)
-        add_launches(total, line)
+        tokens[mode], lines[mode] = serve_run(sm, mode, reqs,
+                                              events=events.setdefault(mode.value, []))
+        emit(lines[mode])
+        add_launches(total, lines[mode])
     ref_toks = modes_agree(tokens, cfg.name)
+    if not GRAPHS_AB:      # --graphs held every serve to its eager twin already
+        with phase_clock("graphs_phase"):
+            graphs_phase(sm, reqs, tokens, events, lines)
 
     contig_toks, line = serve_run(sm, Mode.LBIM, reqs, paged=False,
                                   events=events.setdefault("lbim contiguous", []))
@@ -1646,6 +1755,8 @@ def serve_phase(dev) -> dict:
     check_launched(total, ("pim_gemv", "decode_attention", "decode_attention_paged",
                            "decode_attention_paged_split", "merge_splits"), cfg.name)
     del sm4
+    if GRAPHS_AB:      # --graphs: the serves' A/B only
+        return total
     sm = ServingModel.prepare(cfg, params, max_len=max_len, slots=SLOTS, device=dev)
     profile_decode(sm, Mode.HBCEM, reqs)
     del sm
@@ -1920,11 +2031,18 @@ def time_dense_attention(gen, dev) -> None:
 class AttentionCalls:
     """Counts, while it is entered, what the serve's attention calls are given
     (the launch counters count launches; this counts their live ranges): the
-    paged single-pass calls that have a lane at start > 0 (a device-side
-    count, no sync) and the contiguous calls by Lmax."""
+    paged single-pass calls that have a lane at start > 0 and the contiguous
+    calls by Lmax (one of ``lmaxes``). Both are device-side counters, added
+    to by kernels of the step itself, so a captured step's replays count too
+    (and no count syncs)."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, lmaxes=()):
         self.dev = dev
+        self.lmaxes = tuple(lmaxes)
+
+    @property
+    def contig_lmax(self) -> dict[int, int]:
+        return {lmax: int(n) for lmax, n in self._contig_n.items()}
 
     def __enter__(self):
         from repro_torch.core import dispatch
@@ -1932,7 +2050,8 @@ class AttentionCalls:
         self._dispatch = dispatch
         self._paged, self._contig = dispatch.decode_attention_paged_op, dispatch.decode_attention_op
         self.windowed = torch.zeros((), dtype=torch.int64, device=self.dev)
-        self.contig_lmax: dict[int, int] = {}
+        self._contig_n = {lmax: torch.zeros((), dtype=torch.int64, device=self.dev)
+                          for lmax in self.lmaxes}
 
         def paged(*a, start=None, **kw):
             if start is not None:
@@ -1940,8 +2059,7 @@ class AttentionCalls:
             return self._paged(*a, start=start, **kw)
 
         def contig(q, k_cache, *a, **kw):
-            lmax = int(k_cache.shape[-1])
-            self.contig_lmax[lmax] = self.contig_lmax.get(lmax, 0) + 1
+            self._contig_n[int(k_cache.shape[-1])] += 1
             return self._contig(q, k_cache, *a, **kw)
 
         dispatch.decode_attention_paged_op, dispatch.decode_attention_op = paged, contig
@@ -2003,18 +2121,24 @@ def dense_phase(dev) -> dict:
     for ring in (False, True):
         sm = ServingModel.prepare(cfg.replace(windowed_kv_cache=ring), params,
                                   max_len=GEMMA2_MAX_LEN, slots=SLOTS, device=dev)
-        pool = sm.cache_pool(slots=SLOTS, prefix_cache=False, block_size=8)
-        eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=Mode.HBCEM,
-                     chunk=GEMMA2_CHUNK, serving=sm, prefix_cache=False, pool=pool)
+
+        def make(sm=sm):
+            return Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS,
+                          mode=Mode.HBCEM, chunk=GEMMA2_CHUNK, serving=sm,
+                          prefix_cache=False,
+                          pool=sm.cache_pool(slots=SLOTS, prefix_cache=False, block_size=8))
+
         torch.cuda.synchronize()
         emit(serve_setup_line(sm, reqs, t0))
-        with AttentionCalls(dev) as calls:
-            tokens[ring], line = serve_run(sm, Mode.HBCEM, reqs, paged=not ring, eng=eng)
-        del eng, pool
+        with AttentionCalls(dev, (cfg.sliding_window, GEMMA2_MAX_LEN)) as calls:
+            tokens[ring], line = serve_run(sm, Mode.HBCEM, reqs, paged=not ring,
+                                           make_engine=make)
+        # --graphs: the counters also saw the eager twin, a serve of the same steps
+        serves = 2 if GRAPHS_AB else 1
         if ring:
             # 23 ring launches and 23 global-lane launches per one-token forward
-            rings, lanes = calls.contig_lmax.get(cfg.sliding_window, 0), \
-                calls.contig_lmax.get(GEMMA2_MAX_LEN, 0)
+            rings, lanes = (calls.contig_lmax[n] // serves
+                            for n in (cfg.sliding_window, GEMMA2_MAX_LEN))
             if not (rings == lanes == line["launches"]["decode_attention"] // 2 > 0):
                 raise AssertionError(f"gemma2-27b ring: B4 over rings {rings}, over lanes "
                                      f"{lanes}, launches {line['launches']}")
@@ -2022,7 +2146,7 @@ def dense_phase(dev) -> dict:
             line["requests_equal_to_paged"] = sum(
                 a == b for a, b in zip(tokens[False], tokens[True]))
         else:
-            line["b1_launches_with_start_gt_0"] = int(calls.windowed)
+            line["b1_launches_with_start_gt_0"] = int(calls.windowed) // serves
             if not 0 < line["b1_launches_with_start_gt_0"] <= \
                     line["launches"]["decode_attention_paged"] // 2:
                 raise AssertionError(f"gemma2-27b paged: {line['b1_launches_with_start_gt_0']}"
@@ -2202,13 +2326,14 @@ def moe_phase(dev) -> dict:
     total: dict[str, int] = {}
 
     def serve(sm, mode, reqs, prefix_cache=False):
-        if prefix_cache:
-            eng = sm.engine(mode=mode, slots=SLOTS)
-        else:
-            eng = Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=mode,
-                         chunk=MOE_CHUNK, serving=sm, prefix_cache=False,
-                         pool=sm.cache_pool(slots=SLOTS, prefix_cache=False, block_size=8))
-        toks, line = serve_run(sm, mode, reqs, eng=eng)
+        def make():
+            if prefix_cache:
+                return sm.engine(mode=mode, slots=SLOTS)
+            return Engine(sm.cfg, sm.params, max_len=sm.max_len, slots=SLOTS, mode=mode,
+                          chunk=MOE_CHUNK, serving=sm, prefix_cache=False,
+                          pool=sm.cache_pool(slots=SLOTS, prefix_cache=False, block_size=8))
+
+        toks, line = serve_run(sm, mode, reqs, make_engine=make)
         line["prefix_cache"] = prefix_cache
         add_launches(total, line)
         return toks, line
@@ -2709,7 +2834,8 @@ def spec_serve(sm, mode, reqs, spec: bool, events: list | None = None) -> tuple[
             "single_token_catchups": sum(e.spec_catchup_decodes for e in eng.events),
             "accepted_by_request": [r.spec_accepted for r in results],
             "proposed_by_request": [r.spec_proposed for r in results],
-            "launches": counts}
+            "launches": counts, **graph_stats(eng)}
+    check_captured(eng, f"spec {sm.cfg.name} {mode.value}")
     if events is not None:
         events.extend(eng.events)
     return [r.tokens for r in results], line
@@ -2871,7 +2997,8 @@ def traffic_serve(eng, name: str, reqs) -> tuple[list, dict, dict]:
             "ladder": {op: {k: c[k] for k in ("backend", "kernel_faults", "fallbacks")}
                        for op, c in h["ladder"].items()},
             "failed_steps": [e.plan.label for e in eng.events if e.failed],
-            "spec": rep["spec"] if spec else None, "launches": counts}
+            "spec": rep["spec"] if spec else None, "launches": counts, **graph_stats(eng)}
+    check_captured(eng, f"traffic {name}")
     return results, line, h
 
 
@@ -3110,9 +3237,11 @@ def profile_decode(sm, mode, reqs) -> None:
 
     from repro_torch.serve.api import GenerationRequest
 
+    if GRAPHS_AB:
+        return
     short = [GenerationRequest(prompt=r.prompt[:32], max_new_tokens=16) for r in reqs[:SLOTS]]
     eng = sm.engine(mode=mode, slots=SLOTS, prefix_cache=False)   # same schedule each serve
-    eng.serve(short)                       # warm: allocator, cuBLAS handles
+    eng.serve(short)            # warm: allocator, cuBLAS handles, every step's graph
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.serve(short)
@@ -3153,7 +3282,223 @@ def profile_decode(sm, mode, reqs) -> None:
           "wall_ms_untraced": 1e3 * wall_s, "wall_ms_traced": 1e3 * traced_wall,
           "device_busy_share": total / (1e3 * wall_s),
           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-          "top_kernels_ms": {k[:80]: v for k, v in top}})
+          "top_kernels_ms": {k[:80]: v for k, v in top}, **graph_stats(eng)})
+
+
+def trace_events(prof) -> list:
+    """The trace's events (Kineto's JSON: kernels with their stream and the
+    correlation id of the launch that issued them), through a temporary file
+    that is removed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return json.loads(path.read_text())["traceEvents"]
+
+
+def concurrency(kernels) -> dict:
+    """Over one graph replay's kernels ``(start_us, end_us, stream, name)``:
+    its span, each stream's busy time, the time in which kernels of two
+    streams ran at once, and the time in which any two kernels did (the
+    latter also counts a programmatic dependent launch's prologue beside its
+    predecessor on one stream), all in ms. One sweep over the kernels' ends
+    and starts (an end before a start at the same instant)."""
+    edges = sorted([(k[0], 1, k[2]) for k in kernels] + [(k[1], -1, k[2]) for k in kernels])
+    active: dict = {}
+    busy = {k[2]: 0.0 for k in kernels}
+    both = any2 = 0.0
+    live, prev = 0, None
+    for t, step, stream in edges:
+        if prev is not None and t > prev:
+            on = [st for st, n in active.items() if n > 0]
+            for st in on:
+                busy[st] += t - prev
+            both += (t - prev) if len(on) > 1 else 0.0
+            any2 += (t - prev) if live > 1 else 0.0
+        active[stream] = active.get(stream, 0) + step
+        live += step
+        prev = t
+    span = (edges[-1][0] - edges[0][0]) if edges else 0.0
+    return {"span_ms": span / 1e3, "busy_ms": {st: v / 1e3 for st, v in busy.items()},
+            "both_streams_ms": both / 1e3, "any_two_ms": any2 / 1e3}
+
+
+DECODE_KERNELS = ("pim_gemv", "paged_decode", "contig_decode")
+
+
+def trace_kernel_ms(events: list) -> float:
+    """Device ms of every kernel in a trace's events."""
+    return sum(e["dur"] for e in events if e.get("cat") == "kernel") / 1e3
+
+
+def fused_branches(events: list, programs: list) -> dict:
+    """The fused steps' branches in a traced captured serve: the graph
+    launches (``cudaGraphLaunch``) in time order are the serve's replays in
+    ``StepGraphs.trace`` order; a fused replay's kernels are those its
+    launch's correlation id issued. The decode branch is the stream that runs
+    the port's kernels, the prefill branch the other."""
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and "cudaGraphLaunch" in e.get("name", "")), key=lambda e: e["ts"])
+    if len(launches) != len(programs):
+        return {"not_measured": f"{len(launches)} graph launches in the trace against "
+                                f"{len(programs)} replays"}
+    by_corr: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            a = e.get("args", {})
+            by_corr.setdefault(a.get("correlation"), []).append(
+                (e["ts"], e["ts"] + e["dur"], a.get("stream"), e["name"]))
+    fused = [by_corr.get(e.get("args", {}).get("correlation"), [])
+             for e, prog in zip(launches, programs) if prog == "fused"]
+    if not fused or not all(fused):
+        return {"not_measured": "no kernels correlated with the fused graph launches"}
+    out = {"fused_steps": len(fused), "span_ms": 0.0, "decode_branch_ms": 0.0,
+           "prefill_branch_ms": 0.0, "both_branches_ms": 0.0, "any_two_kernels_ms": 0.0,
+           "streams_per_step": sorted({len({k[2] for k in ks}) for ks in fused})}
+    for ks in fused:
+        c = concurrency(ks)
+        dec = {k[2] for k in ks if any(f in k[3] for f in DECODE_KERNELS)}
+        out["span_ms"] += c["span_ms"]
+        out["both_branches_ms"] += c["both_streams_ms"]
+        out["any_two_kernels_ms"] += c["any_two_ms"]
+        for st, ms in c["busy_ms"].items():
+            out["decode_branch_ms" if st in dec else "prefill_branch_ms"] += ms
+    return out
+
+
+def halves_graphs(device):
+    """A ``StepGraphs`` that runs each fused step's two halves alone first,
+    each captured (the decode graph; the chunk's sub-chunk graphs), over the
+    same inputs, then the fused step, with CUDA events around all three. The
+    fills are set back after each half and the halves' launches taken back
+    out of the counters: the halves write the K/V the fused step writes again
+    (llama3-8b's caches are pages and fills only), so the serve's tokens and
+    launches stay the fused serve's. ``samples`` keeps the events of the
+    steps in which all three replayed (no first call, no capture)."""
+    from repro_torch.core import interleave
+    from repro_torch.kernels import add_launches, launch_counts
+
+    class HalvesGraphs(interleave.StepGraphs):
+        def __init__(self, dev):
+            super().__init__(dev)
+            self.samples: list = []
+
+        def fused_step(self, params, dec_cache, dec_tokens, pre_cache, pre_tokens, cfg, *,
+                       sub_chunk=None):
+            fills = (dec_cache["pos"].clone(), pre_cache["pos"].clone())
+            before, st0 = launch_counts(), self.stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            self.decode_only_step(params, dec_cache, dec_tokens, cfg)
+            ev[1].record()
+            dec_cache["pos"].copy_(fills[0])
+            ev[2].record()
+            self.prefill_chunk_step(params, pre_cache, pre_tokens, cfg, sub_chunk=sub_chunk)
+            ev[3].record()
+            pre_cache["pos"].copy_(fills[1])
+            after = launch_counts()
+            add_launches({k: before[k] - after[k] for k in after})
+            ev[4].record()
+            out = super().fused_step(params, dec_cache, dec_tokens, pre_cache, pre_tokens,
+                                     cfg, sub_chunk=sub_chunk)
+            ev[5].record()
+            st1 = self.stats()
+            if st1["captures"] == st0["captures"] and st1["eager_steps"] == st0["eager_steps"]:
+                self.samples.append(ev)
+            return out
+
+    return HalvesGraphs(device)
+
+
+def graphs_phase(sm, reqs, tokens: dict, events: dict, lines: dict) -> None:
+    """The captured step programs on llama3-8b at full width (the serve
+    phase's artifact and requests, paged). (1) HBCEM and LBIM, captured in the
+    serve phase, each against its eager twin (``graphs_ab``: equal tokens,
+    plans and launches). (2) LBIM's two branches: ``lbim_overlap``."""
+    from repro_torch.core.pim_modes import Mode
+
+    ab = {}
+    for mode in (Mode.HBCEM, Mode.LBIM):
+        ab[mode] = graphs_ab(sm, mode, reqs, tokens[mode], events[mode.value], lines[mode])
+    lbim_overlap(sm, reqs, ab[Mode.LBIM])
+
+
+def lbim_overlap(sm, reqs, ab: dict) -> None:
+    """One ``lbim_overlap`` line. (a) An LBIM engine without prefix reuse
+    (the same schedule every serve) serves the requests once (every key
+    captured), once untraced (its wall) and once traced with torch.profiler:
+    over its fused steps, the decode branch's and the prefill branch's device
+    ms, the ms in which kernels of both ran at once and the steps' span
+    (``fused_branches``); its busy share (kernel ms over the untraced wall)
+    beside the eager serve's (one traced eager serve, over the eager twin's
+    untraced wall). (b) The same serve on ``halves_graphs``: each fused
+    step's device ms beside its halves' timed alone, each captured; its
+    tokens and launches must be the fused serve's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import interleave
+    from repro_torch.core.pim_modes import Mode
+
+    eng = sm.engine(mode=Mode.LBIM, slots=SLOTS, prefix_cache=False)
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lbim_tokens = [r.tokens for r in eng.serve(reqs)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.graphs.trace = []
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+    traced = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = trace_events(prof)
+    branches = fused_branches(events, eng.graphs.trace)
+    captured_ms = trace_kernel_ms(events)
+    analysis_s = time.perf_counter() - t0
+    stats = graph_stats(eng)
+    del eng, prof, events
+    t0 = time.perf_counter()
+    with interleave.eager():
+        eng = sm.engine(mode=Mode.LBIM, slots=SLOTS)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.serve(reqs)
+            torch.cuda.synchronize()
+        eager_ms = trace_kernel_ms(trace_events(prof))
+    del eng, prof
+    eager_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    holder = {}
+
+    def make():
+        holder["eng"] = eng = sm.engine(mode=Mode.LBIM, slots=SLOTS, prefix_cache=False)
+        eng.graphs = halves_graphs(sm.device)
+        return eng
+
+    toks, line = serve_run(sm, Mode.LBIM, reqs, make_engine=make)
+    if toks != lbim_tokens:
+        raise AssertionError("the LBIM serve with its halves timed alone gave other tokens")
+    torch.cuda.synchronize()
+    samples = holder.pop("eng").graphs.samples
+    alone = [(e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3]), e[4].elapsed_time(e[5]))
+             for e in samples]
+    emit({"phase": "lbim_overlap", "arch": sm.cfg.name, "gpu": nvidia_smi(),
+          "requests": len(reqs), "captured_wall_s": wall, "traced_wall_s": traced,
+          "trace_analysis_s": analysis_s, "eager_trace_s": eager_s,
+          "halves_serve_s": time.perf_counter() - t0, **branches,
+          "captured_kernel_ms": captured_ms, "captured_busy_share": captured_ms / (1e3 * wall),
+          "eager_kernel_ms": eager_ms, "eager_wall_s": ab["eager_wall_s"],
+          "eager_busy_share": eager_ms / (1e3 * ab["eager_wall_s"]),
+          "timed_fused_steps": len(alone),
+          "fused_ms_median": statistics.median(a[2] for a in alone) if alone else None,
+          "decode_alone_ms_median": statistics.median(a[0] for a in alone) if alone else None,
+          "prefill_alone_ms_median": statistics.median(a[1] for a in alone) if alone else None,
+          "fused_ms_sum": sum(a[2] for a in alone),
+          "halves_alone_ms_sum": sum(a[0] + a[1] for a in alone),
+          "graph_stats": stats, "halves_serve_launches": line["launches"]})
 
 
 # ---------------------------------------------------------------------------
@@ -3695,16 +4040,23 @@ def cost_phase(dev) -> dict:
                              f"{card} != {meta}")
     reset_launches()
     timed = hillclimb.time_steps(step, RANK_STEPS)
+    # the same step through interleave's captured decode program: its first
+    # call eager, its second captured, then replays timed
+    captured = hillclimb.time_steps(hillclimb.captured_step(cfg, params, cache), RANK_STEPS,
+                                    warmup=2)
     counts = launch_counts()
     layers = attention_layers(cfg)
-    if counts != {**{k: 0 for k in counts}, "decode_attention": layers * (RANK_STEPS + 1)}:
+    steps = 2 * RANK_STEPS + 3
+    if counts != {**{k: 0 for k in counts}, "decode_attention": layers * steps}:
         raise AssertionError(f"the rank cell's steps launched {counts}, not "
-                             f"{layers} x {RANK_STEPS + 1} decode_attention")
+                             f"{layers} x {steps} decode_attention")
     t = hillclimb.terms(meta)
     emit({"phase": "rank_cell", "arch": RANK_ARCH, "shape": RANK_SHAPE, "batch": batch,
           "lmax": cache["k"].shape[-1], "kv": str(cache["k"].dtype), "gpu": nvidia_smi(),
           "step_ms": timed["step_ms"], "steps_ms": timed["steps_ms"],
-          "peak_GB": timed["peak_gb"],
+          "peak_GB": timed["peak_gb"], "captured_step_ms": captured["step_ms"],
+          "captured_steps_ms": captured["steps_ms"], "captured_peak_GB": captured["peak_gb"],
+          "captured_roofline_share": 1e3 * t["t_memory_s"] / captured["step_ms"],
           "launches": counts, "count_card": card, "count_meta_equal": True,
           "t_compute_ms": 1e3 * t["t_compute_s"], "t_memory_ms": 1e3 * t["t_memory_s"],
           "t_collective_ms": 1e3 * t["t_collective_s"],
@@ -3778,9 +4130,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
                     ["--traffic"], ["--dense"], ["--moe"], ["--families"], ["--train"],
-                    ["--dist"], ["--cost"]):
+                    ["--dist"], ["--cost"], ["--graphs"]):
         print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
-              f"| --dense | --moe | --families | --train | --dist | --cost]", file=sys.stderr)
+              f"| --dense | --moe | --families | --train | --dist | --cost | --graphs]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -3857,6 +4210,14 @@ def main(argv: list[str]) -> int:
         with phase_clock("dist_phase"):
             dist_phase(dev)
         return 0
+    if argv == ["--graphs"]:
+        global GRAPHS_AB
+        GRAPHS_AB = True
+        for phase in (serve_phase, zamba2_phase, dense_phase, moe_phase, families_phase):
+            torch.cuda.empty_cache()
+            with phase_clock(phase.__name__):
+                phase(dev)
+        return 0
     if argv == ["--cost"]:
         with phase_clock("cost_phase"):
             cost_phase(dev)
@@ -3899,8 +4260,9 @@ def main(argv: list[str]) -> int:
             "decode_attention": f"one zamba2-7b shared-block layer, q ({ATTN_B},32,1,112), "
                                 f"bf16 lanes of {CONTIG_LMAX}, end {ATTN_END}, "
                                 f"start {ATTN_START}; launches include the llama3-8b "
-                                f"decode_32k rank cell's {RANK_STEPS} steps of 32 at "
-                                f"Lmax 32,768",
+                                f"decode_32k rank cell's steps of 32 at Lmax 32,768 "
+                                f"(a warm-up and {RANK_STEPS} eager; a first call, a "
+                                f"capture and {RANK_STEPS} captured)",
             "decode_attention_paged": "one layer, q (4,8,4,128), bf16 pages of 8 tokens, "
                                       f"end {ATTN_END}, start {ATTN_START}",
             "decode_attention_paged_split": "as above, 4 splits (stage 1); library_ms is "

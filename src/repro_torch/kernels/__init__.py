@@ -3,7 +3,9 @@
 Each kernel's wrapper counts its launches in a plain int attribute
 (``<wrapper>.launches``); :func:`launch_counts` reads them all and
 :func:`reset_launches` sets them to 0, so a run can show that its main path
-went through every kernel.
+went through every kernel. A replayed CUDA graph runs no Python, so the
+captured step programs (``core.interleave``) add each graph's launches with
+:func:`add_launches` on every replay.
 """
 from __future__ import annotations
 
@@ -30,3 +32,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches, negative to take back) to the
+    counters."""
+    wrappers = _wrappers()
+    for name, n in delta.items():
+        wrappers[name].launches += n

@@ -13,8 +13,10 @@ the (data=16, model=16) mesh at full width on one card (the global batch
 over 16, :func:`rank_batch`; the port has no tensor-parallel form), its terms
 the whole share's over one card's rates. ``--device cuda`` (the default)
 times that cell's step on the card, every lane full (decode cells; the median
-of 10 steps after a warm-up), with ``roofline_share`` its memory term over the
-step. ``--device meta`` counts only.
+of 10 steps after a warm-up), eagerly and through ``core.interleave``'s
+captured decode program (:func:`captured_step`: the card's time, not the
+host's), each with ``roofline_share``, its memory term over the step.
+``--device meta`` counts only.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
@@ -33,6 +35,7 @@ import time
 import torch
 
 from repro_torch.configs import SHAPES, get_config
+from repro_torch.core import interleave
 from repro_torch.launch import costrun, dryrun
 from repro_torch.launch.mesh import production_mesh_for_counting
 from repro_torch.launch.roofline import HBM_BW, LINK_BW, PEAK_FLOPS
@@ -114,11 +117,30 @@ def rank_cell(cfg, shape: str, device="cuda"):
     return params, step, cache
 
 
-def time_steps(step, steps: int = 10) -> dict:
-    """``step`` on the card: one warm-up call, then the median ms of
+def captured_step(cfg, params, cache):
+    """The rank cell's step through ``core.interleave``'s captured decode
+    program, on a ``StepGraphs`` of its own (``step.graphs``): a step program
+    advances the fill it is given, so each call first sets the lanes' fill
+    back (the eager step leaves it), and every call is the same step. Its
+    first call runs eagerly and its second captures (two warm-ups)."""
+    graphs = interleave.StepGraphs(cache["pos"].device)
+    fill = cache["pos"].clone()
+    tokens = torch.zeros((fill.shape[0], 1), dtype=torch.int32, device=fill.device)
+
+    def step():
+        cache["pos"].copy_(fill)
+        return interleave.decode_only_step(params, cache, tokens, cfg, graphs=graphs)
+
+    step.graphs = graphs
+    return step
+
+
+def time_steps(step, steps: int = 10, warmup: int = 1) -> dict:
+    """``step`` on the card: ``warmup`` calls, then the median ms of
     ``steps`` calls (host clock, synchronised), each call's ms, and the peak
     memory over the timed calls."""
-    step()
+    for _ in range(warmup):
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = []
@@ -146,10 +168,12 @@ def measure(arch: str, shape: str, overrides: dict | None, device: str = "meta")
     t["rank_cell"] = {"batch": b, **terms(costrun.count(costrun.build_cell(cfg, shape,
                                                                            batch=b)))}
     if device == "cuda":
-        _, step, _ = rank_cell(cfg, shape)
+        params, step, cache = rank_cell(cfg, shape)
         t["card"] = time_steps(step)
-        del step
-        t["card"]["roofline_share"] = t["rank_cell"]["t_memory_s"] * 1e3 / t["card"]["step_ms"]
+        t["card_captured"] = time_steps(captured_step(cfg, params, cache), warmup=2)
+        del params, step, cache
+        for k in ("card", "card_captured"):
+            t[k]["roofline_share"] = t["rank_cell"]["t_memory_s"] * 1e3 / t[k]["step_ms"]
         torch.cuda.empty_cache()
     return t
 
@@ -193,8 +217,9 @@ def main(argv=None) -> None:
         print(f"  rank cell at B {ra['batch']}: memory term {rb['t_memory_s']*1e3:.2f} -> "
               f"{ra['t_memory_s']*1e3:.2f} ms")
         if "card" in before:
-            print(f"  card step: {before['card']['step_ms']:.2f} -> "
-                  f"{after['card']['step_ms']:.2f} ms ({before['card']['card']})")
+            for k, what in (("card", "eager"), ("card_captured", "captured")):
+                print(f"  card step, {what}: {before[k]['step_ms']:.2f} -> "
+                      f"{after[k]['step_ms']:.2f} ms ({before[k]['card']})")
     log.append(entry)
     os.makedirs(os.path.dirname(LOG), exist_ok=True)
     with open(LOG, "w") as f:

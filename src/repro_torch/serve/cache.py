@@ -97,6 +97,17 @@ def _zero_lane(arr: torch.Tensor, slot: int) -> None:
     arr[:, slot].zero_()    # in place
 
 
+def _upload(dst: torch.Tensor, values) -> torch.Tensor:
+    """Host ``values`` into the persistent tensor ``dst``, IN PLACE; returns
+    ``dst``. On the card the copy leaves from pinned memory without a host
+    sync, ordered on the stream after every step launched before it."""
+    src = torch.from_numpy(np.ascontiguousarray(values, dtype=np.int32)).reshape(dst.shape)
+    if dst.device.type == "cuda":
+        src = src.pin_memory()
+    dst.copy_(src, non_blocking=True)
+    return dst
+
+
 # ===========================================================================
 # cache-state specs: derived, not declared per family
 # ===========================================================================
@@ -201,10 +212,12 @@ class _PagesExhausted(Exception):
 @dataclass
 class _StagingHandle:
     """The (single) in-flight admission stream's page residency: its
-    logical->physical table and the pages allocated for its own writes."""
+    logical->physical table, the pages allocated for its own writes and its
+    fill (host side: the tokens staged so far)."""
 
     table: np.ndarray
     fresh: list = field(default_factory=list)
+    fill: int = 0
 
 
 class PagedKVState:
@@ -232,6 +245,13 @@ class PagedKVState:
         self.refcount[DUMMY_PAGE] = 1
         self._free = list(range(self.capacity - 1, DUMMY_PAGE, -1))
         self.block_tables = np.full((self.n_slots, self.n_blocks), -1, np.int64)
+        # the step's inputs live in persistent tensors, refreshed in place from
+        # the host tables before each step: a captured step reads fixed addresses
+        self._table_dev = torch.zeros((self.n_slots, self.n_blocks), dtype=torch.int32,
+                                      device=device)
+        self._staging_table_dev = torch.zeros((1, self.n_blocks), dtype=torch.int32,
+                                              device=device)
+        self._staging_pos_dev = torch.zeros((1,), dtype=torch.int32, device=device)
         self._index: OrderedDict[bytes, int] = OrderedDict()
         self.staging: Optional[_StagingHandle] = None
         # live fork rows (identity-keyed): each holds one ref per page and is
@@ -396,36 +416,39 @@ class PagedKVState:
 
     def begin_staging(self, pages: list[int]) -> dict:
         """Open the admission stream: matched prefix pages enter its table
-        read-only. Returns its batch-1 cache dict over the pool tensors."""
+        read-only. Returns its batch-1 cache dict over the pool tensors (the
+        stream's table and fill in the pool's persistent staging tensors)."""
         self.release_staging()  # defensive: a stale handle leaks pages
         table = np.full((self.n_blocks,), -1, np.int64)
         for i, p in enumerate(pages):
             table[i] = p
             self._ref(p)
-        self.staging = _StagingHandle(table=table)
+        self.staging = _StagingHandle(table=table, fill=len(pages) * self.block_size)
+        return self._staging_cache()
+
+    def _staging_cache(self) -> dict:
+        h = self.staging
+        eff = np.where(h.table >= 0, h.table, DUMMY_PAGE)
         return {"k_pages": self.pages["k_pages"], "v_pages": self.pages["v_pages"],
-                "block_table": self._staging_table(),
-                "pos": torch.tensor([len(pages) * self.block_size], dtype=torch.int32,
-                                    device=self.device)}
+                "block_table": _upload(self._staging_table_dev, eff[None, :]),
+                "pos": _upload(self._staging_pos_dev, [h.fill])}
 
-    def _staging_table(self) -> torch.Tensor:
-        eff = np.where(self.staging.table >= 0, self.staging.table, DUMMY_PAGE)
-        return torch.as_tensor(eff[None, :].astype(np.int32), device=self.device)
-
-    def ensure_staging(self, cache: dict, n_tokens: int, off: int) -> dict:
-        """Page-in the stream's next ``n_tokens`` write blocks from fill
-        ``off``; returns the stream cache with its block table refreshed."""
+    def ensure_staging(self, n_tokens: int) -> dict:
+        """Page-in the stream's next ``n_tokens`` write blocks from its fill
+        and advance the fill by them (the step that follows writes them);
+        returns the stream cache with its table and fill refreshed."""
         h = self.staging
         if h is None:
             raise EngineStateError("ensure_staging with no admission stream open")
+        off = h.fill
         last = min(off + max(int(n_tokens), 1), self.n_blocks * self.block_size) - 1
         for b in range(off // self.block_size, last // self.block_size + 1):
             if h.table[b] < 0:
                 p = self._alloc_page()
                 h.table[b] = p
                 h.fresh.append(p)
-        out = dict(cache)
-        out["block_table"] = self._staging_table()
+        out = self._staging_cache()
+        h.fill = off + int(n_tokens)
         return out
 
     def release_staging(self) -> None:
@@ -498,7 +521,7 @@ class PagedKVState:
     def views(self) -> dict:
         eff = np.where(self.block_tables >= 0, self.block_tables, DUMMY_PAGE)
         return {"k_pages": self.pages["k_pages"], "v_pages": self.pages["v_pages"],
-                "block_table": torch.as_tensor(eff.astype(np.int32), device=self.device)}
+                "block_table": _upload(self._table_dev, eff)}
 
     def reset_lanes(self) -> None:
         """Drop every lane row, any staging stream and any leaked fork; the
@@ -585,12 +608,18 @@ class CachePool:
 
     ``alloc``/``insert``/``retire`` do the lane bookkeeping, ``views()`` hands
     the decode step its cache dict (for paged pools: pages + block tables,
-    with active lanes' write blocks paged in), ``commit()`` takes the step's
-    fill levels back (free lanes pinned to 0). ``stage_admission`` opens the
+    with active lanes' write blocks paged in), ``commit()`` advances the
+    fills on the host (free lanes pinned to 0). ``stage_admission`` opens the
     chunk-prefill stream; the prefix index survives :meth:`reset`. Dense KV
     pages unless ``paged=False``; other cache structures (the hybrid's
     Mamba2 states, rwkv6's recurrent state, gemma2's rings beside its global
     lanes, the audio decoder's encoder memory) keep contiguous lanes.
+
+    The fills and block tables live on the host; a step's cache dict holds
+    the same device tensors step after step (the fills ``pos``, the block
+    tables, a contiguous pool's staging lanes), refreshed in place from the
+    host before each step, so a captured step (``core.interleave``) replays
+    over fixed addresses and no step reads a fill back from the card.
     """
 
     def __init__(self, cfg: ModelConfig, max_len: int, n_slots: int, *,
@@ -628,6 +657,12 @@ class CachePool:
             cache = M.init_decode_cache(cfg, n_slots, max_len, device=self.device)
             self.states = [LaneState(sp, cache) for sp in self.specs]
         self.stats = {"prefix_lookups": 0, "prefix_hits": 0, "reused_prefix_tokens": 0}
+        self._pos_dev = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        # contiguous pools: persistent batch-1 staging caches (the chunk stream
+        # takes the first; a batch admission one per request of its group) and
+        # their fills on the host
+        self._stagings: list[dict] = []
+        self._staging_fills: list[int] = []
         self._build()
 
     @property
@@ -732,8 +767,7 @@ class CachePool:
         lanes: a batch-prefill admission), cut the lane into fresh pages; with
         ``prompt`` they harvest its full blocks into the prefix index.
         Contiguous pools copy the lane."""
-        fills = prefilled["pos"].reshape(-1)
-        self._pos[slot] = int(fills[src_slot if fills.numel() > 1 else 0])
+        self._pos[slot] = self._fill_of(prefilled, src_slot, handle)
         if self._kv is None:
             for st in self.states:
                 st.insert(prefilled, slot, src_slot)
@@ -748,6 +782,21 @@ class CachePool:
         if self.prefix_cache and prompt is not None:
             self._kv.harvest(slot, prompt)
 
+    def _fill_of(self, prefilled: dict, src_slot: int, handle) -> int:
+        """The fill of lane ``src_slot`` of a prefilled cache: from the host
+        for the pool's own staging (a paged stream's handle, a contiguous
+        staging cache), else read from the cache (a prefill's own cache)."""
+        if self._kv is not None and "k_pages" in prefilled:
+            h = self._kv.staging if handle is None else handle
+            if h is None:
+                raise EngineStateError("paged insert with no staging handle")
+            return h.fill
+        for j, st in enumerate(self._stagings):
+            if prefilled["pos"] is st["pos"]:
+                return self._staging_fills[j]
+        fills = prefilled["pos"].reshape(-1)
+        return int(fills[src_slot if fills.numel() > 1 else 0])
+
     def retire(self, slot: int) -> None:
         """Free lane ``slot``: release its pages (paged), zero its recurrent
         state, pin its fill to 0."""
@@ -761,7 +810,8 @@ class CachePool:
     def views(self, span: int = 1) -> dict:
         """The decode-step cache dict; paged pools page-in every active lane's
         write blocks for the next ``span`` appends (copying a block that a
-        fork shares before it is written)."""
+        fork shares before it is written). The same tensors every call: the
+        block tables and fills are written into the pool's persistent ones."""
         kv = self._kv
         out: dict = {}
         if kv is not None:
@@ -774,16 +824,18 @@ class CachePool:
             out = kv.views()
         for st in self.states:
             out.update(st.views())
-        out["pos"] = torch.as_tensor(self._pos.copy(), device=self.device)
+        out["pos"] = _upload(self._pos_dev, self._pos)
         return out
 
     def commit(self, new_cache: dict) -> None:
-        """Absorb a decode step's fill levels (every cache tensor was written
-        in place). Free lanes are pinned back to 0 so their dummy writes stay
-        in the dummy page or at column 0."""
+        """Absorb a decode step, one token a lane (every cache tensor was
+        written in place): every fill advances by one on the host, the values
+        the step wrote into ``new_cache["pos"]``, without reading them back.
+        Free lanes are pinned back to 0 so their dummy writes stay in the
+        dummy page or at column 0."""
         for st in self.states:
             st.commit(new_cache)
-        pos = new_cache["pos"].to("cpu").numpy().astype(np.int32)
+        pos = (self._pos + 1).astype(np.int32)
         for i in self.free_slots():
             pos[i] = 0
         self._pos = pos
@@ -848,12 +900,23 @@ class CachePool:
 
     # ----------------------------------------------------------- admission
 
-    def init_staging(self) -> dict:
-        """A fresh batch-1 CONTIGUOUS admission staging cache with a (1,) fill
-        (non-paged pools; paged streams open via :meth:`stage_admission`)."""
-        cache = M.init_decode_cache(self.cfg, 1, self.max_len, device=self.device)
-        cache["pos"] = cache["pos"].reshape(1)
-        return cache
+    def init_staging(self, index: int = 0) -> dict:
+        """The pool's ``index``-th batch-1 CONTIGUOUS admission staging cache,
+        zeroed in place, fill 0, as a fresh one would be (non-paged pools;
+        paged streams open via :meth:`stage_admission`). The same tensors
+        every admission: a captured prefill chunk replays over them."""
+        while len(self._stagings) <= index:
+            cache = M.init_decode_cache(self.cfg, 1, self.max_len, device=self.device)
+            cache["pos"] = cache["pos"].reshape(1).clone()
+            self._stagings.append(cache)
+            self._staging_fills.append(0)
+        cache = self._stagings[index]
+        for key, leaf in cache.items():
+            if key != "pos":
+                leaf.zero_()    # in place
+        self._staging_fills[index] = 0
+        _upload(cache["pos"], [0])
+        return dict(cache)
 
     def peek_prefix(self, prompt) -> int:
         """Reusable prefix length in tokens — no staging, no stats."""
@@ -869,7 +932,7 @@ class CachePool:
         not prefilled."""
         kv = self._kv
         if kv is None:
-            return self.init_staging(), 0
+            return self.init_staging(0), 0
         if not self.prefix_cache:
             return kv.begin_staging([]), 0
         self.stats["prefix_lookups"] += 1
@@ -880,11 +943,13 @@ class CachePool:
             self.stats["reused_prefix_tokens"] += skip
         return kv.begin_staging(pages), skip
 
-    def begin_batch_admission(self) -> dict:
+    def begin_batch_admission(self, index: int = 0) -> dict:
         """Open a staging stream for batch admission (no prefix lookup, no
-        stats — the requests it takes had no prefix hit)."""
+        stats — the requests it takes had no prefix hit). A contiguous pool
+        stages the ``index``-th request of a group in its ``index``-th staging
+        cache: the group's lanes are inserted after all of them prefill."""
         if self._kv is None:
-            return self.init_staging()
+            return self.init_staging(index)
         return self._kv.begin_staging([])
 
     def park_staging(self):
@@ -893,13 +958,19 @@ class CachePool:
         return None if self._kv is None else self._kv.park_staging()
 
     def staging_step_prep(self, cache: dict, n_tokens: int) -> dict:
-        """Page-in the admission stream's next ``n_tokens`` write blocks
-        (paged pools; a contiguous staging cache passes through)."""
+        """Ready the admission stream for a step of ``n_tokens``: page-in its
+        next write blocks (paged pools), write its host fill into its ``pos``
+        and advance the host fill by them (the step writes them). A
+        contiguous cache that is not the pool's staging passes through."""
         if self._kv is None:
+            for j, st in enumerate(self._stagings):
+                if cache["pos"] is st["pos"]:
+                    _upload(st["pos"], [self._staging_fills[j]])
+                    self._staging_fills[j] += int(n_tokens)
+                    return dict(st)
             return cache
         try:
-            off = int(cache["pos"].reshape(-1)[0])
-            return self._kv.ensure_staging(cache, n_tokens, off)
+            return self._kv.ensure_staging(n_tokens)
         except _PagesExhausted as e:
             raise PoolExhausted(str(e), self.occupancy()) from None
 

@@ -30,6 +30,15 @@ the same tokens, states and events for the same requests. Sampling draws on
 per-request RNG lanes whose keys are the JAX package's (``serve.sampling``),
 so sampled tokens match too.
 
+On the card every step program (the decode, the admission chunk, LBIM's
+fused step, and a chunkable batch admission's sub-chunks) runs as a captured
+CUDA graph from ``Engine.graphs`` (``core.interleave.StepGraphs``, freed with
+the engine): the pool hands each step the same device tensors, refreshed in
+place from its host state, and the tokens go to the graph from host memory.
+A capture that fails raises out of :meth:`Engine.serve`. Left eager (ROADMAP
+§A): ``models.model.prefill`` (MoE groups, ring admission; op by op in the
+JAX package too), the speculative draft's rollouts and sampling.
+
 Speculative decoding (``spec=SpecConfig(draft, k)``, :mod:`serve.spec`)
 drafts on a contiguous mirror pool and verifies every span position through
 the same ``(slots, 1)`` decode program plain decode runs, over forked
@@ -130,14 +139,19 @@ class ScheduleReport(dict):
 
 def _finite(logits, active, pre_logits) -> bool:
     """NaN/Inf logit guard over positions that can become tokens: ACTIVE
-    decode lanes and the admission chunk's final position."""
+    decode lanes and the admission chunk's final position. One host sync:
+    every lane's verdict and the chunk's come back in one copy."""
+    parts = []
     if logits is not None and active:
-        if not bool(torch.isfinite(logits[active]).all()):
-            return False
+        parts.append(torch.isfinite(logits).flatten(1).all(1))
     if pre_logits is not None:
-        if not bool(torch.isfinite(pre_logits[:, -1:, :]).all()):
-            return False
-    return True
+        parts.append(torch.isfinite(pre_logits[:, -1:, :]).all().reshape(1))
+    if not parts:
+        return True
+    ok = torch.cat(parts).cpu()
+    if pre_logits is not None and not bool(ok[-1]):
+        return False
+    return not (logits is not None and active) or bool(ok[active].all())
 
 
 @dataclass
@@ -224,6 +238,9 @@ class Engine:
                     f"verify round near max_len would overflow the lane's block grid")
             self.spec_dec = SpecDecoder(self.spec.draft, self.serving, slots=self.slots,
                                         max_len=self.max_len, k=self.spec.k)
+        # the captured step programs (a jax.jit cache's counterpart): owned by
+        # the engine, freed with it
+        self.graphs = interleave.StepGraphs(self.serving.device)
         # health counters accumulate for the engine's lifetime
         self.ladder = DegradationLadder(self.cfg, self.serving.device)
         self._health = {"preemptions": 0, "timeouts": 0, "cancellations": 0,
@@ -257,7 +274,9 @@ class Engine:
         self._last_ev = ev
 
     def _tokens(self, rows) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(rows, np.int64), device=self.serving.device)
+        """Host tokens: a step program copies them into its graph's static
+        buffer (``core.interleave``)."""
+        return torch.from_numpy(np.asarray(rows, np.int64))
 
     # ------------------------------------------------------------------ API
 
@@ -602,7 +621,7 @@ class Engine:
                 spec_dec.begin_round()
             try:
                 out = self._run_step(plan, active, stream, c, cur_tok, spec_ks)
-            except EngineStateError:
+            except (EngineStateError, interleave.CaptureError):
                 raise
             except Exception as e:  # noqa: BLE001 — the failure path IS the handler
                 self.last_step_error = f"{type(e).__name__}: {e}"
@@ -741,6 +760,7 @@ class Engine:
         pool, spec_dec, reqs = self.pool, self.spec_dec, self._reqs
         ladder, faults = self.ladder, self.fault_plan
         dparams = self.serving.decode_params
+        graphs = self.graphs
         logits = pre_logits = new_cache = new_scache = None
         drafts: dict[int, list[int]] = {}
         forks: dict = {}
@@ -775,23 +795,26 @@ class Engine:
                 chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
                 logits, new_cache, pre_logits, new_scache = interleave.fused_step(
                     dparams, pool.views(span=1), feed, stream.cache, chunk_toks, cfg,
-                    sub_chunk=self.chunk)
+                    sub_chunk=self.chunk, graphs=graphs)
             else:
                 if plan.decode:
                     logits, new_cache = interleave.decode_only_step(
-                        dparams, pool.views(span=1), feed, cfg)
+                        dparams, pool.views(span=1), feed, cfg, graphs=graphs)
                 if plan.prefill_chunk:
                     self._require(stream is not None,
                                   "prefill chunk planned without an admission stream")
                     chunk_toks = self._tokens(stream.toks[:, stream.off:stream.off + c])
                     pre_logits, new_scache = interleave.prefill_chunk_step(
-                        dparams, stream.cache, chunk_toks, cfg, sub_chunk=self.chunk)
+                        dparams, stream.cache, chunk_toks, cfg, sub_chunk=self.chunk,
+                        graphs=graphs)
             if plan.spec and self._span > 1:
                 # Verify scores every span position through the SAME (slots, 1)
                 # decode program plain decode runs, each committed into the
                 # forked rows before the next, so the verify logits and the
-                # accepted tokens' KV are the non-spec path's bits.
-                vlogits = [logits]
+                # accepted tokens' KV are the non-spec path's bits. Its logits
+                # are the graph's static output, which the next position's
+                # replay overwrites: each is copied first.
+                vlogits = [logits.clone()]
                 pool.commit(new_cache)
                 new_cache = None
                 for j in range(1, self._span):
@@ -800,9 +823,10 @@ class Engine:
                         if j - 1 < len(d):
                             feed_j[si, 0] = d[j - 1]
                     lg_j, nc_j = interleave.decode_only_step(
-                        dparams, pool.views(span=1), self._tokens(feed_j), cfg)
+                        dparams, pool.views(span=1), self._tokens(feed_j), cfg,
+                        graphs=graphs)
                     pool.commit(nc_j)
-                    vlogits.append(lg_j)
+                    vlogits.append(lg_j.clone())
                 logits = torch.cat(vlogits, dim=1)
             if self.nan_guard and not _finite(logits, active, pre_logits):
                 ladder.record_nan()
@@ -928,8 +952,9 @@ class Engine:
         toks = np.zeros((len(prompts), max(lens)), np.int32)
         for j, p in enumerate(prompts):
             toks[j, :lens[j]] = p
-        seq_lens = self._tokens(lens)
-        logits, cache = M.prefill(self.serving.params, self._tokens(toks), self.cfg,
+        dev = self.serving.device
+        seq_lens = self._tokens(lens).to(dev)
+        logits, cache = M.prefill(self.serving.params, self._tokens(toks).to(dev), self.cfg,
                                   self.max_len, seq_lens=seq_lens if len(set(lens)) > 1 else None)
         cache["pos"] = seq_lens
         return logits, cache
@@ -999,14 +1024,14 @@ class Engine:
                                            offsets=[len(results[r].tokens) for r in group])
                 staged = [(r, cache, j, None, first[j]) for j, r in enumerate(group)]
             else:
-                for r in group:
+                for j, r in enumerate(group):
                     if pool.policy.chunkable:
                         toks = self._tokens([ext[r]])
-                        cache = pool.staging_step_prep(pool.begin_batch_admission(),
+                        cache = pool.staging_step_prep(pool.begin_batch_admission(j),
                                                        len(ext[r]))
                         logits, cache = interleave.prefill_chunk_step(
                             self.serving.params, cache, toks, self.cfg, sub_chunk=self.chunk,
-                            gemm=True)
+                            gemm=True, graphs=self.graphs)
                     else:
                         logits, cache = self._full_prefill([ext[r]])
                     staged.append((r, cache, 0, pool.park_staging(),

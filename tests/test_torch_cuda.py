@@ -1288,3 +1288,136 @@ def test_a_cell_counts_the_same_on_the_card_and_on_meta(dev, monkeypatch, arch, 
     cfg = get_config(arch, smoke=True).replace(quantized_decode=True)
     assert costrun.count(costrun.build_cell(cfg, shape, device=dev)) == \
         costrun.count(costrun.build_cell(cfg, shape))
+
+
+# --------------------------------------------------------------------------
+# captured step programs (core.interleave) against eager ones
+# --------------------------------------------------------------------------
+
+# (arch, overrides, pool): every served family and pool kind at f32 smoke
+GRAPH_SERVES = [
+    ("llama3-8b", {}, "paged"), ("llama3-8b", {"quantized_decode": True}, "paged"),
+    ("llama3-8b", {"quantized_decode": True}, "contiguous"),
+    ("gemma2-27b", {}, "paged"), ("gemma2-27b", {"windowed_kv_cache": True}, "ring"),
+    ("internvl2-2b", {"quantized_decode": True}, "paged"),
+    ("olmoe-1b-7b", {"quantized_decode": True}, "paged"),
+    ("phi3.5-moe-42b-a6.6b", {"quantized_decode": True}, "paged"),
+    ("zamba2-7b", {"quantized_decode": True}, "contiguous"),
+    ("rwkv6-1.6b", {}, "contiguous"),
+]
+
+
+def _graph_ab(cfg, params, dev, mode, reqs, *, pool_kind="paged", spec_k=None):
+    """The same serve captured and then under ``interleave.eager()``, each on
+    an engine of its own: (captured, eager), each (tokens, events' plans,
+    launch counts, the engine's graph stats)."""
+    from repro_torch.core import interleave
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.serving_model import ServingModel
+    from repro_torch.serve.spec import SpecConfig
+
+    sm = ServingModel.prepare(cfg, params, max_len=64, slots=2, device=dev)
+
+    def serve():
+        spec = SpecConfig(draft=sm, k=spec_k) if spec_k else None
+        if pool_kind == "paged":
+            eng = sm.engine(mode=Mode[mode], chunk=4, spec=spec)
+        else:
+            pool = sm.cache_pool(slots=2, prefix_cache=False, block_size=4, paged=False)
+            eng = Engine(sm.cfg, sm.params, max_len=64, slots=2, mode=Mode[mode], chunk=4,
+                         serving=sm, prefix_cache=False, pool=pool, spec=spec)
+        reset_launches()
+        res = eng.serve(reqs())
+        torch.cuda.synchronize()
+        assert eng.pool.check_invariants() == []
+        return ([(r.state, r.tokens) for r in res], [e.plan for e in eng.events],
+                launch_counts(), eng.graphs.stats())
+
+    captured = serve()
+    with interleave.eager():
+        eager = serve()
+    return captured, eager
+
+
+def _assert_captured_equals_eager(captured, eager):
+    assert captured[0] == eager[0]          # states and tokens
+    assert captured[1] == eager[1]          # every step's plan
+    assert captured[2] == eager[2]          # every kernel's launches
+    st, est = captured[3], eager[3]
+    # captured: only each key's first call ran eagerly, every other step replayed
+    assert st["replays"] > 0 and st["eager_steps"] == st["keys"]
+    assert st["captures"] == st["graphs"] > 0
+    assert est["captures"] == est["replays"] == 0 and est["eager_steps"] > 0
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("mode", ["BLOCKED", "HBCEM", "LBIM"])
+@pytest.mark.parametrize("arch,overrides,pool", GRAPH_SERVES,
+                         ids=[f"{a}-{p}{'-w8a8' if o.get('quantized_decode') else ''}"
+                              for a, o, p in GRAPH_SERVES])
+def test_captured_serve_equals_eager(dev, no_tf32, arch, overrides, pool, mode, splits):
+    """Every served family in every mode, at splits 1 and 2 on the paged
+    pools: the captured serve's tokens, plans and launch counts equal the
+    eager serve's, and after each key's first call every step replays."""
+    if splits > 1 and pool != "paged":
+        pytest.skip("KV splits apply to the paged pool only")
+    cfg, cpu = family_pair(arch, decode_kv_splits=splits, **overrides)
+    captured, eager = _graph_ab(cfg, _to(cpu, dev), dev, mode,
+                                lambda: _serve_requests(), pool_kind=pool)
+    _assert_captured_equals_eager(captured, eager)
+
+
+@pytest.mark.parametrize("mode", ["HBCEM", "LBIM"])
+def test_captured_spec_serve_equals_eager(dev, no_tf32, mode):
+    """Self-draft speculation (W8A8): every verify position replays the
+    decode graph, each position's logits copied before the next replay."""
+    import dataclasses
+
+    from repro_torch.serve.api import SamplingParams
+
+    cfg, cpu = family_pair("llama3-8b", quantized_decode=True)
+    samplers = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=1), {}, {}, {}, {}]
+
+    def reqs():
+        return [dataclasses.replace(r, sampling=SamplingParams(**s))
+                for r, s in zip(_serve_requests(), samplers)]
+
+    captured, eager = _graph_ab(cfg, _to(cpu, dev), dev, mode, reqs, spec_k=3)
+    _assert_captured_equals_eager(captured, eager)
+    assert any(p.spec for p in captured[1])
+
+
+@pytest.mark.parametrize("spec_k", [None, 2])
+def test_captured_preemption_equals_eager(dev, no_tf32, spec_k):
+    """A priority preemption and its bit-identical resume, captured."""
+    cfg, cpu = family_pair("llama3-8b", quantized_decode=True)
+    captured, eager = _graph_ab(
+        cfg, _to(cpu, dev), dev, "HBCEM",
+        lambda: _serve_requests({2: dict(priority=5)}, PREEMPT_PROMPTS, PREEMPT_BUDGETS),
+        spec_k=spec_k)
+    _assert_captured_equals_eager(captured, eager)
+
+
+def test_a_host_sync_inside_a_step_fails_its_capture(dev, monkeypatch):
+    """A planted ``.item()`` in the decode step: the key's first call runs it
+    eagerly, its capture raises ``CaptureError`` naming the planted line, and
+    the serve raises (no step falls back to eager). Last in the file: a
+    failed capture may leave the process's allocator state behind."""
+    from repro_torch.core import interleave
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.serve.serving_model import ServingModel
+
+    cfg, cpu = family_pair("llama3-8b")
+    real = interleave.M.decode_step
+
+    def planted_host_sync(params, cache, tokens, cfg, **kw):
+        int(cache["pos"].reshape(-1)[0].item())
+        return real(params, cache, tokens, cfg, **kw)
+
+    monkeypatch.setattr(interleave.M, "decode_step", planted_host_sync)
+    eng = ServingModel.prepare(cfg, _to(cpu, dev), max_len=64, slots=2,
+                               device=dev).engine(mode=Mode.HBCEM, chunk=4)
+    with pytest.raises(interleave.CaptureError, match="planted_host_sync"):
+        eng.serve(_serve_requests())
