@@ -92,9 +92,14 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    target's 7 x 32 ``pim_gemv`` and 32 paged single-pass attention calls; per
    single-token draft feed (each chained candidate, and a catch-up of one
    token) the draft's 7 x 32 ``pim_gemv`` and 32 contiguous attention calls
-   on its batch-1 lane. Lines give decode-step ms, tokens/s and the spec
-   report; ``priced`` lines price the four serves' events self-drafted
-   (``draft_model=None``).
+   on its batch-1 lane. The draft's feeds replay the engine's graphs on the
+   draft decoder's persistent working lane: a spec serve fails unless its
+   draft keys (``draft_graph_keys``, one per catch-up length, the chained
+   feed sharing length 1's) are at most its distinct catch-up lengths and
+   1, and fewer than its draft feeds. The pool's sampling runs as the
+   engine's captured sampling program. Lines give decode-step ms, round ms,
+   tokens/s, the spec report and the draft's working-lane MB; ``priced``
+   lines price the four serves' events self-drafted (``draft_model=None``).
 6. ``traffic``: full-width llama3-8b at 4 of its 32 layers
    (``TRAFFIC_LAYERS``; bf16, W8A8, paged 8-token pages,
    4 slots, 64-token admission chunks) serves a seeded 16-request Poisson
@@ -179,20 +184,27 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
 10. ``train``: the training path (``repro_torch.train``; no kernel of the
    port may launch, as the JAX training path reaches no ``pallas_call``):
    (a) internvl2-2b at full width and depth (bf16, per-layer ``remat`` from
-   its config, seeded weights, AdamW) takes 4 ``train_step``s over
-   ``SyntheticLM`` batches of B 8 x S 1024, then one whose batch adds 256
-   seeded patch embeddings; each ``train_step`` line gives a finite loss and
-   grad norm, step ms (ending in a sync), tokens/s, ``mfu`` (6 x params x
-   positions over the step's seconds and the bf16 dense peak) and peak
-   allocated memory. (b) ``train_parity`` lines: llama3-8b, olmoe-1b-7b,
+   its config, seeded weights, AdamW) takes 4 in-place steps over
+   ``SyntheticLM`` batches of B 8 x S 1024 through a
+   ``train_step.TrainGraphs`` (the first eager, the second captured, then
+   replays), then one whose batch adds 256 seeded patch embeddings (a key
+   of its own, eager); each ``train_step`` line gives a finite loss and
+   grad norm, how the step ran, step ms (ending in a sync), tokens/s,
+   ``mfu`` (6 x params x positions over the step's seconds and the bf16
+   dense peak) and peak allocated memory, a ``train_graphs`` line the
+   captures, replays, capture s and graph pool GB. (b) ``train_parity`` lines: llama3-8b, olmoe-1b-7b,
    zamba2-7b and rwkv6-1.6b at f32 smoke, the same seeded weights and batch
    on the card and on the CPU: loss within rtol 1e-4, every gradient leaf
    within rtol 1e-4 and an atol of 1e-5 of its max, one AdamW step. (c)
    ``examples/train_100m.py``'s ~125 M llama, B 8 x S 256 through
-   ``train.loop.run``: 60 steps whose loss must fall, then a run stopped at
+   ``train.loop.run`` (which replays its captured step on its own
+   tensors): 60 steps whose loss must fall, then a run stopped at
    step 30 and resumed from its checkpoint (a temporary directory, removed)
    to step 60, whose params must equal the uninterrupted run's within
-   ``tests/test_train.py``'s tolerance (``train_resume`` line). The phase
+   ``tests/test_train.py``'s tolerance (``train_resume`` line). (d) The same
+   llama's first 4 steps captured and then eager from the same weights:
+   losses, grad norms, params and moments equal bit for bit
+   (``train_capture_ab`` line: replay and eager step ms). The phase
    runs in a world-size-1 NCCL process group started on a ``HashStore`` (no
    network port) with a (1, 1) ``("data", "model")`` mesh, and adds the
    ``dist`` lines: after (a), ``quantize_grad``/``dequantize_grad`` over
@@ -271,10 +283,16 @@ one ``graphs_ab`` line per serve, tokens, plans and launches equal.
 print only ``pim_gemv``'s ``kernel_time`` lines (llama3-8b's layer at B 1, 4,
 8, then every serve shape at B 1 to 8 beside ``torch._int_mm``) and its
 ``kernel_check`` lines (B3; also at every serve shape),
-only the spec phase's lines, only the traffic phase's and the CLI's, only
+only the spec phase's lines (each spec serve followed by its eager-rollout
+twin, the draft decoder without the engine's graphs: every round's drafts,
+every event's acceptance and emitted tokens, the tokens and the launches
+equal; ``spec_rollout_ab`` lines give the round ms both ways beside the
+plain step ms), only the traffic phase's and the CLI's, only
 the dense phase's, only the MoE phase's or only the families phase's (each
 with its kernel checks and times), only the training phase's (no kernel
-check: the phase launches none), or only the ``dist`` checks (on internvl2-2b
+check: the phase launches none; (a) runs again under ``interleave.eager()``,
+its losses and grad norms equal to the captured run's: ``train_steps_ab``),
+or only the ``dist`` checks (on internvl2-2b
 with seeded weights over the training phase's last batch, and on a
 checkpoint of the ~125 M llama written by two steps of ``train.loop.run``),
 or the cost phase (11), then ``launch.hillclimb`` on the rank cell with fp8
@@ -1408,27 +1426,35 @@ GRAPHS_AB = False
 def graph_stats(eng) -> dict:
     """The engine's captured step programs (``core.interleave.StepGraphs``)
     for a serve line: graphs held, captures, replays, steps run eagerly (each
-    key's first call; every step under ``interleave.eager()``), host seconds
-    spent capturing and the graphs' pool bytes."""
+    key's first call; every step under ``interleave.eager()``), samplings run
+    eagerly over a step's eager logits (``unheld``), host seconds spent
+    capturing and the graphs' pool bytes."""
     from repro_torch.core import interleave
 
     st = eng.graphs.stats()
     return {"captured": interleave.capture_enabled() and eng.graphs.device.type == "cuda",
             "graphs": st["graphs"],
             "captures": st["captures"], "replays": st["replays"],
-            "eager_steps": st["eager_steps"], "capture_s": st["capture_s"],
-            "graph_pool_GB": st["pool_bytes"] / 1e9}
+            "eager_steps": st["eager_steps"], "unheld": st["unheld"],
+            "capture_s": st["capture_s"], "graph_pool_GB": st["pool_bytes"] / 1e9}
 
 
 def check_captured(eng, what: str) -> None:
-    """A captured serve ran eagerly only each key's first call."""
+    """A captured serve ran eagerly only each key's first call, and sampled
+    eagerly (with no key) only after a step key's first call."""
     from repro_torch.core import interleave
 
     st = eng.graphs.stats()
-    if (eng.graphs.device.type == "cuda" and interleave.capture_enabled()
-            and st["eager_steps"] != st["keys"]):
+    if eng.graphs.device.type != "cuda" or not interleave.capture_enabled():
+        return
+    if st["eager_steps"] != st["keys"]:
         raise AssertionError(f"{what}: {st['eager_steps']} steps ran eagerly, but only the "
                              f"first call of each of {st['keys']} keys may: {st}")
+    progs = eng.graphs.programs()
+    steps = sum(n for p, n in progs.items() if p not in ("sample", "greedy_sample"))
+    if st["unheld"] > steps:
+        raise AssertionError(f"{what}: {st['unheld']} samplings ran over eager logits, more "
+                             f"than the {steps} step keys' first calls: {progs}")
 
 
 def serve_engine(sm, mode, *, paged: bool = True):
@@ -2785,16 +2811,34 @@ def spec_draft_lmax(reqs) -> int:
     return serve_max_len(reqs) + SPEC_K + 1
 
 
-def spec_serve(sm, mode, reqs, spec: bool, events: list | None = None) -> tuple[list, dict]:
+def spec_serve(sm, mode, reqs, spec: bool, events: list | None = None, *,
+               eager_rollout: bool = False, rounds: list | None = None) -> tuple[list, dict]:
     """One serve of ``reqs`` with or without self-draft speculation; launch
     counts of this serve alone held to what its schedule events imply; both
-    pools audited. ``events``, where given, receives the serve's events."""
+    pools audited. ``events``, where given, receives the serve's events;
+    ``rounds`` each rollout's (slot, drafts). A captured spec serve's draft
+    feeds replay the engine's graphs: their keys (one per catch-up length,
+    the chained feed sharing length 1's) must stay at most the distinct
+    catch-up lengths and 1, and more feeds must run than there are keys.
+    ``eager_rollout`` runs the draft's feeds op by op instead (the twin of
+    ``--spec``: the draft decoder without the engine's graphs)."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve.api import RequestState
     from repro_torch.serve.spec import SpecConfig
 
     eng = sm.engine(mode=mode, slots=SLOTS,
                     spec=SpecConfig(draft=sm, k=SPEC_K) if spec else None)
+    if eager_rollout:
+        eng.spec_dec.graphs = None
+    if rounds is not None:
+        rollout = eng.spec_dec.rollout
+
+        def recorded(si, k, cfg):
+            drafts = rollout(si, k, cfg)
+            rounds.append((si, drafts))
+            return drafts
+
+        eng.spec_dec.rollout = recorded
     if spec and (eng.pool.table_blocks != spec_table_blocks(reqs)
                  or eng.spec_dec.pool.max_len != spec_draft_lmax(reqs)):
         raise AssertionError(
@@ -2824,11 +2868,14 @@ def spec_serve(sm, mode, reqs, spec: bool, events: list | None = None) -> tuple[
                              f"implies {want}")
     rep = eng.schedule_report()
     decode = [e.step_s for e in eng.events if e.plan.decode and not e.plan.prefill_chunk]
+    spec_rounds = [e.step_s for e in eng.events if e.plan.spec]
     ntok = sum(len(r.tokens) for r in results)
     line = {"phase": "spec_serve", "arch": sm.cfg.name, "mode": mode.value,
             "spec_k": SPEC_K if spec else 0, "requests": len(reqs), "tokens": ntok,
             "wall_s": wall, "tokens_per_s": ntok / wall,
             "decode_step_ms_median": 1e3 * statistics.median(decode),
+            "round_ms_median": (1e3 * statistics.median(spec_rounds) if spec_rounds
+                                else None),
             "pure_decode_steps": len(decode), "steps": rep["steps"],
             "spec": rep["spec"], "rollouts": sum(e.spec_rollouts for e in eng.events),
             "single_token_catchups": sum(e.spec_catchup_decodes for e in eng.events),
@@ -2836,15 +2883,32 @@ def spec_serve(sm, mode, reqs, spec: bool, events: list | None = None) -> tuple[
             "proposed_by_request": [r.spec_proposed for r in results],
             "launches": counts, **graph_stats(eng)}
     check_captured(eng, f"spec {sm.cfg.name} {mode.value}")
+    if spec:
+        sd = eng.spec_dec
+        line["draft_feeds"] = line["rollouts"] + rep["spec"]["draft_steps"]
+        line["draft_graph_keys"] = sd.graph_keys()
+        line["catchup_lengths"] = sorted(sd.catchup_lengths)
+        line["eager_rollout"] = eager_rollout
+        line["draft_lane_MB"] = sum(t.nbytes for t in sd._work.values()) / 1e6
+        line["draft_anchors"] = len(sd._anchors)
+        if line["captured"] and not eager_rollout and not (
+                0 < line["draft_graph_keys"] <= len(sd.catchup_lengths | {1})
+                < line["draft_feeds"]):
+            raise AssertionError(
+                f"spec {mode.value}: {line['draft_graph_keys']} draft keys over "
+                f"{line['draft_feeds']} feeds and catch-up lengths "
+                f"{line['catchup_lengths']}: the draft feeds do not replay")
     if events is not None:
         events.extend(eng.events)
     return [r.tokens for r in results], line
 
 
-def spec_phase(dev, cfg, params) -> dict:
+def spec_phase(dev, cfg, params, ab: bool = False) -> dict:
     """llama3-8b (bf16, W8A8, paged, SLOTS lanes) with and without self-draft
     speculation in HBCEM and LBIM: spec tokens equal non-spec tokens per mode,
-    the greedy lanes accept draft tokens above a floor, exact launch counts."""
+    the greedy lanes accept draft tokens above a floor, exact launch counts,
+    the draft feeds replayed. With ``ab`` (``--spec``) each mode's spec serve
+    is followed by its eager-rollout twin (``spec_rollout_ab`` lines)."""
     from repro_torch.core.pim_modes import Mode
     from repro_torch.serve.serving_model import ServingModel
 
@@ -2854,12 +2918,13 @@ def spec_phase(dev, cfg, params) -> dict:
     total: dict[str, int] = {}
     events: dict[str, list] = {}
     for mode in (Mode.HBCEM, Mode.LBIM):
-        plain, line = spec_serve(sm, mode, reqs, spec=False,
-                                 events=events.setdefault(mode.value, []))
-        emit(line)
-        add_launches(total, line)
-        toks, line = spec_serve(sm, mode, reqs, spec=True,
-                                events=events.setdefault(f"{mode.value} spec", []))
+        plain, plain_line = spec_serve(sm, mode, reqs, spec=False,
+                                       events=events.setdefault(mode.value, []))
+        emit(plain_line)
+        add_launches(total, plain_line)
+        rounds: list = []
+        spec_events = events.setdefault(f"{mode.value} spec", [])
+        toks, line = spec_serve(sm, mode, reqs, spec=True, events=spec_events, rounds=rounds)
         if toks != plain:
             diff = [i for i, (a, b) in enumerate(zip(plain, toks)) if a != b]
             raise AssertionError(f"spec {mode.value}: tokens differ from the non-spec serve "
@@ -2877,6 +2942,8 @@ def spec_phase(dev, cfg, params) -> dict:
         line["tokens_equal_non_spec"] = True
         emit(line)
         add_launches(total, line)
+        if ab:
+            spec_rollout_ab(sm, mode, reqs, toks, spec_events, rounds, line, plain_line)
     emit({"phase": "serve_launches", "arch": cfg.name, "what": "spec phase", "runs": 4,
           **total})
     price_spec(events)
@@ -2884,6 +2951,42 @@ def spec_phase(dev, cfg, params) -> dict:
                    f"{cfg.name} spec")
     del sm
     return total
+
+
+def spec_rollout_ab(sm, mode, reqs, tokens, events, rounds, line, plain_line) -> None:
+    """``--spec``: a captured spec serve against its eager-rollout twin (the
+    same serve with the draft's feeds op by op, the target's steps still
+    captured). Every round's drafts, every event's plan, acceptance and
+    emitted tokens, the final tokens and the launch counts must equal; the
+    ``spec_rollout_ab`` line gives the round ms both ways beside the plain
+    step ms."""
+    twin_events: list = []
+    twin_rounds: list = []
+    twin_toks, twin = spec_serve(sm, mode, reqs, spec=True, events=twin_events,
+                                 eager_rollout=True, rounds=twin_rounds)
+    emit(twin)
+
+    def per_event(evs):
+        return [(e.plan, e.spec_drafted, e.spec_accepted, e.emitted_tokens) for e in evs]
+
+    out = {"phase": "spec_rollout_ab", "arch": sm.cfg.name, "mode": mode.value,
+           "spec_k": SPEC_K, "rounds": len(rounds),
+           "drafts_equal": rounds == twin_rounds,
+           "events_equal": per_event(events) == per_event(twin_events),
+           "tokens_equal": twin_toks == tokens,
+           "launches_equal": twin["launches"] == line["launches"],
+           "captured_round_ms": line["round_ms_median"],
+           "eager_rollout_round_ms": twin["round_ms_median"],
+           "plain_step_ms": plain_line["decode_step_ms_median"],
+           "captured_tokens_per_s": line["tokens_per_s"],
+           "eager_rollout_tokens_per_s": twin["tokens_per_s"],
+           "plain_tokens_per_s": plain_line["tokens_per_s"],
+           "draft_graph_keys": line["draft_graph_keys"], "draft_feeds": line["draft_feeds"]}
+    emit(out)
+    if not all(out[k] for k in ("drafts_equal", "events_equal", "tokens_equal",
+                                "launches_equal")):
+        raise AssertionError(f"spec {mode.value}: the captured draft feeds differ from the "
+                             f"eager rollout: {out}")
 
 
 # the traffic phase: llama3-8b at full width under a seeded Poisson arrival
@@ -3518,6 +3621,7 @@ LLAMA_100M = dict(name="llama-100m", n_layers=12, d_model=768, n_heads=12, n_kv_
 RESUME_BATCH, RESUME_SEQ = 8, 256
 RESUME_STEPS, RESUME_STOP = 60, 30
 RESUME_RTOL, RESUME_ATOL = 2e-2, 1e-3   # tests/test_train.py's crash-resume tolerance
+AB_STEPS = 4                 # train_capture_ab: a warm-up, a capture, two replays
 
 
 def n_params(params) -> int:
@@ -3526,20 +3630,27 @@ def n_params(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
 
-def train_steps(dev, mesh=None) -> None:
+def train_steps(dev, mesh=None, captured: bool = True) -> list:
     """(a) internvl2-2b at full width and depth (bf16, ``remat`` from its
     config, seeded weights): ``TRAIN_STEPS`` steps over ``SyntheticLM``
     batches of B 8 x S 1024, then one whose batch adds 256 seeded patch
-    embeddings. Each step ends in a sync; its line gives loss, grad norm,
-    step ms, tokens/s, mfu (6 x params x positions through the stack over the
-    step's seconds and ``PEAK_BF16_FLOPS``, the recompute not counted) and
-    the peak of allocated memory since the phase began. With a ``mesh`` (the
-    ``dist`` group's), ``dist_grads`` then runs on the last step's batch."""
+    embeddings, each the in-place step through a ``train_step.TrainGraphs``:
+    the first eager (the warm-up), the second captured and replayed, the
+    rest replays; the prefix step, a key of its own seen once, eager.
+    ``captured=False`` runs every step eagerly (``interleave.eager()``). Each
+    step ends in a sync; its line gives loss, grad norm, step ms, tokens/s,
+    mfu (6 x params x positions through the stack over the step's seconds
+    and ``PEAK_BF16_FLOPS``, the recompute not counted) and the peak of
+    allocated memory since the phase began; a ``train_graphs`` line the
+    graphs' counters, capture s and pool GB. With a ``mesh`` (the ``dist``
+    group's), ``dist_grads`` then runs on the last step's batch. Returns the
+    steps' (loss, grad norm)."""
     from repro_torch.configs import get_config
+    from repro_torch.core import interleave
     from repro_torch.models.model import init_params
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-    from repro_torch.train.train_step import train_step
+    from repro_torch.train.train_step import TrainGraphs
 
     cfg = get_config(TRAIN_ARCH)
     free_card(f"{TRAIN_ARCH} training")
@@ -3557,26 +3668,104 @@ def train_steps(dev, mesh=None) -> None:
                                   global_batch=TRAIN_BATCH))
     opt = AdamWConfig()
     gen = torch.Generator(device=dev).manual_seed(7)
-    for step in range(TRAIN_STEPS + 1):
-        batch, prefix = train_batch(cfg, data, step, gen, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, m = train_step(params, opt_state, batch, cfg, opt, 1)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise AssertionError(f"{cfg.name} step {step}: loss {loss}, grad norm {gnorm}")
-        positions = TRAIN_BATCH * (TRAIN_SEQ + prefix)
-        emit({"phase": "train_step", "arch": cfg.name, "step": step, "batch": TRAIN_BATCH,
-              "seq": TRAIN_SEQ, "prefix": prefix, "loss": loss, "grad_norm": gnorm,
-              "step_ms": dt * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
-              "mfu": 6 * n * positions / dt / PEAK_BF16_FLOPS,
-              "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
-    del opt_state
+    graphs = TrainGraphs(dev)
+    out = []
+    with contextlib.ExitStack() as stack:
+        if not captured:
+            stack.enter_context(interleave.eager())
+        for step in range(TRAIN_STEPS + 1):
+            batch, prefix = train_batch(cfg, data, step, gen, dev)
+            before = graphs.stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = graphs.step(params, opt_state, batch, cfg, opt, 1)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = graphs.stats()
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"{cfg.name} step {step}: loss {loss}, grad norm {gnorm}")
+            out.append((loss, gnorm))
+            positions = TRAIN_BATCH * (TRAIN_SEQ + prefix)
+            emit({"phase": "train_step", "arch": cfg.name, "step": step, "batch": TRAIN_BATCH,
+                  "seq": TRAIN_SEQ, "prefix": prefix, "loss": loss, "grad_norm": gnorm,
+                  "how": ("captured" if after["captures"] > before["captures"] else
+                          "replay" if after["replays"] > before["replays"] else "eager"),
+                  "step_ms": dt * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+                  "mfu": 6 * n * positions / dt / PEAK_BF16_FLOPS,
+                  "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    st = graphs.stats()
+    emit({"phase": "train_graphs", "arch": cfg.name, "captured": captured,
+          "graphs": st["graphs"], "keys": st["keys"], "captures": st["captures"],
+          "replays": st["replays"], "eager_steps": st["eager_steps"],
+          "capture_s": st["capture_s"], "graph_pool_GB": st["pool_bytes"] / 1e9,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    want = ((1, TRAIN_STEPS - 1, 2) if captured and dev.type == "cuda"
+            else (0, 0, TRAIN_STEPS + 1))
+    if (st["captures"], st["replays"], st["eager_steps"]) != want:
+        raise AssertionError(f"{cfg.name}: train graphs {st}, expected (captures, replays, "
+                             f"eager steps) {want}")
+    del graphs, opt_state
     if mesh is not None:
         dist_grads(cfg, params, batch)
     del params
+    return out
+
+
+def train_capture_ab(dev) -> None:
+    """The ~125 M llama of ``examples/train_100m.py`` (B 8 x S 256): four
+    in-place steps through a ``TrainGraphs``, captured, then the same steps
+    from the same weights under ``interleave.eager()``; losses, grad norms
+    and every params and moments leaf must equal bit for bit
+    (``train_capture_ab`` line: step ms both ways, capture s, pool GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import interleave
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, tree_leaves
+    from repro_torch.train.train_step import TrainGraphs
+
+    cfg = get_config("llama3-8b", smoke=True).replace(**LLAMA_100M)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=RESUME_SEQ,
+                                  global_batch=RESUME_BATCH))
+    opt = AdamWConfig(lr=6e-4, warmup_steps=2, total_steps=AB_STEPS)
+
+    def run(captured: bool):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        state = init_opt_state(params)
+        graphs = TrainGraphs(dev)
+        metrics, ms = [], []
+        with contextlib.ExitStack() as stack:
+            if not captured:
+                stack.enter_context(interleave.eager())
+            for step in range(AB_STEPS):
+                batch = {k: torch.from_numpy(v) for k, v in data.batch_at(step).items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = graphs.step(params, state, batch, cfg, opt)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+        leaves = [t.cpu() for t in tree_leaves(params) + [state.step] + tree_leaves(state.m)
+                  + tree_leaves(state.v)]
+        return metrics, ms, leaves, graphs.stats()
+
+    cap, cap_ms, cap_leaves, st = run(True)
+    eag, eag_ms, eag_leaves, _ = run(False)
+    out = {"phase": "train_capture_ab", "arch": cfg.name,
+           "params": sum(t.numel() for t in cap_leaves) // 3,
+           "batch": RESUME_BATCH, "seq": RESUME_SEQ, "steps": AB_STEPS,
+           "losses_equal": [m[0] for m in cap] == [m[0] for m in eag],
+           "grad_norms_equal": [m[1] for m in cap] == [m[1] for m in eag],
+           "leaves_equal": all(torch.equal(a, b) for a, b in zip(cap_leaves, eag_leaves)),
+           "losses": [m[0] for m in cap],
+           "captured_replay_ms": cap_ms[2:], "eager_step_ms": eag_ms[1:],
+           "capture_step_ms": cap_ms[1], "capture_s": st["capture_s"],
+           "graph_pool_GB": st["pool_bytes"] / 1e9, "replays": st["replays"]}
+    emit(out)
+    if not (out["losses_equal"] and out["grad_norms_equal"] and out["leaves_equal"]):
+        raise AssertionError(f"{cfg.name}: the captured train step differs from the eager "
+                             f"one: {out}")
 
 
 def train_batch(cfg, data, step: int, gen, dev) -> tuple[dict, int]:
@@ -3699,18 +3888,29 @@ def train_resume(dev, mesh=None) -> None:
           "resumed_at": hist_res[0]["step"], "params_max_abs_diff": err})
 
 
-def train_phase(dev) -> dict:
-    """(a) ``train_steps``, (b) ``train_parity``, (c) ``train_resume``, with
-    the ``dist`` checks inside (a) and (c) on a world-size-1 NCCL group; no
-    kernel of the port may launch (the JAX training path reaches no
-    ``pallas_call``). Returns the (zero) launch counts."""
+def train_phase(dev, ab: bool = False) -> dict:
+    """(a) ``train_steps`` (captured), (b) ``train_parity``, (c)
+    ``train_resume`` (the loop replays its captured step), (d)
+    ``train_capture_ab``, with the ``dist`` checks inside (a) and (c) on a
+    world-size-1 NCCL group; no kernel of the port may launch (the JAX
+    training path reaches no ``pallas_call``). With ``ab`` (``--train``)
+    (a) runs again eagerly, its losses and grad norms equal to the captured
+    run's bit for bit. Returns the (zero) launch counts."""
     from repro_torch.kernels import launch_counts, reset_launches
 
     reset_launches()
     with dist_group(dev) as mesh:
-        train_steps(dev, mesh)
+        captured = train_steps(dev, mesh)
+        if ab:
+            eager = train_steps(dev, captured=False)
+            emit({"phase": "train_steps_ab", "arch": TRAIN_ARCH, "steps": len(captured),
+                  "equal": captured == eager})
+            if captured != eager:
+                raise AssertionError(f"{TRAIN_ARCH}: captured (loss, grad norm) {captured}, "
+                                     f"eager {eager}")
         train_parity(dev)
         train_resume(dev, mesh)
+        train_capture_ab(dev)
     counts = launch_counts()
     if any(counts.values()):
         raise AssertionError(f"the training path launched kernels: {counts}")
@@ -4179,7 +4379,8 @@ def main(argv: list[str]) -> int:
         cfg = get_config("llama3-8b").replace(quantized_decode=True)
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         if argv == ["--spec"]:
-            spec_phase(dev, cfg, params)
+            with phase_clock("spec_phase"):
+                spec_phase(dev, cfg, params, ab=True)
         else:   # the full run's weights (the head is drawn after every layer), cut
             traffic_phase(dev, *cut_depth(cfg, params, TRAFFIC_LAYERS))
         return 0
@@ -4204,7 +4405,7 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--train"]:
         with phase_clock("train_phase"):
-            train_phase(dev)
+            train_phase(dev, ab=True)
         return 0
     if argv == ["--dist"]:
         with phase_clock("dist_phase"):

@@ -38,6 +38,11 @@ replay: the counts equal the eager path's. A graph's outputs are its static
 buffers, which its next replay overwrites: callers read them (or copy them)
 first.
 
+The same object holds the engine's other compiled program, the pool's
+sampling step (:meth:`StepGraphs.sample`, the jitted ``sample_masked``), and
+the speculative draft's feeds run its ``decode_only_step`` graphs over the
+draft decoder's persistent batch-1 lane (``serve.spec``).
+
 Every step program writes its cache IN PLACE, its fill ``pos`` included:
 ``pos`` advances by the chunk's tokens in the tensor the caller passed, so a
 cache dict holds the same tensors step after step (the pool refreshes them
@@ -193,16 +198,12 @@ def _leaves(tree, out: list) -> list:
     return out
 
 
-def _signature(tree) -> tuple:
-    return tuple((t.data_ptr(), t.dtype, t.shape, t.stride()) for t in _leaves(tree, []))
-
-
-def _fill(buf: torch.Tensor, tokens: torch.Tensor) -> None:
-    """Host tokens into a static device buffer through pinned memory (the
-    pinned block is not reused before the copy has run)."""
-    if tokens.device.type == "cpu":
-        tokens = tokens.pin_memory()
-    buf.copy_(tokens, non_blocking=True)
+def _fill(buf: torch.Tensor, x: torch.Tensor) -> None:
+    """A host (or device) tensor into a static buffer; to the card through
+    pinned memory (the pinned block is not reused before the copy has run)."""
+    if buf.is_cuda and x.device.type == "cpu":
+        x = x.pin_memory()
+    buf.copy_(x, non_blocking=True)
 
 
 def _where(exc: BaseException) -> str:
@@ -226,88 +227,103 @@ def _where(exc: BaseException) -> str:
 @dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
-    tokens: tuple          # static token buffers (graph inputs)
+    inputs: tuple          # static input buffers
     out: tuple             # static outputs
     launches: dict         # kernel launches of one replay
 
 
-class StepGraphs:
-    """One engine's captured step programs (its ``jax.jit`` cache).
+class GraphCache:
+    """Captured CUDA graphs by key: the machinery of a ``jax.jit`` cache,
+    shared by the engine's :class:`StepGraphs` and the training loop's
+    ``train.train_step.TrainGraphs``.
 
-    ``stats()`` counts live graphs, captures, replays, eager steps (a key's
-    first call, calls under :func:`eager`, every call on the CPU), the host
-    seconds spent capturing and the bytes the graphs' private memory pools
-    reserved. ``trace``, when set to a list, receives each replay's program
-    name in launch order (a profile's graph launches map onto it). Dropping
-    the object frees its graphs and their pools.
+    :meth:`run` calls ``body(inputs, side)``, which returns a tuple. On the
+    CPU, under :func:`eager` or with ``capture=False`` (a body that reads a
+    tensor lying in no :meth:`held` buffer) the body runs eagerly over
+    ``inputs`` moved to the device, and no key is made. On the card a key's
+    first call runs eagerly over fresh static copies of ``inputs`` (its
+    warm-up), its second copies ``inputs`` into those buffers, captures the
+    body over them and replays, later calls copy and replay. With
+    ``warm_on_side`` the warm-up runs on a side stream, so that autograd's
+    lazy state is built outside the graph (the train step); a step program
+    has no autograd, and warms up where it runs, so that its activations
+    stay in the current stream's memory pool. A capture that fails raises
+    :class:`CaptureError`; with ``branches`` the capture hands the body a
+    side stream (``side``) to fork a second branch onto. A replay adds the
+    kernel launches counted at capture to ``kernels.launch_counts()`` and
+    returns the static outputs, which the next replay overwrites.
 
-    A params tree is read-only while an engine serves it (the serving
-    artifact's), so its leaves' signature is taken once per tree object and
-    keys hold a small id for it: a full-width tree has hundreds of leaves."""
+    ``stats()`` counts live graphs, keys (captured or warm), captures,
+    replays, eager steps (each key's first call; every call on the CPU or
+    under :func:`eager`), ``unheld`` calls (run eagerly on the card with
+    ``capture=False``), the host seconds spent capturing and the bytes the
+    graphs' private memory pools reserved. ``trace``, when set to a list,
+    receives each replay's program name in launch order (a profile's graph
+    launches map onto it). Dropping the object frees its graphs and their
+    pools."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._params: dict[int, tuple] = {}      # id(tree) -> (tree, signature id)
-        self._param_sigs: dict[tuple, int] = {}
         self._graphs: dict[tuple, _Graph] = {}
-        self._warm: dict[tuple, tuple] = {}      # key -> token buffers after its first call
+        self._warm: dict[tuple, tuple] = {}      # key -> input buffers after its first call
+        self._held: set[int] = set()             # storages of static outputs and kept buffers
         self._side: Optional[torch.cuda.Stream] = None
         self.trace: Optional[list] = None
-        self._stats = {"captures": 0, "replays": 0, "eager_steps": 0, "capture_s": 0.0,
-                       "pool_bytes": 0}
+        self._stats = {"captures": 0, "replays": 0, "eager_steps": 0, "unheld": 0,
+                       "capture_s": 0.0, "pool_bytes": 0}
 
     def stats(self) -> dict:
         return {"graphs": len(self._graphs), **self._stats,
                 "keys": len(self._graphs) + len(self._warm)}
 
-    # ------------------------------------------------------------- programs
+    def programs(self) -> dict:
+        """Keys (captured or warm) by program name."""
+        out: dict[str, int] = {}
+        for key in (*self._graphs, *self._warm):
+            out[key[0]] = out.get(key[0], 0) + 1
+        return out
 
-    def decode_only_step(self, params: dict, cache: dict, tokens: torch.Tensor,
-                         cfg: ModelConfig):
-        return self._run("decode_only", params, (cache,), (tokens,), cfg, (),
-                         lambda cs, tks, side: _unit(params, cs[0], tks[0], cfg, False))
+    @staticmethod
+    def signature(tree) -> tuple:
+        """Every tensor's address, dtype, shape and stride: a key's part for
+        tensors a graph reads or writes where they lie."""
+        return tuple((t.data_ptr(), t.dtype, t.shape, t.stride()) for t in _leaves(tree, []))
 
-    def prefill_chunk_step(self, params: dict, cache: dict, tokens: torch.Tensor,
-                           cfg: ModelConfig, *, sub_chunk: Optional[int] = None,
-                           gemm: bool = False):
-        def run(c, tk, g):
-            return self._run("prefill_chunk", params, (c,), (tk,), cfg, (g,),
-                             lambda cs, tks, side: _unit(params, cs[0], tks[0], cfg, g))
-        return _prefill(cache, tokens, cfg, sub_chunk, gemm, run)
+    def keep(self, t: torch.Tensor) -> None:
+        """Declares ``t`` a buffer its owner keeps while this object lives
+        (the engine's verify logits), as a graph's static outputs are."""
+        self._held.add(t.untyped_storage().data_ptr())
 
-    def fused_step(self, params: dict, dec_cache: dict, dec_tokens: torch.Tensor,
-                   pre_cache: dict, pre_tokens: torch.Tensor, cfg: ModelConfig, *,
-                   sub_chunk: Optional[int] = None):
-        return self._run("fused", params, (dec_cache, pre_cache), (dec_tokens, pre_tokens),
-                         cfg, (sub_chunk,),
-                         lambda cs, tks, side: _fused(params, cs[0], tks[0], cs[1], tks[1],
-                                                      cfg, sub_chunk, side))
+    def held(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` lies in a kept buffer or a graph's static output."""
+        return t.untyped_storage().data_ptr() in self._held
 
-    # ------------------------------------------------------------ machinery
-
-    def _run(self, program: str, params, caches: tuple, tokens: tuple, cfg, statics: tuple,
-             body: Callable):
+    def run(self, program: str, cfg, key: Callable[[], tuple], inputs: tuple,
+            body: Callable, *, warm_on_side: bool = False, branches: bool = False,
+            capture: bool = True) -> tuple:
         dev = self.device
-        if dev.type != "cuda" or not capture_enabled():
-            self._stats["eager_steps"] += 1
-            return body(caches, tuple(t.to(dev) for t in tokens), None)
-        key = self.key(program, params, caches, tokens, cfg, statics)
-        g = self._graphs.get(key)
+        captures = self._captures()
+        if not (capture and captures):
+            self._stats["unheld" if captures else "eager_steps"] += 1
+            return body(tuple(t.to(dev) for t in inputs), None)
+        k = key()
+        g = self._graphs.get(k)
         if g is None:
-            bufs = self._warm.get(key)
+            bufs = self._warm.get(k)
             if bufs is None:       # the key's first call: eager, the warm-up
-                bufs = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in tokens)
-                for b, t in zip(bufs, tokens):
+                bufs = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in inputs)
+                for b, t in zip(bufs, inputs):
                     _fill(b, t)
-                self._warm[key] = bufs
+                self._warm[k] = bufs
                 self._stats["eager_steps"] += 1
-                return body(caches, bufs, None)
-            del self._warm[key]
-            for b, t in zip(bufs, tokens):
+                return self._on_side(body, bufs) if warm_on_side else body(bufs, None)
+            del self._warm[k]
+            for b, t in zip(bufs, inputs):
                 _fill(b, t)
-            g = self._graphs[key] = self._capture(program, cfg, caches, bufs, body)
+            g = self._graphs[k] = self._capture(program, cfg, bufs, body, branches)
+            self._held.update(t.untyped_storage().data_ptr() for t in _leaves(g.out, []))
         else:
-            for b, t in zip(g.tokens, tokens):
+            for b, t in zip(g.inputs, inputs):
                 _fill(b, t)
         from repro_torch.kernels import add_launches
 
@@ -318,32 +334,29 @@ class StepGraphs:
             self.trace.append(program)
         return tuple(dict(o) if isinstance(o, dict) else o for o in g.out)
 
-    def key(self, program: str, params, caches: tuple, tokens: tuple, cfg,
-            statics: tuple = ()) -> tuple:
-        """A graph's key: the program, ``cfg``, the static arguments, every
-        params and cache tensor's address, dtype, shape and stride, and the
-        tokens' shapes and dtypes (they are copied into the graph's own
-        buffers)."""
-        return (program, cfg, statics, self._params_id(params), _signature(caches),
-                tuple((t.shape, t.dtype) for t in tokens))
+    def _captures(self) -> bool:
+        return self.device.type == "cuda" and capture_enabled()
 
-    def _params_id(self, params) -> int:
-        got = self._params.get(id(params))
-        if got is None:
-            sig = _signature(params)
-            got = self._params[id(params)] = (params, self._param_sigs.setdefault(
-                sig, len(self._param_sigs)))
-        return got[1]
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
 
-    def _capture(self, program: str, cfg, caches: tuple, bufs: tuple, body) -> _Graph:
+    def _on_side(self, body: Callable, bufs: tuple) -> tuple:
+        main = torch.cuda.current_stream(self.device)
+        side = self._side_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = body(bufs, None)
+        main.wait_stream(side)
+        return out
+
+    def _capture(self, program: str, cfg, bufs: tuple, body: Callable,
+                 branches: bool) -> _Graph:
         from repro_torch.kernels import add_launches, launch_counts
 
         dev = self.device
-        side = None
-        if program == "fused":
-            if self._side is None:
-                self._side = torch.cuda.Stream(device=dev)
-            side = self._side
+        side = self._side_stream() if branches else None
         t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -352,9 +365,10 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
-                out = body(caches, bufs, side)
+                out = body(bufs, side)
         except Exception as e:  # noqa: BLE001 — re-raised with the culprit named
-            raise CaptureError(f"capturing {program} of {cfg.name} failed at {_where(e)}: "
+            raise CaptureError(f"capturing {program} of {getattr(cfg, 'name', 'the pool')} "
+                               f"failed at {_where(e)}: "
                                f"{type(e).__name__}: {e}") from e
         finally:
             after = launch_counts()
@@ -364,3 +378,99 @@ class StepGraphs:
         self._stats["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
         return _Graph(graph, bufs, tuple(out),
                       {k: after[k] - before[k] for k in after if after[k] != before[k]})
+
+
+class StepGraphs(GraphCache):
+    """One engine's captured step programs (its ``jax.jit`` cache).
+
+    A params tree is read-only while an engine serves it (the serving
+    artifact's), so its leaves' signature is taken once per tree object and
+    keys hold a small id for it: a full-width tree has hundreds of leaves."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self._params: dict[int, tuple] = {}      # id(tree) -> (tree, signature id)
+        self._param_sigs: dict[tuple, int] = {}
+
+    # ------------------------------------------------------------- programs
+
+    def decode_only_step(self, params: dict, cache: dict, tokens: torch.Tensor,
+                         cfg: ModelConfig):
+        return self.run("decode_only", cfg,
+                        lambda: self.key("decode_only", params, (cache,), (tokens,), cfg),
+                        (tokens,), lambda tks, side: _unit(params, cache, tks[0], cfg, False))
+
+    def prefill_chunk_step(self, params: dict, cache: dict, tokens: torch.Tensor,
+                           cfg: ModelConfig, *, sub_chunk: Optional[int] = None,
+                           gemm: bool = False):
+        def run(c, tk, g):
+            return self.run("prefill_chunk", cfg,
+                            lambda: self.key("prefill_chunk", params, (c,), (tk,), cfg, (g,)),
+                            (tk,), lambda tks, side: _unit(params, c, tks[0], cfg, g))
+        return _prefill(cache, tokens, cfg, sub_chunk, gemm, run)
+
+    def fused_step(self, params: dict, dec_cache: dict, dec_tokens: torch.Tensor,
+                   pre_cache: dict, pre_tokens: torch.Tensor, cfg: ModelConfig, *,
+                   sub_chunk: Optional[int] = None):
+        return self.run(
+            "fused", cfg,
+            lambda: self.key("fused", params, (dec_cache, pre_cache), (dec_tokens, pre_tokens),
+                             cfg, (sub_chunk,)),
+            (dec_tokens, pre_tokens),
+            lambda tks, side: _fused(params, dec_cache, tks[0], pre_cache, tks[1], cfg,
+                                     sub_chunk, side),
+            branches=True)
+
+    def sample(self, logits: torch.Tensor, done: torch.Tensor, keys=None, temperature=None,
+               top_k=None, top_p=None, *, pad_id: int = 0) -> torch.Tensor:
+        """The decode pool's sampling step (the counterpart of the jitted
+        ``sample_masked``): ``sampling.sample_masked`` over ``logits`` (B, 1,
+        V), or ``sampling.greedy_masked`` when no ``keys`` are given. The
+        logits are read where they lie, so their address is part of the key,
+        and only logits in a graph's static output or a kept buffer (the
+        engine's verify logits) go through a graph: others (a step key's
+        eager first call) are sampled eagerly, leaving no key that would
+        never replay. The per-lane host inputs (``done``, ``keys``,
+        ``temperature``, ``top_k``, ``top_p``) are copied into the
+        program's static device buffers from pinned memory. Returns the (B,)
+        int32 tokens, a static output on a replay."""
+        from repro_torch.serve import sampling
+
+        if keys is None:
+            program, inputs = "greedy_sample", (done,)
+
+            def body(xs, side):
+                return (sampling.greedy_masked(logits, xs[0], pad_id),)
+        else:
+            program, inputs = "sample", (done, keys, temperature, top_k, top_p)
+
+            def body(xs, side):
+                return (sampling.sample_masked(logits, xs[0], keys=xs[1], temperature=xs[2],
+                                               top_k=xs[3], top_p=xs[4], pad_id=pad_id),)
+        return self.run(program, None,
+                        lambda: self.key(program, None, (logits,), inputs, None, (pad_id,)),
+                        inputs, body, capture=self.held(logits))[0]
+
+    def keys_over(self, t: torch.Tensor) -> int:
+        """Keys (captured or warm) one of whose cache tensors is ``t``."""
+        ptr = t.data_ptr()
+        return sum(any(leaf[0] == ptr for leaf in key[4])
+                   for key in (*self._graphs, *self._warm))
+
+    def key(self, program: str, params, caches: tuple, tokens: tuple, cfg,
+            statics: tuple = ()) -> tuple:
+        """A graph's key: the program, ``cfg``, the static arguments, every
+        params and cache tensor's address, dtype, shape and stride, and the
+        tokens' shapes and dtypes (they are copied into the graph's own
+        buffers). The sampling program's "cache" is the logits it reads and
+        its "tokens" are the per-lane inputs."""
+        return (program, cfg, statics, self._params_id(params), self.signature(caches),
+                tuple((t.shape, t.dtype) for t in tokens))
+
+    def _params_id(self, params) -> int:
+        got = self._params.get(id(params))
+        if got is None:
+            sig = self.signature(params)
+            got = self._params[id(params)] = (params, self._param_sigs.setdefault(
+                sig, len(self._param_sigs)))
+        return got[1]

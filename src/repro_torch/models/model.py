@@ -554,10 +554,13 @@ def project_cross_kv(params: dict, mem: torch.Tensor, cfg: ModelConfig):
 def _remat(fn: Callable, cfg: ModelConfig, collect: bool = False) -> Callable:
     """``fn`` recomputed in the backward pass (``torch.utils.checkpoint``)
     where ``cfg.remat`` is set and nothing is collected from it: where the
-    JAX package wraps a layer body in ``jax.checkpoint``."""
+    JAX package wraps a layer body in ``jax.checkpoint``. The forward draws
+    no random numbers, so no RNG state is stashed for the recompute (reading
+    and restoring the card's generator state has no place in a captured
+    train step)."""
     if not cfg.remat or collect:
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _dense_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, window: Optional[int] = None,

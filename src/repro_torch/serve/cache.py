@@ -760,14 +760,15 @@ class CachePool:
         return si
 
     def insert(self, slot: int, prefilled: dict, *, prompt=None, handle=None,
-               src_slot: int = 0) -> None:
+               src_slot: int = 0, fill: Optional[int] = None) -> None:
         """Drop lane ``src_slot`` of a prefilled cache into lane ``slot``. Paged
         pools take the drained admission stream's table row (the open one, or
         a parked ``handle``), or, from a contiguous prefill cache (``k``/``v``
         lanes: a batch-prefill admission), cut the lane into fresh pages; with
         ``prompt`` they harvest its full blocks into the prefix index.
-        Contiguous pools copy the lane."""
-        self._pos[slot] = self._fill_of(prefilled, src_slot, handle)
+        Contiguous pools copy the lane. ``fill``, where the caller keeps it on
+        the host, is the lane's fill (nothing is read back from the cache)."""
+        self._pos[slot] = self._fill_of(prefilled, src_slot, handle) if fill is None else fill
         if self._kv is None:
             for st in self.states:
                 st.insert(prefilled, slot, src_slot)
@@ -888,15 +889,30 @@ class CachePool:
         fill as a (1,) ``pos``). Decode steps write their cache in place, so a
         view would let a draft rollout change the pool before its round
         commits; the copy keeps the pool as it was until :meth:`insert`."""
+        return self.extract_lane_into(slot, self.lane_buffers())
+
+    def lane_buffers(self) -> dict:
+        """A zeroed batch-1 lane of a contiguous pool: every leaf's lane and a
+        (1,) ``pos``, allocated once by a caller that copies lanes into it
+        (:meth:`extract_lane_into`) so a captured step replays over it."""
+        if self._kv is not None:
+            raise EngineStateError("lane buffers require a contiguous pool")
+        out = {k: torch.zeros_like(leaf[:, :1]) for st in self.states
+               for k, leaf in st.views().items()}
+        out["pos"] = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        return out
+
+    def extract_lane_into(self, slot: int, lane: dict) -> dict:
+        """Copy contiguous lane ``slot`` and its fill into the batch-1
+        ``lane`` (:meth:`lane_buffers`), IN PLACE; returns a dict of
+        ``lane``'s tensors. The pool is only read."""
         if self._kv is not None:
             raise EngineStateError("extract_lane requires a contiguous pool")
-        out: dict = {}
         for st in self.states:
             for k, leaf in st.views().items():
-                out[k] = leaf[:, slot:slot + 1].clone()
-        out["pos"] = torch.tensor([int(self._pos[slot])], dtype=torch.int32,
-                                  device=self.device)
-        return out
+                lane[k].copy_(leaf[:, slot:slot + 1])
+        _upload(lane["pos"], [int(self._pos[slot])])
+        return dict(lane)
 
     # ----------------------------------------------------------- admission
 

@@ -35,9 +35,15 @@ fused step, and a chunkable batch admission's sub-chunks) runs as a captured
 CUDA graph from ``Engine.graphs`` (``core.interleave.StepGraphs``, freed with
 the engine): the pool hands each step the same device tensors, refreshed in
 place from its host state, and the tokens go to the graph from host memory.
-A capture that fails raises out of :meth:`Engine.serve`. Left eager (ROADMAP
-§A): ``models.model.prefill`` (MoE groups, ring admission; op by op in the
-JAX package too), the speculative draft's rollouts and sampling.
+The pool's sampling step (``sample_masked``, or ``greedy_masked`` when every
+lane is greedy) is a program of the same object, its per-lane inputs copied
+into static device buffers, and a speculative draft's catch-up and chained
+feeds replay the engine's ``decode_only_step`` graphs on the draft's
+persistent working lane. A capture that fails raises out of
+:meth:`Engine.serve`. Left eager: ``models.model.prefill`` (MoE groups, ring
+admission; op by op in the JAX package too), the draft's lane-resync
+prefill (op by op in the JAX package too) and an admission's first-token
+sampling (once per admitted request, over logits of any origin).
 
 Speculative decoding (``spec=SpecConfig(draft, k)``, :mod:`serve.spec`)
 drafts on a contiguous mirror pool and verifies every span position through
@@ -226,6 +232,11 @@ class Engine:
             raise ValueError(f"pool block_size={self.pool.block_size} must equal engine "
                              f"chunk={self.chunk} when prefix caching is on")
         self.prefix_cache = self.pool.prefix_cache
+        # the captured step programs (a jax.jit cache's counterpart): owned by
+        # the engine, freed with it; the draft's feeds and the pool's sampling
+        # run through them too
+        self.graphs = interleave.StepGraphs(self.serving.device)
+        self._vlogits: Optional[torch.Tensor] = None   # verify logits (slots, k+1, V)
         self.spec_dec: Optional[SpecDecoder] = None
         if self.spec is not None:
             if not self.pool.paged:
@@ -237,10 +248,8 @@ class Engine:
                     f"pool spec_slack={self.pool.spec_slack} < spec.k={self.spec.k}: a "
                     f"verify round near max_len would overflow the lane's block grid")
             self.spec_dec = SpecDecoder(self.spec.draft, self.serving, slots=self.slots,
-                                        max_len=self.max_len, k=self.spec.k)
-        # the captured step programs (a jax.jit cache's counterpart): owned by
-        # the engine, freed with it
-        self.graphs = interleave.StepGraphs(self.serving.device)
+                                        max_len=self.max_len, k=self.spec.k,
+                                        graphs=self.graphs)
         # health counters accumulate for the engine's lifetime
         self.ladder = DegradationLadder(self.cfg, self.serving.device)
         self._health = {"preemptions": 0, "timeouts": 0, "cancellations": 0,
@@ -775,8 +784,9 @@ class Engine:
                     self._health["injected_faults"] += 1
                     raise KernelFault(f.op, injected=True)
             if plan.spec:
-                # draft rollouts write into lane copies: the draft pool changes
-                # only in finish_round, so a retried attempt simply re-drafts
+                # draft rollouts write into the draft decoder's working lane and
+                # anchors: the draft pool changes only in finish_round, so a
+                # retried attempt simply re-drafts
                 spec_dec.prune({si: pool.get(si).req for si in active})
                 dcfg = spec_dec.draft_cfg
                 for si, k_eff in spec_ks.items():
@@ -813,8 +823,10 @@ class Engine:
                 # forked rows before the next, so the verify logits and the
                 # accepted tokens' KV are the non-spec path's bits. Its logits
                 # are the graph's static output, which the next position's
-                # replay overwrites: each is copied first.
-                vlogits = [logits.clone()]
+                # replay overwrites: each is copied first, into the engine's
+                # verify buffer (fixed addresses for the sampling program).
+                vbuf = self._verify_logits(logits)
+                vbuf[:, :1].copy_(logits)
                 pool.commit(new_cache)
                 new_cache = None
                 for j in range(1, self._span):
@@ -826,8 +838,8 @@ class Engine:
                         dparams, pool.views(span=1), self._tokens(feed_j), cfg,
                         graphs=graphs)
                     pool.commit(nc_j)
-                    vlogits.append(lg_j.clone())
-                logits = torch.cat(vlogits, dim=1)
+                    vbuf[:, j:j + 1].copy_(lg_j)
+                logits = vbuf[:, :self._span]
             if self.nan_guard and not _finite(logits, active, pre_logits):
                 ladder.record_nan()
                 raise KernelFault("decode_attention", "non-finite logits (NaN/Inf guard trip)")
@@ -837,6 +849,15 @@ class Engine:
                     pool.restore_lane(fk)
             raise
         return logits, new_cache, pre_logits, new_scache, drafts, forks, pos_before
+
+    def _verify_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The verify round's (slots, k+1, V) logits buffer, allocated once
+        like the decode step's logits and kept by the sampling program."""
+        if self._vlogits is None:
+            self._vlogits = torch.empty((self.slots, self.spec.k + 1, logits.shape[-1]),
+                                        dtype=logits.dtype, device=logits.device)
+            self.graphs.keep(self._vlogits)
+        return self._vlogits
 
     def _take_reuse(self) -> int:
         r, self._pending_reuse = self._pending_reuse, 0
@@ -852,12 +873,14 @@ class Engine:
         ``offsets`` overrides each lane's key index (slot -> absolute
         emitted-token index; default the slot's ``emitted``): a verify round
         samples position ``j`` at ``emitted + j``, the key non-spec decode
-        uses when it reaches that token."""
+        uses when it reaches that token. Both forms are the engine's sampling
+        program (``StepGraphs.sample``): the per-lane inputs are built here on
+        the host and copied into its static device buffers."""
         pool = self.pool
         done = torch.ones((self.slots,), dtype=torch.bool)
         done[active] = False
         if all(self._reqs[pool.get(si).req].sampling.temperature <= 0 for si in active):
-            return sampling.greedy_masked(logits, done).cpu().numpy()
+            return self.graphs.sample(logits, done).cpu().numpy()
         temps = np.zeros((self.slots,), np.float32)
         tks = np.zeros((self.slots,), np.int64)
         tps = np.ones((self.slots,), np.float32)
@@ -873,9 +896,8 @@ class Engine:
         keys[sampled] = prng.fold_in(
             torch.stack([self._base_keys[pool.get(si).req] for si in sampled]),
             torch.tensor(offs, dtype=torch.int64))
-        return sampling.sample_masked(
-            logits, done, keys=keys, temperature=torch.from_numpy(temps),
-            top_k=torch.from_numpy(tks), top_p=torch.from_numpy(tps)).cpu().numpy()
+        return self.graphs.sample(logits, done, keys, torch.from_numpy(temps),
+                                  torch.from_numpy(tks), torch.from_numpy(tps)).cpu().numpy()
 
     def _spec_accept(self, logits, active, drafts, forks, pos_before, cur_tok,
                      ev: ScheduleEvent, emit) -> np.ndarray:
@@ -924,7 +946,8 @@ class Engine:
     def _first_tokens(self, logits, rids: list[int],
                       offsets: Optional[list[int]] = None) -> list[int]:
         """Each request's prefill-seeded first token from logits (g, 1, V),
-        sampled at key index ``offsets`` (0 on first admission)."""
+        sampled at key index ``offsets`` (0 on first admission). Eager: once
+        per admission, over logits from any admission path."""
         g = len(rids)
         offs = offsets if offsets is not None else [0] * g
         sps = [self._reqs[r].sampling for r in rids]

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -38,9 +39,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     """The Threefry-2x32 hash (20 rounds) of counter words ``(x1, x2)`` under
     the key ``(k1, k2)``; int64 tensors (or ints) of uint32 values that
-    broadcast together. Returns the two output words."""
-    k1 = torch.as_tensor(k1, dtype=torch.int64, device=x1.device)
-    k2 = torch.as_tensor(k2, dtype=torch.int64, device=x1.device)
+    broadcast together. Returns the two output words. An int key word stays
+    a Python scalar (no tensor is made from it on the device, which a CUDA
+    graph capture would refuse)."""
+    k1, k2 = _word(k1, x1), _word(k2, x1)
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + ks[0]) & MASK
     x2 = (x2 + ks[1]) & MASK
@@ -51,6 +53,13 @@ def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
         x1 = (x1 + ks[(i + 1) % 3]) & MASK
         x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
     return x1, x2
+
+
+def _word(k, like: torch.Tensor):
+    """A key word as an int64 tensor on ``like``'s device, or an int."""
+    if isinstance(k, torch.Tensor):
+        return k.to(like.device, torch.int64)
+    return int(k) & MASK
 
 
 def as_key(key: KeyLike, device=None) -> torch.Tensor:
@@ -93,9 +102,11 @@ def uniform(key: KeyLike, n: int, minval: float = 0.0, maxval: float = 1.0,
     bits = random_bits(key, n, device)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # the bounds and their span rounded to f32 on the host, as _uniform rounds
+    # them, then applied as scalars (exact in f32): no tensor is made from them
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    return torch.clamp_min(floats * span + float(lo), float(lo))
 
 
 def gumbel(key: KeyLike, n: int, device=None) -> torch.Tensor:

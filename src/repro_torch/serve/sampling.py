@@ -77,18 +77,24 @@ def sample_masked(logits: torch.Tensor, done: torch.Tensor, *, keys: torch.Tenso
     keys (B, 2) uint32 words (int64); temperature (B,) f32, where 0 selects
     the exact argmax; top_k (B,) int, 0 disables; top_p (B,) f32, 1 disables.
     Sampled lanes draw from the temperature-scaled, filtered categorical with
-    their OWN key. Everything runs on the logits' device.
+    their OWN key. Everything runs on the logits' device: an input already
+    there in its dtype (the engine's captured program passes static device
+    buffers) is used as it is, any other is copied there first.
     """
     dev = logits.device
     lg = logits[:, -1, :]
     gtok = torch.argmax(lg, dim=-1).to(torch.int32)
-    temp = torch.as_tensor(temperature, dtype=torch.float32).to(dev)
+    temp = _on(temperature, dev, torch.float32)
     scaled = lg.to(torch.float32) / torch.where(temp > 0, temp, torch.ones_like(temp))[:, None]
-    filtered = _filter_top_k_top_p(scaled, torch.as_tensor(top_k).to(dev, torch.int64),
-                                   torch.as_tensor(top_p, dtype=torch.float32).to(dev))
+    filtered = _filter_top_k_top_p(scaled, _on(top_k, dev, torch.int64),
+                                   _on(top_p, dev, torch.float32))
     stok = prng.categorical(prng.as_key(keys, dev), filtered).to(torch.int32)
     tok = torch.where(temp > 0, stok, gtok)
-    return torch.where(torch.as_tensor(done).to(dev), torch.full_like(tok, pad_id), tok)
+    return torch.where(_on(done, dev, torch.bool), torch.full_like(tok, pad_id), tok)
+
+
+def _on(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(x).to(dev, dtype)
 
 
 def greedy_masked(logits: torch.Tensor, done: torch.Tensor, pad_id: int = 0) -> torch.Tensor:

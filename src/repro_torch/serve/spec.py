@@ -28,18 +28,28 @@ carries ``spec=True``):
 
 **Draft lane protocol** (anchor/catch-up): a lane's draft cache holds the
 first ``fed`` tokens of the request's context and ``pending`` is the suffix
-not yet fed (at least the current token). A rollout copies the lane out
-batch-1 (:meth:`CachePool.extract_lane`), feeds ``pending`` in one T-general
-catch-up step (its cache is the round's ``anchor``, real tokens only), then
-chains ``k-1`` single-token feeds on a copy of the anchor. Only
-:meth:`SpecDecoder.finish_round` writes the anchor back into the pool. The
-catch-up of more than one token takes the dense multi-token form
+not yet fed (at least the current token). A rollout copies the lane into
+the decoder's one batch-1 working lane (:meth:`CachePool.extract_lane_into`),
+feeds ``pending`` in one T-general catch-up step, copies the result (real
+tokens only) into the slot's anchor buffer, then chains ``k-1``
+single-token feeds on the working lane. Only
+:meth:`SpecDecoder.finish_round` writes the anchor back into the pool, so a
+failed or retried round leaves the draft pool as it was. The catch-up of
+more than one token takes the dense multi-token form
 (``models/attention.py``); a catch-up of one token and the chained feeds run
 the contiguous flash-decode kernel and the W8A8 GEMVs.
+
+The feeds are the engine's ``decode_only_step`` program: they run through
+the engine's :class:`~repro_torch.core.interleave.StepGraphs`, as the JAX
+rollout calls the same jitted function as plain decode. The working lane,
+its ``pos`` and the anchors are allocated once and keep their addresses, so
+a feed's key depends only on its token count: on the card every catch-up
+length and the chained feed capture once and replay in every later round.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,9 +88,10 @@ class _DraftLane:
 
 @dataclass
 class _RoundState:
-    """One lane's in-flight round: the post-catch-up cache (real tokens only),
-    its fill, the proposed candidates, the single-token feeds spent chaining
-    them, and the catch-up tokens ingested in one pass."""
+    """One lane's in-flight round: the slot's anchor buffers holding the
+    post-catch-up cache (real tokens only), its fill, the proposed
+    candidates, the single-token feeds spent chaining them, and the catch-up
+    tokens ingested in one pass."""
 
     anchor: dict
     anchor_fed: int
@@ -95,7 +106,8 @@ class SpecDecoder:
     rollouts and the anchor/catch-up bookkeeping. The engine owns
     scheduling, forking, the verify pass and acceptance."""
 
-    def __init__(self, draft, target, *, slots: int, max_len: int, k: int):
+    def __init__(self, draft, target, *, slots: int, max_len: int, k: int,
+                 graphs: Optional[interleave.StepGraphs] = None):
         if k < 1:
             raise ValueError(f"draft depth k must be >= 1, got {k}")
         if draft.cfg.vocab_size != target.cfg.vocab_size:
@@ -116,6 +128,12 @@ class SpecDecoder:
         self._lanes: dict[int, _DraftLane] = {}
         self._round: dict[int, _RoundState] = {}
         self._prefill_tokens = 0
+        # the engine's captured programs; the working lane the feeds run on and
+        # one anchor per slot, each allocated at first use and kept
+        self.graphs = graphs
+        self._work: Optional[dict] = None
+        self._anchors: dict[int, dict] = {}
+        self.catchup_lengths: set[int] = set()
 
     @property
     def draft_cfg(self):
@@ -137,7 +155,8 @@ class SpecDecoder:
 
     def abort_round(self) -> None:
         """The round's step failed: discard in-flight anchors. Lanes keep their
-        last committed state (rollouts wrote into copies, never the pool)."""
+        last committed state (rollouts wrote into the working lane and the
+        anchors, never the pool)."""
         self._round.clear()
 
     def prune(self, active_map: dict) -> None:
@@ -193,9 +212,8 @@ class SpecDecoder:
         toks = torch.as_tensor(np.asarray([ctx[:-1]], np.int64), device=dev)
         _, cache = interleave.prefill_chunk_step(self.draft.params, cache, toks, cfg,
                                                  gemm=True)
-        cache["pos"] = torch.tensor([n], dtype=torch.int32, device=dev)
         self.pool.alloc(request, rid, slot=si, ctx=n)
-        self.pool.insert(si, cache)
+        self.pool.insert(si, cache, fill=n)
         self._lanes[si] = _DraftLane(rid=rid, fed=n, pending=[ctx[-1]])
         self._prefill_tokens += n
         return n
@@ -203,33 +221,45 @@ class SpecDecoder:
     def rollout(self, si: int, k: int, cfg) -> list[int]:
         """Roll out ``k`` greedy draft candidates for slot ``si``.
 
-        The lane is copied out batch-1 and the pending suffix fed in ONE
-        catch-up step, whose cache is the round's anchor; ``k-1``
-        single-token feeds chain the remaining candidates on a copy of the
-        anchor (decode steps write in place, and a hybrid draft's recurrent
-        state would otherwise move on past the anchor). Nothing lands in the
-        pool until :meth:`finish_round`."""
+        The lane is copied into the working lane and the pending suffix fed
+        in ONE catch-up step, whose cache is copied into the slot's anchor;
+        ``k-1`` single-token feeds chain the remaining candidates on the
+        working lane (decode steps write in place, and a hybrid draft's
+        recurrent state would otherwise move on past the anchor). Nothing
+        lands in the pool until :meth:`finish_round`."""
         lane = self._lanes[si]
         dparams = self.draft.decode_params
-        dev = self.draft.device
-        cache = self.pool.extract_lane(si)
-        logits, cache = interleave.decode_only_step(
-            dparams, cache, torch.as_tensor([lane.pending], dtype=torch.int64, device=dev),
-            cfg)
-        anchor, anchor_fed = cache, lane.fed + len(lane.pending)
+        work = self.pool.extract_lane_into(si, self._working_lane())
+        logits, _ = interleave.decode_only_step(dparams, work, _host_tokens(lane.pending),
+                                                cfg, graphs=self.graphs)
         drafts = [int(sampling.greedy(logits)[0])]
+        anchor = self._anchors.get(si)
+        if anchor is None:
+            anchor = self._anchors[si] = self.pool.lane_buffers()
+        for key, t in work.items():
+            anchor[key].copy_(t)            # in place: the round's anchor
+        self.catchup_lengths.add(len(lane.pending))
         steps = 0
-        if k > 1:
-            cache = {key: t.clone() for key, t in anchor.items()}
         for _ in range(int(k) - 1):
-            logits, cache = interleave.decode_only_step(
-                dparams, cache, torch.as_tensor([[drafts[-1]]], dtype=torch.int64, device=dev),
-                cfg)
+            logits, _ = interleave.decode_only_step(dparams, work, _host_tokens([drafts[-1]]),
+                                                    cfg, graphs=self.graphs)
             drafts.append(int(sampling.greedy(logits)[0]))
             steps += 1
-        self._round[si] = _RoundState(anchor, anchor_fed, drafts, steps,
+        self._round[si] = _RoundState(anchor, lane.fed + len(lane.pending), drafts, steps,
                                       catchup=len(lane.pending))
         return list(drafts)
+
+    def _working_lane(self) -> dict:
+        if self._work is None:
+            self._work = self.pool.lane_buffers()
+        return self._work
+
+    def graph_keys(self) -> int:
+        """Keys of the engine's ``StepGraphs`` whose cache is the working
+        lane: one per catch-up length, the chained feed sharing length 1's."""
+        if self.graphs is None or self._work is None:
+            return 0
+        return self.graphs.keys_over(self._work["pos"])
 
     def finish_round(self, si: int, emitted) -> None:
         """Commit slot ``si``'s round: the anchor (context up to and including
@@ -243,7 +273,7 @@ class SpecDecoder:
             return
         if lane is None:
             raise EngineStateError(f"finish_round({si}) with a rollout but no draft lane")
-        self.pool.insert(si, rs.anchor)
+        self.pool.insert(si, rs.anchor, fill=rs.anchor_fed)
         lane.fed = rs.anchor_fed
         lane.pending = [int(t) for t in emitted]
 
@@ -261,3 +291,9 @@ class SpecDecoder:
             "draft_prefill_tokens": self._prefill_tokens + sum(
                 rs.catchup for rs in self._round.values()),
         }
+
+
+def _host_tokens(toks) -> torch.Tensor:
+    """A (1, T) int64 host row of draft tokens: a step program copies it into
+    its graph's static buffer (or onto the draft's device when eager)."""
+    return torch.from_numpy(np.asarray([toks], np.int64))

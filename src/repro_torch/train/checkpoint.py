@@ -2,8 +2,9 @@
 ``repro.train.checkpoint``): atomic, async, auto-resume with quarantine.
 
 * **Snapshot, then write.** ``save`` copies every leaf to the host first
-  (``.detach().cpu()``) and serialises the copy, on a background thread with
-  ``async_``, so the loop waits only for the copy.
+  (``.detach().to("cpu", copy=True)``: a copy on the CPU too, since the
+  loop's tensors change in place) and serialises the copy, on a background
+  thread with ``async_``, so the loop waits only for the copy.
 * **Atomic.** The arrays and manifest go to ``step_K.tmp``, which
   ``os.replace`` renames to ``step_K``; a previous ``step_K`` becomes
   ``step_K.old``. A crash mid-write never corrupts a complete checkpoint.
@@ -56,9 +57,12 @@ def _flatten(tree, prefix=""):
 
 def save(ckpt_dir: str, step: int, params: dict, opt_state: OptState,
          extra: dict | None = None, async_: bool = False) -> threading.Thread | None:
-    """Snapshot now; serialise (optionally) in the background."""
-    snap_p = tree_map(lambda t: t.detach().cpu(), params)
-    snap_o = OptState(*(tree_map(lambda t: t.detach().cpu(), x) for x in opt_state))
+    """Snapshot now; serialise (optionally) in the background. The snapshot
+    is a host COPY of every leaf, taken before this returns (a blocking copy
+    from the card; a copy on the CPU too), so a loop that updates its
+    tensors in place may run its next step while the thread writes."""
+    snap_p = tree_map(_snapshot, params)
+    snap_o = OptState(*(tree_map(_snapshot, x) for x in opt_state))
     extra = dict(extra or {})
 
     def _write():
@@ -85,6 +89,10 @@ def save(ckpt_dir: str, step: int, params: dict, opt_state: OptState,
         return t
     _write()
     return None
+
+
+def _snapshot(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
 
 
 def _valid(path: str) -> bool:

@@ -1,6 +1,12 @@
 """The training loop with fault tolerance (port of ``repro.train.loop``):
 auto-resume from the newest valid checkpoint, periodic async saves (one in
-flight at a time) and a final save."""
+flight at a time) and a final save.
+
+The loop owns one params tree and one optimizer state and steps them in
+place through ``train_step.TrainGraphs``: a captured graph replayed on the
+card, the same step run eagerly on the CPU. It gives the functional step's
+bits (``train_step``, the JAX loop's form, which the tests hold it to). A
+checkpoint snapshots to the host before the next step runs."""
 from __future__ import annotations
 
 import time
@@ -14,8 +20,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint
 from repro_torch.train.data import DataConfig, SyntheticLM
-from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-from repro_torch.train.train_step import train_step
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state, tree_map
+from repro_torch.train.train_step import TrainGraphs
 
 
 @dataclass
@@ -38,11 +44,16 @@ def run(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig, params=None, 
     drawn there from a ``torch.Generator`` seeded with ``tcfg.seed``. Each
     ``history`` entry is {step, loss, dt}: ``dt`` the step's host seconds,
     ending in a device sync on CUDA. A non-finite loss raises
-    ``FloatingPointError``."""
+    ``FloatingPointError``. Every step is written into the loop's own
+    params and state: a given ``params`` tree is copied once and never
+    written."""
     dev = resolve_device(device)
+    graphs = TrainGraphs(dev)
     if params is None:
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(tcfg.seed),
                                device=dev)
+    else:
+        params = tree_map(torch.clone, params)
     opt_state = init_opt_state(params)
     start = 0
     if tcfg.ckpt_dir:
@@ -57,10 +68,10 @@ def run(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig, params=None, 
     history = []
     pending = None
     for step in range(start, tcfg.steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+        batch = {k: torch.from_numpy(v) for k, v in data.batch_at(step).items()}
         t0 = time.perf_counter()
-        params, opt_state, metrics = train_step(
-            params, opt_state, batch, cfg, tcfg.opt, tcfg.accum)
+        # the batch goes to the graph's buffers from the host
+        metrics = graphs.step(params, opt_state, batch, cfg, tcfg.opt, tcfg.accum)
         loss = float(metrics["loss"])
         if not np.isfinite(loss):
             raise FloatingPointError(f"non-finite loss at step {step}")

@@ -2,8 +2,14 @@
 ``repro.train.optimizer``), on plain tensors.
 
 The state mirrors the params tree: f32 first and second moments ``m``/``v``
-beside an int32 step. The update is functional, as the JAX one: it returns
-new params and a new state and writes none of its inputs.
+beside an int32 step. :func:`adamw_update` is functional, as the JAX one: it
+returns new params and a new state and writes none of its inputs.
+:func:`adamw_update_` is its in-place twin for a loop that owns its tensors
+(the captured train step): the same arithmetic in the same order, written
+into the params, moments and step it is given, bit for bit the functional
+result. The step, the learning rate, the bias corrections and the clip scale
+stay tensors on the params' device throughout (nothing comes back to the
+host inside a step).
 """
 from __future__ import annotations
 
@@ -100,3 +106,27 @@ def adamw_update(params: dict, grads: dict, state: OptState, cfg: AdamWConfig):
     out = tree_map(upd, params, grads, state.m, state.v)   # leaves: (p', m', v')
     new_p, new_m, new_v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
     return new_p, OptState(step=step, m=new_m, v=new_v), {"lr": lr, "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def adamw_update_(params: dict, grads: dict, state: OptState, cfg: AdamWConfig):
+    """:func:`adamw_update` IN PLACE: the new params, ``m``, ``v`` and step are
+    written into ``params`` and ``state``'s tensors (the same expressions in
+    the same order, so the bits are the functional update's). Returns
+    (params, state, {"lr", "grad_norm"}), the objects it was given."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    step = state.step.add_(1)
+    lr = lr_at(step, cfg)
+    b1, b2 = cfg.beta1, cfg.beta2
+    bc1 = 1 - torch.pow(b1, step.float())
+    bc2 = 1 - torch.pow(b2, step.float())
+
+    def upd(p, g, m, v):
+        gf = g.float()
+        m.mul_(b1).add_((1 - b1) * gf)
+        v.mul_(b2).add_((1 - b2) * gf * gf)
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+
+    tree_map(upd, params, grads, state.m, state.v)
+    return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -7,6 +7,8 @@ machine with a card::
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -1398,6 +1400,155 @@ def test_captured_preemption_equals_eager(dev, no_tf32, spec_k):
         lambda: _serve_requests({2: dict(priority=5)}, PREEMPT_PROMPTS, PREEMPT_BUDGETS),
         spec_k=spec_k)
     _assert_captured_equals_eager(captured, eager)
+
+
+def _draft_keys_bounded(eng):
+    """The draft's keys: one per catch-up length, the chained feed sharing
+    length 1's, whatever the number of rounds."""
+    sd = eng.spec_dec
+    assert 0 < sd.graph_keys() <= len(sd.catchup_lengths | {1})
+
+
+@pytest.mark.parametrize("mode", ["HBCEM", "LBIM"])
+def test_captured_rwkv6_draft_equals_eager(dev, no_tf32, mode):
+    """The cross-family pair (an rwkv6 draft, its recurrent state on the
+    working lane, for a llama3-8b W8A8 target), captured against eager:
+    tokens, plans and launches equal; the draft's keys stay bounded."""
+    from repro_torch.core import interleave
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serve.serving_model import ServingModel
+    from repro_torch.serve.spec import SpecConfig
+
+    tcfg, tcpu = family_pair("llama3-8b", quantized_decode=True)
+    dcfg, dcpu = family_pair("rwkv6-1.6b")
+    target = ServingModel.prepare(tcfg, _to(tcpu, dev), max_len=64, slots=2, device=dev)
+    draft = ServingModel.prepare(dcfg, _to(dcpu, dev), max_len=64, slots=2, device=dev)
+
+    def serve():
+        eng = target.engine(mode=Mode[mode], chunk=4, spec=SpecConfig(draft=draft, k=3))
+        reset_launches()
+        res = eng.serve(_serve_requests())
+        torch.cuda.synchronize()
+        assert eng.pool.check_invariants() == [] and eng.spec_dec.pool.check_invariants() == []
+        return ([(r.state, r.tokens) for r in res], [e.plan for e in eng.events],
+                launch_counts(), eng.graphs.stats()), eng
+
+    captured, eng = serve()
+    _draft_keys_bounded(eng)
+    with interleave.eager():
+        eager, _ = serve()
+    _assert_captured_equals_eager(captured, eager)
+
+
+def test_captured_spec_draft_feeds_replay(dev, no_tf32):
+    """A self-draft spec serve: after each catch-up length's first two calls,
+    every draft feed replays (the draft's keys stay bounded, the catch-up and
+    chained feeds on one working lane, the anchors never reallocated). No
+    prefix reuse, so the second serve runs the first one's steps."""
+    from repro_torch.core.pim_modes import Mode
+    from repro_torch.serve.serving_model import ServingModel
+    from repro_torch.serve.spec import SpecConfig
+
+    cfg, cpu = family_pair("llama3-8b", quantized_decode=True)
+    sm = ServingModel.prepare(cfg, _to(cpu, dev), max_len=64, slots=2, device=dev)
+    eng = sm.engine(mode=Mode.HBCEM, chunk=4, prefix_cache=False,
+                    spec=SpecConfig(draft=sm, k=3))
+    eng.serve(_serve_requests())
+    sd = eng.spec_dec
+    work = sd._work["pos"].data_ptr()
+    anchors = {si: a["pos"].data_ptr() for si, a in sd._anchors.items()}
+    keys = sd.graph_keys()
+    _draft_keys_bounded(eng)
+    before = eng.graphs.stats()
+    eng.serve(_serve_requests())                 # the same requests again: all replays
+    after = eng.graphs.stats()
+    assert sd.graph_keys() == keys and after["keys"] == before["keys"]
+    assert after["eager_steps"] == before["eager_steps"] and after["replays"] > before["replays"]
+    assert sd._work["pos"].data_ptr() == work
+    assert {si: a["pos"].data_ptr() for si, a in sd._anchors.items()} == anchors
+
+
+def test_captured_sampling_equals_eager(dev):
+    """The sampling program over a (B, 1, V) slice of a kept verify buffer:
+    greedy, sampled, top-k, top-p and done lanes; its first call eager, its
+    second captured, the rest replays with new inputs each call, every
+    result the eager ``sample_masked``'s (and ``greedy_masked``'s). Logits
+    in a buffer nobody keeps are sampled eagerly, with no key."""
+    from repro_torch.core import interleave
+    from repro_torch.serve import sampling
+
+    b, v = 4, 32000
+    g = interleave.StepGraphs(dev)
+    buf = torch.empty((b, 4, v), device=dev)
+    loose = buf.clone()
+    g.keep(buf)
+    r = np.random.default_rng(3)
+    for call in range(5):
+        buf.copy_(torch.from_numpy((3 * r.standard_normal((b, 4, v))).astype(np.float32)))
+        lg = buf[:, 1:2]
+        done = torch.from_numpy(r.random(b) < 0.25)
+        keys = torch.from_numpy(r.integers(0, 2**32, (b, 2)))
+        temps = torch.tensor([0.0, 0.8, 1.2, 0.9])
+        tks = torch.tensor([0, 50, 0, 5])
+        tps = torch.tensor([1.0, 0.95, 0.5, 1.0])
+        got = g.sample(lg, done, keys, temps, tks, tps).cpu()
+        want = sampling.sample_masked(lg, done, keys=keys, temperature=temps, top_k=tks,
+                                      top_p=tps).cpu()
+        assert torch.equal(got, want), call
+        fast = g.sample(lg, done).cpu()
+        assert torch.equal(fast, sampling.greedy_masked(lg, done).cpu()), call
+        loose.copy_(buf)
+        assert torch.equal(g.sample(loose[:, 1:2], done).cpu(), fast), call
+    st = g.stats()
+    assert st["keys"] == st["graphs"] == st["captures"] == 2
+    assert st["eager_steps"] == 2 and st["replays"] == 8 and st["unheld"] == 5
+
+
+@pytest.mark.parametrize("arch", _train_archs())
+def test_captured_train_step_equals_eager(dev, no_tf32, arch):
+    """f32 smoke, the same weights and batches: three in-place steps through
+    a ``TrainGraphs`` (a warm-up, a capture, a replay) against three eager
+    ones and the functional step: losses, grad norms, params and moments
+    bit for bit; the params and moments keep their addresses."""
+    from repro_torch.core import interleave
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, tree_leaves
+    from repro_torch.train.train_step import TrainGraphs, train_step
+
+    cfg, cpu = family_pair(arch)
+    opt = AdamWConfig(warmup_steps=1, total_steps=4, clip_norm=0.5)
+
+    def leaves(p, s):
+        return tree_leaves(p) + [s.step] + tree_leaves(s.m) + tree_leaves(s.v)
+
+    def run(captured: bool):
+        params = _to(cpu, dev)
+        state = init_opt_state(params)
+        addrs = [t.data_ptr() for t in leaves(params, state)]
+        g = TrainGraphs(dev)
+        out = []
+        with contextlib.ExitStack() as stack:
+            if not captured:
+                stack.enter_context(interleave.eager())
+            for step in range(3):
+                m = g.step(params, state, _train_batch(cfg, "cpu", seed=step), cfg, opt)
+                out.append((m["loss"].clone(), m["grad_norm"].clone()))
+        torch.cuda.synchronize()
+        assert [t.data_ptr() for t in leaves(params, state)] == addrs
+        return out, leaves(params, state), g.stats()
+
+    cap, cap_leaves, st = run(True)
+    eag, eag_leaves, est = run(False)
+    assert st["eager_steps"] == 1 and st["captures"] == 1 and st["replays"] == 2
+    assert est["eager_steps"] == 3 and est["captures"] == 0
+    assert all(torch.equal(a, b) for x, y in zip(cap, eag) for a, b in zip(x, y))
+    assert all(torch.equal(a, b) for a, b in zip(cap_leaves, eag_leaves))
+    params = _to(cpu, dev)
+    state = init_opt_state(params)
+    for step in range(3):
+        params, state, m = train_step(params, state, _train_batch(cfg, dev, seed=step), cfg, opt)
+        assert torch.equal(m["loss"], cap[step][0])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(params, state), cap_leaves))
 
 
 def test_a_host_sync_inside_a_step_fails_its_capture(dev, monkeypatch):
