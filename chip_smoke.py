@@ -237,7 +237,23 @@ Phases, one JSON line each; any failed check raises, so the run exits non-zero:
    ``rank_cell``
    line gives the step's median ms, peak memory, the count, its three
    roofline terms at the H100's rates and ``roofline_share`` (memory term
-   over the step).
+   over the step). Then the ``partitioned`` step (the partitioned program,
+   ``models.model.decode_step``/``prefill`` with ``mesh=``): (b) B4 over
+   windows of KV heads of the cell's lanes (``k[:, 3:4]`` with its whole
+   query group, ``k[:, 2:4]`` with half of each), held to its plain version
+   with no window-sized allocation, and timed over the one-head window of
+   each layer (``kernel_time`` "rank window"); (c) the partitioned rank
+   cell, rank 0 of (data 16, model 16) on a ``fake`` group: 1/16 of the
+   weights, the same lanes, B4 over its one-head window; its card counts
+   (``CostCounter``, ``CollectiveCounter``) equal ``meta``'s, then as many
+   eager and captured steps as the cell above, 32 B4 launches each (a
+   ``rank_cell`` line with ``"partitioned": true``); (a) two spawned
+   processes on the one card in a ``gloo`` group, mesh (data 1, model 2),
+   run llama3-8b at full width cut to 4 layers in f32 (seed 0): a prefill of
+   4 seeded 64-token prompts into 256-slot lanes and 8 greedy steps, their
+   gathered logits, tokens and caches held to the unsharded program on the
+   card and each rank's collective count to ``meta``'s (the ``partitioned``
+   line); every B4 launch of (c) and (a) is added to the kernels line.
 12. A ``profile`` line per model (device time by kernel group, busy share), a
    ``phase_s`` line per phase of the full run (its wall seconds), a
    ``kernels`` line (launches summed over the serves), the ``nvidia-smi``
@@ -4212,6 +4228,228 @@ def time_rank_attention(cfg, cache, dev) -> None:
           "library_ms": None, "bound_ms": bnd, "bound_by": by, "roofline_share": bnd / ms})
 
 
+# ---------------------------------------------------------------------------
+# the partitioned program (models.model.decode_step/prefill with mesh=)
+# ---------------------------------------------------------------------------
+
+PART_LAYERS = 4        # (a): llama3-8b at full width, 4 of its 32 layers, f32
+PART_LANES, PART_LMAX, PART_PROMPT, PART_STEPS = 4, 256, 64, 8
+PART_MESH = (1, 2)     # (data, model): two gloo ranks on the one card
+# the ranks' row-parallel products add their halves in another order than
+# the unsharded program's: f32 rounding, a few ulps of the logits' scale
+PART_RTOL, PART_ATOL = 1e-4, 1e-4
+
+
+def rank_window(cfg) -> tuple[int, int, int]:
+    """The partitioned rank cell's B4 launch, as the program sets it: rank
+    0 of (data 16, model 16) holds ``hq`` query heads and reads the KV heads
+    ``[j0, j1)`` (``models.attention.kv_window``); llama3-8b: 2 query heads,
+    half of KV head 0's group of 4. Returns (j0, j1, hq)."""
+    from repro_torch.dist.collectives import TensorParallel
+    from repro_torch.launch.mesh import production_mesh_for_counting
+    from repro_torch.models.attention import kv_window
+
+    with production_mesh_for_counting() as mesh:
+        tp = TensorParallel(mesh)
+        hq = cfg.n_heads // tp.size
+        return (*kv_window(cfg, hq, tp), hq)
+
+
+def check_window_attention(cfg, cache, gen, dev) -> float:
+    """(b) B4 over a window of KV heads of the rank cell's lanes (layer 0,
+    Lmax 32,768): the partitioned rank cell's own launch (:func:`rank_window`:
+    ``k[:, 0:1]`` under 2 query heads), one head with its whole query group
+    (``k[:, 3:4]``, G 4) and two heads with half a group each (2 of 4 query
+    heads), each against the plain version over the same window at the B4
+    tolerance. The window is read in place: the call may not raise the peak
+    allocated memory by an eighth of the window's bytes."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    k, v = cache["k"][0], cache["v"][0]
+    b, _, hd, lmax = k.shape
+    end = torch.full((b,), lmax, dtype=torch.int32, device=dev)
+    scale = hd ** -0.5
+    r0, r1, hq = rank_window(cfg)
+    cases, err = [], 0.0
+    for j0, j1, g in ((r0, r1, hq // (r1 - r0)), (3, 4, cfg.q_per_kv),
+                      (2, 4, cfg.q_per_kv // 2)):
+        kw, vw = k[:, j0:j1], v[:, j0:j1]
+        q = torch.randn((b, j1 - j0, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = da.decode_attention(q, kw, vw, end, scale=scale)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        window = 2 * kw.numel() * kw.element_size()
+        if rise >= window // 8:
+            raise AssertionError(f"B4 over the window [{j0}, {j1}) raised the peak memory by "
+                                 f"{rise} B against a {window} B window: a copy")
+        name = f"decode_attention window [{j0}, {j1}) G {g} lmax={lmax}"
+        err = max(err, _allclose(name, out, ref.decode_attention_ref(q, kw, vw, end, scale)))
+        cases.append([RANK_ARCH, [j0, j1], g, hd, lmax, b, rise, window])
+    emit({"phase": "kernel_check", "kernel": "decode_attention (head window)",
+          "cases": cases, "case_keys": ["arch", "heads", "g", "hd", "lmax", "lanes",
+                                        "peak_rise_B", "window_B"],
+          "cache": "bf16", "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": err})
+    return err
+
+
+def time_window_attention(cfg, cache, dev) -> None:
+    """B4 at the partitioned rank cell's own launch (:func:`rank_window`:
+    its 2 query heads over the one-head window ``k[:, 0:1]``) of each of
+    the 32 layers' lanes: the kernel, its plain version and SDPA (GQA, the
+    window's K made row-wise)."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import ref
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    j0, j1, hq = rank_window(cfg)
+    wins = [(k[:, j0:j1], v[:, j0:j1]) for k, v in zip(cache["k"], cache["v"])]
+    b, hkv, hd, lmax = wins[0][0].shape
+    g = hq // hkv
+    q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    end = torch.full((b,), lmax, dtype=torch.int32, device=dev)
+    start = torch.zeros_like(end)
+    scale = hd ** -0.5
+    bnd, by = attn_bound(end, start, b * hq * hd * 4, hkv=hkv, g=g, hd=hd)
+    qh = q.reshape(b, hq, 1, hd)
+    sdpa = [(k.transpose(-1, -2).contiguous(), v) for k, v in wins[:2]]
+    row = {"ms": cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, scale=scale)
+                          for kv in wins], len(wins)),
+           "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(q, *kv, end, scale)
+                                for kv in wins[:2]], 2),
+           "library_ms": library_ms("decode_attention", [
+               lambda kv=kv: F.scaled_dot_product_attention(qh, *kv, scale=scale,
+                                                            enable_gqa=True)
+               for kv in sdpa], 8),
+           "bound_ms": bnd, "bound_by": by}
+    emit({"phase": "kernel_time", "kernel": "decode_attention", "shape": "rank window",
+          "q": [b, hkv, g, hd], "lmax": lmax, "window": [j0, j1],
+          "live_tokens": live_tokens(end, start), **row, "roofline_share": bnd / row["ms"]})
+
+
+def partitioned_rank_cell(cfg, dev) -> int:
+    """(c) The partitioned ``decode_32k`` rank: rank 0 of (data 16, model 16)
+    on a ``fake`` group (``launch.mesh.production_mesh_for_counting``),
+    built by ``launch.hillclimb.rank_cell(mesh=)``: 1/16 of the weights, the
+    same 8 lanes of every KV head, B4 over its one-head window. Its
+    ``CostCounter`` and ``CollectiveCounter`` counts on the card must equal
+    ``meta``'s (``hillclimb.partitioned_count``); then :data:`RANK_STEPS`
+    steps eager after a warm-up and captured (``hillclimb.captured_step``),
+    exactly 32 B4 launches each (the fake collectives move nothing, so the
+    step is the rank's compute). Returns its B4 launches."""
+    from repro_torch.dist.collectives import CollectiveCounter
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import costrun, hillclimb
+    from repro_torch.launch.mesh import production_mesh_for_counting
+
+    with production_mesh_for_counting() as mesh:
+        params, step, cache = hillclimb.rank_cell(cfg, RANK_SHAPE, dev, mesh=mesh)
+        with CollectiveCounter() as coll:
+            card = costrun.count(step)
+        card["collectives"] = coll.totals()
+        card["collective_calls"] = card["collectives"].pop("_counts")
+        meta = hillclimb.partitioned_count(cfg, RANK_SHAPE)
+        if card != meta:
+            raise AssertionError(f"the partitioned rank cell counts differently on the card "
+                                 f"and on meta: {card} != {meta}")
+        reset_launches()
+        timed = hillclimb.time_steps(step, RANK_STEPS)
+        captured = hillclimb.time_steps(hillclimb.captured_step(cfg, params, cache, mesh),
+                                        RANK_STEPS, warmup=2)
+        counts = launch_counts()
+        del params, step, cache
+    steps = 2 * RANK_STEPS + 3
+    if counts != {**{k: 0 for k in counts}, "decode_attention": cfg.n_layers * steps}:
+        raise AssertionError(f"the partitioned rank cell's steps launched {counts}, not "
+                             f"{cfg.n_layers} x {steps} decode_attention")
+    t = hillclimb.terms(meta)
+    emit({"phase": "rank_cell", "partitioned": True, "arch": RANK_ARCH, "shape": RANK_SHAPE,
+          "mesh": {"data": 16, "model": 16}, "rank": 0, "batch": hillclimb.rank_batch(RANK_SHAPE),
+          "kv_heads_read": 1, "gpu": nvidia_smi(), "step_ms": timed["step_ms"],
+          "steps_ms": timed["steps_ms"], "peak_GB": timed["peak_gb"],
+          "captured_step_ms": captured["step_ms"], "captured_steps_ms": captured["steps_ms"],
+          "captured_peak_GB": captured["peak_gb"],
+          "captured_roofline_share": 1e3 * t["t_memory_s"] / captured["step_ms"],
+          "roofline_share": 1e3 * t["t_memory_s"] / timed["step_ms"],
+          "launches": counts, "count_card": card, "count_meta_equal": True,
+          "t_compute_ms": 1e3 * t["t_compute_s"], "t_memory_ms": 1e3 * t["t_memory_s"],
+          "t_collective_ms": 1e3 * t["t_collective_s"]})
+    free_card("after the partitioned rank cell")
+    return counts["decode_attention"]
+
+
+def partitioned_ranks(dev) -> int:
+    """(a) Two processes on the one card in a ``gloo`` group on a ``file://``
+    store (``launch.mesh.spawn``), mesh (data 1, model 2), run the
+    partitioned program (``launch.partitioned.rank_run``): llama3-8b at full
+    width cut to :data:`PART_LAYERS` layers, f32 params from seed 0, a
+    prefill of :data:`PART_LANES` seeded :data:`PART_PROMPT`-token prompts
+    into lanes of :data:`PART_LMAX` slots, then :data:`PART_STEPS` greedy
+    steps. Their logits, gathered by the ranks' coordinates, and greedy
+    tokens are held to the unsharded program on the card (the same seed),
+    their caches too, and each rank's ``CollectiveCounter`` count to the
+    ``meta`` count of the same drive over a ``fake`` group. A rank that
+    fails fails the run. Returns the ranks' B4 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import partitioned
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(RANK_ARCH).replace(n_layers=PART_LAYERS, dtype="float32",
+                                        param_dtype="float32")
+    prompts = np.random.default_rng(27).integers(1, cfg.vocab_size, (PART_LANES, PART_PROMPT))
+    free_card("the partitioned ranks")
+    t0 = time.perf_counter()
+    ranks = [r[0][0] for r in mesh_lib.spawn(partitioned.rank_run, math.prod(PART_MESH),
+                                             [(cfg, 0, prompts)], [PART_MESH], PART_LMAX,
+                                             PART_STEPS, dev.type)]
+    wall = time.perf_counter() - t0
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    with torch.no_grad():
+        logits, tokens, cache = partitioned.generate(
+            params, torch.as_tensor(prompts, device=dev), cfg, PART_LMAX, PART_STEPS)
+    want = [x.float().cpu() for x in logits]
+    ranks.sort(key=lambda r: r["coords"]["model"])
+    err = 0.0
+    for j, w in enumerate(want):
+        got = torch.cat([torch.from_numpy(r["logits"][j]) for r in ranks], dim=-1)
+        err = max(err, float((got - w).abs().max()))
+        if not torch.allclose(got, w, rtol=PART_RTOL, atol=PART_ATOL):
+            raise AssertionError(f"partitioned logits of step {j}: max |err| {err} outside "
+                                 f"rtol={PART_RTOL} atol={PART_ATOL}")
+    cache_err = 0.0
+    for r in ranks:
+        if not np.array_equal(r["tokens"], tokens.cpu().numpy()):
+            raise AssertionError(f"rank {r['coords']}: greedy tokens {r['tokens'].tolist()} "
+                                 f"!= the unsharded program's {tokens.tolist()}")
+        for key in ("k", "v"):
+            cache_err = max(cache_err, float(np.abs(r[key] - cache[key].cpu().numpy()).max()))
+    del params, logits, cache
+    meta = partitioned.count_run(cfg, PART_MESH, PART_LANES, PART_PROMPT, PART_LMAX,
+                                 PART_STEPS)
+    launches = 0
+    for r in ranks:
+        if r["collectives"] != meta:
+            raise AssertionError(f"rank {r['coords']} counted {r['collectives']}, meta {meta}")
+        want_launches = {**{k: 0 for k in r["launches"]},
+                         "decode_attention": PART_LAYERS * PART_STEPS}
+        if r["launches"] != want_launches:
+            raise AssertionError(f"rank {r['coords']} launched {r['launches']}, not "
+                                 f"{PART_LAYERS} x {PART_STEPS} decode_attention")
+        launches += r["launches"]["decode_attention"]
+    emit({"phase": "partitioned", "arch": RANK_ARCH, "layers": PART_LAYERS, "dtype": "float32",
+          "mesh": dict(zip(partitioned.AXES, PART_MESH)), "backend": "gloo (one card)",
+          "lanes": PART_LANES, "lmax": PART_LMAX, "prompt": PART_PROMPT, "steps": PART_STEPS,
+          "tokens_equal": True, "logits_max_abs_err": err, "cache_max_abs_err": cache_err,
+          "rtol": PART_RTOL, "atol": PART_ATOL, "collectives": meta,
+          "collectives_meta_equal": True, "launches": launches, "wall_s": wall,
+          "gpu": nvidia_smi()})
+    return launches
+
+
 def cost_phase(dev) -> dict:
     """B3 through ``w8a8_linear``; then the rank cell
     (``launch.hillclimb.rank_cell``, as the hillclimb builds and fills it): B4
@@ -4220,7 +4458,10 @@ def cost_phase(dev) -> dict:
     the same cell, its step's median ms over :data:`RANK_STEPS` steps after a
     warm-up (``launch.hillclimb.time_steps``; every launch counted, the
     warm-up's too), peak memory, and the meta count's roofline terms at the
-    card's rates."""
+    card's rates. Then the ``partitioned`` step: (b) B4 over head windows of
+    the cell's lanes (``check_window_attention``, ``time_window_attention``),
+    (c) the partitioned rank cell (``partitioned_rank_cell``) and (a) two
+    gloo ranks on the card (``partitioned_ranks``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch import costrun, hillclimb
@@ -4261,9 +4502,12 @@ def cost_phase(dev) -> dict:
           "t_compute_ms": 1e3 * t["t_compute_s"], "t_memory_ms": 1e3 * t["t_memory_s"],
           "t_collective_ms": 1e3 * t["t_collective_s"],
           "roofline_share": 1e3 * t["t_memory_s"] / timed["step_ms"], "b4_max_abs_err": err})
+    check_window_attention(cfg, cache, gen, dev)
+    time_window_attention(cfg, cache, dev)
     del params, step, cache
     free_card("after the rank cell")
-    return {"decode_attention": counts["decode_attention"]}
+    b4 = counts["decode_attention"] + partitioned_rank_cell(cfg, dev)
+    return {"decode_attention": b4 + partitioned_ranks(dev)}
 
 
 def cost_sweep() -> None:
@@ -4463,7 +4707,10 @@ def main(argv: list[str]) -> int:
                                 f"start {ATTN_START}; launches include the llama3-8b "
                                 f"decode_32k rank cell's steps of 32 at Lmax 32,768 "
                                 f"(a warm-up and {RANK_STEPS} eager; a first call, a "
-                                f"capture and {RANK_STEPS} captured)",
+                                f"capture and {RANK_STEPS} captured), the partitioned "
+                                f"rank cell's as many steps of 32 over its one-head "
+                                f"windows, and the two gloo ranks' {PART_STEPS} steps of "
+                                f"{PART_LAYERS} each (the partitioned program)",
             "decode_attention_paged": "one layer, q (4,8,4,128), bf16 pages of 8 tokens, "
                                       f"end {ATTN_END}, start {ATTN_START}",
             "decode_attention_paged_split": "as above, 4 splits (stage 1); library_ms is "

@@ -101,9 +101,11 @@ def capture_enabled() -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _unit(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig, gemm: bool):
-    """One ``decode_step``, its fill advanced in the caller's ``pos``."""
-    logits, out = M.decode_step(params, cache, tokens, cfg, gemm=gemm)
+def _unit(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig, gemm: bool,
+          mesh=None):
+    """One ``decode_step`` (partitioned over ``mesh`` where given), its fill
+    advanced in the caller's ``pos``."""
+    logits, out = M.decode_step(params, cache, tokens, cfg, gemm=gemm, mesh=mesh)
     pos = cache["pos"]
     pos.copy_(out["pos"])      # in place
     out["pos"] = pos
@@ -395,10 +397,15 @@ class StepGraphs(GraphCache):
     # ------------------------------------------------------------- programs
 
     def decode_only_step(self, params: dict, cache: dict, tokens: torch.Tensor,
-                         cfg: ModelConfig):
+                         cfg: ModelConfig, mesh=None):
+        """The decode-only program; with ``mesh`` the rank's partitioned step
+        (``models.model.decode_step(..., mesh=)``), keyed by the mesh too."""
+        statics = () if mesh is None else (id(mesh),)
         return self.run("decode_only", cfg,
-                        lambda: self.key("decode_only", params, (cache,), (tokens,), cfg),
-                        (tokens,), lambda tks, side: _unit(params, cache, tks[0], cfg, False))
+                        lambda: self.key("decode_only", params, (cache,), (tokens,), cfg,
+                                         statics),
+                        (tokens,),
+                        lambda tks, side: _unit(params, cache, tks[0], cfg, False, mesh))
 
     def prefill_chunk_step(self, params: dict, cache: dict, tokens: torch.Tensor,
                            cfg: ModelConfig, *, sub_chunk: Optional[int] = None,

@@ -1,16 +1,210 @@
-"""Gradient-compression collectives (port of ``repro.dist.collectives``).
+"""Collectives over named mesh axes and their count, and gradient compression
+(port of ``repro.dist.collectives``, plus the collective layer of the
+partitioned program).
 
-Data-parallel gradient all-reduces dominate inter-pod traffic at 512 chips.
-INT8 compression with per-row symmetric scales (the same quantization the
-CD-PIM CU applies to weights and activations, paper §III) cuts those bytes 4x
-against f32 (2x against bf16). Used with error feedback (the caller
-accumulates the residual ``g - dequantize(quantize(g))`` into the next step)
-the compression is unbiased over time. As in the JAX package there is no
-compressed all-reduce: these are the two halves of one, on one rank.
+**The collective layer.** :func:`all_reduce`, :func:`all_gather` and
+:func:`reduce_scatter` act over one named axis of a mesh
+(``launch.mesh.make_mesh``), on whatever backend its group has: NCCL on a
+host with one card a rank, ``gloo`` on the CPU and for several ranks on one
+card, ``fake`` for a count (its collectives move nothing). Each reduces in
+the tensor's own dtype, the activation dtype, as the partitioned JAX program
+does. An axis of one rank is no collective: the tensor comes back as it is
+and nothing is counted, as GSPMD emits none.
+
+**Gloo staging.** On a ``gloo`` group a CUDA tensor goes through pinned host
+memory (:func:`_staged`: copied out, reduced or gathered on the host, copied
+back), so every op and dtype takes the path gloo has on the CPU. It is the
+two-ranks-on-one-card setting only (NCCL refuses two ranks on one device),
+and it is eager: a staged collective cannot be captured in a CUDA graph.
+
+:class:`CollectiveCounter` counts every call by kind for the calling rank:
+its calls, and its bytes in the units of
+``launch.dryrun.collective_bytes_from_specs`` (the result's bytes; an
+all-reduce counted 2x for the ring's reduce and broadcast phases, as the JAX
+tool reads an HLO all-reduce). It reads shapes only, so a program counts the
+same on ``meta`` over a ``fake`` group as on a live group.
+
+:class:`TensorParallel` is the rank's view of the ``model`` axis that the
+model code takes: which share of a split dim is its own, and the block's
+reductions.
+
+**Gradient compression.** Data-parallel gradient all-reduces dominate
+inter-pod traffic at 512 chips. INT8 compression with per-row symmetric
+scales (the same quantization the CD-PIM CU applies to weights and
+activations, paper §III) cuts those bytes 4x against f32 (2x against bf16).
+Used with error feedback (the caller accumulates the residual ``g -
+dequantize(quantize(g))`` into the next step) the compression is unbiased
+over time. As in the JAX package there is no compressed all-reduce: these
+are the two halves of one, on one rank.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.launch.mesh import axis_index, axis_size
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+_COUNTERS: list["CollectiveCounter"] = []
+
+
+class CollectiveCounter:
+    """``with CollectiveCounter() as c: ...`` counts the collectives of the
+    block; :meth:`totals` gives ``{kind: bytes, ..., "_counts": {kind:
+    calls}}`` for the kinds that occurred, the form of
+    ``launch.dryrun.collective_bytes_from_specs``."""
+
+    def __init__(self):
+        self.bytes = {k: 0.0 for k in KINDS}
+        self.calls = {k: 0 for k in KINDS}
+
+    def __enter__(self) -> "CollectiveCounter":
+        _COUNTERS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _COUNTERS.remove(self)
+        return False
+
+    def totals(self) -> dict:
+        out = {k: self.bytes[k] for k in KINDS if self.calls[k]}
+        out["_counts"] = {k: self.calls[k] for k in KINDS if self.calls[k]}
+        return out
+
+
+def _record(kind: str, result: torch.Tensor) -> None:
+    nbytes = result.numel() * result.element_size() * (2.0 if kind == "all-reduce" else 1.0)
+    for c in _COUNTERS:
+        c.bytes[kind] += nbytes
+        c.calls[kind] += 1
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """Does ``t`` go through pinned host memory on ``group`` (gloo, CUDA)?"""
+    import torch.distributed as dist
+
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def _single(new: str, old: str):
+    """A one-tensor collective of ``torch.distributed`` by its current name:
+    torch 2.13 renamed ``all_gather_into_tensor``/``reduce_scatter_tensor``
+    to ``all_gather_single``/``reduce_scatter_single`` and warns on the old
+    names, which are the only ones that torch 2.11 has."""
+    import torch.distributed as dist
+
+    return getattr(dist, new, None) or getattr(dist, old)
+
+
+def _gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    _single("all_gather_single", "all_gather_into_tensor")(out, x, group=group)
+
+
+def _scatter_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    _single("reduce_scatter_single", "reduce_scatter_tensor")(out, x, group=group)
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis``, in place (``x`` is returned)."""
+    import torch.distributed as dist
+
+    if axis_size(mesh, axis) == 1:
+        return x
+    _record("all-reduce", x)
+    group = mesh.get_group(axis)
+    if _staged(group, x):
+        h = _host(x)
+        dist.all_reduce(h, group=group)
+        return x.copy_(h)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str = "model", dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in their order on
+    ``axis``."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    _record("all-gather", out)
+    group = mesh.get_group(axis)
+    if _staged(group, x):
+        h = torch.empty(out.shape, dtype=x.dtype, pin_memory=True)
+        _gather_into(h, _host(x), group)
+        out.copy_(h)
+    else:
+        _gather_into(out, x, group)
+    # (n * x0, ...) -> (n, x0, ...) -> n just before ``dim``, merged into it
+    return out.view(n, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str = "model", dim: int = 0) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis``, and this rank's share of the
+    sum along ``dim`` (the rank's index-th of ``axis``'s equal parts)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks of {axis!r}")
+    xs = x.movedim(dim, 0).contiguous()
+    out = torch.empty((xs.shape[0] // n, *xs.shape[1:]), dtype=x.dtype, device=x.device)
+    _record("reduce-scatter", out)
+    group = mesh.get_group(axis)
+    if _staged(group, x):
+        h = torch.empty(out.shape, dtype=x.dtype, pin_memory=True)
+        _scatter_into(h, _host(xs), group)
+        out.copy_(h)
+    else:
+        _scatter_into(out, xs, group)
+    return out.movedim(0, dim)
+
+
+class TensorParallel:
+    """The calling rank's share of a mesh's ``model`` axis, for the model
+    code of the partitioned program: ``size`` ranks, this one at ``index``.
+    With ``seq`` the activations between blocks shard their sequence (dim 1)
+    over ``model`` (sequence parallelism): a block gathers its normed input
+    and scatters its reduced output."""
+
+    def __init__(self, mesh, seq: bool = False):
+        self.mesh = mesh
+        self.size = axis_size(mesh, "model")
+        self.index = axis_index(mesh, "model")
+        self.seq = seq and self.size > 1
+
+    def offset(self, n_local: int) -> int:
+        """Where this rank's ``n_local`` entries of a split dim start."""
+        return self.index * n_local
+
+    def local_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Under ``seq``, this rank's share of ``x``'s sequence; else ``x``."""
+        if not self.seq:
+            return x
+        c = x.shape[1] // self.size
+        return x.narrow(1, self.index * c, c)
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Under ``seq``, the whole sequence of ``x`` (an all-gather); else ``x``."""
+        return all_gather(x, self.mesh, "model", dim=1) if self.seq else x
+
+    def reduce(self, y: torch.Tensor, split: bool) -> torch.Tensor:
+        """A block's output ``y``: this rank's partial sum where its weight
+        was split over ``model`` (``split``), which is summed over the axis
+        (an all-reduce; under ``seq`` a reduce-scatter over the sequence);
+        where it was not, the whole output (under ``seq`` its share)."""
+        if self.seq:
+            return reduce_scatter(y, self.mesh, "model", dim=1) if split else self.local_seq(y)
+        return all_reduce(y, self.mesh, "model") if split else y
 
 
 def quantize_grad(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -34,6 +34,11 @@ leaf's spec without the first (layer) entry: it is the slice ``dt[i]`` of the
 distributed stacked tensor (``train.checkpoint.restore``). Where a rule put a
 mesh axis on the layer dim (ZeRO-1 folds ``data`` there on a stacked moment),
 that slice is replicated over the axis: DTensor gathers it on the select.
+
+**Local shards.** :func:`local_shards` cuts a full tree (params, cache,
+batch) down to the calling rank's slices by its mesh coordinates, the input
+of the partitioned program (``models.model.decode_step``/``prefill`` with
+``mesh=``), which takes plain tensors, not DTensors.
 """
 from __future__ import annotations
 
@@ -42,11 +47,9 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.launch.mesh import all_axes, axis_size, batch_axes
+from repro_torch.launch.mesh import MODEL_SHARD, all_axes, axis_index, axis_size, batch_axes
 from repro_torch.models.model import STACKED, stack_layers
 from repro_torch.train.optimizer import OptState
-
-MODEL_SHARD = 16  # `model` mesh-axis size every production mesh uses
 
 # row-parallel weights: contract the sharded input dim (Megatron pair rule)
 _ROW_PARALLEL = {"w_down", "wo", "w_out", "w_b", "cm_wv"}
@@ -222,3 +225,43 @@ def cache_shardings(cfg, spec, mesh, cache: dict) -> dict:
         return replicated(mesh)
 
     return _map_with_path(one, cache)
+
+
+def _local(leaf, spec: tuple, mesh):
+    """``leaf``'s slice on the calling rank: each dim that ``spec`` splits
+    over mesh axes narrowed to the rank's equal part along them. A split
+    leaf is copied once into storage of its own (a column slice is not
+    contiguous, and a row slice would keep the full tensor alive), so the
+    full tree can be freed; a replicated leaf is returned as it is."""
+    if not isinstance(leaf, torch.Tensor):
+        return leaf
+    out = leaf
+    for dim, e in enumerate(spec):
+        axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+        if not axes:
+            continue
+        n = axis_size(mesh, axes)
+        if leaf.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not split over the "
+                             f"{n} ranks of {axes}")
+        part = leaf.shape[dim] // n
+        out = out.narrow(dim, axis_index(mesh, axes) * part, part)
+    return out if out is leaf else out.clone(memory_format=torch.contiguous_format)
+
+
+def local_shards(tree: Any, shardings: Any, mesh) -> Any:
+    """The calling rank's slices of a full ``tree`` (nested dicts of tensors:
+    params, a decode cache, a batch) under ``shardings`` (the matching tree
+    of :class:`NamedSharding`, from :func:`param_shardings`,
+    :func:`cache_shardings` or :func:`batch_shardings`), by the rank's
+    coordinates on ``mesh``. A per-layer list of the params takes the
+    stacked tree's shardings, each layer its leaf's spec without the layer
+    entry. Works on ``meta`` tensors too (shapes only)."""
+    def walk(node, sh, per_layer: bool):
+        if isinstance(node, dict):
+            return {k: walk(v, sh[k], per_layer) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(layer, sh, True) for layer in node]
+        return _local(node, sh.spec[1:] if per_layer else sh.spec, mesh)
+
+    return walk(tree, shardings, False)

@@ -102,6 +102,13 @@
 // f32 in registers (e4m3 -> f32 is exact), so the arithmetic is the f32 walk's over
 // the same values. The copy-engine boxes and the tensor-core walk are bf16 only.
 //
+// A window of heads (B4): a rank of the partitioned program attends with its query
+// heads over a window of its lanes' KV heads, a view k[:, j0:j1] whose lanes lie
+// lane_heads heads apart. The kernel addresses (lane, head) rows as lane * lane_heads
+// + head from the window's first head, and its tensor maps span the rows from the
+// first window's first head to the last window's last, so the window is read in place:
+// no copy of it is made (one of llama3-8b's decode_32k rank would be 134 MB a layer).
+//
 // Limits: hd <= 256, G <= 16, any page size Bsz or Lmax. G == 1 and G <= 4 with
 // hd <= 128 take narrow instantiations (zamba2: G 1, hd 112; llama3-8b: G 4, hd 128),
 // the rest a wide one on the CUDA cores. A query head beyond G holds zeros and is
@@ -202,6 +209,8 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // Geometry of one launch, the same for every block.
 struct ChunkGeom {
   int hkv, g, hd;
+  int lane_heads;     // heads from one page or lane to the next in memory: Hkv, or more
+                      // where the kernel reads a window of a lane's heads (B4)
   int bsz, nb;        // page size and table width; contiguous lanes: Lmax and 1
   int n_chunks;       // blocks per (lane, kv head): ceil(nb * bsz / kChunk), or the splits
   int span;           // splits: tokens of one split, bps * bsz (the single pass: kChunk)
@@ -250,10 +259,10 @@ __device__ __forceinline__ void fill_tile(const TKV* __restrict__ kc, const TKV*
       if (lane == 0)
         mbar_expect_tx(bar, static_cast<uint32_t>(kTile * hd * esz + nvb * kTile * 128));
       __syncwarp();
-      if (lane == 0) tma_2d(ksb, tmk, off, static_cast<int>((page * geo.hkv + h) * hd), bar);
+      if (lane == 0) tma_2d(ksb, tmk, off, static_cast<int>((page * geo.lane_heads + h) * hd), bar);
       if (lane >= 1 && lane <= nvb)
         tma_2d(vsb + (lane - 1) * kTile * 128, tmv, (lane - 1) * 64,
-               static_cast<int>((page * geo.hkv + h) * bsz + off), bar);
+               static_cast<int>((page * geo.lane_heads + h) * bsz + off), bar);
     } else {
       const int jlo = (a - t0) >> geo.pw_log2, jhi = (e - t0 + bsz - 1) >> geo.pw_log2;
       const uint32_t krun = static_cast<uint32_t>(hd * bsz * esz);
@@ -265,10 +274,10 @@ __device__ __forceinline__ void fill_tile(const TKV* __restrict__ kc, const TKV*
       __syncwarp();
       if (lane >= jlo && lane < jhi) {
         bulk_copy(ksb + static_cast<int64_t>(lane) * geo.kps * esz,
-                  kc + (page * geo.hkv + h) * static_cast<int64_t>(hd) * bsz, krun, bar);
+                  kc + (page * geo.lane_heads + h) * static_cast<int64_t>(hd) * bsz, krun, bar);
         for (int cb = 0; cb < nvb; ++cb)
           tma_2d(vsb + cb * kTile * 128 + lane * bsz * 128, tmv, cb * 64,
-                 static_cast<int>((page * geo.hkv + h) * bsz), bar);
+                 static_cast<int>((page * geo.lane_heads + h) * bsz), bar);
       }
     }
     mbar_arrive(bar);
@@ -282,14 +291,14 @@ __device__ __forceinline__ void fill_tile(const TKV* __restrict__ kc, const TKV*
   if (tok >= a && tok < e) {
     const int64_t page = kPaged ? table[row0 + tok / bsz] : b;
     const int off = kPaged ? tok % bsz : tok;
-    const TKV* kcol = kc + (page * geo.hkv + h) * static_cast<int64_t>(hd) * bsz + off;
+    const TKV* kcol = kc + (page * geo.lane_heads + h) * static_cast<int64_t>(hd) * bsz + off;
     for (int d = 0; d < hd; ++d) ks[d * kTile + lane] = kcol[static_cast<int64_t>(d) * bsz];
   }
   for (int t = a - t0; t < e - t0; ++t) {
     const int tk = t0 + t;
     const int64_t page = kPaged ? table[row0 + tk / bsz] : b;
     const int off = kPaged ? tk % bsz : tk;
-    const TKV* vrow = vc + ((page * geo.hkv + h) * static_cast<int64_t>(bsz) + off) * hd;
+    const TKV* vrow = vc + ((page * geo.lane_heads + h) * static_cast<int64_t>(bsz) + off) * hd;
     for (int d = lane; d < hd; d += 32) vs[t * hd + d] = vrow[d];
   }
   mbar_arrive(bar);   // release: the waiting lanes see the stores
@@ -826,10 +835,11 @@ bool encode_2d(CUtensorMap* map, const void* base, int64_t inner, int64_t rows,
 template <typename TQ, typename TKV, int kG, int kDC, int kWarps, bool kPaged, bool kSplit>
 int launch_chunked(const void* q, const void* kc, const void* vc, const void* table,
                    const void* start, const void* end, void* out, void* ws, int batch, int hkv,
-                   int g, int hd, int bsz, int nb, int n_pages, int bps, int n_splits,
-                   float scale, float softcap, int has_cap, cudaStream_t s) {
+                   int lane_heads, int g, int hd, int bsz, int nb, int n_pages, int bps,
+                   int n_splits, float scale, float softcap, int has_cap, cudaStream_t s) {
   ChunkGeom geo = {};
   geo.hkv = hkv;
+  geo.lane_heads = lane_heads;
   geo.g = g;
   geo.hd = hd;
   geo.bsz = bsz;
@@ -859,7 +869,8 @@ int launch_chunked(const void* q, const void* kc, const void* vc, const void* ta
     geo.n_vcb = (hd + 63) / 64;
     geo.kt_bytes = round_up(one_page ? hd * 64 : kTile / bsz * geo.kps * esz, 1024);
     geo.stage_bytes = geo.kt_bytes + geo.n_vcb * kTile * 128;
-    const int64_t lanes = static_cast<int64_t>(kPaged ? n_pages : batch) * hkv;
+    // head rows from the first head read to the last: a window's lanes are lane_heads apart
+    const int64_t lanes = (static_cast<int64_t>(kPaged ? n_pages : batch) - 1) * lane_heads + hkv;
     if ((one_page && !encode_2d(&tmk, kc, bsz, lanes * hd, bsz * esz, kTile, hd,
                                 CU_TENSOR_MAP_SWIZZLE_64B)) ||
         !encode_2d(&tmv, vc, hd, lanes * bsz, hd * esz, 64, geo.pw, CU_TENSOR_MAP_SWIZZLE_128B))
@@ -907,13 +918,13 @@ int launch_chunked(const void* q, const void* kc, const void* vc, const void* ta
 template <typename TQ, typename TKV, bool kPaged, bool kSplit>
 int launch_chunked_shaped(const void* q, const void* kc, const void* vc, const void* table,
                           const void* start, const void* end, void* out, void* ws, int batch,
-                          int hkv, int g, int hd, int bsz, int nb, int n_pages, int bps,
-                          int n_splits, float scale, float softcap, int has_cap,
+                          int hkv, int lane_heads, int g, int hd, int bsz, int nb, int n_pages,
+                          int bps, int n_splits, float scale, float softcap, int has_cap,
                           cudaStream_t s) {
 #define REPRO_SHAPE(KG, KDC, KW)                                                            \
   return launch_chunked<TQ, TKV, KG, KDC, KW, kPaged, kSplit>(                             \
-      q, kc, vc, table, start, end, out, ws, batch, hkv, g, hd, bsz, nb, n_pages, bps,     \
-      n_splits, scale, softcap, has_cap, s)
+      q, kc, vc, table, start, end, out, ws, batch, hkv, lane_heads, g, hd, bsz, nb,       \
+      n_pages, bps, n_splits, scale, softcap, has_cap, s)
   // a split walks more tiles than a chunk: eight warps a block where K/V are bf16
   // (eight warps' f32 stages do not fit a block's shared memory)
   constexpr int kNarrowWarps = kSplit && std::is_same<TKV, __nv_bfloat16>::value ? 8 : 4;
@@ -929,18 +940,18 @@ constexpr int kKvBf16 = 0, kKvF32 = 1, kKvFp8 = 2;
 template <bool kPaged, bool kSplit>
 int launch_typed(const void* q, const void* kc, const void* vc, const void* table,
                  const void* start, const void* end, void* out, void* ws, int batch, int hkv,
-                 int g, int hd, int bsz, int nb, int n_pages, int bps, int n_splits,
-                 float scale, float softcap, int has_cap, int q_f32, int kv_dtype,
+                 int lane_heads, int g, int hd, int bsz, int nb, int n_pages, int bps,
+                 int n_splits, float scale, float softcap, int has_cap, int q_f32, int kv_dtype,
                  void* stream) {
-  if (hd < 1 || hd > 256 || g < 1 || g > 16 || bsz < 1 || nb < 1 ||
+  if (hd < 1 || hd > 256 || g < 1 || g > 16 || bsz < 1 || nb < 1 || lane_heads < hkv ||
       (kSplit && (bps < 1 || n_splits < 1 || (n_splits - 1) * bps >= nb)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(TQ, TKV)                                                                \
   return launch_chunked_shaped<TQ, TKV, kPaged, kSplit>(q, kc, vc, table, start, end, out,  \
-                                                        ws, batch, hkv, g, hd, bsz, nb,     \
-                                                        n_pages, bps, n_splits, scale,      \
-                                                        softcap, has_cap, s)
+                                                        ws, batch, hkv, lane_heads, g, hd,  \
+                                                        bsz, nb, n_pages, bps, n_splits,    \
+                                                        scale, softcap, has_cap, s)
   if (kv_dtype == kKvF32 && q_f32) REPRO_LAUNCH(float, float);
   if (kv_dtype == kKvF32) REPRO_LAUNCH(__nv_bfloat16, float);
   if (kv_dtype == kKvFp8 && q_f32) REPRO_LAUNCH(float, __nv_fp8_e4m3);
@@ -964,8 +975,8 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
                                    void* out, void* ws, int batch, int hkv, int g, int hd,
                                    int bsz, int nb, int n_pages, float scale, float softcap,
                                    int has_cap, int q_f32, int kv_dtype, void* stream) {
-  return launch_typed<true, false>(q, kp, vp, table, start, end, out, ws, batch, hkv, g, hd,
-                                   bsz, nb, n_pages, 0, 0, scale, softcap, has_cap, q_f32,
+  return launch_typed<true, false>(q, kp, vp, table, start, end, out, ws, batch, hkv, hkv, g,
+                                   hd, bsz, nb, n_pages, 0, 0, scale, softcap, has_cap, q_f32,
                                    kv_dtype, stream);
 }
 
@@ -977,22 +988,25 @@ extern "C" int paged_split_launch(const void* q, const void* kp, const void* vp,
                                   void* parts, int batch, int hkv, int g, int hd, int bsz, int nb,
                                   int n_pages, int bps, int n_splits, float scale, float softcap,
                                   int has_cap, int q_f32, int kv_dtype, void* stream) {
-  return launch_typed<true, true>(q, kp, vp, table, start, end, nullptr, parts, batch, hkv, g,
-                                  hd, bsz, nb, n_pages, bps, n_splits, scale, softcap, has_cap,
-                                  q_f32, kv_dtype, stream);
+  return launch_typed<true, true>(q, kp, vp, table, start, end, nullptr, parts, batch, hkv,
+                                  hkv, g, hd, bsz, nb, n_pages, bps, n_splits, scale, softcap,
+                                  has_cap, q_f32, kv_dtype, stream);
 }
 
 // B4: single pass over contiguous lanes, K (B, Hkv, hd, Lmax) and V (B, Hkv, Lmax, hd);
 // normalized f32 output (B, Hkv, G, hd). The lane is its own page of Lmax tokens;
-// ``ws`` as for B1, with Lmax in place of the table's span.
+// ``ws`` as for B1, with Lmax in place of the table's span. ``k`` and ``v`` may be a
+// window of Hkv heads of lanes that hold ``lane_heads`` >= Hkv heads (the view
+// ``k[:, j0:j1]`` of a (B, lane_heads, hd, Lmax) cache, read in place); lane_heads ==
+// Hkv is a whole cache.
 extern "C" int contig_decode_launch(const void* q, const void* k, const void* v,
                                     const void* start, const void* end, void* out, void* ws,
-                                    int batch, int hkv, int g, int hd, int lmax, float scale,
-                                    float softcap, int has_cap, int q_f32, int kv_dtype,
-                                    void* stream) {
-  return launch_typed<false, false>(q, k, v, nullptr, start, end, out, ws, batch, hkv, g, hd,
-                                    lmax, 1, batch, 0, 0, scale, softcap, has_cap, q_f32, kv_dtype,
-                                    stream);
+                                    int batch, int hkv, int g, int hd, int lmax, int lane_heads,
+                                    float scale, float softcap, int has_cap, int q_f32,
+                                    int kv_dtype, void* stream) {
+  return launch_typed<false, false>(q, k, v, nullptr, start, end, out, ws, batch, hkv,
+                                    lane_heads, g, hd, lmax, 1, batch, 0, 0, scale, softcap,
+                                    has_cap, q_f32, kv_dtype, stream);
 }
 
 // B2 stage 2: any (B, Hkv, S, G) partials merged into the normalized f32 output

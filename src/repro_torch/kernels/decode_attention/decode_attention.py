@@ -6,7 +6,8 @@ Four kernels, each with a wrapper that takes the plain version from
 tensors, and counts its launches in ``<wrapper>.launches``:
 
 * :func:`decode_attention` — single-pass flash decode over contiguous lanes
-  (JAX ``decode_attention``);
+  (JAX ``decode_attention``), or over a window of their KV heads (the view
+  ``cache[:, j0:j1]`` a rank of the partitioned program reads), in place;
 * :func:`decode_attention_paged` — single-pass flash decode over pages (JAX
   ``decode_attention_paged``);
 * :func:`split_partials` — stage 1 of the split-KV reduction
@@ -49,9 +50,21 @@ def _lib():
     lib.paged_split_launch.restype = I32
     lib.merge_splits_launch.argtypes = [VP] * 4 + [I32] * 5 + [VP]
     lib.merge_splits_launch.restype = I32
-    lib.contig_decode_launch.argtypes = [VP] * 7 + [I32] * 5 + [F32, F32] + [I32] * 3 + [VP]
+    lib.contig_decode_launch.argtypes = [VP] * 7 + [I32] * 6 + [F32, F32] + [I32] * 3 + [VP]
     lib.contig_decode_launch.restype = I32
     return lib
+
+
+def _lane_heads(k: torch.Tensor, v: torch.Tensor) -> Optional[int]:
+    """Heads from one lane to the next where contiguous K (B, H, hd, Lmax) and
+    V (B, H, Lmax, hd) are windows of H heads of dense lanes (``cache[:,
+    j0:j1]``; a whole contiguous cache is its own window), else None."""
+    _, h, hd, lmax = k.shape
+    ks, vs = k.stride(), v.stride()
+    if ks[1:] != (hd * lmax, lmax, 1) or vs[1:] != (lmax * hd, hd, 1) or ks[0] != vs[0] \
+            or ks[0] % (hd * lmax) or ks[0] // (hd * lmax) < h:
+        return None
+    return ks[0] // (hd * lmax)
 
 
 def _check_inputs(q, k, v, end, start, block_table=None):
@@ -59,7 +72,9 @@ def _check_inputs(q, k, v, end, start, block_table=None):
     K (P, Hkv, hd, Bsz) / V (P, Hkv, Bsz, hd) with a block table (B, NB), or
     contiguous K (B, Hkv, hd, Lmax) / V (B, Hkv, Lmax, hd) without one.
     q is bf16 or f32; K/V (one dtype) bf16, f32 or fp8 e4m3.
-    Returns (int32 table or None, int32 start, int32 end, q, k, v), contiguous."""
+    Returns (int32 table or None, int32 start, int32 end, q, k, v, heads from
+    one page or lane to the next), contiguous, but for a contiguous cache's
+    window of heads (:func:`_lane_heads`), which is read in place."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention kernels take CUDA tensors, got {q.device}")
     b, hkv, g, hd = q.shape
@@ -84,7 +99,10 @@ def _check_inputs(q, k, v, end, start, block_table=None):
     end_b = ref._per_lane(end, b, dev, 0).contiguous()
     start_b = ref._per_lane(start, b, dev, 0).contiguous()
     table = block_table.to(torch.int32).contiguous() if paged else None
-    return table, start_b, end_b, q.contiguous(), k.contiguous(), v.contiguous()
+    heads = None if paged else _lane_heads(k, v)
+    if heads is None:
+        k, v, heads = k.contiguous(), v.contiguous(), hkv
+    return table, start_b, end_b, q.contiguous(), k, v, heads
 
 
 def _cap(softcap: Optional[float]) -> tuple[float, int]:
@@ -112,11 +130,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      softcap: Optional[float] = None) -> torch.Tensor:
     """Single-pass flash decode over contiguous lanes. q (B, Hkv, G, hd); K
     (B, Hkv, hd, Lmax) column-wise; V (B, Hkv, Lmax, hd) row-wise; live range
-    ``[start, end)`` per lane. Returns (B, Hkv, G, hd) float32."""
+    ``[start, end)`` per lane. K and V may be a window of Hkv heads of larger
+    lanes (``cache[:, j0:j1]``), read in place. Returns (B, Hkv, G, hd)
+    float32."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, end, scale, softcap,
                                         start=start)
-    _, start_b, end_b, q, k_cache, v_cache = _check_inputs(q, k_cache, v_cache, end, start)
+    _, start_b, end_b, q, k_cache, v_cache, heads = _check_inputs(q, k_cache, v_cache, end,
+                                                                  start)
     b, hkv, g, hd = q.shape
     lmax = k_cache.shape[-1]
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
@@ -124,8 +145,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     cap, has_cap = _cap(softcap)
     code = _lib().contig_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start_b.data_ptr(),
-        end_b.data_ptr(), out.data_ptr(), _ptr(ws), b, hkv, g, hd, lmax, float(scale), cap,
-        has_cap,
+        end_b.data_ptr(), out.data_ptr(), _ptr(ws), b, hkv, g, hd, lmax, heads, float(scale),
+        cap, has_cap,
         int(q.dtype == torch.float32), _KV_CODES[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention")
@@ -142,7 +163,7 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if q.device.type == "cpu":
         return ref.decode_attention_paged_ref(q, k_pages, v_pages, block_table, end,
                                               scale, softcap, start=start)
-    table, start_b, end_b, q, k_pages, v_pages = _check_inputs(
+    table, start_b, end_b, q, k_pages, v_pages, _ = _check_inputs(
         q, k_pages, v_pages, end, start, block_table)
     b, hkv, g, hd = q.shape
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
@@ -167,7 +188,7 @@ def split_partials(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor
     if q.device.type == "cpu":
         return ref.split_partials_ref(q, k_pages, v_pages, block_table, end, num_splits,
                                       scale, softcap, start=start)
-    table, start_b, end_b, q, k_pages, v_pages = _check_inputs(
+    table, start_b, end_b, q, k_pages, v_pages, _ = _check_inputs(
         q, k_pages, v_pages, end, start, block_table)
     b, hkv, g, hd = q.shape
     bps, n_splits = ref.realized_splits(table.shape[1], num_splits)

@@ -34,7 +34,9 @@ def decode_attention_op(
     scale: float,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """Returns (B, Hq, hd) float32; an empty range gives zeros."""
+    """Returns (B, Hq, hd) float32; an empty range gives zeros. K and V may
+    be a window of the lanes' KV heads (``cache[:, j0:j1]``, the partitioned
+    program's), read in place; the work reported is the window's."""
     b, hq, hd = q.shape
     hkv = k_cache.shape[1]
     g = hq // hkv

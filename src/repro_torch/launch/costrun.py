@@ -31,8 +31,10 @@ Two deliberate differences from the JAX package's count:
   depth (:func:`fit_depth`, the same least squares) is exact and needs no
   correction.
 * **Per device is the whole program over the mesh's device count.** The
-  port's model code has no sharded form, so the count is the unpartitioned
-  program's, divided by the production mesh's 256 ranks.
+  count is the unpartitioned program's, divided by the production mesh's
+  256 ranks, for every cell: the partitioned program (``mesh=``) covers only
+  the dense decode and prefill cells, and of those the dry run reads only
+  its collectives (``collectives_source``).
 
 A decode cell's attention counts the cache's capacity (every slot live), as
 a compiler's static count does: its lanes are full in the cell anyway.
@@ -56,6 +58,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import SHAPES, get_config, input_specs, list_archs, shape_applicable
+from repro_torch.launch.partitioned import shard_params
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import train_step
@@ -202,37 +205,42 @@ def _materialize(specs: dict, device) -> dict:
     return {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in specs.items()}
 
 
-def decode_cell(cfg, batch: int, seq_len: int, params: dict, device="meta"):
+def decode_cell(cfg, batch: int, seq_len: int, params: dict, device="meta", mesh=None):
     """(step, cache) of a decode cell: one token a lane against a contiguous
     cache of ``seq_len`` slots (the audio decoder's encoder memory a stub of
     :data:`AUDIO_CROSS_LEN` frames), each lane's fill ``pos`` a (batch,)
     vector at ``seq_len - 1``, so every lane is full after the step.
     ``step()`` runs ``models.model.decode_step`` (the cache is written in
-    place, ``pos`` is not advanced: each call is the same step)."""
+    place, ``pos`` is not advanced: each call is the same step); with
+    ``mesh`` the rank's partitioned step (``params`` its shards, the cache
+    its lanes of every KV head)."""
     src = AUDIO_CROSS_LEN if cfg.family == "audio" else 0
     cache = M.init_decode_cache(cfg, batch, seq_len, device=device, src_len=src)
     cache["pos"] = torch.full((batch,), seq_len - 1, dtype=torch.int32, device=device)
     tokens = torch.zeros((batch, 1), dtype=torch.int32, device=device)
 
     def step():
-        return M.decode_step(params, cache, tokens, cfg)
+        return M.decode_step(params, cache, tokens, cfg, mesh=mesh)
 
     return step, cache
 
 
-def build_cell(cfg, shape: str, device="meta", batch=None):
+def build_cell(cfg, shape: str, device="meta", batch=None, mesh=None):
     """A zero-argument callable that runs the cell's step once: train is
     ``train_step`` at ``accum`` 1 with AdamW (backward included); prefill is
     ``models.model.prefill`` into a cache of ``seq_len + prefix + 64``;
     decode is :func:`decode_cell`. ``batch`` overrides the shape's global
-    batch (a data group's share)."""
+    batch (a data group's share); ``mesh`` makes a decode cell the rank's
+    partitioned step over its shards of the params."""
     spec = SHAPES[shape]
     if batch is not None:
         spec = dataclasses.replace(spec, global_batch=batch)
     params = M.init_params(cfg, None if torch.device(device).type == "meta" else
                            torch.Generator(device=device).manual_seed(0), device=device)
     if spec.kind == "decode":
-        return decode_cell(cfg, spec.global_batch, spec.seq_len, params, device)[0]
+        if mesh is not None:
+            params = shard_params(params, mesh)
+        return decode_cell(cfg, spec.global_batch, spec.seq_len, params, device, mesh)[0]
     inputs = _materialize(input_specs(cfg, spec), device)
     if spec.kind == "train":
         opt = init_opt_state(params)
@@ -339,7 +347,7 @@ def run_cell(arch: str, shape: str, overrides: dict | None = None) -> dict:
             result[f"{k}_per_layer"] = [c / N_DEVICES for c in whole[f"{k}_per_layer"]]
             result[f"{k}_fixed"] = whole[f"{k}_fixed"] / N_DEVICES
         result["kernels"] = whole["kernels"]
-        result["collectives"] = dryrun.collectives_for(cfg, shape)
+        result["collectives"], result["collectives_source"] = dryrun.collectives_for(cfg, shape)
         result["n_devices"] = N_DEVICES
         result["status"] = "ok"
         result["measure_s"] = round(time.time() - t0, 1)

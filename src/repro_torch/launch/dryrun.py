@@ -17,7 +17,14 @@ reads:
   ``temp_bytes`` is null, there is no compiler to ask;
 * ``cost``: the count of the whole step at full depth over the mesh's
   device count;
-* ``collectives``: :func:`collective_bytes_from_specs`, what the specs imply.
+* ``collectives``: for the cells the partitioned program covers (the dense
+  llama-style archs at ``decode_32k`` and ``prefill_32k``: float linears,
+  contiguous lanes, a batch that splits over the data axes), what rank 0's
+  share of that program (``models.model.decode_step``/``prefill`` with
+  ``mesh=``, full depth) moves, counted by ``dist.collectives.CollectiveCounter``
+  on ``meta`` over the fake group (:func:`collective_bytes_from_program`);
+  for every other cell :func:`collective_bytes_from_specs`, what the specs
+  imply. ``collectives_source`` says which: ``"program"`` or ``"specs"``.
 
 Usage: ``PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
 [--shape S] [--multi-pod | --all]`` (meta device, no card; writes
@@ -36,7 +43,9 @@ import torch
 
 from repro_torch.configs import SHAPES, get_config, input_specs, list_archs, shape_applicable
 from repro_torch.dist import sharding as shard_lib
+from repro_torch.dist.collectives import CollectiveCounter
 from repro_torch.launch.mesh import axis_size, batch_axes, production_mesh_for_counting
+from repro_torch.launch.partitioned import shard_params
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import init_opt_state
 
@@ -157,7 +166,13 @@ def collective_bytes_from_specs(cfg, shape: str, mesh) -> dict:
 
     A logits output stays vocab-sharded (its spec), and a decode over a
     sequence-sharded cache (``long_500k``'s batch of one) merges the heads'
-    partial softmax sums: a few KB a layer, left out."""
+    partial softmax sums: a few KB a layer, left out.
+
+    What the partitioned program adds where it covers a cell
+    (:func:`collective_bytes_from_program`): one all-gather a layer of the
+    new tokens' K/V projections over ``model``, ``2·b·T·Hkv·hd·a`` (the
+    rank's K/V columns are a share that may split a head, and RoPE and the
+    replicated cache need every head), which this model leaves out."""
     spec = SHAPES[shape]
     params = M.param_specs(cfg)
     leaves = []
@@ -205,13 +220,61 @@ def collective_bytes_from_specs(cfg, shape: str, mesh) -> dict:
     return out
 
 
-def collectives_for(cfg, shape: str) -> dict:
-    """:func:`collective_bytes_from_specs` on the single-pod production mesh,
-    without its ``_counts``."""
+def program_covers(cfg, shape: str, mesh) -> bool:
+    """Does the partitioned program run the cell on ``mesh``: a decode or
+    prefill shape whose batch splits over the data axes (the wide-batch
+    cache spec), for a config ``models.model.check_partitioned`` takes?"""
+    spec = SHAPES[shape]
+    if spec.kind not in ("decode", "prefill") or spec.global_batch <= 1 \
+            or spec.global_batch % axis_size(mesh, batch_axes(mesh)):
+        return False
+    try:
+        M.check_partitioned(cfg, mesh)
+    except ValueError:
+        return False
+    return True
+
+
+def collective_bytes_from_program(cfg, shape: str, mesh) -> dict:
+    """Per-rank bytes and calls of each collective kind in one step of the
+    partitioned program (a cell :func:`program_covers`), read from the
+    program itself: rank 0's shards of the params (full depth), its rows of
+    the batch and, for decode, its lanes of a cache of ``seq_len`` slots,
+    run on ``meta`` under ``CollectiveCounter`` (the form of
+    :func:`collective_bytes_from_specs`, ``_counts`` included)."""
+    spec = SHAPES[shape]
+    params = shard_params(M.init_params(cfg, None, device="meta"), mesh)
+    batch = input_specs(cfg, spec)
+    tokens = shard_lib.local_shards(batch, shard_lib.batch_shardings(cfg, spec, mesh, batch),
+                                    mesh)["tokens"]
+    b = tokens.shape[0]
+    with torch.no_grad(), CollectiveCounter() as counter:
+        if spec.kind == "decode":
+            cache = M.init_decode_cache(cfg, b, spec.seq_len, device="meta")
+            cache["pos"] = torch.full((b,), spec.seq_len - 1, dtype=torch.int32,
+                                      device="meta")
+            M.decode_step(params, cache, tokens, cfg, mesh=mesh)
+        else:
+            M.prefill(params, tokens, cfg, spec.seq_len + cfg.n_prefix_tokens + 64, mesh=mesh)
+    return counter.totals()
+
+
+def collectives_on(cfg, shape: str, mesh) -> tuple[dict, str]:
+    """(the cell's per-rank collectives, their source): the partitioned
+    program's where it covers the cell (``"program"``), else the specs'
+    model (``"specs"``)."""
+    if program_covers(cfg, shape, mesh):
+        return collective_bytes_from_program(cfg, shape, mesh), "program"
+    return collective_bytes_from_specs(cfg, shape, mesh), "specs"
+
+
+def collectives_for(cfg, shape: str) -> tuple[dict, str]:
+    """:func:`collectives_on` the single-pod production mesh, without the
+    ``_counts``."""
     with production_mesh_for_counting() as mesh:
-        coll = collective_bytes_from_specs(cfg, shape, mesh)
+        coll, source = collectives_on(cfg, shape, mesh)
     coll.pop("_counts")
-    return coll
+    return coll, source
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool) -> dict:
@@ -230,13 +293,13 @@ def run_cell(arch: str, shape: str, multi_pod: bool) -> dict:
             tot = cell_count(arch, shape)
             t_trace = time.time() - t0
             mem = memory_from_specs(cfg, shape, mesh)
-            coll = collective_bytes_from_specs(cfg, shape, mesh)
+            coll, source = collectives_on(cfg, shape, mesh)
         cost = {"flops": tot["flops"] / n_dev, "bytes accessed": tot["bytes"] / n_dev,
                 "transcendentals": tot["transcendentals"] / n_dev}
         return {
             "arch": arch, "shape": shape, "multi_pod": multi_pod,
             "status": "ok", "n_devices": n_dev, "trace_s": round(t_trace, 1),
-            "memory": mem, "cost": cost, "collectives": coll,
+            "memory": mem, "cost": cost, "collectives": coll, "collectives_source": source,
         }
     except Exception as e:
         return {"arch": arch, "shape": shape, "multi_pod": multi_pod,

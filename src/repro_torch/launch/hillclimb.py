@@ -10,8 +10,13 @@ more than 5 % to confirm, and moving less than 5 % either way is neutral.
 
 Each measurement also counts the rank cell: the share of one data group of
 the (data=16, model=16) mesh at full width on one card (the global batch
-over 16, :func:`rank_batch`; the port has no tensor-parallel form), its terms
-the whole share's over one card's rates. ``--device cuda`` (the default)
+over 16, :func:`rank_batch`, with every weight), its terms the whole share's
+over one card's rates; and beside it, for a decode cell that the
+partitioned program runs (``dryrun.program_covers``), the partitioned rank
+cell (``rank_cell_partitioned``): rank 0 of that mesh on a ``fake`` group, the
+same lanes (every KV head, the replicated cache) with 1/16 of the weights,
+running its partitioned step (``models.model.decode_step(..., mesh=)``),
+its terms the rank's own, collectives included. ``--device cuda`` (the default)
 times that cell's step on the card, every lane full (decode cells; the median
 of 10 steps after a warm-up), eagerly and through ``core.interleave``'s
 captured decode program (:func:`captured_step`: the card's time, not the
@@ -38,6 +43,7 @@ from repro_torch.configs import SHAPES, get_config
 from repro_torch.core import interleave
 from repro_torch.launch import costrun, dryrun
 from repro_torch.launch.mesh import production_mesh_for_counting
+from repro_torch.launch.partitioned import shard_params
 from repro_torch.launch.roofline import HBM_BW, LINK_BW, PEAK_FLOPS
 
 LOG = "results/torch/perf_iterations.json"
@@ -98,18 +104,24 @@ def rank_batch(shape: str) -> int:
     return max(SHAPES[shape].global_batch // DATA_GROUPS, 1)
 
 
-def rank_cell(cfg, shape: str, device="cuda"):
+def rank_cell(cfg, shape: str, device="cuda", mesh=None):
     """(params, step, cache) of the rank cell of a decode shape on ``device``:
     weights from seed 0, :func:`rank_batch` lanes of ``seq_len`` slots of K/V
     drawn from N(0, 0.3²) by the same generator, every lane full
-    (``costrun.decode_cell``)."""
+    (``costrun.decode_cell``). With ``mesh`` (the production mesh over a
+    ``fake`` group: ``launch.mesh.production_mesh_for_counting``) it is the
+    calling rank's partitioned cell: its shards of the same weights (the
+    full tree freed once they are cut), the same lanes, each step
+    ``decode_step(..., mesh=)``, whose collectives move nothing."""
     spec = SHAPES[shape]
     if spec.kind != "decode":
         raise ValueError(f"the rank cell is a decode cell, not {spec.kind}")
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = costrun.M.init_params(cfg, gen, device=dev)
-    step, cache = costrun.decode_cell(cfg, rank_batch(shape), spec.seq_len, params, dev)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    step, cache = costrun.decode_cell(cfg, rank_batch(shape), spec.seq_len, params, dev, mesh)
     for key in ("k", "v"):
         for layer in cache[key]:   # a layer at a time: an f8 cache has no normal_
             layer.copy_(torch.empty(layer.shape, dtype=torch.bfloat16, device=dev)
@@ -117,22 +129,45 @@ def rank_cell(cfg, shape: str, device="cuda"):
     return params, step, cache
 
 
-def captured_step(cfg, params, cache):
+def captured_step(cfg, params, cache, mesh=None):
     """The rank cell's step through ``core.interleave``'s captured decode
     program, on a ``StepGraphs`` of its own (``step.graphs``): a step program
     advances the fill it is given, so each call first sets the lanes' fill
     back (the eager step leaves it), and every call is the same step. Its
-    first call runs eagerly and its second captures (two warm-ups)."""
+    first call runs eagerly and its second captures (two warm-ups). With
+    ``mesh`` the partitioned cell's step (:func:`rank_cell`)."""
     graphs = interleave.StepGraphs(cache["pos"].device)
     fill = cache["pos"].clone()
     tokens = torch.zeros((fill.shape[0], 1), dtype=torch.int32, device=fill.device)
 
     def step():
         cache["pos"].copy_(fill)
-        return interleave.decode_only_step(params, cache, tokens, cfg, graphs=graphs)
+        return graphs.decode_only_step(params, cache, tokens, cfg, mesh=mesh)
 
     step.graphs = graphs
     return step
+
+
+def partitioned_count(cfg, shape: str) -> dict | None:
+    """The partitioned rank cell's count on ``meta``: ``costrun.count``'s
+    totals of rank 0's step on the production mesh's ``fake`` group, with
+    its ``collectives`` (``dist.collectives.CollectiveCounter``, without the
+    ``_counts``) and their ``_counts`` under ``collective_calls``. None
+    where the cell has no partitioned rank: a shape other than decode, or
+    one the partitioned program does not run (``dryrun.program_covers``)."""
+    from repro_torch.dist.collectives import CollectiveCounter
+
+    if SHAPES[shape].kind != "decode":
+        return None
+    with production_mesh_for_counting() as mesh:
+        if not dryrun.program_covers(cfg, shape, mesh):
+            return None
+        with CollectiveCounter() as coll:
+            out = costrun.count(costrun.build_cell(cfg, shape, batch=rank_batch(shape),
+                                                   mesh=mesh))
+    out["collectives"] = coll.totals()
+    out["collective_calls"] = out["collectives"].pop("_counts")
+    return out
 
 
 def time_steps(step, steps: int = 10, warmup: int = 1) -> dict:
@@ -167,6 +202,9 @@ def measure(arch: str, shape: str, overrides: dict | None, device: str = "meta")
     b = rank_batch(shape)
     t["rank_cell"] = {"batch": b, **terms(costrun.count(costrun.build_cell(cfg, shape,
                                                                            batch=b)))}
+    part = partitioned_count(cfg, shape)
+    if part is not None:
+        t["rank_cell_partitioned"] = {"batch": b, **terms(part)}
     if device == "cuda":
         params, step, cache = rank_cell(cfg, shape)
         t["card"] = time_steps(step)
@@ -213,9 +251,13 @@ def main(argv=None) -> None:
               f"{after[dom]*1e3:.1f}ms ({delta*100:+.1f}%) => {entry['verdict']}")
         print(f"  capacity: {before['memory_capacity']['live_gb']:.1f} -> "
               f"{after['memory_capacity']['live_gb']:.1f} GB/dev")
-        rb, ra = before["rank_cell"], after["rank_cell"]
-        print(f"  rank cell at B {ra['batch']}: memory term {rb['t_memory_s']*1e3:.2f} -> "
-              f"{ra['t_memory_s']*1e3:.2f} ms")
+        for key, what in (("rank_cell", "rank cell"),
+                          ("rank_cell_partitioned", "partitioned rank cell")):
+            if key not in before or key not in after:
+                continue
+            rb, ra = before[key], after[key]
+            print(f"  {what} at B {ra['batch']}: memory term {rb['t_memory_s']*1e3:.2f} -> "
+                  f"{ra['t_memory_s']*1e3:.2f} ms")
         if "card" in before:
             for k, what in (("card", "eager"), ("card_captured", "captured")):
                 print(f"  card step, {what}: {before[k]['step_ms']:.2f} -> "

@@ -7,8 +7,10 @@
 
 The flops, bytes and collective bytes are per device, from
 ``launch.costrun`` (the whole program's count over the mesh's device count)
-and ``launch.dryrun`` (the collectives the sharding specs imply), so each
-term is a per-device quantity over a per-device rate.
+and ``launch.dryrun`` (a rank's collectives: counted from the partitioned
+program where it covers the cell, else what the sharding specs imply; the
+cell's ``collectives_source``), so each term is a per-device quantity over a
+per-device rate.
 
 MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE) for train; 2·N·D for
 inference steps: the "useful" share of the counted compute.

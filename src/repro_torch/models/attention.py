@@ -15,6 +15,18 @@ local windows, the audio encoder's bidirectional form) and the decoder's
 cross attention over the fixed encoder memory (:func:`attention_cross`,
 :func:`project_memory_kv`) are plain PyTorch einsums too, on the float
 weights: the JAX package has no kernel for them either.
+
+**Partitioned** (``tp``: a ``dist.collectives.TensorParallel``, the model's
+``mesh=`` form), a rank holds its columns of ``wq``/``wk``/``wv`` and its
+rows of ``wo`` (Megatron tensor parallelism over ``model``): whole query
+heads (:func:`kv_window`), while its K/V columns may split a head (yi-9b's
+smoke config has one KV head of 16 columns; llama3-8b at model 16 holds 64
+of a head's 128), so the new K/V are all-gathered over ``model`` before the
+reshape to heads and RoPE, which pairs dims across the head. Every rank
+writes the whole K/V into its lanes (the wide-batch cache spec replicates
+them over ``model``) and attends with its query heads over its window of KV
+heads, a view of the lanes (B4 reads it in place). The output projection
+then gives the rank's partial sum, which the block reduces.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_mapping
 from repro_torch.core.quant import raw_weight
 from repro_torch.device import torch_dtype
+from repro_torch.dist.collectives import all_gather
 from repro_torch.models.layers import apply_rope, dense_init, softcap
 
 NEG_INF = -2.3819763e38  # bf16-safe large negative
@@ -59,9 +72,25 @@ def _decode_linear(cfg: ModelConfig):
     return _dense_matmul
 
 
+def _own(bias: torch.Tensor, y: torch.Tensor, tp) -> torch.Tensor:
+    """The entries of a (replicated) bias that match ``y``'s columns: all of
+    it, or under ``tp`` the rank's share where ``y`` holds a share."""
+    n = y.shape[-1]
+    return bias if tp is None or bias.shape[0] == n else bias.narrow(0, tp.offset(n), n)
+
+
+def _gather_kv(k: torch.Tensor, v: torch.Tensor, tp):
+    """The rank's K and V columns (B, T, c) each -> every rank's, (B, T,
+    size * c) each, through one all-gather over ``model``."""
+    kv = all_gather(torch.stack([k, v]), tp.mesh, "model", dim=-1)
+    return kv[0], kv[1]
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                 linear_fn=None):
-    """x (B,T,d) -> q (B,Hq,T,hd), k/v (B,Hkv,T,hd), RoPE applied."""
+                 linear_fn=None, tp=None):
+    """x (B,T,d) -> q (B,Hq,T,hd), k/v (B,Hkv,T,hd), RoPE applied. Under
+    ``tp``, q holds the rank's query heads and K/V every head (gathered where
+    the rank's columns are a share)."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     mm = linear_fn or _dense_matmul
@@ -69,13 +98,32 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     k = mm(p["wk"], x)
     v = mm(p["wv"], x)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
+        q, k, v = q + _own(p["bq"], q, tp), k + _own(p["bk"], k, tp), v + _own(p["bv"], v, tp)
+    if tp is not None and k.shape[-1] < cfg.n_kv_heads * hd:
+        k, v = _gather_kv(k, v, tp)
+    q = q.reshape(b, t, -1, hd).transpose(1, 2)
     k = k.reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
+
+
+def kv_window(cfg: ModelConfig, hq: int, tp) -> tuple[int, int]:
+    """The KV heads ``[j0, j1)`` that a rank's ``hq`` query heads read (query
+    head ``h`` reads KV head ``h // q_per_kv``): every KV head without
+    ``tp`` or where the rank holds every query head; under ``tp`` its whole
+    groups, or the one group its heads are part of (llama3-8b at model 16:
+    2 of a KV head's 4)."""
+    if tp is None or hq == cfg.n_heads:
+        return 0, cfg.n_kv_heads
+    h0, g = tp.offset(hq), cfg.q_per_kv
+    if hq % g == 0:
+        return h0 // g, (h0 + hq) // g
+    if g % hq == 0:
+        return h0 // g, h0 // g + 1
+    raise ValueError(f"{hq} query heads a rank neither hold whole groups of {g} nor lie in "
+                     f"one ({cfg.name}: {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads)")
 
 
 def _scale(cfg: ModelConfig) -> float:
@@ -95,7 +143,7 @@ def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     Returns (B, T, Hq*hd)."""
     b, _, t, hd = q.shape
     lmax = k_cache.shape[-1] if layout in ("cdpim", "col_col") else k_cache.shape[-2]
-    qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
+    qg = q.reshape(b, k_cache.shape[1], -1, t, hd)
     s = kv_mapping.read_scores(qg, k_cache, layout).float() * _scale(cfg)
     s = softcap(s, cfg.attn_softcap)
     k_pos = torch.arange(lmax, device=q.device)
@@ -106,7 +154,7 @@ def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     s = s + bias[:, None, None, :, :]
     pr = torch.softmax(s, dim=-1).to(dtype)
     y = kv_mapping.read_output(pr, v_cache, layout)
-    return y.reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
+    return y.reshape(b, -1, t, hd).transpose(1, 2).reshape(b, t, -1)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
@@ -208,6 +256,7 @@ def attention_decode(
     window: Optional[int] = None,
     gemm: bool = False,
     layout: kv_mapping.Layout = "cdpim",
+    tp=None,
 ) -> torch.Tensor:
     """One step against contiguous dual-layout lanes. The new tokens' K/V are
     written into the lanes IN PLACE; returns the attention block's output
@@ -217,26 +266,52 @@ def attention_decode(
     admission), ``gemm=True`` (the batch-prefill form, float GEMMs) and the
     fixed-mapping ablation layouts ``row_row``/``col_col`` (``layout``; no
     kernel, as in the JAX package) take the dense masked softmax, the window
-    in its mask."""
+    in its mask. Under ``tp`` the lanes take every KV head, the attention
+    reads the rank's window of them (:func:`kv_window`) and the output is
+    the rank's partial sum of the projection, which the block reduces."""
     b, t, _ = x.shape
-    hd = cfg.head_dim
     pos_b = torch.as_tensor(pos, device=x.device).to(torch.int32).reshape(-1).expand(b)
     positions = pos_b[:, None] + torch.arange(t, device=x.device, dtype=torch.int32)[None, :]
     lin = _decode_linear(cfg) if (t == 1 and not gemm) else None
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions, linear_fn=lin)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, linear_fn=lin, tp=tp)
 
     kv_mapping.append_layer(k_cache, v_cache, k_new, v_new, pos_b, layout)
+    if tp is not None:
+        j0, j1 = kv_window(cfg, q.shape[1], tp)
+        k_cache, v_cache = k_cache[:, j0:j1], v_cache[:, j0:j1]
 
     if t == 1 and not gemm and layout == "cdpim":
         end = pos_b + 1
         o = dispatch.decode_attention(
             q[:, :, 0, :], k_cache, v_cache, end, start=_live_start(end, window),
             scale=_scale(cfg), softcap=cfg.attn_softcap, cfg=cfg)
-        y = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
+        y = o.to(x.dtype).reshape(b, 1, -1)
         return lin(p["wo"], y)
 
     y = _masked_attention(q, k_cache, v_cache, positions, cfg, x.dtype, window, layout)
     return (lin or _dense_matmul)(p["wo"], y)
+
+
+def attention_prefill(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, cfg: ModelConfig, *, step: int,
+                      window: Optional[int] = None, tp=None) -> torch.Tensor:
+    """The prefill's attention over whole prompts x (B, S, d) into empty
+    lanes (one layer, cdpim): the projections once (under ``tp`` one K/V
+    all-gather), every token's K/V written at slots 0..S-1, then the query
+    heads ``step`` at a time against the lanes (under ``tp`` the rank's heads
+    against its KV-head window, :func:`kv_window`), masked causally and by
+    ``window`` as :func:`attention_decode`'s batch-prefill form masks them.
+    Returns the output projection (B, S, d), under ``tp`` the rank's partial
+    sum."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device, dtype=torch.int32).expand(b, s)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, tp=tp)
+    kv_mapping.append_layer(k_cache, v_cache, k_new, v_new, 0)
+    j0, j1 = kv_window(cfg, q.shape[1], tp)
+    kw, vw = k_cache[:, j0:j1], v_cache[:, j0:j1]
+    y = torch.cat([_masked_attention(q[:, :, lo:lo + step], kw, vw, positions[:, lo:lo + step],
+                                     cfg, x.dtype, window) for lo in range(0, s, step)], dim=1)
+    return _dense_matmul(p["wo"], y)
 
 
 def attention_decode_ring(

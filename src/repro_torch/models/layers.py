@@ -117,6 +117,18 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["w"][tokens]
 
 
+def embed_rows(p: dict, tokens: torch.Tensor, lo: int) -> torch.Tensor:
+    """The lookup in a vocab shard that holds the table's rows ``[lo, lo +
+    rows)``: a token's row where the shard holds it, zeros elsewhere. Summed
+    over the shards (an all-reduce) it is the whole table's lookup exactly:
+    one shard holds each token."""
+    w = p["w"]
+    local = tokens - lo
+    hit = (local >= 0) & (local < w.shape[0])
+    x = w[local.clamp(0, w.shape[0] - 1)]
+    return torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def init_lm_head(generator, d: int, vocab: int, dtype, device) -> dict:
     return {"w": dense_init(generator, (d, vocab), dtype, device)}
 

@@ -37,6 +37,27 @@ last ``sliding_window`` tokens), attention and final-logit softcaps,
 post-block norms, tied embeddings and the embedding scale; with
 ``windowed_kv_cache`` its local layers keep W-slot rings (``k_loc``/``v_loc``)
 beside the global layers' full lanes.
+
+**Partitioned** (``mesh=`` on :func:`decode_step` and :func:`prefill`): the
+JAX dry run's decode and prefill programs for the dense llama-style configs
+(llama3-8b, yi-9b, codeqwen1.5-7b; float linears, contiguous caches) run
+partitioned over a ``torch.distributed`` mesh (``launch.mesh``), with
+explicit collectives (``dist.collectives``), as GSPMD partitions them under
+the JAX specs: every argument is the calling rank's local shard
+(``dist.sharding.local_shards``: its batch rows over ``data``, its columns
+or rows of each split weight over ``model``, its lanes of the cache, which
+holds every KV head) and so is every output (its rows of the cache, its rows
+and vocab columns of the logits, the out-spec ``P(ba, None, "model")``).
+Megatron tensor parallelism: the vocab-sharded embedding looks up its rows
+and all-reduces; ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` are
+column-parallel, ``wo`` and ``w_down`` row-parallel, each block one
+all-reduce (``models.attention`` gathers the new K/V); the LM head gives
+vocab-sharded logits. Under ``cfg.seq_parallel`` (and T >= 16) the prefill's
+activations between blocks shard their sequence over ``model`` (the JAX
+package's ``_sp_constraint``): a block all-gathers its normed input and
+reduce-scatters its output. The arithmetic is the unsharded program's up to
+the order of the reductions. The paged cache, W8A8 and the other families
+raise under a mesh.
 """
 from __future__ import annotations
 
@@ -49,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_mapping
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.dist.collectives import TensorParallel, all_reduce
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -330,11 +352,18 @@ def logits_fn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.lm_head(params["lm_head"], x, cfg.logit_softcap)
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+           tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Token embeddings; gemma scales them by sqrt(d_model) rounded to the
     activation dtype first, as the JAX package's ``jnp.asarray(d**0.5,
-    x.dtype)`` does (bf16: 68.0 for gemma2-27b's 4608)."""
-    x = L.embed(params["embed"], tokens)
+    x.dtype)`` does (bf16: 68.0 for gemma2-27b's 4608). Under ``tp`` a
+    vocab-sharded table looks up its own rows and all-reduces over
+    ``model``."""
+    w = params["embed"]["w"]
+    if tp is not None and w.shape[0] < cfg.vocab_size:
+        x = all_reduce(L.embed_rows(params["embed"], tokens, tp.offset(w.shape[0])), tp.mesh)
+    else:
+        x = L.embed(params["embed"], tokens)
     if cfg.name.startswith("gemma"):
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
     return x
@@ -344,29 +373,46 @@ def _post_norm(lp: dict, name: str, y: torch.Tensor, cfg: ModelConfig) -> torch.
     return L.rmsnorm(lp[name], y, cfg.norm_eps) if cfg.post_block_norm else y
 
 
-def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False) -> torch.Tensor:
+def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False,
+              tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """x + the MLP (or MoE) half of a block. Under ``tp`` the normed input
+    is gathered over the sequence where it is sharded there, and the
+    row-parallel ``w_down``'s partial sums reduced (``TensorParallel.reduce``)."""
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    if tp is not None:
+        h = tp.gather_seq(h)
     if cfg.family == "moe":
         m = moe_lib.moe_einsum(lp["moe"], h, cfg)   # float experts in every form, as in JAX
     elif gemm:
         m = L.mlp(lp["mlp"], h, linear_fn=attn_lib._dense_matmul)
     else:
         m = dispatch.mlp(lp["mlp"], h, cfg)  # W8A8 GEMVs under quantized_decode
+    if tp is not None:
+        m = tp.reduce(m, lp["mlp"]["w_down"].shape[0] < cfg.d_ff)
     return x + _post_norm(lp, "post_mlp_norm", m, cfg)
 
 
+def _wo_split(lp: dict, cfg: ModelConfig) -> bool:
+    """Does the rank hold a share of ``wo``'s rows (its output a partial sum)?"""
+    return lp["attn"]["wo"].shape[0] < cfg.n_heads * cfg.head_dim
+
+
 def _attn_residual(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] = None,
-                   gemm: bool = False):
-    """The attention half of a block over a contiguous cache: x + attention."""
+                   gemm: bool = False, tp: Optional[TensorParallel] = None):
+    """The attention half of a block over a contiguous cache: x + attention
+    (under ``tp`` reduced over ``model``)."""
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    a = attn_lib.attention_decode(lp["attn"], h, kc, vc, pos, cfg, window=window, gemm=gemm)
+    a = attn_lib.attention_decode(lp["attn"], h, kc, vc, pos, cfg, window=window, gemm=gemm,
+                                  tp=tp)
+    if tp is not None:
+        a = tp.reduce(a, _wo_split(lp, cfg))
     return x + _post_norm(lp, "post_attn_norm", a, cfg)
 
 
 def _dense_block_decode(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] = None,
-                        gemm: bool = False):
-    return _mlp_tail(lp, _attn_residual(lp, x, kc, vc, pos, cfg, window=window, gemm=gemm),
-                     cfg, gemm=gemm)
+                        gemm: bool = False, tp: Optional[TensorParallel] = None):
+    return _mlp_tail(lp, _attn_residual(lp, x, kc, vc, pos, cfg, window=window, gemm=gemm,
+                                        tp=tp), cfg, gemm=gemm, tp=tp)
 
 
 def _dense_block_decode_paged(lp, x, kp, vp, table, pos, cfg: ModelConfig,
@@ -382,8 +428,31 @@ def _dense_block_decode_paged(lp, x, kp, vp, table, pos, cfg: ModelConfig,
 # ===========================================================================
 
 
+def check_partitioned(cfg: ModelConfig, mesh, cache: Optional[dict] = None) -> None:
+    """Raise unless the partitioned program covers ``cfg`` (and ``cache``)
+    on ``mesh``: the dense llama-style family with float linears over
+    contiguous lanes, its query heads split evenly over ``model``."""
+    from repro_torch.launch.mesh import axis_size
+
+    if (cfg.family != "dense" or cfg.sliding_window is not None or cfg.tie_embeddings
+            or cfg.post_block_norm or cfg.attn_softcap is not None
+            or cfg.logit_softcap is not None):
+        raise ValueError(f"{cfg.name}: the partitioned program covers the dense llama-style "
+                         f"family (llama3-8b, yi-9b, codeqwen1.5-7b); gemma2, MoE, the "
+                         f"hybrid, rwkv6, vlm and audio are later work")
+    if cfg.quantized_decode:
+        raise ValueError("W8A8 (quantized_decode) is not partitioned, as in the JAX package")
+    if cache is not None and "k" not in cache:
+        raise ValueError("the partitioned program takes contiguous lanes ('k'/'v'); the "
+                         "paged cache is not partitioned, as in the JAX package")
+    n = axis_size(mesh, "model")
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads do not split over the "
+                         f"{n} ranks of 'model'")
+
+
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                *, gemm: bool = False):
+                *, gemm: bool = False, mesh=None):
     """T tokens per lane: tokens (B, T) -> (logits (B, T, V), cache').
 
     ``cache`` is fully paged (``k_pages``/``v_pages`` (nL, P, H, ...),
@@ -395,16 +464,22 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
     per-lane fill (B,) or a scalar. Every cache tensor is written IN PLACE
     and the returned cache shares them, with ``pos`` advanced by T.
     ``gemm=True`` runs the batch-prefill form (float GEMMs, dense attention at
-    any T); rwkv6 has no other form.
+    any T); rwkv6 has no other form. With ``mesh`` it is the partitioned
+    step (the module's docstring): params, cache and tokens are the rank's
+    shards, and so are the logits (B_rank, T, V / model) and the cache.
     """
-    x, new_cache = _forward(params, cache, tokens, cfg, gemm=gemm)
+    x, new_cache = _forward(params, cache, tokens, cfg, gemm=gemm, mesh=mesh)
     return logits_fn(params, x, cfg), new_cache
 
 
 def _forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
-             *, gemm: bool = False):
+             *, gemm: bool = False, mesh=None):
     """:func:`decode_step` up to the final norm: (hidden (B, T, d), cache')."""
     _check_family(cfg)
+    tp = None
+    if mesh is not None:
+        check_partitioned(cfg, mesh, cache)   # the dense family over contiguous lanes
+        tp = TensorParallel(mesh)
     if cfg.family == "hybrid":
         return _hybrid_forward(params, cache, tokens, cfg, gemm=gemm)
     if cfg.family == "ssm":
@@ -414,7 +489,7 @@ def _forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     if "k_loc" in cache:
         return _windowed_forward(params, cache, tokens, cfg)
     pos = cache["pos"]
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, tp)
     windows = layer_windows(cfg)
     if "k_pages" in cache:
         table = cache["block_table"]
@@ -428,7 +503,7 @@ def _forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
         k_all, v_all = cache["k"], cache["v"]
         for i, lp in enumerate(params["layers"]):
             x = _dense_block_decode(lp, x, k_all[i], v_all[i], pos, cfg, window=windows[i],
-                                    gemm=gemm)
+                                    gemm=gemm, tp=tp)
         new_cache = {"k": k_all, "v": v_all, "pos": pos + tokens.shape[1]}
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
 
@@ -574,9 +649,10 @@ def _dense_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, window: Optional[i
 
     The JAX package constrains ``x`` here to shard its sequence dim over the
     ``model`` axis when ``cfg.seq_parallel`` is set (``_sp_constraint``), a
-    layout hint that is the identity without a mesh. The port runs on one
+    layout hint that is the identity without a mesh. This form runs on one
     rank, where it is the identity too, so ``seq_parallel`` changes nothing
-    here and adds no constraint."""
+    here; the partitioned prefill (``prefill(..., mesh=)``) takes it as
+    sequence parallelism."""
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     out = attn_lib.attention_dense(lp["attn"], h, cfg, window=window, return_kv=return_kv)
     a, kv = out if return_kv else (out, None)
@@ -727,18 +803,25 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, chunk: int = 1024) -> t
 
 
 def _prefill_forward(params: dict, cache: dict, x: torch.Tensor, cfg: ModelConfig,
-                     step: int) -> torch.Tensor:
+                     step: int, tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """:func:`prefill`'s pass over the embedded inputs x (B, S, d) up to the
-    final norm, layer by layer: each layer's attention runs ``step`` queries
-    at a time against the contiguous ``cache`` (written in place), and its
-    MLP tail never sees a slice: it takes the layer's whole (B, S) batch, as
-    the JAX ``prefill`` computes it (which a MoE's capacity dispatch needs)."""
-    s = x.shape[1]
+    final norm, layer by layer: each layer projects its Q/K/V once, writes
+    its K/V into the contiguous ``cache`` (in place) and attends ``step``
+    queries at a time (``attention_prefill``); its MLP tail takes the layer's
+    whole (B, S) batch, as the JAX ``prefill`` computes it (which a MoE's
+    capacity dispatch needs). Under ``tp`` each half is reduced once a layer;
+    under ``tp.seq`` x is the rank's share of the sequence and so is the
+    result."""
     windows = layer_windows(cfg)
     for i, lp in enumerate(params["layers"]):
-        parts = [_attn_residual(lp, x[:, lo:lo + step], cache["k"][i], cache["v"][i], lo, cfg,
-                                window=windows[i], gemm=True) for lo in range(0, s, step)]
-        x = _mlp_tail(lp, torch.cat(parts, dim=1), cfg, gemm=True)
+        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        if tp is not None:
+            h = tp.gather_seq(h)
+        a = attn_lib.attention_prefill(lp["attn"], h, cache["k"][i], cache["v"][i], cfg,
+                                       step=step, window=windows[i], tp=tp)
+        if tp is not None:
+            a = tp.reduce(a, _wo_split(lp, cfg))
+        x = _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=True, tp=tp)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -751,9 +834,29 @@ def _last_hidden(x: torch.Tensor, seq_lens) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
 
 
+def _prefill_partitioned(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
+                         seq_lens, mesh):
+    """:func:`prefill` with ``mesh``: the dense pass over the rank's rows
+    into fresh lanes of every KV head, its logits the rank's vocab columns."""
+    check_partitioned(cfg, mesh)
+    b, s = tokens.shape
+    dev = tokens.device
+    tp = TensorParallel(mesh, seq=cfg.seq_parallel and s >= 16)
+    if tp.seq and s % tp.size:
+        raise ValueError(f"sequence parallelism: {s} tokens do not split over the "
+                         f"{tp.size} ranks of 'model'")
+    full = init_decode_cache(cfg.replace(kv_dtype=""), b, max_len, device=dev)
+    x = tp.local_seq(_embed(params, tokens, cfg, tp))
+    x = tp.gather_seq(_prefill_forward(params, full, x, cfg, max(int(cfg.q_chunk), 1), tp))
+    kvd = kv_cache_dtype(cfg)
+    logits = logits_fn(params, _last_hidden(x, seq_lens), cfg)
+    return logits, {"k": full["k"].to(kvd), "v": full["v"].to(kvd),
+                    "pos": torch.tensor(s, dtype=torch.int32, device=dev)}
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
             seq_lens=None, *, prefix_embeds: Optional[torch.Tensor] = None,
-            src_frames: Optional[torch.Tensor] = None):
+            src_frames: Optional[torch.Tensor] = None, mesh=None):
     """Whole prompts in one pass: tokens (B, S) -> (logits at each row's last
     token (B, 1, V), a fresh decode cache filled to S, ``pos`` the scalar S).
     ``seq_lens`` (B,) marks each row's true length in a right-padded ragged
@@ -782,8 +885,15 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     full-sequence form (:func:`_hybrid_forward_seq`) from zero state and
     keeps each Mamba2 layer's final state and each shared-block
     application's K/V, stored in the cache's dtype (pads included, as in
-    the JAX package)."""
+    the JAX package).
+
+    With ``mesh`` it is the partitioned prefill of the dense llama-style
+    family (the module's docstring): params and tokens (and ``seq_lens``)
+    are the rank's shards, and the logits (B_rank, 1, V / model) and the
+    cache its own."""
     _check_family(cfg)
+    if mesh is not None:
+        return _prefill_partitioned(params, tokens, cfg, max_len, seq_lens, mesh)
     if prefix_embeds is not None and cfg.family != "vlm":
         raise ValueError(f"prefix_embeds is the vlm family's input, not {cfg.family!r}'s")
     if cfg.family == "audio" and src_frames is None:

@@ -112,6 +112,26 @@ def test_parse_overrides_and_terms_vs_jax():
     assert [hillclimb.rank_batch(s) for s in SHAPES] == [16, 2, 8, 1]
 
 
+@pytest.mark.parametrize("arch,overrides,partitioned", [
+    ("llama3-8b", None, True),
+    ("olmoe-1b-7b", None, False),                       # MoE: no partitioned program
+    ("llama3-8b", {"quantized_decode": True}, False),   # W8A8 is not partitioned
+])
+def test_hillclimb_measure_partitioned_rank_only_where_covered(arch, overrides, partitioned):
+    """``hillclimb.measure`` on ``meta`` at ``decode_32k``: the partitioned
+    rank cell (1/16 of the weights, its collectives counted) stands beside
+    the rank cell where the partitioned program runs the cell, and is left
+    out, not raised on, where it does not."""
+    t = hillclimb.measure(arch, "decode_32k", overrides, "meta")
+    assert t["rank_cell"]["batch"] == 8
+    assert ("rank_cell_partitioned" in t) == partitioned
+    if partitioned:
+        part, whole = t["rank_cell_partitioned"], t["rank_cell"]
+        assert part["batch"] == 8 and part["collective_bytes"] > 0
+        assert whole["t_collective_s"] == 0
+        assert part["t_memory_s"] < whole["t_memory_s"] / 8
+
+
 def test_reduced_cfgs_depths_vs_jax():
     jcost, _ = _import_jax_tools()
     from repro.configs import get_config as jget
@@ -285,9 +305,16 @@ def test_dryrun_full_size_llama_on_meta(shape):
         want += 2.0 * b * t * (d * 2 + 8) + 2.0 * 2 * (sharded // 16 + norms)
     coll = dict(res["collectives"])
     counts = coll.pop("_counts")
-    assert coll == pytest.approx({"all-reduce": want}, rel=1e-12)
     if shape == "decode_32k":
-        assert counts == {"all-reduce": 2 * 32 + 1}
+        # counted from the partitioned program, which adds one all-gather a
+        # layer of the new token's K/V (8 lanes x 2 x 1,024 columns, bf16)
+        assert res["collectives_source"] == "program"
+        assert coll == pytest.approx({"all-reduce": want, "all-gather": 32 * 8 * 2 * 1024 * 2},
+                                     rel=1e-12)
+        assert counts == {"all-reduce": 2 * 32 + 1, "all-gather": 32}
+    else:
+        assert res["collectives_source"] == "specs"
+        assert coll == pytest.approx({"all-reduce": want}, rel=1e-12)
 
 
 def test_make_production_mesh_on_a_fake_group():
