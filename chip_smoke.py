@@ -310,12 +310,32 @@ check: the phase launches none; (a) runs again under ``interleave.eager()``,
 its losses and grad norms equal to the captured run's: ``train_steps_ab``),
 or only the ``dist`` checks (on internvl2-2b
 with seeded weights over the training phase's last batch, and on a
-checkpoint of the ~125 M llama written by two steps of ``train.loop.run``),
-or the cost phase (11), then ``launch.hillclimb`` on the rank cell with fp8
+checkpoint of the ~125 M llama written by two steps of ``train.loop.run``)
+followed by the partitioned train step's two gloo ranks
+(``train.train_step.train_step_`` with ``mesh=``: llama3-8b at full width
+cut to 2 layers, f32, ``remat`` on, seed 0, a seeded global batch of 4 x
+256 tokens at ``accum`` 2, two steps, on meshes (data 1, model 2) and
+(data 2, model 1), ``launch.partitioned.train_run``: rank 0 first runs the
+unsharded step on the card from the same params and batch; every rank's
+loss, ``grad_norm`` and ``lr`` are held to it, its params and moments
+gathered back with ``dist.sharding.full_tree`` too, its collective count to
+``meta``'s; no kernel launches: ``partitioned_train`` lines, with the wall
+time and each rank's peak memory; about 2.5 minutes, most of it gloo moving
+the (2, 1) mesh's f32 gradients and params through host memory, which is
+why it is not in the default run),
+or the cost phase (11), then the partitioned ``train_4k`` rank cell (rank 0
+of (data 16, model 16) on a ``fake`` group, ``launch.hillclimb.rank_cell``:
+1/16 of llama3-8b's bf16 weights, its 1/256 ZeRO-1 slice of the moments, its
+16 rows of 4,096 tokens at ``accum`` 4, ``remat`` on; its ``CostCounter``
+and ``CollectiveCounter`` counts on the card equal ``meta``'s, its step
+eager and captured (``train.train_step.TrainGraphs``), peak memory, ``mfu``
+and the count's roofline terms: a ``rank_cell`` line with ``"shape":
+"train_4k"``), then ``launch.hillclimb`` on the rank cell with fp8
 e4m3 K/V against bf16 (each counted on ``meta`` and timed on the card), then
 the 40-cell dry run and cost count on ``meta`` with the roofline table at the
 H100's rates (``cost_cell`` lines; about 15 minutes of host time, most of it
-rwkv6's per-token scan, no card).
+rwkv6's per-token scan, no card; the dense archs' ``train_4k`` collectives
+counted from the partitioned train step).
 """
 from __future__ import annotations
 
@@ -4450,6 +4470,153 @@ def partitioned_ranks(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the partitioned train step (train.train_step.train_step with mesh=)
+# ---------------------------------------------------------------------------
+
+PTRAIN_LAYERS = 2               # (a): llama3-8b at full width, 2 of 32 layers, f32
+PTRAIN_BATCH, PTRAIN_SEQ, PTRAIN_ACCUM, PTRAIN_STEPS = 4, 256, 2, 2
+PTRAIN_MESHES = ((1, 2), (2, 1))   # (data, model): two gloo ranks on the one card
+# the ranks' products and reductions add in another order than the unsharded
+# step's: f32 rounding of the metrics, and of each leaf against its max |x|
+PTRAIN_RTOL = 1e-4
+TRAIN_CELL_SHAPE = "train_4k"
+TRAIN_CELL_STEPS = 3
+
+
+def partitioned_train_ranks(dev) -> None:
+    """(a) of the train step (``--dist``): two processes on the one card in a ``gloo``
+    group (``launch.mesh.spawn``) run ``launch.partitioned.train_run`` on
+    llama3-8b at full width cut to :data:`PTRAIN_LAYERS` layers, f32 params
+    from seed 0, ``remat`` on as the full config sets it, a seeded global
+    batch of :data:`PTRAIN_BATCH` x :data:`PTRAIN_SEQ` tokens at
+    :data:`PTRAIN_ACCUM` microbatches, :data:`PTRAIN_STEPS` steps, on each
+    mesh of :data:`PTRAIN_MESHES`. Rank 0 first runs the unsharded in-place
+    step on the card from the same params and batch: every rank's metrics
+    are held to it, and so are the params and moments gathered back with
+    ``dist.sharding.full_tree`` (each leaf's max |err| over its max |x|);
+    each rank's ``CollectiveCounter`` count to ``count_train_run``'s
+    ``meta`` count; no kernel launches. A rank that fails fails the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import partitioned
+
+    cfg = get_config(RANK_ARCH).replace(n_layers=PTRAIN_LAYERS, dtype="float32",
+                                        param_dtype="float32")
+    rng = np.random.default_rng(28)
+    batch = {k: rng.integers(0, cfg.vocab_size, (PTRAIN_BATCH, PTRAIN_SEQ))
+             for k in ("tokens", "labels")}
+    free_card("the partitioned train ranks")
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(partitioned.train_run, 2, [(cfg, 0, batch)], list(PTRAIN_MESHES),
+                           PTRAIN_STEPS, PTRAIN_ACCUM, dev.type, reference=True)
+    wall = time.perf_counter() - t0
+    for mi, shape in enumerate(PTRAIN_MESHES):
+        runs = [r[0][mi] for r in ranks]
+        want = runs[0]["metrics_ref"]
+        meta = partitioned.count_train_run(cfg, shape, PTRAIN_BATCH, PTRAIN_SEQ, PTRAIN_STEPS,
+                                           PTRAIN_ACCUM)
+        metric_err = 0.0
+        for r in runs:
+            for got, ref in zip(r["metrics"], want):
+                for k in ("loss", "grad_norm", "lr"):
+                    rel = abs(got[k] - ref[k]) / abs(ref[k])
+                    metric_err = max(metric_err, rel)
+                    if rel > PTRAIN_RTOL:
+                        raise AssertionError(f"rank {r['coords']} on {shape}: {k} {got[k]} "
+                                             f"against the unsharded {ref[k]}")
+            if r["collectives"] != meta:
+                raise AssertionError(f"rank {r['coords']} on {shape} counted "
+                                     f"{r['collectives']}, meta {meta}")
+            if any(r["launches"].values()):
+                raise AssertionError(f"rank {r['coords']} launched {r['launches']}")
+        errors = runs[0]["errors"]
+        for name, e in errors.items():
+            if e["max_err_over_max"] > PTRAIN_RTOL:
+                raise AssertionError(f"{shape}: the gathered {name} differ from the unsharded "
+                                     f"step's by {e}")
+        emit({"phase": "partitioned_train", "arch": RANK_ARCH, "layers": PTRAIN_LAYERS,
+              "dtype": "float32", "remat": cfg.remat, "mesh": dict(zip(partitioned.AXES, shape)),
+              "backend": "gloo (one card)", "batch": PTRAIN_BATCH, "seq": PTRAIN_SEQ,
+              "accum": PTRAIN_ACCUM, "steps": PTRAIN_STEPS, "metrics": runs[0]["metrics"],
+              "metrics_unsharded": want, "metrics_max_rel_err": metric_err,
+              "errors": errors, "rtol": PTRAIN_RTOL, "collectives": meta,
+              "collectives_meta_equal": True, "launches": 0,
+              "rank_wall_s": [r["wall_s"] for r in runs],
+              "rank_check_s": [r["check_s"] for r in runs],
+              "rank_peak_GB": [r["peak_gb"] for r in runs],
+              "param_bytes": [r["param_bytes"] for r in runs],
+              "moment_bytes": [r["moment_bytes"] for r in runs],
+              "wall_s": wall, "gpu": nvidia_smi()})
+
+
+def partitioned_train_cell(dev) -> None:
+    """(c) of the train step, ``--cost`` only: the partitioned ``train_4k``
+    rank, rank 0 of (data 16, model 16) on a ``fake`` group
+    (``launch.hillclimb.rank_cell(..., mesh=)``): 1/16 of llama3-8b's bf16
+    weights, its 1/256 ZeRO-1 slice of the moments, its 16 rows of 4,096
+    seeded tokens at the dry run's ``accum`` 4, ``remat`` on. Its
+    ``CostCounter`` and ``CollectiveCounter`` counts on the card must equal
+    ``meta``'s (``hillclimb.partitioned_count``); then :data:`TRAIN_CELL_STEPS`
+    in-place steps eager after a warm-up and as many captured
+    (``hillclimb.captured_train_step``: a first eager call, a capture, then
+    replays), none launching a kernel. The fake collectives move nothing, so
+    the step is the rank's compute; its outputs are not checked (the values
+    of a fake reduction are whatever the buffer held). ``mfu`` = 6 x the
+    rank's params x its 65,536 positions over the step and 989 TFLOP/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import CollectiveCounter
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import costrun, dryrun, hillclimb, roofline
+    from repro_torch.launch.mesh import production_mesh_for_counting
+
+    cfg = get_config(RANK_ARCH)
+    free_card("the partitioned train rank cell")
+    with production_mesh_for_counting() as mesh:
+        params, step, state = hillclimb.rank_cell(cfg, TRAIN_CELL_SHAPE, dev, mesh=mesh)
+        t0 = time.perf_counter()
+        with CollectiveCounter() as coll:
+            card = costrun.count(step)
+        count_s = time.perf_counter() - t0
+        card["collectives"] = coll.totals()
+        card["collective_calls"] = card["collectives"].pop("_counts")
+        meta = hillclimb.partitioned_count(cfg, TRAIN_CELL_SHAPE)
+        if card != meta:
+            raise AssertionError(f"the partitioned train rank cell counts differently on the "
+                                 f"card and on meta: {card} != {meta}")
+        reset_launches()
+        timed = hillclimb.time_steps(step, TRAIN_CELL_STEPS)
+        captured_step = hillclimb.captured_train_step(cfg, params, state, step.batch, mesh)
+        captured = hillclimb.time_steps(captured_step, TRAIN_CELL_STEPS, warmup=2)
+        graphs = captured_step.graphs.stats()
+        counts = launch_counts()
+        n = n_params(params)
+        positions = step.batch["tokens"].numel()
+        del params, step, state, captured_step
+    if any(counts.values()):
+        raise AssertionError(f"the partitioned train rank cell launched {counts}")
+    t = hillclimb.terms(meta)
+
+    def mfu(ms):
+        return 6 * n * positions / (ms / 1e3) / roofline.PEAK_FLOPS
+
+    emit({"phase": "rank_cell", "partitioned": True, "arch": RANK_ARCH,
+          "shape": TRAIN_CELL_SHAPE, "mesh": {"data": 16, "model": 16}, "rank": 0,
+          "rows": hillclimb.rank_batch(TRAIN_CELL_SHAPE), "positions": positions,
+          "accum": dryrun.TRAIN_ACCUM, "remat": cfg.remat, "rank_params": n,
+          "gpu": nvidia_smi(), "step_ms": timed["step_ms"], "steps_ms": timed["steps_ms"],
+          "peak_GB": timed["peak_gb"], "captured_step_ms": captured["step_ms"],
+          "captured_steps_ms": captured["steps_ms"], "captured_peak_GB": captured["peak_gb"],
+          "graphs": graphs, "mfu": mfu(timed["step_ms"]),
+          "captured_mfu": mfu(captured["step_ms"]), "launches": counts,
+          "count_card": card, "count_meta_equal": True, "count_card_s": count_s,
+          "t_compute_ms": 1e3 * t["t_compute_s"], "t_memory_ms": 1e3 * t["t_memory_s"],
+          "t_collective_ms": 1e3 * t["t_collective_s"],
+          "compute_share": 1e3 * t["t_compute_s"] / captured["step_ms"],
+          "memory_share": 1e3 * t["t_memory_s"] / captured["step_ms"]})
+    free_card("after the partitioned train rank cell")
+
+
 def cost_phase(dev) -> dict:
     """B3 through ``w8a8_linear``; then the rank cell
     (``launch.hillclimb.rank_cell``, as the hillclimb builds and fills it): B4
@@ -4654,6 +4821,8 @@ def main(argv: list[str]) -> int:
     if argv == ["--dist"]:
         with phase_clock("dist_phase"):
             dist_phase(dev)
+        with phase_clock("partitioned_train_ranks"):
+            partitioned_train_ranks(dev)
         return 0
     if argv == ["--graphs"]:
         global GRAPHS_AB
@@ -4666,6 +4835,8 @@ def main(argv: list[str]) -> int:
     if argv == ["--cost"]:
         with phase_clock("cost_phase"):
             cost_phase(dev)
+        with phase_clock("partitioned_train_cell"):
+            partitioned_train_cell(dev)
         with phase_clock("cost_hillclimb"):
             cost_hillclimb(dev)
         with phase_clock("cost_sweep"):

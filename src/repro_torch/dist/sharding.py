@@ -39,6 +39,17 @@ that slice is replicated over the axis: DTensor gathers it on the select.
 batch) down to the calling rank's slices by its mesh coordinates, the input
 of the partitioned program (``models.model.decode_step``/``prefill`` with
 ``mesh=``), which takes plain tensors, not DTensors.
+
+**ZeRO-1 slices.** A per-layer leaf's slice drops the layer entry, which is
+right for a DTensor restore but is not ZeRO-1: where ``_with_data_axis``
+folds the batch axes into the layer dim of a stacked moment (llama3-8b at
+(data 16, model 16): 32 layers over 16 data ranks), data rank r owns the
+moments of its own layers only. So the partitioned train step keeps its
+moments in the stacked layout, each leaf cut by its whole spec:
+:func:`local_opt_state` makes zero moments of those shapes without a full
+tree, :func:`zero1_plan` gives each stacked leaf's folded dim and its local
+shapes, and :func:`full_tree` gathers any rank's slices (params, per-layer
+or stacked; moments) back to the full tree.
 """
 from __future__ import annotations
 
@@ -48,7 +59,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.launch.mesh import MODEL_SHARD, all_axes, axis_index, axis_size, batch_axes
-from repro_torch.models.model import STACKED, stack_layers
+from repro_torch.models.model import STACKED, param_specs, stack_layers
 from repro_torch.train.optimizer import OptState
 
 # row-parallel weights: contract the sharded input dim (Megatron pair rule)
@@ -265,3 +276,87 @@ def local_shards(tree: Any, shardings: Any, mesh) -> Any:
         return _local(node, sh.spec[1:] if per_layer else sh.spec, mesh)
 
     return walk(tree, shardings, False)
+
+
+def _spec_axes(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def full_tree(local: Any, shardings: Any, mesh) -> Any:
+    """The inverse of :func:`local_shards` and of the ZeRO-1 form
+    (:func:`local_opt_state`): the calling rank's slices gathered back to
+    the full tree, each dim that a spec splits all-gathered over its axes
+    (every rank of the mesh must call it; ``dist.collectives.all_gather``).
+    A per-layer list takes each layer's spec without the layer entry; a
+    stacked leaf its whole spec."""
+    from repro_torch.dist.collectives import all_gather
+
+    def gather(t, spec):
+        for dim, e in enumerate(spec):
+            if _spec_axes(e):
+                t = all_gather(t, mesh, _spec_axes(e), dim=dim)
+        return t
+
+    def walk(node, sh):
+        if isinstance(node, dict):
+            return {k: walk(v, sh[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [gather(layer, sh.spec[1:]) for layer in node]
+        return gather(node, sh.spec)
+
+    return walk(local, shardings)
+
+
+@dataclass(frozen=True)
+class Zero1Leaf:
+    """One stacked leaf of the partitioned train step: the dim its moment
+    folds the batch axes into (None: no dim divides, every data rank holds
+    the moment whole), the rank's shapes of the stacked param shard and of
+    the moment slice, and the leaf's weight in the global gradient norm (one
+    over the ranks holding the same slice)."""
+    fold: Any
+    param_shape: tuple
+    moment_shape: tuple
+    norm_weight: float
+
+
+def zero1_plan(cfg, mesh) -> dict[str, Zero1Leaf]:
+    """Every stacked leaf of ``cfg``'s params by path, as the partitioned
+    train step holds it on ``mesh`` (``param_shardings``,
+    ``opt_state_shardings``; the shapes from ``models.model.param_specs``)."""
+    params = param_specs(cfg)
+    p_sh = param_shardings(params, mesh)
+    o_sh = opt_state_shardings(OptState(step=None, m=params, v=params), mesh).m
+    ba = batch_axes(mesh)
+    out: dict[str, Zero1Leaf] = {}
+
+    def leaf(path, t):
+        node_p, node_o = p_sh, o_sh
+        for k in path.split("/"):
+            node_p, node_o = node_p[k], node_o[k]
+        pspec, mspec = node_p.spec, node_o.spec
+        fold = next((d for d, e in enumerate(mspec) if _spec_axes(e) == ba), None)
+        named = [a for e in mspec for a in _spec_axes(e)]
+        holders = mesh.size() // (axis_size(mesh, named) if named else 1)
+        out[path] = Zero1Leaf(fold, tuple(_local(t, pspec, mesh).shape),
+                              tuple(_local(t, mspec, mesh).shape), 1.0 / holders)
+
+    _map_with_path(leaf, params)
+    return out
+
+
+def local_opt_state(cfg, mesh, device) -> OptState:
+    """Zero AdamW state in the rank-local ZeRO-1 form: f32 moments in the
+    stacked layout, each leaf the rank's slice by its whole
+    ``opt_state_shardings`` spec (for a layer-dim fold, its own layers
+    only), made at the slices' shapes on ``device`` without a full tree; the
+    step an int32 scalar, replicated."""
+    plan = zero1_plan(cfg, mesh)
+
+    def zeros():
+        return _map_with_path(lambda path, _: torch.zeros(plan[path].moment_shape,
+                                                           dtype=torch.float32, device=device),
+                              param_specs(cfg))
+
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=device), m=zeros(),
+                    v=zeros())

@@ -58,10 +58,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import SHAPES, get_config, input_specs, list_archs, shape_applicable
+from repro_torch.dist import sharding as shard_lib
 from repro_torch.launch.partitioned import shard_params
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-from repro_torch.train.train_step import train_step
+from repro_torch.train.train_step import train_step, train_step_
 
 N_DEVICES = 256          # single-pod roofline
 AUDIO_CROSS_LEN = 4096   # stub audio memory length for decode shapes
@@ -231,7 +232,11 @@ def build_cell(cfg, shape: str, device="meta", batch=None, mesh=None):
     ``models.model.prefill`` into a cache of ``seq_len + prefix + 64``;
     decode is :func:`decode_cell`. ``batch`` overrides the shape's global
     batch (a data group's share); ``mesh`` makes a decode cell the rank's
-    partitioned step over its shards of the params."""
+    partitioned step over its shards of the params, and a train cell the
+    rank's in-place partitioned ``train_step_`` at the dry run's
+    ``TRAIN_ACCUM`` (its shards of the params, its ZeRO-1 slices of zero
+    moments, ``batch`` its rows; the
+    callable's ``params``, ``batch`` and ``opt_state`` attributes hold them)."""
     spec = SHAPES[shape]
     if batch is not None:
         spec = dataclasses.replace(spec, global_batch=batch)
@@ -242,6 +247,18 @@ def build_cell(cfg, shape: str, device="meta", batch=None, mesh=None):
             params = shard_params(params, mesh)
         return decode_cell(cfg, spec.global_batch, spec.seq_len, params, device, mesh)[0]
     inputs = _materialize(input_specs(cfg, spec), device)
+    if spec.kind == "train" and mesh is not None:
+        from repro_torch.launch.dryrun import TRAIN_ACCUM
+
+        params = shard_params(params, mesh)
+        opt = shard_lib.local_opt_state(cfg, mesh, device)
+
+        def step():
+            return train_step_(params, opt, inputs, cfg, AdamWConfig(), TRAIN_ACCUM,
+                               mesh=mesh)
+
+        step.params, step.batch, step.opt_state = params, inputs, opt
+        return step
     if spec.kind == "train":
         opt = init_opt_state(params)
         return lambda: train_step(params, opt, inputs, cfg, AdamWConfig(), 1)

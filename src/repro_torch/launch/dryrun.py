@@ -18,13 +18,16 @@ reads:
 * ``cost``: the count of the whole step at full depth over the mesh's
   device count;
 * ``collectives``: for the cells the partitioned program covers (the dense
-  llama-style archs at ``decode_32k`` and ``prefill_32k``: float linears,
-  contiguous lanes, a batch that splits over the data axes), what rank 0's
-  share of that program (``models.model.decode_step``/``prefill`` with
-  ``mesh=``, full depth) moves, counted by ``dist.collectives.CollectiveCounter``
-  on ``meta`` over the fake group (:func:`collective_bytes_from_program`);
-  for every other cell :func:`collective_bytes_from_specs`, what the specs
-  imply. ``collectives_source`` says which: ``"program"`` or ``"specs"``.
+  llama-style archs at ``decode_32k``, ``prefill_32k`` and ``train_4k``:
+  float linears, contiguous lanes, a batch that splits over the data axes),
+  what rank 0's share of that program (``models.model.decode_step``/
+  ``prefill`` or ``train.train_step.train_step`` with ``mesh=``, full depth;
+  the train step at the JAX dry run's :data:`TRAIN_ACCUM` microbatches, each
+  with its backward and, under ``remat``, its recompute) moves, counted by
+  ``dist.collectives.CollectiveCounter`` on ``meta`` over the fake group
+  (:func:`collective_bytes_from_program`); for every other cell
+  :func:`collective_bytes_from_specs`, what the specs imply.
+  ``collectives_source`` says which: ``"program"`` or ``"specs"``.
 
 Usage: ``PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
 [--shape S] [--multi-pod | --all]`` (meta device, no card; writes
@@ -47,9 +50,10 @@ from repro_torch.dist.collectives import CollectiveCounter
 from repro_torch.launch.mesh import axis_size, batch_axes, production_mesh_for_counting
 from repro_torch.launch.partitioned import shard_params
 from repro_torch.models import model as M
-from repro_torch.train.optimizer import init_opt_state
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
 AUDIO_CROSS_LEN = 4096  # stub audio memory length for decode shapes
+TRAIN_ACCUM = 4         # microbatches per train step, as the JAX dry run's
 
 
 def _leaves_with_specs(tree: dict, shardings: dict) -> list:
@@ -221,15 +225,22 @@ def collective_bytes_from_specs(cfg, shape: str, mesh) -> dict:
 
 
 def program_covers(cfg, shape: str, mesh) -> bool:
-    """Does the partitioned program run the cell on ``mesh``: a decode or
-    prefill shape whose batch splits over the data axes (the wide-batch
-    cache spec), for a config ``models.model.check_partitioned`` takes?"""
+    """Does the partitioned program run the cell on ``mesh``: a shape whose
+    batch splits over the data axes (the wide-batch cache spec; a train
+    shape's rank rows over :data:`TRAIN_ACCUM` microbatches too), for a
+    config ``models.model.check_partitioned`` takes (a train shape:
+    ``models.model.train_parallel``)?"""
     spec = SHAPES[shape]
-    if spec.kind not in ("decode", "prefill") or spec.global_batch <= 1 \
-            or spec.global_batch % axis_size(mesh, batch_axes(mesh)):
+    nb = axis_size(mesh, batch_axes(mesh))
+    if spec.global_batch <= 1 or spec.global_batch % nb:
+        return False
+    if spec.kind == "train" and (spec.global_batch // nb) % TRAIN_ACCUM:
         return False
     try:
-        M.check_partitioned(cfg, mesh)
+        if spec.kind == "train":
+            M.train_parallel(cfg, mesh, spec.seq_len)
+        else:
+            M.check_partitioned(cfg, mesh)
     except ValueError:
         return False
     return True
@@ -240,14 +251,23 @@ def collective_bytes_from_program(cfg, shape: str, mesh) -> dict:
     partitioned program (a cell :func:`program_covers`), read from the
     program itself: rank 0's shards of the params (full depth), its rows of
     the batch and, for decode, its lanes of a cache of ``seq_len`` slots,
-    run on ``meta`` under ``CollectiveCounter`` (the form of
+    for train its ZeRO-1 slices of the moments and :data:`TRAIN_ACCUM`
+    microbatches, run on ``meta`` under ``CollectiveCounter`` (the form of
     :func:`collective_bytes_from_specs`, ``_counts`` included)."""
+    from repro_torch.train.train_step import train_step
+
     spec = SHAPES[shape]
     params = shard_params(M.init_params(cfg, None, device="meta"), mesh)
     batch = input_specs(cfg, spec)
-    tokens = shard_lib.local_shards(batch, shard_lib.batch_shardings(cfg, spec, mesh, batch),
-                                    mesh)["tokens"]
+    local = shard_lib.local_shards(batch, shard_lib.batch_shardings(cfg, spec, mesh, batch),
+                                   mesh)
+    tokens = local["tokens"]
     b = tokens.shape[0]
+    if spec.kind == "train":
+        state = shard_lib.local_opt_state(cfg, mesh, "meta")
+        with CollectiveCounter() as counter:
+            train_step(params, state, local, cfg, AdamWConfig(), TRAIN_ACCUM, mesh=mesh)
+        return counter.totals()
     with torch.no_grad(), CollectiveCounter() as counter:
         if spec.kind == "decode":
             cache = M.init_decode_cache(cfg, b, spec.seq_len, device="meta")

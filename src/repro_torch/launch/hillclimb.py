@@ -16,8 +16,11 @@ partitioned program runs (``dryrun.program_covers``), the partitioned rank
 cell (``rank_cell_partitioned``): rank 0 of that mesh on a ``fake`` group, the
 same lanes (every KV head, the replicated cache) with 1/16 of the weights,
 running its partitioned step (``models.model.decode_step(..., mesh=)``),
-its terms the rank's own, collectives included. ``--device cuda`` (the default)
-times that cell's step on the card, every lane full (decode cells; the median
+its terms the rank's own, collectives included. A ``train_4k`` cell's
+partitioned rank holds 1/16 of the weights, its 1/256 ZeRO-1 slice of the
+moments and its 16 rows, and runs the in-place partitioned train step at the
+dry run's ``TRAIN_ACCUM`` (:func:`rank_cell`, :func:`captured_train_step`).
+``--device cuda`` (the default) times that cell's step on the card, every lane full (decode cells; the median
 of 10 steps after a warm-up), eagerly and through ``core.interleave``'s
 captured decode program (:func:`captured_step`: the card's time, not the
 host's), each with ``roofline_share``, its memory term over the step.
@@ -112,11 +115,25 @@ def rank_cell(cfg, shape: str, device="cuda", mesh=None):
     ``fake`` group: ``launch.mesh.production_mesh_for_counting``) it is the
     calling rank's partitioned cell: its shards of the same weights (the
     full tree freed once they are cut), the same lanes, each step
-    ``decode_step(..., mesh=)``, whose collectives move nothing."""
+    ``decode_step(..., mesh=)``, whose collectives move nothing.
+
+    A train shape takes ``mesh`` and gives (params, step, opt_state): the
+    rank's shards of the same weights, its ZeRO-1 slices of zero moments,
+    :func:`rank_batch` rows of seeded tokens and labels (``step.batch``),
+    each call one in-place partitioned train step at the dry run's
+    ``TRAIN_ACCUM`` (``costrun.build_cell``)."""
     spec = SHAPES[shape]
-    if spec.kind != "decode":
-        raise ValueError(f"the rank cell is a decode cell, not {spec.kind}")
     dev = torch.device(device)
+    if spec.kind == "train":
+        if mesh is None:
+            raise ValueError("the train rank cell is the partitioned one: pass mesh=")
+        step = costrun.build_cell(cfg, shape, dev, batch=rank_batch(shape), mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for v in step.batch.values():
+            v.copy_(torch.randint(0, cfg.vocab_size, v.shape, generator=gen, device=dev))
+        return step.params, step, step.opt_state
+    if spec.kind != "decode":
+        raise ValueError(f"the rank cell is a decode or train cell, not {spec.kind}")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = costrun.M.init_params(cfg, gen, device=dev)
     if mesh is not None:
@@ -148,16 +165,35 @@ def captured_step(cfg, params, cache, mesh=None):
     return step
 
 
+def captured_train_step(cfg, params, opt_state, batch, mesh):
+    """The train rank cell's in-place step (:func:`rank_cell`) through a
+    ``train.train_step.TrainGraphs`` of its own (``step.graphs``): its first
+    call eager, its second captured (two warm-ups), then replays."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainGraphs
+
+    graphs = TrainGraphs(batch["tokens"].device)
+
+    def step():
+        return graphs.step(params, opt_state, batch, cfg, AdamWConfig(), dryrun.TRAIN_ACCUM,
+                           mesh=mesh)
+
+    step.graphs = graphs
+    return step
+
+
 def partitioned_count(cfg, shape: str) -> dict | None:
     """The partitioned rank cell's count on ``meta``: ``costrun.count``'s
     totals of rank 0's step on the production mesh's ``fake`` group, with
     its ``collectives`` (``dist.collectives.CollectiveCounter``, without the
     ``_counts``) and their ``_counts`` under ``collective_calls``. None
-    where the cell has no partitioned rank: a shape other than decode, or
-    one the partitioned program does not run (``dryrun.program_covers``)."""
+    where the cell has no partitioned rank: a shape other than decode or
+    train, or one the partitioned program does not run
+    (``dryrun.program_covers``)."""
     from repro_torch.dist.collectives import CollectiveCounter
 
-    if SHAPES[shape].kind != "decode":
+    kind = SHAPES[shape].kind
+    if kind not in ("decode", "train"):
         return None
     with production_mesh_for_counting() as mesh:
         if not dryrun.program_covers(cfg, shape, mesh):

@@ -133,7 +133,8 @@ def axis_index(mesh, axes) -> int:
     return idx
 
 
-def _spawned(rank: int, world_size: int, workdir: str, fn: Callable, args: tuple) -> None:
+def _spawned(rank: int, world_size: int, workdir: str, fn: Callable, args: tuple,
+             kwargs: dict) -> None:
     import torch
     import torch.distributed as dist
 
@@ -142,15 +143,15 @@ def _spawned(rank: int, world_size: int, workdir: str, fn: Callable, args: tuple
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=SPAWN_TIMEOUT_S))
     try:
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
 
 
-def spawn(fn: Callable, world_size: int, *args) -> list[Any]:
-    """``fn(*args)`` in ``world_size`` new processes, each a rank of one
+def spawn(fn: Callable, world_size: int, *args, **kwargs) -> list[Any]:
+    """``fn(*args, **kwargs)`` in ``world_size`` new processes, each a rank of one
     ``gloo`` group (``spawn`` start method; a ``file://`` store in a fresh
     temporary directory, removed after), and each rank's return value, in
     rank order (passed back through ``torch.save``). ``fn`` must be a
@@ -163,7 +164,7 @@ def spawn(fn: Callable, world_size: int, *args) -> list[Any]:
 
     workdir = tempfile.mkdtemp(prefix="repro_torch_group_")
     try:
-        mp.spawn(_spawned, args=(world_size, workdir, fn, args), nprocs=world_size,
+        mp.spawn(_spawned, args=(world_size, workdir, fn, args, kwargs), nprocs=world_size,
                  join=True)
         return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
                 for r in range(world_size)]

@@ -26,7 +26,10 @@ reshape to heads and RoPE, which pairs dims across the head. Every rank
 writes the whole K/V into its lanes (the wide-batch cache spec replicates
 them over ``model``) and attends with its query heads over its window of KV
 heads, a view of the lanes (B4 reads it in place). The output projection
-then gives the rank's partial sum, which the block reduces.
+then gives the rank's partial sum, which the block reduces. The training
+form (:func:`attention_dense` with ``tp``) attends the same way over the
+whole sequence, without a cache; the gather's backward is a
+reduce-scatter.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_mapping
 from repro_torch.core.quant import raw_weight
 from repro_torch.device import torch_dtype
-from repro_torch.dist.collectives import all_gather
+from repro_torch.dist.collectives import gather_from
 from repro_torch.models.layers import apply_rope, dense_init, softcap
 
 NEG_INF = -2.3819763e38  # bf16-safe large negative
@@ -81,8 +84,10 @@ def _own(bias: torch.Tensor, y: torch.Tensor, tp) -> torch.Tensor:
 
 def _gather_kv(k: torch.Tensor, v: torch.Tensor, tp):
     """The rank's K and V columns (B, T, c) each -> every rank's, (B, T,
-    size * c) each, through one all-gather over ``model``."""
-    kv = all_gather(torch.stack([k, v]), tp.mesh, "model", dim=-1)
+    size * c) each, through one all-gather over ``model`` (under autograd
+    its backward is one reduce-scatter: each rank's K/V gradients are
+    partial sums over the query heads it holds)."""
+    kv = gather_from(torch.stack([k, v]), tp.mesh, "model", dim=-1)
     return kv[0], kv[1]
 
 
@@ -171,7 +176,8 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
 
 def attention_dense(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     window: Optional[int] = None, causal: bool = True,
-                    positions: Optional[torch.Tensor] = None, return_kv: bool = False):
+                    positions: Optional[torch.Tensor] = None, return_kv: bool = False,
+                    tp=None):
     """Full-sequence attention over x (B, T, d), the training and full
     forward's form (causal; gemma2's local layers pass their ``window``) and
     the audio encoder's (``causal=False``). Queries run ``cfg.q_chunk`` at a
@@ -181,13 +187,26 @@ def attention_dense(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     before ``(i + 1)·chunk``, which the mask would hide anyway. ``positions``
     (B, T) are the RoPE positions (default 0..T-1). Returns y (B, T, d), and
     with ``return_kv`` also (k, v), each (B, Hkv, T, hd) after RoPE. Float
-    weights only (``raw_weight``)."""
+    weights only (``raw_weight``).
+
+    Under ``tp`` (the partitioned train step) ``x`` is the whole sequence, the
+    rank projects its query heads and its K/V columns, gathers K/V over
+    ``model`` before the reshape to heads and RoPE (:func:`_project_qkv`),
+    attends with its heads against the KV heads they read (:func:`kv_window`;
+    no cache) and returns its partial sum of the row-parallel ``wo``, which
+    the block reduces."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     if positions is None:
         positions = torch.arange(t, device=x.device).expand(b, t)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp=tp)
+    hq = q.shape[1]
+    if tp is None:
+        qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
+    else:
+        j0, j1 = kv_window(cfg, hq, tp)
+        qg = q.reshape(b, j1 - j0, hq // (j1 - j0), t, hd)
+        k, v = k[:, j0:j1], v[:, j0:j1]
     cq = min(cfg.q_chunk, t)
     if t % cq != 0:
         cq = t                                   # ragged tail: one chunk
@@ -202,7 +221,7 @@ def attention_dense(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         s = s + _mask_bias(k_pos[lo:lo + cq], k_pos[:klen], window, causal)
         pr = torch.softmax(s, dim=-1).to(x.dtype)
         outs.append(torch.einsum("bkgts,bksd->bkgtd", pr, v[:, :, :klen]))
-    y = torch.cat(outs, dim=3).reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
+    y = torch.cat(outs, dim=3).reshape(b, hq, t, hd).transpose(1, 2).reshape(b, t, -1)
     out = _dense_matmul(p["wo"], y)
     return (out, (k, v)) if return_kv else out
 

@@ -58,6 +58,16 @@ package's ``_sp_constraint``): a block all-gathers its normed input and
 reduce-scatters its output. The arithmetic is the unsharded program's up to
 the order of the reductions. The paged cache, W8A8 and the other families
 raise under a mesh.
+
+The same family's training form (``mesh=`` on :func:`forward` and
+:func:`loss_fn`, the loss of ``train.train_step.train_step`` with ``mesh=``)
+runs the full-sequence blocks over the rank's rows with the same split
+(:func:`train_parallel`), under autograd: every collective has its
+conjugate in the backward pass (``dist.collectives``: a block's reduction
+passes its gradient unchanged, a column input's gradient is all-reduced,
+the K/V gather's is reduce-scattered), the remat recompute runs the block's
+collectives again as far as it recomputes, and the head's vocab columns go
+through a vocab-parallel cross-entropy (:func:`_vocab_parallel_xent`).
 """
 from __future__ import annotations
 
@@ -70,7 +80,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_mapping
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.dist.collectives import TensorParallel, all_reduce
+from repro_torch.dist.collectives import TensorParallel, all_reduce, reduce_from
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -223,7 +233,8 @@ def stack_layers(tree: dict, stack: Callable) -> dict:
 def unstack_layers(tree: dict) -> dict:
     """The inverse of :func:`stack_layers`: each stacked ``(nL, ...)``
     subtree under a :data:`STACKED` key as a list of per-layer dicts whose
-    leaves are the stacked leaves' slices ``t[i]``."""
+    leaves are the stacked leaves' slices ``t[i]`` (a leaf may also be a
+    list of the layers' leaves)."""
     def layer(node, i):
         return {k: layer(v, i) for k, v in node.items()} if isinstance(node, dict) else node[i]
 
@@ -233,7 +244,7 @@ def unstack_layers(tree: dict) -> dict:
             leaf = tree[key]
             while isinstance(leaf, dict):
                 leaf = next(iter(leaf.values()))
-            out[key] = [layer(tree[key], i) for i in range(leaf.shape[0])]
+            out[key] = [layer(tree[key], i) for i in range(len(leaf))]
     return out
 
 
@@ -361,7 +372,7 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``model``."""
     w = params["embed"]["w"]
     if tp is not None and w.shape[0] < cfg.vocab_size:
-        x = all_reduce(L.embed_rows(params["embed"], tokens, tp.offset(w.shape[0])), tp.mesh)
+        x = reduce_from(L.embed_rows(params["embed"], tokens, tp.offset(w.shape[0])), tp.mesh)
     else:
         x = L.embed(params["embed"], tokens)
     if cfg.name.startswith("gemma"):
@@ -376,11 +387,13 @@ def _post_norm(lp: dict, name: str, y: torch.Tensor, cfg: ModelConfig) -> torch.
 def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False,
               tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x + the MLP (or MoE) half of a block. Under ``tp`` the normed input
-    is gathered over the sequence where it is sharded there, and the
+    is the column-parallel products' (``TensorParallel.column_input``:
+    gathered over the sequence where it is sharded there), and the
     row-parallel ``w_down``'s partial sums reduced (``TensorParallel.reduce``)."""
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    split = tp is not None and lp["mlp"]["w_down"].shape[0] < cfg.d_ff
     if tp is not None:
-        h = tp.gather_seq(h)
+        h = tp.column_input(h, split)
     if cfg.family == "moe":
         m = moe_lib.moe_einsum(lp["moe"], h, cfg)   # float experts in every form, as in JAX
     elif gemm:
@@ -388,7 +401,7 @@ def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False,
     else:
         m = dispatch.mlp(lp["mlp"], h, cfg)  # W8A8 GEMVs under quantized_decode
     if tp is not None:
-        m = tp.reduce(m, lp["mlp"]["w_down"].shape[0] < cfg.d_ff)
+        m = tp.reduce(m, split)
     return x + _post_norm(lp, "post_mlp_norm", m, cfg)
 
 
@@ -639,7 +652,7 @@ def _remat(fn: Callable, cfg: ModelConfig, collect: bool = False) -> Callable:
 
 
 def _dense_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, window: Optional[int] = None,
-                 return_kv: bool = False):
+                 return_kv: bool = False, tp: Optional[TensorParallel] = None):
     """One pre-norm block over the whole sequence x (B, S, d): causal
     attention (gemma2's local layers with their ``window``: the JAX
     package's ``_windowed_attn`` is this attention with the window its layer
@@ -651,20 +664,29 @@ def _dense_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, window: Optional[i
     ``model`` axis when ``cfg.seq_parallel`` is set (``_sp_constraint``), a
     layout hint that is the identity without a mesh. This form runs on one
     rank, where it is the identity too, so ``seq_parallel`` changes nothing
-    here; the partitioned prefill (``prefill(..., mesh=)``) takes it as
-    sequence parallelism."""
+    here. Under ``tp`` (the partitioned train step, :func:`loss_fn` with
+    ``mesh``) it is the rank's share of the block: its heads and MLP
+    columns, each half's partial sum reduced over ``model`` (under
+    ``tp.seq`` x is the rank's share of the sequence, gathered for each
+    half's products and scattered after)."""
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    out = attn_lib.attention_dense(lp["attn"], h, cfg, window=window, return_kv=return_kv)
+    if tp is not None:
+        h = tp.column_input(h, True)
+    out = attn_lib.attention_dense(lp["attn"], h, cfg, window=window, return_kv=return_kv,
+                                   tp=tp)
     a, kv = out if return_kv else (out, None)
-    x = _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=True)
+    if tp is not None:
+        a = tp.reduce(a, True)
+    x = _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=True, tp=tp)
     return (x, kv) if return_kv else x
 
 
-def _scan_layers(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _scan_layers(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """The dense, vlm and MoE stack over the whole sequence, each layer with
     its window (:func:`layer_windows`)."""
     for lp, window in zip(params["layers"], layer_windows(cfg)):
-        x = _remat(_dense_block, cfg)(lp, x, cfg, window)
+        x = _remat(_dense_block, cfg)(lp, x, cfg, window, False, tp)
     return x
 
 
@@ -742,15 +764,23 @@ def _audio_decode_stack(params: dict, x: torch.Tensor, cross_kv, cfg: ModelConfi
     return x
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def forward(params: dict, batch: dict, cfg: ModelConfig, *, mesh=None) -> torch.Tensor:
     """The full-sequence forward: ``batch`` {``tokens`` (B, S), and for vlm
     optionally ``prefix_embeds`` (B, P, d), for audio ``src_frames`` (B, S_src,
     d)} -> final-normed hidden states (B, S, d). gemma scales the embeddings
     by sqrt(d_model) rounded to the activation dtype; vlm runs the stack over
     the prefix and the tokens and keeps the tokens' rows; audio encodes the
-    frames, projects each decoder layer's cross K/V and runs the decoder."""
+    frames, projects each decoder layer's cross K/V and runs the decoder.
+
+    With ``mesh`` it is the partitioned forward of the dense llama-style
+    family (:func:`train_parallel`): params and tokens the rank's shards,
+    the result its rows, under ``cfg.seq_parallel`` (S >= 16) its share of
+    the sequence."""
     _check_family(cfg)
     tokens = batch["tokens"]
+    if mesh is not None:
+        return _forward_partitioned(params, tokens, cfg, train_parallel(cfg, mesh,
+                                                                        tokens.shape[1]))
     if cfg.family == "audio":
         mem = _audio_encode(params, batch["src_frames"].to(torch_dtype(cfg.dtype)), cfg)
         x = _audio_decode_stack(params, L.embed(params["embed"], tokens),
@@ -770,16 +800,91 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, chunk: int = 1024) -> torch.Tensor:
+def train_parallel(cfg: ModelConfig, mesh, seq_len: int) -> TensorParallel:
+    """The rank's :class:`TensorParallel` for the partitioned forward and loss
+    of ``seq_len`` tokens: :func:`check_partitioned`, and every attention
+    and MLP width split over ``model`` (a product replicated there would
+    take a partial gradient that the step does not sum); sequence
+    parallelism under ``cfg.seq_parallel`` with ``seq_len`` >= 16, as the
+    prefill takes it."""
+    from repro_torch.launch.mesh import MODEL_SHARD
+
+    check_partitioned(cfg, mesh)
+    widths = {"n_heads * head_dim": cfg.n_heads * cfg.head_dim,
+              "n_kv_heads * head_dim": cfg.n_kv_heads * cfg.head_dim, "d_ff": cfg.d_ff}
+    for name, n in widths.items():
+        if n % MODEL_SHARD:
+            raise ValueError(f"{cfg.name}: {name} = {n} is not split over 'model' (it does "
+                             f"not divide by {MODEL_SHARD}); the partitioned train step "
+                             f"takes split products only")
+    tp = TensorParallel(mesh, seq=cfg.seq_parallel and seq_len >= 16)
+    if tp.seq and seq_len % tp.size:
+        raise ValueError(f"sequence parallelism: {seq_len} tokens do not split over the "
+                         f"{tp.size} ranks of 'model'")
+    return tp
+
+
+def partial_over_model(cfg: ModelConfig, mesh, seq_len: int) -> tuple[str, ...]:
+    """The stacked paths of the params that :func:`loss_fn` with ``mesh``
+    leaves replicated over ``model`` but gives each rank a partial gradient
+    of, which sums over ``model`` to the whole: under sequence parallelism
+    every norm scale (each rank normalizes its share of the sequence).
+    Nothing else: a norm's input gradient comes whole from the column
+    input's reduction, and the q/k/v biases, stacked (nL, n), split over
+    ``model`` as their weights' columns do."""
+    if not train_parallel(cfg, mesh, seq_len).seq:
+        return ()
+    return ("layers/attn_norm/scale", "layers/mlp_norm/scale", "final_norm/scale")
+
+
+def _forward_partitioned(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                         tp: TensorParallel) -> torch.Tensor:
+    x = tp.local_seq(_embed(params, tokens, cfg, tp))
+    x = _scan_layers(params, x, cfg, tp)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                         tp: TensorParallel) -> torch.Tensor:
+    """The summed cross-entropy of f32 ``logits`` (B, C, V / model), the
+    rank's vocab columns, against ``labels`` (B, C), through two f32
+    all-reduces over ``model`` a chunk: (1) the max of each position's
+    logits (detached: the log-sum-exp does not depend on it), (2) the sum
+    of each position's exps beside its gold logit, which lives on one rank
+    and is zero elsewhere (one stacked reduction of the loss's two
+    statistics a token)."""
+    n = logits.shape[-1]
+    mx = all_reduce(logits.detach().amax(-1), tp.mesh, "model", op="max")
+    local = labels - tp.offset(n)
+    hit = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = torch.where(hit, gold, torch.zeros((), dtype=gold.dtype, device=gold.device))
+    stats = reduce_from(torch.stack([torch.exp(logits - mx[..., None]).sum(-1), gold]),
+                        tp.mesh, "model")
+    return (torch.log(stats[0]) + mx - stats[1]).sum()
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, chunk: int = 1024, *,
+            mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy over the B·S positions of ``batch``
     (``labels`` (B, S) beside the :func:`forward` inputs), in f32: the head
     (tied: the embedding) runs ``chunk`` positions at a time (one chunk if
     it does not divide S), with the final-logit softcap, so (B, S, V) logits
     never exist at once. MoE adds 0.01 x :func:`moe.aux_load_balance_loss` of
     layer 0's router over the first min(S, 512) final-normed hidden states,
-    as the JAX package computes it."""
-    x = forward(params, batch, cfg)
+    as the JAX package computes it.
+
+    With ``mesh`` it is the partitioned loss of the dense llama-style family
+    over the rank's rows (the mean over them, the same on every rank of
+    ``model``): the forward of :func:`forward` with ``mesh``, the final hidden
+    states gathered over the sequence under sequence parallelism, the head's
+    vocab columns and :func:`_vocab_parallel_xent` a chunk."""
     labels = batch["labels"].long()
+    if mesh is not None:
+        tp = train_parallel(cfg, mesh, batch["tokens"].shape[1])
+        x = tp.column_input(_forward_partitioned(params, batch["tokens"], cfg, tp), True)
+    else:
+        x = forward(params, batch, cfg)
     b, s, _ = x.shape
     w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     c = min(chunk, s)
@@ -788,6 +893,9 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, chunk: int = 1024) -> t
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, s, c):
         logits = L.softcap((x[:, lo:lo + c] @ w).float(), cfg.logit_softcap)
+        if mesh is not None:
+            total = total + _vocab_parallel_xent(logits, labels[:, lo:lo + c], tp)
+            continue
         gold = torch.gather(logits, -1, labels[:, lo:lo + c, None])[..., 0]
         total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
     loss = total / (b * s)
@@ -816,7 +924,7 @@ def _prefill_forward(params: dict, cache: dict, x: torch.Tensor, cfg: ModelConfi
     for i, lp in enumerate(params["layers"]):
         h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
         if tp is not None:
-            h = tp.gather_seq(h)
+            h = tp.column_input(h, _wo_split(lp, cfg))
         a = attn_lib.attention_prefill(lp["attn"], h, cache["k"][i], cache["v"][i], cfg,
                                        step=step, window=windows[i], tp=tp)
         if tp is not None:

@@ -10,6 +10,15 @@ into the params, moments and step it is given, bit for bit the functional
 result. The step, the learning rate, the bias corrections and the clip scale
 stay tensors on the params' device throughout (nothing comes back to the
 host inside a step).
+
+**Over shards** (``mesh=``, the partitioned train step): the trees are a
+rank's matching slices of the params, gradients and moments (any tree
+shape), updated element by element as the whole tree would be; only the
+clip's norm reaches across ranks. Each leaf adds its sum of squares times
+its weight (``norm_weights``: one over the ranks that hold the same slice,
+so a leaf replicated over ``model``, or over every data rank, counts once),
+then one f32 all-reduce over the whole mesh gives every rank the unsharded
+norm. The step counter and the learning rate stay replicated.
 """
 from __future__ import annotations
 
@@ -76,20 +85,32 @@ def lr_at(step, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
+def clip_by_global_norm(grads: Any, max_norm: float, *, mesh=None, norm_weights: Any = None):
     """(grads scaled by min(1, max_norm / ‖grads‖) in f32, each cast back to
-    its dtype; the f32 global norm)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    its dtype; the f32 global norm). With ``mesh`` the grads are a rank's
+    slices and the norm the unsharded one (the module's docstring)."""
+    if mesh is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    else:
+        from repro_torch.dist.collectives import all_reduce
+        from repro_torch.launch.mesh import all_axes
+
+        sq = sum(torch.sum(torch.square(g.float())) * w
+                 for g, w in zip(tree_leaves(grads), tree_leaves(norm_weights)))
+        gn = torch.sqrt(all_reduce(sq, mesh, all_axes(mesh)))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: OptState, cfg: AdamWConfig):
+def adamw_update(params: dict, grads: dict, state: OptState, cfg: AdamWConfig, *,
+                 mesh=None, norm_weights: Any = None):
     """One AdamW step in f32 (clipped grads, bias-corrected moments, decoupled
     weight decay), each param cast back to its dtype. Returns (params',
-    state', {"lr", "grad_norm"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    state', {"lr", "grad_norm"}). With ``mesh``, over a rank's slices (the
+    module's docstring)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh=mesh,
+                                       norm_weights=norm_weights)
     step = state.step + 1
     lr = lr_at(step, cfg)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -109,12 +130,14 @@ def adamw_update(params: dict, grads: dict, state: OptState, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def adamw_update_(params: dict, grads: dict, state: OptState, cfg: AdamWConfig):
+def adamw_update_(params: dict, grads: dict, state: OptState, cfg: AdamWConfig, *,
+                  mesh=None, norm_weights: Any = None):
     """:func:`adamw_update` IN PLACE: the new params, ``m``, ``v`` and step are
     written into ``params`` and ``state``'s tensors (the same expressions in
     the same order, so the bits are the functional update's). Returns
     (params, state, {"lr", "grad_norm"}), the objects it was given."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh=mesh,
+                                       norm_weights=norm_weights)
     step = state.step.add_(1)
     lr = lr_at(step, cfg)
     b1, b2 = cfg.beta1, cfg.beta2

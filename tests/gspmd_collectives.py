@@ -1,10 +1,12 @@
 """GSPMD's collectives against the port's partitioned program, for one cell
 (a one-off comparison, not a test).
 
-The JAX package partitions its decode and prefill programs by compiling them
-under the sharding specs (``repro.launch.dryrun.build_cell_with_cfg``);
-GSPMD picks the collectives. The port writes them out
-(``models.model.decode_step``/``prefill`` with ``mesh=``). This script
+The JAX package partitions its decode, prefill and train programs by
+compiling them under the sharding specs
+(``repro.launch.dryrun.build_cell_with_cfg``; the train step at its
+``TRAIN_ACCUM`` microbatches, ZeRO-1 moments); GSPMD picks the collectives.
+The port writes them out (``models.model.decode_step``/``prefill`` and
+``train.train_step.train_step`` with ``mesh=``). This script
 lowers and compiles the JAX cell for a small mesh of forced host devices in
 a subprocess (the JAX tools set ``XLA_FLAGS`` when imported), reads the
 compiled program's collectives (``collective_bytes_from_hlo``, and each
@@ -16,7 +18,10 @@ counted 2x.
     PYTHONPATH=src python tests/gspmd_collectives.py [--arch llama3-8b] \\
         [--shape decode_32k] [--mesh 2,2] [--full]
 
-(``--full``: the full-width config; default its smoke config.)
+(``--full``: the full-width config; default its smoke config.) With
+``--shape train_4k`` the JAX side compiles the whole train step (the
+accumulation scan's body read once, as the JAX dry run reads it), and the
+port's count is one step with every microbatch and recompute.
 """
 import argparse
 import json

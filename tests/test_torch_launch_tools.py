@@ -289,32 +289,49 @@ def test_dryrun_full_size_llama_on_meta(shape):
                        ("transcendentals", "transcendentals")):
             assert cost[key] * 256 == pytest.approx(full[k], rel=1e-12, abs=1e-3)
         assert costrun.cell_count("llama3-8b", shape)["kernels"] == full["kernels"]
-    # Megatron all-reduces (2x each) of a rank's 8 (decode) or 16 (train)
-    # lanes' bf16 activations: wo and w_down in 32 layers, and the embedding
-    b, t, d = (8, 1, 4096) if shape == "decode_32k" else (16, 4096, 4096)
-    passes = 1 if shape == "decode_32k" else 3        # train: fwd, bwd, remat
-    want = 2.0 * b * t * d * 2 * (passes * 2 * 32 + 1)
-    if shape == "train_4k":
-        # the head's input gradient and loss statistics, and the gradients
-        # over the data axis (a rank's params: sharded leaves over 16)
-        cfg = get_config("llama3-8b")
-        sharded = sum(math.prod(x) for x in (
-            (cfg.vocab_size, d), (d, cfg.vocab_size),
-            *[(32, d, n) for n in (4096, 1024, 1024, 4096, 14336, 14336, 14336)]))
-        norms = 32 * 2 * d + d
-        want += 2.0 * b * t * (d * 2 + 8) + 2.0 * 2 * (sharded // 16 + norms)
     coll = dict(res["collectives"])
     counts = coll.pop("_counts")
+    # counted from the partitioned program (rank 0 of (data 16, model 16))
+    assert res["collectives_source"] == "program"
+    d, n_l, kv = 4096, 32, 1024              # kv: the 8 KV heads' 128 columns
     if shape == "decode_32k":
-        # counted from the partitioned program, which adds one all-gather a
+        # Megatron all-reduces (2x each) of a rank's 8 lanes' bf16 activations,
+        # wo and w_down in 32 layers and the embedding, and one all-gather a
         # layer of the new token's K/V (8 lanes x 2 x 1,024 columns, bf16)
-        assert res["collectives_source"] == "program"
+        b, t = 8, 1
+        want = 2.0 * b * t * d * 2 * (2 * n_l + 1)
         assert coll == pytest.approx({"all-reduce": want, "all-gather": 32 * 8 * 2 * 1024 * 2},
                                      rel=1e-12)
         assert counts == {"all-reduce": 2 * 32 + 1, "all-gather": 32}
-    else:
-        assert res["collectives_source"] == "specs"
-        assert coll == pytest.approx({"all-reduce": want}, rel=1e-12)
+        return
+    # train: the rank's 16 rows in 4 microbatches of 4 x 4,096 tokens, remat on.
+    # A microbatch all-reduces its bf16 activations (b·T·d, 2x each) 2 + 5 x 32
+    # times: the embedding and the head's input gradient; a layer's two block
+    # reductions forward, their two conjugates (the column inputs' gradients)
+    # backward, and the attention's reduction again in the recompute (which
+    # stops at w_down's saved input, before the MLP's reduction); and the loss
+    # reduces three f32 statistics a token (the max, the sum of exps, the gold
+    # logit) over the vocab shards in two calls a 1,024-token chunk. A step
+    # adds two f32 scalars (the loss over the data axis, the clip's norm over
+    # the mesh). K/V: an all-gather a layer forward and in the recompute, a
+    # reduce-scatter a layer backward (64 of 1,024 columns a rank). ZeRO-1:
+    # each of the 12 leaves' f32 gradient reduce-scattered over data to its
+    # owner (a 1/16 slice of the rank's shard) and its bf16 update
+    # all-gathered back (the rank's shard whole).
+    accum, b, t, a = 4, 4, 4096, 2
+    cfg = get_config("llama3-8b")
+    sharded = sum(math.prod(x) for x in (
+        (cfg.vocab_size, d), (d, cfg.vocab_size),
+        *[(n_l, d, n) for n in (4096, kv, kv, 4096, 14336, 14336, 14336)]))
+    shard = sharded // 16 + n_l * 2 * d + d             # a rank's params, elements
+    act = b * t * d * a
+    want = {"all-reduce": 2.0 * (accum * (2 + 5 * n_l) * act + accum * b * t * 3 * 4 + 2 * 4),
+            "all-gather": accum * 2 * n_l * 2 * b * t * kv * a + shard * a,
+            "reduce-scatter": accum * n_l * 2 * b * t * (kv // 16) * a + shard // 16 * 4}
+    assert coll == pytest.approx(want, rel=1e-12)
+    assert counts == {"all-reduce": accum * (2 + 5 * n_l) + accum * 2 * (t // 1024) + 2,
+                      "all-gather": accum * 2 * n_l + 12,
+                      "reduce-scatter": accum * n_l + 12}
 
 
 def test_make_production_mesh_on_a_fake_group():

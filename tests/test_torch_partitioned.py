@@ -224,7 +224,7 @@ def test_dryrun_counts_the_program(arch, shape, multi_pod):
 def test_dryrun_moe_and_other_cells_stay_specs():
     res = dryrun.run_cell("olmoe-1b-7b", "decode_32k", False)
     assert res["status"] == "ok" and res["collectives_source"] == "specs"
-    for arch, shape in (("llama3-8b", "long_500k"), ("llama3-8b", "train_4k"),
+    for arch, shape in (("llama3-8b", "long_500k"), ("gemma2-27b", "train_4k"),
                         ("gemma2-27b", "decode_32k")):
         with tmesh.production_mesh_for_counting() as m:
             assert dryrun.collectives_on(t_get_config(arch), shape, m)[1] == "specs"
