@@ -336,6 +336,25 @@ the 40-cell dry run and cost count on ``meta`` with the roofline table at the
 H100's rates (``cost_cell`` lines; about 15 minutes of host time, most of it
 rwkv6's per-token scan, no card; the dense archs' ``train_4k`` collectives
 counted from the partitioned train step).
+
+    python3 chip_smoke.py --partitioned
+
+runs the partitioned program of gemma2-27b, internvl2-2b and
+seamless-m4t-large-v2 (tied head and softcaps, GSPMD's padded vocab, the
+image prefix, the encoder and cross K/V under ``mesh=``): (a) two gloo ranks
+on the card, each arch at full width cut to 2 layers (seamless 2 + 2), f32:
+a prefill and 8 greedy steps on (data 1, model 2), logits, tokens and caches
+held to the unsharded program on the card, counts to ``meta``
+(``partitioned`` lines); two train steps on (1, 2) and (2, 1) (gemma2-27b on
+(1, 2) alone: two f32 ranks of its (2, 1) overfill the card) held to the
+unsharded step rank 0 runs (``partitioned_train`` lines); (b) B4 at
+gemma2-27b's rank launch (2 query heads over KV head 0, 32,768 slots,
+softcap 50.0), a local and a global layer, checked and timed beside SDPA;
+(c) the ``decode_32k`` rank of (16, 16) on a ``fake`` group for each arch
+(gemma2-27b at 4 of its 8 lanes), card counts equal to ``meta``'s, eager and
+captured steps, exact B4 launches (``rank_cell`` lines); (d) gemma2-27b's
+``train_4k`` rank as ``--cost`` runs llama3-8b's. It ends with a
+``kernels`` line of B4's row at (b)'s global launch and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -4252,19 +4271,61 @@ def time_rank_attention(cfg, cache, dev) -> None:
 # the partitioned program (models.model.decode_step/prefill with mesh=)
 # ---------------------------------------------------------------------------
 
-PART_LAYERS = 4        # (a): llama3-8b at full width, 4 of its 32 layers, f32
-PART_LANES, PART_LMAX, PART_PROMPT, PART_STEPS = 4, 256, 64, 8
+# the archs of --partitioned; the default run drives llama3-8b (RANK_ARCH)
+PART_ARCHS = ("gemma2-27b", "internvl2-2b", "seamless-m4t-large-v2")
+# (a): full width, f32, depth cut: llama3-8b's decode ranks 4 of its 32 layers,
+# every other run PTRAIN_LAYERS (gemma2's local + global pair; seamless as many
+# encoder layers); PART_LANES rows of PART_PROMPT tokens (internvl2-2b behind
+# its 256-token image prefix; seamless a one-token decoder input over PART_SRC
+# frames) into lanes of PART_LMAX slots (the prefix, the prompt and the steps),
+# then PART_STEPS greedy steps
+PART_LAYERS = 4
+PART_LANES, PART_LMAX, PART_PROMPT, PART_SRC, PART_STEPS = 4, 512, 64, 256, 8
 PART_MESH = (1, 2)     # (data, model): two gloo ranks on the one card
 # the ranks' row-parallel products add their halves in another order than
 # the unsharded program's: f32 rounding, a few ulps of the logits' scale
 PART_RTOL, PART_ATOL = 1e-4, 1e-4
+# (c): gemma2-27b's rank holds 8 lanes of 12.35 GB (46 layers x 16 KV heads x
+# 32,768 slots x 128, K and V, bf16) beside 3.40 GB of weights: the card runs
+# 4 of them, and meta counts 4
+RANK_CELL_LANES = {"gemma2-27b": 4}
+GEMMA2_LOCAL = 4096   # gemma2-27b's sliding window: a local layer's live range
+
+
+def part_cfg(arch: str, layers: int):
+    """``arch`` at full width, f32, cut to ``layers`` layers (the audio
+    encoder too)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(n_layers=layers, dtype="float32", param_dtype="float32")
+    return cfg.replace(n_encoder_layers=layers) if cfg.family == "audio" else cfg
+
+
+def part_inputs(cfg, rng, rows: int, seq: int, train: bool = False) -> dict:
+    """A seeded global batch (numpy) of ``rows`` rows: ``seq`` tokens
+    (audio's decoder input one token, unless ``train``), with ``labels`` for
+    ``train``; a vlm's image prefix (N(0, 0.02²), the embeddings' scale) or
+    audio's frames (N(0, 1); ``seq`` of them in the train step,
+    :data:`PART_SRC` in the prefill)."""
+    n = seq if train or cfg.family != "audio" else 1
+    out = {"tokens": rng.integers(1, cfg.vocab_size, (rows, n))}
+    if train:
+        out["labels"] = rng.integers(0, cfg.vocab_size, (rows, n))
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = (rng.standard_normal((rows, cfg.n_prefix_tokens, cfg.d_model))
+                                * 0.02).astype(np.float32)
+    if cfg.family == "audio":
+        frames = seq if train else PART_SRC
+        out["src_frames"] = rng.standard_normal((rows, frames, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def rank_window(cfg) -> tuple[int, int, int]:
     """The partitioned rank cell's B4 launch, as the program sets it: rank
     0 of (data 16, model 16) holds ``hq`` query heads and reads the KV heads
     ``[j0, j1)`` (``models.attention.kv_window``); llama3-8b: 2 query heads,
-    half of KV head 0's group of 4. Returns (j0, j1, hq)."""
+    half of KV head 0's group of 4; gemma2-27b: 2 query heads, KV head 0's
+    whole group. Returns (j0, j1, hq)."""
     from repro_torch.dist.collectives import TensorParallel
     from repro_torch.launch.mesh import production_mesh_for_counting
     from repro_torch.models.attention import kv_window
@@ -4275,106 +4336,139 @@ def rank_window(cfg) -> tuple[int, int, int]:
         return (*kv_window(cfg, hq, tp), hq)
 
 
-def check_window_attention(cfg, cache, gen, dev) -> float:
+def live_range(cfg, k, window: int | None):
+    """(end, start, scale, softcap) of B4 over full lanes ``k`` (B, Hkv,
+    hd, Lmax): a local layer's live range ``[Lmax - window, Lmax)``, or all
+    of it; ``cfg``'s scale and softcap."""
+    b, _, hd, lmax = k.shape
+    end = torch.full((b,), lmax, dtype=torch.int32, device=k.device)
+    start = end - (window or lmax)
+    return end, start, cfg.attn_scale_override or hd ** -0.5, cfg.attn_softcap
+
+
+def check_window_attention(cfg, cache, gen, dev, window: int | None = None) -> float:
     """(b) B4 over a window of KV heads of the rank cell's lanes (layer 0,
-    Lmax 32,768): the partitioned rank cell's own launch (:func:`rank_window`:
-    ``k[:, 0:1]`` under 2 query heads), one head with its whole query group
-    (``k[:, 3:4]``, G 4) and two heads with half a group each (2 of 4 query
-    heads), each against the plain version over the same window at the B4
-    tolerance. The window is read in place: the call may not raise the peak
-    allocated memory by an eighth of the window's bytes."""
+    every lane full, live range :func:`live_range`): the partitioned rank
+    cell's own launch (:func:`rank_window`; ``k[:, 0:1]`` under 2 query
+    heads), one head with its whole query group (``k[:, 3:4]``) and two
+    heads with half a group each, each against the plain version over the
+    same window at the B4 tolerance. The window is read in place: the call
+    may not raise the peak allocated memory by an eighth of the window's
+    bytes."""
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
     k, v = cache["k"][0], cache["v"][0]
     b, _, hd, lmax = k.shape
-    end = torch.full((b,), lmax, dtype=torch.int32, device=dev)
-    scale = hd ** -0.5
+    end, start, scale, cap = live_range(cfg, k, window)
     r0, r1, hq = rank_window(cfg)
     cases, err = [], 0.0
     for j0, j1, g in ((r0, r1, hq // (r1 - r0)), (3, 4, cfg.q_per_kv),
-                      (2, 4, cfg.q_per_kv // 2)):
+                      (2, 4, max(cfg.q_per_kv // 2, 1))):
         kw, vw = k[:, j0:j1], v[:, j0:j1]
         q = torch.randn((b, j1 - j0, g, hd), generator=gen, device=dev).to(torch.bfloat16)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        out = da.decode_attention(q, kw, vw, end, scale=scale)
+        out = da.decode_attention(q, kw, vw, end, start, scale=scale, softcap=cap)
         torch.cuda.synchronize()
         rise = torch.cuda.max_memory_allocated() - base
-        window = 2 * kw.numel() * kw.element_size()
-        if rise >= window // 8:
+        nbytes = 2 * kw.numel() * kw.element_size()
+        if rise >= nbytes // 8:
             raise AssertionError(f"B4 over the window [{j0}, {j1}) raised the peak memory by "
-                                 f"{rise} B against a {window} B window: a copy")
-        name = f"decode_attention window [{j0}, {j1}) G {g} lmax={lmax}"
-        err = max(err, _allclose(name, out, ref.decode_attention_ref(q, kw, vw, end, scale)))
-        cases.append([RANK_ARCH, [j0, j1], g, hd, lmax, b, rise, window])
+                                 f"{rise} B against a {nbytes} B window: a copy")
+        name = f"decode_attention {cfg.name} window [{j0}, {j1}) G {g} lmax={lmax}"
+        err = max(err, _allclose(name, out, ref.decode_attention_ref(q, kw, vw, end, scale, cap,
+                                                                     start=start)))
+        cases.append([cfg.name, [j0, j1], g, hd, lmax, b, rise, nbytes])
     emit({"phase": "kernel_check", "kernel": "decode_attention (head window)",
           "cases": cases, "case_keys": ["arch", "heads", "g", "hd", "lmax", "lanes",
                                         "peak_rise_B", "window_B"],
+          "live": [lmax - (window or lmax), lmax], "softcap": cap, "scale": scale,
           "cache": "bf16", "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "max_abs_err": err})
     return err
 
 
-def time_window_attention(cfg, cache, dev) -> None:
+def time_window_attention(cfg, cache, dev, window: int | None = None) -> dict:
     """B4 at the partitioned rank cell's own launch (:func:`rank_window`:
-    its 2 query heads over the one-head window ``k[:, 0:1]``) of each of
-    the 32 layers' lanes: the kernel, its plain version and SDPA (GQA, the
-    window's K made row-wise)."""
+    its query heads over its KV-head window) over each layer's lanes, every
+    lane full, live range :func:`live_range`: the kernel cycling over every
+    layer's window; its plain version and SDPA (GQA, the live range's K made
+    row-wise, no softcap) each cycling over as many layers' windows as keep
+    their reads out of L2 (:func:`copies_for`, at most every layer), so
+    that no number is served from L2. Emits a ``kernel_time`` line and
+    returns its row."""
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import ref
 
     gen = torch.Generator(device=dev).manual_seed(27)
     j0, j1, hq = rank_window(cfg)
     wins = [(k[:, j0:j1], v[:, j0:j1]) for k, v in zip(cache["k"], cache["v"])]
-    b, hkv, hd, lmax = wins[0][0].shape
+    k0 = wins[0][0]
+    b, hkv, hd, lmax = k0.shape
     g = hq // hkv
+    end, start, scale, cap = live_range(cfg, k0, window)
+    lo = lmax - (window or lmax)
+    n = min(len(wins), copies_for(2 * b * hkv * (lmax - lo) * hd * k0.element_size()))
     q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
-    end = torch.full((b,), lmax, dtype=torch.int32, device=dev)
-    start = torch.zeros_like(end)
-    scale = hd ** -0.5
     bnd, by = attn_bound(end, start, b * hq * hd * 4, hkv=hkv, g=g, hd=hd)
     qh = q.reshape(b, hq, 1, hd)
-    sdpa = [(k.transpose(-1, -2).contiguous(), v) for k, v in wins[:2]]
-    row = {"ms": cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, scale=scale)
+    sdpa = [(k[..., lo:].transpose(-1, -2).contiguous(), v[:, :, lo:]) for k, v in wins[:n]]
+    row = {"ms": cuda_ms([lambda kv=kv: da.decode_attention(q, *kv, end, start, scale=scale,
+                                                             softcap=cap)
                           for kv in wins], len(wins)),
-           "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(q, *kv, end, scale)
-                                for kv in wins[:2]], 2),
+           "plain_ms": cuda_ms([lambda kv=kv: ref.decode_attention_ref(q, *kv, end, scale, cap,
+                                                                       start=start)
+                                for kv in wins[:n]], n),
            "library_ms": library_ms("decode_attention", [
                lambda kv=kv: F.scaled_dot_product_attention(qh, *kv, scale=scale,
                                                             enable_gqa=True)
-               for kv in sdpa], 8),
+               for kv in sdpa], max(8, n)),
            "bound_ms": bnd, "bound_by": by}
+    del sdpa
     emit({"phase": "kernel_time", "kernel": "decode_attention", "shape": "rank window",
-          "q": [b, hkv, g, hd], "lmax": lmax, "window": [j0, j1],
-          "live_tokens": live_tokens(end, start), **row, "roofline_share": bnd / row["ms"]})
+          "arch": cfg.name, "q": [b, hkv, g, hd], "lmax": lmax, "window": [j0, j1],
+          "live": [lo, lmax], "live_tokens": live_tokens(end, start), "softcap": cap,
+          "library": "SDPA, no softcap", "b4_layers": len(wins), "plain_sdpa_layers": n,
+          **row, "roofline_share": bnd / row["ms"], "gpu": nvidia_smi()})
+    return row
 
 
-def partitioned_rank_cell(cfg, dev) -> int:
-    """(c) The partitioned ``decode_32k`` rank: rank 0 of (data 16, model 16)
-    on a ``fake`` group (``launch.mesh.production_mesh_for_counting``),
-    built by ``launch.hillclimb.rank_cell(mesh=)``: 1/16 of the weights, the
-    same 8 lanes of every KV head, B4 over its one-head window. Its
-    ``CostCounter`` and ``CollectiveCounter`` counts on the card must equal
-    ``meta``'s (``hillclimb.partitioned_count``); then :data:`RANK_STEPS`
-    steps eager after a warm-up and captured (``hillclimb.captured_step``),
-    exactly 32 B4 launches each (the fake collectives move nothing, so the
-    step is the rank's compute). Returns its B4 launches."""
+def partitioned_rank_cell(cfg, dev, lanes: int | None = None, with_cache=None) -> int:
+    """(c) The partitioned ``decode_32k`` rank of ``cfg``: rank 0 of (data
+    16, model 16) on a ``fake`` group
+    (``launch.mesh.production_mesh_for_counting``), full width and depth,
+    built by ``launch.hillclimb.rank_cell(mesh=)``: 1/16 of the weights,
+    ``lanes`` of every KV head (default the cell's 8), B4 over its KV-head
+    window. Its ``CostCounter`` and ``CollectiveCounter`` counts on the card
+    must equal ``meta``'s at the same lanes (``hillclimb.partitioned_count``);
+    ``with_cache(cfg, cache)`` then runs over the cell's lanes; then
+    :data:`RANK_STEPS` steps eager after a warm-up and captured
+    (``hillclimb.captured_step``), exactly (layers) x (2 :data:`RANK_STEPS`
+    + 3) B4 launches (the fake collectives move nothing, so the step is the
+    rank's compute). Returns its B4 launches."""
     from repro_torch.dist.collectives import CollectiveCounter
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch import costrun, hillclimb
     from repro_torch.launch.mesh import production_mesh_for_counting
 
+    lanes = lanes or hillclimb.rank_batch(RANK_SHAPE)
+    j0, j1, _ = rank_window(cfg)
+    free_card(f"the partitioned rank cell of {cfg.name}")
     with production_mesh_for_counting() as mesh:
-        params, step, cache = hillclimb.rank_cell(cfg, RANK_SHAPE, dev, mesh=mesh)
+        params, step, cache = hillclimb.rank_cell(cfg, RANK_SHAPE, dev, mesh=mesh, lanes=lanes)
+        cache_gb = sum(t.numel() * t.element_size() for k, t in cache.items()
+                       if k != "pos") / 1e9
         with CollectiveCounter() as coll:
             card = costrun.count(step)
         card["collectives"] = coll.totals()
         card["collective_calls"] = card["collectives"].pop("_counts")
-        meta = hillclimb.partitioned_count(cfg, RANK_SHAPE)
+        meta = hillclimb.partitioned_count(cfg, RANK_SHAPE, lanes=lanes)
         if card != meta:
-            raise AssertionError(f"the partitioned rank cell counts differently on the card "
-                                 f"and on meta: {card} != {meta}")
+            raise AssertionError(f"{cfg.name}: the partitioned rank cell counts differently "
+                                 f"on the card and on meta: {card} != {meta}")
+        if with_cache is not None:
+            with_cache(cfg, cache)
         reset_launches()
         timed = hillclimb.time_steps(step, RANK_STEPS)
         captured = hillclimb.time_steps(hillclimb.captured_step(cfg, params, cache, mesh),
@@ -4383,90 +4477,112 @@ def partitioned_rank_cell(cfg, dev) -> int:
         del params, step, cache
     steps = 2 * RANK_STEPS + 3
     if counts != {**{k: 0 for k in counts}, "decode_attention": cfg.n_layers * steps}:
-        raise AssertionError(f"the partitioned rank cell's steps launched {counts}, not "
-                             f"{cfg.n_layers} x {steps} decode_attention")
+        raise AssertionError(f"{cfg.name}: the partitioned rank cell's steps launched "
+                             f"{counts}, not {cfg.n_layers} x {steps} decode_attention")
     t = hillclimb.terms(meta)
-    emit({"phase": "rank_cell", "partitioned": True, "arch": RANK_ARCH, "shape": RANK_SHAPE,
-          "mesh": {"data": 16, "model": 16}, "rank": 0, "batch": hillclimb.rank_batch(RANK_SHAPE),
-          "kv_heads_read": 1, "gpu": nvidia_smi(), "step_ms": timed["step_ms"],
-          "steps_ms": timed["steps_ms"], "peak_GB": timed["peak_gb"],
-          "captured_step_ms": captured["step_ms"], "captured_steps_ms": captured["steps_ms"],
-          "captured_peak_GB": captured["peak_gb"],
+    emit({"phase": "rank_cell", "partitioned": True, "arch": cfg.name, "shape": RANK_SHAPE,
+          "mesh": {"data": 16, "model": 16}, "rank": 0, "batch": lanes,
+          "kv_heads_read": j1 - j0, "cache_GB": cache_gb, "gpu": nvidia_smi(),
+          "step_ms": timed["step_ms"], "steps_ms": timed["steps_ms"],
+          "peak_GB": timed["peak_gb"], "captured_step_ms": captured["step_ms"],
+          "captured_steps_ms": captured["steps_ms"], "captured_peak_GB": captured["peak_gb"],
           "captured_roofline_share": 1e3 * t["t_memory_s"] / captured["step_ms"],
           "roofline_share": 1e3 * t["t_memory_s"] / timed["step_ms"],
           "launches": counts, "count_card": card, "count_meta_equal": True,
           "t_compute_ms": 1e3 * t["t_compute_s"], "t_memory_ms": 1e3 * t["t_memory_s"],
           "t_collective_ms": 1e3 * t["t_collective_s"]})
-    free_card("after the partitioned rank cell")
+    free_card(f"after the partitioned rank cell of {cfg.name}")
     return counts["decode_attention"]
 
 
-def partitioned_ranks(dev) -> int:
+def partitioned_ranks(dev, archs=(RANK_ARCH,)) -> int:
     """(a) Two processes on the one card in a ``gloo`` group on a ``file://``
-    store (``launch.mesh.spawn``), mesh (data 1, model 2), run the
-    partitioned program (``launch.partitioned.rank_run``): llama3-8b at full
-    width cut to :data:`PART_LAYERS` layers, f32 params from seed 0, a
-    prefill of :data:`PART_LANES` seeded :data:`PART_PROMPT`-token prompts
-    into lanes of :data:`PART_LMAX` slots, then :data:`PART_STEPS` greedy
-    steps. Their logits, gathered by the ranks' coordinates, and greedy
-    tokens are held to the unsharded program on the card (the same seed),
-    their caches too, and each rank's ``CollectiveCounter`` count to the
-    ``meta`` count of the same drive over a ``fake`` group. A rank that
-    fails fails the run. Returns the ranks' B4 launches."""
-    from repro_torch.configs import get_config
+    store (``launch.mesh.spawn``), mesh :data:`PART_MESH`, run the
+    partitioned program (``launch.partitioned.rank_run``) of each of
+    ``archs`` at full width (:func:`part_cfg`: llama3-8b
+    :data:`PART_LAYERS` layers, the others :data:`PTRAIN_LAYERS`), f32
+    params from seed 0, a prefill of :func:`part_inputs` into lanes of
+    :data:`PART_LMAX` slots, then :data:`PART_STEPS` greedy steps. Their
+    logits (a vocab that 2 divides gathered by the ranks' coordinates;
+    internvl2-2b's 92,553 and seamless's 256,206 come gathered from every
+    rank, GSPMD's padded vocab), greedy tokens and caches (audio's cross
+    K/V too) are held to the unsharded program on the card (the same seed)
+    at :data:`PART_RTOL`/:data:`PART_ATOL`, each rank's
+    ``CollectiveCounter`` count to the ``meta`` count of the same drive over
+    a ``fake`` group, its launches to (layers) x :data:`PART_STEPS` B4. A
+    rank that fails fails the run. Returns the ranks' B4 launches."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import partitioned
     from repro_torch.models.model import init_params
 
-    cfg = get_config(RANK_ARCH).replace(n_layers=PART_LAYERS, dtype="float32",
-                                        param_dtype="float32")
-    prompts = np.random.default_rng(27).integers(1, cfg.vocab_size, (PART_LANES, PART_PROMPT))
+    rng = np.random.default_rng(27)
+    jobs = [(cfg, 0, part_inputs(cfg, rng, PART_LANES, PART_PROMPT))
+            for cfg in (part_cfg(a, PART_LAYERS if a == RANK_ARCH else PTRAIN_LAYERS)
+                        for a in archs)]
     free_card("the partitioned ranks")
     t0 = time.perf_counter()
-    ranks = [r[0][0] for r in mesh_lib.spawn(partitioned.rank_run, math.prod(PART_MESH),
-                                             [(cfg, 0, prompts)], [PART_MESH], PART_LMAX,
-                                             PART_STEPS, dev.type)]
+    ranks = mesh_lib.spawn(partitioned.rank_run, math.prod(PART_MESH), jobs, [PART_MESH],
+                           PART_LMAX, PART_STEPS, dev.type)
     wall = time.perf_counter() - t0
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    with torch.no_grad():
-        logits, tokens, cache = partitioned.generate(
-            params, torch.as_tensor(prompts, device=dev), cfg, PART_LMAX, PART_STEPS)
-    want = [x.float().cpu() for x in logits]
-    ranks.sort(key=lambda r: r["coords"]["model"])
-    err = 0.0
-    for j, w in enumerate(want):
-        got = torch.cat([torch.from_numpy(r["logits"][j]) for r in ranks], dim=-1)
-        err = max(err, float((got - w).abs().max()))
-        if not torch.allclose(got, w, rtol=PART_RTOL, atol=PART_ATOL):
-            raise AssertionError(f"partitioned logits of step {j}: max |err| {err} outside "
-                                 f"rtol={PART_RTOL} atol={PART_ATOL}")
-    cache_err = 0.0
-    for r in ranks:
-        if not np.array_equal(r["tokens"], tokens.cpu().numpy()):
-            raise AssertionError(f"rank {r['coords']}: greedy tokens {r['tokens'].tolist()} "
-                                 f"!= the unsharded program's {tokens.tolist()}")
-        for key in ("k", "v"):
-            cache_err = max(cache_err, float(np.abs(r[key] - cache[key].cpu().numpy()).max()))
-    del params, logits, cache
-    meta = partitioned.count_run(cfg, PART_MESH, PART_LANES, PART_PROMPT, PART_LMAX,
-                                 PART_STEPS)
     launches = 0
-    for r in ranks:
-        if r["collectives"] != meta:
-            raise AssertionError(f"rank {r['coords']} counted {r['collectives']}, meta {meta}")
-        want_launches = {**{k: 0 for k in r["launches"]},
-                         "decode_attention": PART_LAYERS * PART_STEPS}
-        if r["launches"] != want_launches:
-            raise AssertionError(f"rank {r['coords']} launched {r['launches']}, not "
-                                 f"{PART_LAYERS} x {PART_STEPS} decode_attention")
-        launches += r["launches"]["decode_attention"]
-    emit({"phase": "partitioned", "arch": RANK_ARCH, "layers": PART_LAYERS, "dtype": "float32",
-          "mesh": dict(zip(partitioned.AXES, PART_MESH)), "backend": "gloo (one card)",
-          "lanes": PART_LANES, "lmax": PART_LMAX, "prompt": PART_PROMPT, "steps": PART_STEPS,
-          "tokens_equal": True, "logits_max_abs_err": err, "cache_max_abs_err": cache_err,
-          "rtol": PART_RTOL, "atol": PART_ATOL, "collectives": meta,
-          "collectives_meta_equal": True, "launches": launches, "wall_s": wall,
-          "gpu": nvidia_smi()})
+    for ji, (cfg, _, inputs) in enumerate(jobs):
+        arch = cfg.name
+        runs = sorted((r[ji][0] for r in ranks), key=lambda r: r["coords"]["model"])
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        batch = partitioned.batch_on(inputs, dev)
+        with torch.no_grad():
+            logits, tokens, cache = partitioned.generate(params, batch.pop("tokens"), cfg,
+                                                         PART_LMAX, PART_STEPS, **batch)
+        err = 0.0
+        for j, w in enumerate(logits):
+            w = w.float().cpu()
+            parts = [torch.from_numpy(r["logits"][j]) for r in runs]
+            gathered = parts[0].shape[-1] == cfg.vocab_size
+            for got in (parts if gathered else [torch.cat(parts, dim=-1)]):
+                err = max(err, float((got - w).abs().max()))
+                if not torch.allclose(got, w, rtol=PART_RTOL, atol=PART_ATOL):
+                    raise AssertionError(f"{arch}: partitioned logits of step {j}: max |err| "
+                                         f"{err} outside rtol={PART_RTOL} atol={PART_ATOL}")
+        cache_err = 0.0
+        for r in runs:
+            if not np.array_equal(r["tokens"], tokens.cpu().numpy()):
+                raise AssertionError(f"{arch} rank {r['coords']}: greedy tokens "
+                                     f"{r['tokens'].tolist()} != the unsharded program's "
+                                     f"{tokens.tolist()}")
+            for key in (k for k in cache if k != "pos"):
+                want = cache[key].float().cpu().numpy()
+                cache_err = max(cache_err, float(np.abs(r[key] - want).max()))
+                if not np.allclose(r[key], want, rtol=PART_RTOL, atol=PART_ATOL):
+                    raise AssertionError(f"{arch} rank {r['coords']}: its {key} differs from "
+                                         f"the unsharded program's by {cache_err}")
+        del params, logits, cache
+        prompt = inputs["tokens"].shape[1]
+        extra = {k: v.shape for k, v in inputs.items() if k != "tokens"}
+        meta = partitioned.count_run(cfg, PART_MESH, PART_LANES, prompt, PART_LMAX,
+                                     PART_STEPS, extra)
+        want = {**{k: 0 for k in runs[0]["launches"]},
+                "decode_attention": cfg.n_layers * PART_STEPS}
+        for r in runs:
+            if r["collectives"] != meta:
+                raise AssertionError(f"{arch} rank {r['coords']} counted {r['collectives']}, "
+                                     f"meta {meta}")
+            if r["launches"] != want:
+                raise AssertionError(f"{arch} rank {r['coords']} launched {r['launches']}, "
+                                     f"not {cfg.n_layers} x {PART_STEPS} decode_attention")
+        launches += len(runs) * want["decode_attention"]
+        emit({"phase": "partitioned", "arch": arch, "layers": cfg.n_layers,
+              "encoder_layers": cfg.n_encoder_layers if cfg.family == "audio" else None,
+              "dtype": "float32", "mesh": dict(zip(partitioned.AXES, PART_MESH)),
+              "backend": "gloo (one card)", "lanes": PART_LANES, "lmax": PART_LMAX,
+              "prompt": prompt, "inputs": {k: list(v) for k, v in extra.items()},
+              "steps": PART_STEPS, "vocab": cfg.vocab_size,
+              "logits_gathered": cfg.vocab_size % PART_MESH[1] != 0, "tokens_equal": True,
+              "logits_max_abs_err": err, "cache_max_abs_err": cache_err,
+              "rtol": PART_RTOL, "atol": PART_ATOL, "collectives": meta,
+              "collectives_meta_equal": True,
+              "launches": len(runs) * want["decode_attention"], "wall_s": wall,
+              "gpu": nvidia_smi()})
+        free_card(f"after the partitioned ranks' check of {arch}")
     return launches
 
 
@@ -4474,9 +4590,15 @@ def partitioned_ranks(dev) -> int:
 # the partitioned train step (train.train_step.train_step with mesh=)
 # ---------------------------------------------------------------------------
 
-PTRAIN_LAYERS = 2               # (a): llama3-8b at full width, 2 of 32 layers, f32
+PTRAIN_LAYERS = 2               # (a): full width, 2 layers, f32
 PTRAIN_BATCH, PTRAIN_SEQ, PTRAIN_ACCUM, PTRAIN_STEPS = 4, 256, 2, 2
 PTRAIN_MESHES = ((1, 2), (2, 1))   # (data, model): two gloo ranks on the one card
+# gemma2-27b's 2 f32 layers hold 9.3 GB of params, and on (2, 1) each rank
+# holds the whole tree beside its moments and gradient sums (llama3-8b's
+# ranks of --dist peak at 5.6x their params): two such ranks overfill the
+# one card, so gemma2 trains on (1, 2) alone there (its (2, 1) mesh runs in
+# the CPU tests)
+PTRAIN_MESHES_OF = {"gemma2-27b": ((1, 2),)}
 # the ranks' products and reductions add in another order than the unsharded
 # step's: f32 rounding of the metrics, and of each leaf against its max |x|
 PTRAIN_RTOL = 1e-4
@@ -4484,78 +4606,84 @@ TRAIN_CELL_SHAPE = "train_4k"
 TRAIN_CELL_STEPS = 3
 
 
-def partitioned_train_ranks(dev) -> None:
-    """(a) of the train step (``--dist``): two processes on the one card in a ``gloo``
-    group (``launch.mesh.spawn``) run ``launch.partitioned.train_run`` on
-    llama3-8b at full width cut to :data:`PTRAIN_LAYERS` layers, f32 params
-    from seed 0, ``remat`` on as the full config sets it, a seeded global
-    batch of :data:`PTRAIN_BATCH` x :data:`PTRAIN_SEQ` tokens at
-    :data:`PTRAIN_ACCUM` microbatches, :data:`PTRAIN_STEPS` steps, on each
-    mesh of :data:`PTRAIN_MESHES`. Rank 0 first runs the unsharded in-place
-    step on the card from the same params and batch: every rank's metrics
-    are held to it, and so are the params and moments gathered back with
-    ``dist.sharding.full_tree`` (each leaf's max |err| over its max |x|);
-    each rank's ``CollectiveCounter`` count to ``count_train_run``'s
-    ``meta`` count; no kernel launches. A rank that fails fails the run."""
-    from repro_torch.configs import get_config
+def partitioned_train_ranks(dev, archs=(RANK_ARCH,)) -> None:
+    """(a) of the train step: for each of ``archs``, two processes on the
+    one card in a ``gloo`` group (``launch.mesh.spawn``) run
+    ``launch.partitioned.train_run`` at full width cut to
+    :data:`PTRAIN_LAYERS` layers (:func:`part_cfg`), f32 params from seed 0,
+    ``remat`` on as the full configs set it, a seeded global batch of
+    :data:`PTRAIN_BATCH` x :data:`PTRAIN_SEQ` tokens (:func:`part_inputs`:
+    with a vlm's prefix or audio's frames) at :data:`PTRAIN_ACCUM`
+    microbatches, :data:`PTRAIN_STEPS` steps, on each mesh of
+    :data:`PTRAIN_MESHES` (:data:`PTRAIN_MESHES_OF`). Rank 0 first runs the
+    unsharded in-place step on the card from the same params and batch:
+    every rank's metrics are held to it, and so are the params and moments
+    gathered back with ``dist.sharding.full_tree`` (each leaf's max |err|
+    over its max |x|); each rank's ``CollectiveCounter`` count to
+    ``count_train_run``'s ``meta`` count; no kernel launches. A rank that
+    fails fails the run. A ``partitioned_train`` line an arch and mesh."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import partitioned
 
-    cfg = get_config(RANK_ARCH).replace(n_layers=PTRAIN_LAYERS, dtype="float32",
-                                        param_dtype="float32")
     rng = np.random.default_rng(28)
-    batch = {k: rng.integers(0, cfg.vocab_size, (PTRAIN_BATCH, PTRAIN_SEQ))
-             for k in ("tokens", "labels")}
-    free_card("the partitioned train ranks")
-    t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(partitioned.train_run, 2, [(cfg, 0, batch)], list(PTRAIN_MESHES),
-                           PTRAIN_STEPS, PTRAIN_ACCUM, dev.type, reference=True)
-    wall = time.perf_counter() - t0
-    for mi, shape in enumerate(PTRAIN_MESHES):
-        runs = [r[0][mi] for r in ranks]
-        want = runs[0]["metrics_ref"]
-        meta = partitioned.count_train_run(cfg, shape, PTRAIN_BATCH, PTRAIN_SEQ, PTRAIN_STEPS,
-                                           PTRAIN_ACCUM)
-        metric_err = 0.0
-        for r in runs:
-            for got, ref in zip(r["metrics"], want):
-                for k in ("loss", "grad_norm", "lr"):
-                    rel = abs(got[k] - ref[k]) / abs(ref[k])
-                    metric_err = max(metric_err, rel)
-                    if rel > PTRAIN_RTOL:
-                        raise AssertionError(f"rank {r['coords']} on {shape}: {k} {got[k]} "
-                                             f"against the unsharded {ref[k]}")
-            if r["collectives"] != meta:
-                raise AssertionError(f"rank {r['coords']} on {shape} counted "
-                                     f"{r['collectives']}, meta {meta}")
-            if any(r["launches"].values()):
-                raise AssertionError(f"rank {r['coords']} launched {r['launches']}")
-        errors = runs[0]["errors"]
-        for name, e in errors.items():
-            if e["max_err_over_max"] > PTRAIN_RTOL:
-                raise AssertionError(f"{shape}: the gathered {name} differ from the unsharded "
-                                     f"step's by {e}")
-        emit({"phase": "partitioned_train", "arch": RANK_ARCH, "layers": PTRAIN_LAYERS,
-              "dtype": "float32", "remat": cfg.remat, "mesh": dict(zip(partitioned.AXES, shape)),
-              "backend": "gloo (one card)", "batch": PTRAIN_BATCH, "seq": PTRAIN_SEQ,
-              "accum": PTRAIN_ACCUM, "steps": PTRAIN_STEPS, "metrics": runs[0]["metrics"],
-              "metrics_unsharded": want, "metrics_max_rel_err": metric_err,
-              "errors": errors, "rtol": PTRAIN_RTOL, "collectives": meta,
-              "collectives_meta_equal": True, "launches": 0,
-              "rank_wall_s": [r["wall_s"] for r in runs],
-              "rank_check_s": [r["check_s"] for r in runs],
-              "rank_peak_GB": [r["peak_gb"] for r in runs],
-              "param_bytes": [r["param_bytes"] for r in runs],
-              "moment_bytes": [r["moment_bytes"] for r in runs],
-              "wall_s": wall, "gpu": nvidia_smi()})
+    for arch in archs:
+        cfg = part_cfg(arch, PTRAIN_LAYERS)
+        batch = part_inputs(cfg, rng, PTRAIN_BATCH, PTRAIN_SEQ, train=True)
+        meshes = PTRAIN_MESHES_OF.get(arch, PTRAIN_MESHES)
+        extra = {k: v.shape for k, v in batch.items() if k not in ("tokens", "labels")}
+        free_card(f"the partitioned train ranks of {arch}")
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(partitioned.train_run, 2, [(cfg, 0, batch)], list(meshes),
+                               PTRAIN_STEPS, PTRAIN_ACCUM, dev.type, reference=True)
+        wall = time.perf_counter() - t0
+        for mi, shape in enumerate(meshes):
+            runs = [r[0][mi] for r in ranks]
+            want = runs[0]["metrics_ref"]
+            meta = partitioned.count_train_run(cfg, shape, PTRAIN_BATCH, PTRAIN_SEQ,
+                                               PTRAIN_STEPS, PTRAIN_ACCUM, extra)
+            metric_err = 0.0
+            for r in runs:
+                for got, ref in zip(r["metrics"], want):
+                    for k in ("loss", "grad_norm", "lr"):
+                        rel = abs(got[k] - ref[k]) / abs(ref[k])
+                        metric_err = max(metric_err, rel)
+                        if rel > PTRAIN_RTOL:
+                            raise AssertionError(f"{arch} rank {r['coords']} on {shape}: {k} "
+                                                 f"{got[k]} against the unsharded {ref[k]}")
+                if r["collectives"] != meta:
+                    raise AssertionError(f"{arch} rank {r['coords']} on {shape} counted "
+                                         f"{r['collectives']}, meta {meta}")
+                if any(r["launches"].values()):
+                    raise AssertionError(f"{arch} rank {r['coords']} launched {r['launches']}")
+            errors = runs[0]["errors"]
+            for name, e in errors.items():
+                if e["max_err_over_max"] > PTRAIN_RTOL:
+                    raise AssertionError(f"{arch} on {shape}: the gathered {name} differ from "
+                                         f"the unsharded step's by {e}")
+            emit({"phase": "partitioned_train", "arch": arch, "layers": cfg.n_layers,
+                  "dtype": "float32", "remat": cfg.remat,
+                  "mesh": dict(zip(partitioned.AXES, shape)), "backend": "gloo (one card)",
+                  "batch": PTRAIN_BATCH, "seq": PTRAIN_SEQ,
+                  "inputs": {k: list(v) for k, v in extra.items()},
+                  "accum": PTRAIN_ACCUM, "steps": PTRAIN_STEPS, "metrics": runs[0]["metrics"],
+                  "metrics_unsharded": want, "metrics_max_rel_err": metric_err,
+                  "errors": errors, "rtol": PTRAIN_RTOL, "collectives": meta,
+                  "collectives_meta_equal": True, "launches": 0,
+                  "rank_wall_s": [r["wall_s"] for r in runs],
+                  "rank_check_s": [r["check_s"] for r in runs],
+                  "rank_peak_GB": [r["peak_gb"] for r in runs],
+                  "param_bytes": [r["param_bytes"] for r in runs],
+                  "moment_bytes": [r["moment_bytes"] for r in runs],
+                  "wall_s": wall, "gpu": nvidia_smi()})
 
 
-def partitioned_train_cell(dev) -> None:
-    """(c) of the train step, ``--cost`` only: the partitioned ``train_4k``
-    rank, rank 0 of (data 16, model 16) on a ``fake`` group
-    (``launch.hillclimb.rank_cell(..., mesh=)``): 1/16 of llama3-8b's bf16
-    weights, its 1/256 ZeRO-1 slice of the moments, its 16 rows of 4,096
-    seeded tokens at the dry run's ``accum`` 4, ``remat`` on. Its
+def partitioned_train_cell(dev, arch: str = RANK_ARCH) -> None:
+    """(c) of the train step, ``--cost`` only (``--partitioned`` runs it for
+    gemma2-27b): the partitioned ``train_4k`` rank, rank 0 of (data 16,
+    model 16) on a ``fake`` group (``launch.hillclimb.rank_cell(...,
+    mesh=)``): 1/16 of ``arch``'s bf16 weights, its 1/256 ZeRO-1 slice of
+    the moments, its 16 rows of 4,096 seeded tokens at the dry run's
+    ``accum`` 4, ``remat`` on. Its
     ``CostCounter`` and ``CollectiveCounter`` counts on the card must equal
     ``meta``'s (``hillclimb.partitioned_count``); then :data:`TRAIN_CELL_STEPS`
     in-place steps eager after a warm-up and as many captured
@@ -4570,8 +4698,8 @@ def partitioned_train_cell(dev) -> None:
     from repro_torch.launch import costrun, dryrun, hillclimb, roofline
     from repro_torch.launch.mesh import production_mesh_for_counting
 
-    cfg = get_config(RANK_ARCH)
-    free_card("the partitioned train rank cell")
+    cfg = get_config(arch)
+    free_card(f"the partitioned train rank cell of {arch}")
     with production_mesh_for_counting() as mesh:
         params, step, state = hillclimb.rank_cell(cfg, TRAIN_CELL_SHAPE, dev, mesh=mesh)
         t0 = time.perf_counter()
@@ -4600,7 +4728,7 @@ def partitioned_train_cell(dev) -> None:
     def mfu(ms):
         return 6 * n * positions / (ms / 1e3) / roofline.PEAK_FLOPS
 
-    emit({"phase": "rank_cell", "partitioned": True, "arch": RANK_ARCH,
+    emit({"phase": "rank_cell", "partitioned": True, "arch": arch,
           "shape": TRAIN_CELL_SHAPE, "mesh": {"data": 16, "model": 16}, "rank": 0,
           "rows": hillclimb.rank_batch(TRAIN_CELL_SHAPE), "positions": positions,
           "accum": dryrun.TRAIN_ACCUM, "remat": cfg.remat, "rank_params": n,
@@ -4615,6 +4743,51 @@ def partitioned_train_cell(dev) -> None:
           "compute_share": 1e3 * t["t_compute_s"] / captured["step_ms"],
           "memory_share": 1e3 * t["t_memory_s"] / captured["step_ms"]})
     free_card("after the partitioned train rank cell")
+
+
+def partitioned_phase(dev) -> dict:
+    """``--partitioned``, for each arch of :data:`PART_ARCHS`: (a)
+    :func:`partitioned_ranks` and :func:`partitioned_train_ranks`; (c) the
+    ``decode_32k`` rank cells (:func:`partitioned_rank_cell`, gemma2-27b at
+    :data:`RANK_CELL_LANES`), gemma2-27b's running (b) over its lanes: B4 at
+    its rank launch, softcap 50.0, a local layer's live range
+    (:data:`GEMMA2_LOCAL`) and a global one's, checked
+    (:func:`check_window_attention`) and timed
+    (:func:`time_window_attention`); (d) gemma2-27b's ``train_4k`` rank
+    (:func:`partitioned_train_cell`). Returns B4's ``kernels`` row (the
+    global launch's figures)."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    with phase_clock("partitioned_ranks"):
+        launches = partitioned_ranks(dev, PART_ARCHS)
+    with phase_clock("partitioned_train_ranks"):
+        partitioned_train_ranks(dev, PART_ARCHS)
+    b4 = {}
+
+    def gemma2_b4(cfg, cache):
+        for name, window in (("local", GEMMA2_LOCAL), ("global", None)):
+            err = check_window_attention(cfg, cache, gen, dev, window)
+            b4[name] = {**time_window_attention(cfg, cache, dev, window), "max_abs_err": err}
+
+    with phase_clock("partitioned_rank_cells"):
+        for arch in PART_ARCHS:
+            launches += partitioned_rank_cell(get_config(arch), dev, RANK_CELL_LANES.get(arch),
+                                              gemma2_b4 if arch == "gemma2-27b" else None)
+    with phase_clock("partitioned_train_cell gemma2-27b"):
+        partitioned_train_cell(dev, "gemma2-27b")
+    row = b4["global"]
+    src, replaces = KERNELS["decode_attention"]
+    return {"name": "decode_attention", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "work": f"gemma2-27b's partitioned rank launch: 2 query heads over KV head 0, "
+                    f"{RANK_CELL_LANES['gemma2-27b']} lanes of 32,768 slots, a global layer, "
+                    f"softcap 50.0 (library_ms: SDPA, no softcap); launches: the two gloo "
+                    f"ranks' {PART_STEPS} steps of {PTRAIN_LAYERS} layers a rank for each of "
+                    f"the three archs and the decode_32k rank cells' {2 * RANK_STEPS + 3} "
+                    f"steps of 46, 24 and 24 layers"}
 
 
 def cost_phase(dev) -> dict:
@@ -4741,10 +4914,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--ab"], ["--attn"], ["--ssd"], ["--gemv"], ["--spec"],
                     ["--traffic"], ["--dense"], ["--moe"], ["--families"], ["--train"],
-                    ["--dist"], ["--cost"], ["--graphs"]):
+                    ["--dist"], ["--cost"], ["--graphs"], ["--partitioned"]):
         print(f"usage: {sys.argv[0]} [--ab | --attn | --ssd | --gemv | --spec | --traffic "
-              f"| --dense | --moe | --families | --train | --dist | --cost | --graphs]",
-              file=sys.stderr)
+              f"| --dense | --moe | --families | --train | --dist | --cost | --graphs "
+              f"| --partitioned]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -4831,6 +5004,12 @@ def main(argv: list[str]) -> int:
             torch.cuda.empty_cache()
             with phase_clock(phase.__name__):
                 phase(dev)
+        return 0
+    if argv == ["--partitioned"]:
+        emit({"kernels": [partitioned_phase(dev)]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
         return 0
     if argv == ["--cost"]:
         with phase_clock("cost_phase"):

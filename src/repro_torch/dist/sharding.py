@@ -7,9 +7,20 @@ Megatron-style tensor parallelism over the ``model`` axis:
   their OUTPUT dim; row-parallel weights (``w_down``/``wo``/...) shard their
   INPUT (contracted) dim: one all-reduce per block.
 * MoE expert tables shard the EXPERT dim (expert parallelism).
-* the embedding table shards its vocab rows; the LM head its vocab columns.
-* any dim not divisible by :data:`MODEL_SHARD` stays replicated: weights are
-  never silently padded.
+* the embedding table shards its vocab rows; the LM head its vocab columns
+  (GSPMD pads an odd vocab: the one sanctioned padding exception, below).
+* any other dim not divisible by :data:`MODEL_SHARD` stays replicated:
+  weights are never silently padded.
+
+**The padded vocab.** GSPMD splits a vocab that ``model`` does not divide
+(internvl2-2b's 92,553, seamless-m4t-large-v2's 256,206) by padding it to
+``ceil(V / n) * n`` with zeros, each rank holding its equal part and the last
+rank the pad. :class:`NamedSharding` records such a dim's full size
+(``padded``; :func:`param_shardings`, :func:`opt_state_shardings`), so that
+:func:`local_shards` pads the rank's part and :func:`full_tree` strips the pad
+again. A pad row of the embedding is never looked up, and the model masks the
+head's pad columns out of the loss and drops them from the logits
+(``models.model.logits_fn``), so they stay zero through the train step.
 
 Optimizer moments additionally fold the ``data`` axis into their first
 replicated dim (ZeRO-1: each data rank owns a slice of the f32 state).
@@ -68,9 +79,12 @@ _ROW_PARALLEL = {"w_down", "wo", "w_out", "w_b", "cm_wv"}
 
 @dataclass(frozen=True)
 class NamedSharding:
-    """A spec on a mesh: the counterpart of ``jax.sharding.NamedSharding``."""
+    """A spec on a mesh: the counterpart of ``jax.sharding.NamedSharding``.
+    ``padded``: ``(dim, full size)`` of each vocab dim that the spec splits
+    (the module's "padded vocab"), empty for every other leaf."""
     mesh: Any
     spec: tuple
+    padded: tuple = ()
 
     @property
     def placements(self) -> tuple:
@@ -145,10 +159,24 @@ def param_pspec(path: str, leaf) -> tuple:
     return ()
 
 
+def _vocab_dims(path: str, leaf, spec: tuple) -> tuple:
+    """``(dim, size)`` of the vocab dim of an ``embed`` or ``lm_head`` leaf
+    that ``spec`` splits (GSPMD pads it where the split does not divide)."""
+    parts = path.split("/")
+    shape = _shape(leaf)
+    dim = 0 if "embed" in parts else len(shape) - 1 if "lm_head" in parts else None
+    if dim is None or dim >= len(spec) or spec[dim] is None:
+        return ()
+    return ((dim, shape[dim]),)
+
+
 def param_shardings(params: dict, mesh) -> dict:
     """NamedSharding tree mirroring the stacked form of a params tree."""
-    return _map_with_path(lambda path, leaf: NamedSharding(mesh, param_pspec(path, leaf)),
-                          stacked(params))
+    def one(path, leaf):
+        spec = param_pspec(path, leaf)
+        return NamedSharding(mesh, spec, _vocab_dims(path, leaf, spec))
+
+    return _map_with_path(one, stacked(params))
 
 
 def replicated(mesh) -> NamedSharding:
@@ -174,12 +202,16 @@ def _with_data_axis(spec: tuple, leaf, mesh) -> tuple:
 
 def opt_state_shardings(opt_state: OptState, mesh) -> OptState:
     """Shardings for OptState(step, m, v): param rules + ZeRO-1 data folding."""
+    def one(path, leaf):
+        if len(_shape(leaf)) < 1:
+            return replicated(mesh)
+        spec = param_pspec(path, leaf)
+        # the fold reads the unpadded shape; a vocab dim keeps its pad
+        return NamedSharding(mesh, _with_data_axis(spec, leaf, mesh),
+                             _vocab_dims(path, leaf, spec))
+
     def moments(tree):
-        return _map_with_path(
-            lambda path, leaf: NamedSharding(
-                mesh, _with_data_axis(param_pspec(path, leaf), leaf, mesh)
-                if len(_shape(leaf)) >= 1 else ()),
-            stacked(tree))
+        return _map_with_path(one, stacked(tree))
 
     return OptState(step=replicated(mesh), m=moments(opt_state.m), v=moments(opt_state.v))
 
@@ -238,25 +270,37 @@ def cache_shardings(cfg, spec, mesh, cache: dict) -> dict:
     return _map_with_path(one, cache)
 
 
-def _local(leaf, spec: tuple, mesh):
+def _local(leaf, spec: tuple, mesh, padded: tuple = ()):
     """``leaf``'s slice on the calling rank: each dim that ``spec`` splits
-    over mesh axes narrowed to the rank's equal part along them. A split
-    leaf is copied once into storage of its own (a column slice is not
+    over mesh axes narrowed to the rank's equal part along them. A dim of
+    ``padded`` that the split does not divide is GSPMD's padded vocab: its
+    part is ``ceil(size / n)`` entries, the rows past the full size zeros
+    (the last rank holds the pad); any other such dim raises. A split leaf
+    is copied once into storage of its own (a column slice is not
     contiguous, and a row slice would keep the full tensor alive), so the
     full tree can be freed; a replicated leaf is returned as it is."""
     if not isinstance(leaf, torch.Tensor):
         return leaf
+    pads = dict(padded)
     out = leaf
     for dim, e in enumerate(spec):
         axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
         if not axes:
             continue
         n = axis_size(mesh, axes)
-        if leaf.shape[dim] % n:
+        size = leaf.shape[dim]
+        if size % n and dim not in pads:
             raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not split over the "
                              f"{n} ranks of {axes}")
-        part = leaf.shape[dim] // n
-        out = out.narrow(dim, axis_index(mesh, axes) * part, part)
+        part = -(-size // n)
+        lo = axis_index(mesh, axes) * part
+        held = max(min(part, size - lo), 0)
+        piece = out.narrow(dim, min(lo, size), held)
+        if held < part:   # the pad: zeros past the vocab
+            shape = list(piece.shape)
+            shape[dim] = part - held
+            piece = torch.cat([piece, piece.new_zeros(shape)], dim)
+        out = piece
     return out if out is leaf else out.clone(memory_format=torch.contiguous_format)
 
 
@@ -273,7 +317,9 @@ def local_shards(tree: Any, shardings: Any, mesh) -> Any:
             return {k: walk(v, sh[k], per_layer) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(layer, sh, True) for layer in node]
-        return _local(node, sh.spec[1:] if per_layer else sh.spec, mesh)
+        if per_layer:
+            return _local(node, sh.spec[1:], mesh)
+        return _local(node, sh.spec, mesh, sh.padded)
 
     return walk(tree, shardings, False)
 
@@ -286,15 +332,17 @@ def full_tree(local: Any, shardings: Any, mesh) -> Any:
     """The inverse of :func:`local_shards` and of the ZeRO-1 form
     (:func:`local_opt_state`): the calling rank's slices gathered back to
     the full tree, each dim that a spec splits all-gathered over its axes
-    (every rank of the mesh must call it; ``dist.collectives.all_gather``).
-    A per-layer list takes each layer's spec without the layer entry; a
-    stacked leaf its whole spec."""
+    (every rank of the mesh must call it; ``dist.collectives.all_gather``),
+    a padded vocab dim cut back to its size. A per-layer list takes each
+    layer's spec without the layer entry; a stacked leaf its whole spec."""
     from repro_torch.dist.collectives import all_gather
 
-    def gather(t, spec):
+    def gather(t, spec, padded=()):
         for dim, e in enumerate(spec):
             if _spec_axes(e):
                 t = all_gather(t, mesh, _spec_axes(e), dim=dim)
+        for dim, size in padded:
+            t = t.narrow(dim, 0, size)
         return t
 
     def walk(node, sh):
@@ -302,7 +350,7 @@ def full_tree(local: Any, shardings: Any, mesh) -> Any:
             return {k: walk(v, sh[k]) for k, v in node.items()}
         if isinstance(node, list):
             return [gather(layer, sh.spec[1:]) for layer in node]
-        return gather(node, sh.spec)
+        return gather(node, sh.spec, sh.padded)
 
     return walk(local, shardings)
 
@@ -338,8 +386,8 @@ def zero1_plan(cfg, mesh) -> dict[str, Zero1Leaf]:
         fold = next((d for d, e in enumerate(mspec) if _spec_axes(e) == ba), None)
         named = [a for e in mspec for a in _spec_axes(e)]
         holders = mesh.size() // (axis_size(mesh, named) if named else 1)
-        out[path] = Zero1Leaf(fold, tuple(_local(t, pspec, mesh).shape),
-                              tuple(_local(t, mspec, mesh).shape), 1.0 / holders)
+        out[path] = Zero1Leaf(fold, tuple(_local(t, pspec, mesh, node_p.padded).shape),
+                              tuple(_local(t, mspec, mesh, node_o.padded).shape), 1.0 / holders)
 
     _map_with_path(leaf, params)
     return out

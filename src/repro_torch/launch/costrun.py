@@ -32,9 +32,10 @@ Two deliberate differences from the JAX package's count:
   correction.
 * **Per device is the whole program over the mesh's device count.** The
   count is the unpartitioned program's, divided by the production mesh's
-  256 ranks, for every cell: the partitioned program (``mesh=``) covers only
-  the dense decode and prefill cells, and of those the dry run reads only
-  its collectives (``collectives_source``).
+  256 ranks, for every cell: the partitioned program (``mesh=``) covers
+  only some cells (the dense family's, gemma2-27b's, internvl2-2b's and
+  seamless-m4t-large-v2's decode, prefill and train cells), and of those
+  the dry run reads only its collectives (``collectives_source``).
 
 A decode cell's attention counts the cache's capacity (every slot live), as
 a compiler's static count does: its lanes are full in the cell anyway.

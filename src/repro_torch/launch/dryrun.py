@@ -18,8 +18,9 @@ reads:
 * ``cost``: the count of the whole step at full depth over the mesh's
   device count;
 * ``collectives``: for the cells the partitioned program covers (the dense
-  llama-style archs at ``decode_32k``, ``prefill_32k`` and ``train_4k``:
-  float linears, contiguous lanes, a batch that splits over the data axes),
+  archs, gemma2-27b included, internvl2-2b and seamless-m4t-large-v2 at
+  ``decode_32k``, ``prefill_32k`` and ``train_4k``: float linears,
+  contiguous lanes, a batch that splits over the data axes),
   what rank 0's share of that program (``models.model.decode_step``/
   ``prefill`` or ``train.train_step.train_step`` with ``mesh=``, full depth;
   the train step at the JAX dry run's :data:`TRAIN_ACCUM` microbatches, each
@@ -238,7 +239,7 @@ def program_covers(cfg, shape: str, mesh) -> bool:
         return False
     try:
         if spec.kind == "train":
-            M.train_parallel(cfg, mesh, spec.seq_len)
+            M.train_parallel(cfg, mesh, M.stack_len(cfg, input_specs(cfg, spec)))
         else:
             M.check_partitioned(cfg, mesh)
     except ValueError:
@@ -250,9 +251,11 @@ def collective_bytes_from_program(cfg, shape: str, mesh) -> dict:
     """Per-rank bytes and calls of each collective kind in one step of the
     partitioned program (a cell :func:`program_covers`), read from the
     program itself: rank 0's shards of the params (full depth), its rows of
-    the batch and, for decode, its lanes of a cache of ``seq_len`` slots,
-    for train its ZeRO-1 slices of the moments and :data:`TRAIN_ACCUM`
-    microbatches, run on ``meta`` under ``CollectiveCounter`` (the form of
+    the batch (a vlm's ``prefix_embeds``, audio's ``src_frames`` beside the
+    tokens) and, for decode, its lanes of a cache of ``seq_len`` slots
+    (audio's encoder memory :data:`AUDIO_CROSS_LEN` frames), for train its
+    ZeRO-1 slices of the moments and :data:`TRAIN_ACCUM` microbatches, run
+    on ``meta`` under ``CollectiveCounter`` (the form of
     :func:`collective_bytes_from_specs`, ``_counts`` included)."""
     from repro_torch.train.train_step import train_step
 
@@ -270,12 +273,14 @@ def collective_bytes_from_program(cfg, shape: str, mesh) -> dict:
         return counter.totals()
     with torch.no_grad(), CollectiveCounter() as counter:
         if spec.kind == "decode":
-            cache = M.init_decode_cache(cfg, b, spec.seq_len, device="meta")
+            cache = M.init_decode_cache(cfg, b, spec.seq_len, device="meta",
+                                        src_len=AUDIO_CROSS_LEN if cfg.family == "audio" else 0)
             cache["pos"] = torch.full((b,), spec.seq_len - 1, dtype=torch.int32,
                                       device="meta")
             M.decode_step(params, cache, tokens, cfg, mesh=mesh)
         else:
-            M.prefill(params, tokens, cfg, spec.seq_len + cfg.n_prefix_tokens + 64, mesh=mesh)
+            M.prefill(params, tokens, cfg, spec.seq_len + cfg.n_prefix_tokens + 64, mesh=mesh,
+                      **{k: v for k, v in local.items() if k != "tokens"})
     return counter.totals()
 
 

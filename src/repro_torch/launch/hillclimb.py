@@ -107,11 +107,13 @@ def rank_batch(shape: str) -> int:
     return max(SHAPES[shape].global_batch // DATA_GROUPS, 1)
 
 
-def rank_cell(cfg, shape: str, device="cuda", mesh=None):
+def rank_cell(cfg, shape: str, device="cuda", mesh=None, lanes: int | None = None):
     """(params, step, cache) of the rank cell of a decode shape on ``device``:
-    weights from seed 0, :func:`rank_batch` lanes of ``seq_len`` slots of K/V
+    weights from seed 0, :func:`rank_batch` lanes (``lanes``: fewer, where
+    the rank's cache does not fit one card) of ``seq_len`` slots of K/V
     drawn from N(0, 0.3²) by the same generator, every lane full
-    (``costrun.decode_cell``). With ``mesh`` (the production mesh over a
+    (``costrun.decode_cell``; the audio decoder's encoder memory drawn the
+    same way). With ``mesh`` (the production mesh over a
     ``fake`` group: ``launch.mesh.production_mesh_for_counting``) it is the
     calling rank's partitioned cell: its shards of the same weights (the
     full tree freed once they are cut), the same lanes, each step
@@ -119,18 +121,23 @@ def rank_cell(cfg, shape: str, device="cuda", mesh=None):
 
     A train shape takes ``mesh`` and gives (params, step, opt_state): the
     rank's shards of the same weights, its ZeRO-1 slices of zero moments,
-    :func:`rank_batch` rows of seeded tokens and labels (``step.batch``),
-    each call one in-place partitioned train step at the dry run's
-    ``TRAIN_ACCUM`` (``costrun.build_cell``)."""
+    :func:`rank_batch` rows of seeded tokens and labels (``step.batch``; a
+    vlm's prefix and audio's frames drawn from N(0, 1)), each call one
+    in-place partitioned train step at the dry run's ``TRAIN_ACCUM``
+    (``costrun.build_cell``)."""
     spec = SHAPES[shape]
     dev = torch.device(device)
+    rows = lanes or rank_batch(shape)
     if spec.kind == "train":
         if mesh is None:
             raise ValueError("the train rank cell is the partitioned one: pass mesh=")
-        step = costrun.build_cell(cfg, shape, dev, batch=rank_batch(shape), mesh=mesh)
+        step = costrun.build_cell(cfg, shape, dev, batch=rows, mesh=mesh)
         gen = torch.Generator(device=dev).manual_seed(0)
         for v in step.batch.values():
-            v.copy_(torch.randint(0, cfg.vocab_size, v.shape, generator=gen, device=dev))
+            if v.is_floating_point():
+                v.normal_(0.0, 1.0, generator=gen)
+            else:
+                v.copy_(torch.randint(0, cfg.vocab_size, v.shape, generator=gen, device=dev))
         return step.params, step, step.opt_state
     if spec.kind != "decode":
         raise ValueError(f"the rank cell is a decode or train cell, not {spec.kind}")
@@ -138,9 +145,9 @@ def rank_cell(cfg, shape: str, device="cuda", mesh=None):
     params = costrun.M.init_params(cfg, gen, device=dev)
     if mesh is not None:
         params = shard_params(params, mesh)
-    step, cache = costrun.decode_cell(cfg, rank_batch(shape), spec.seq_len, params, dev, mesh)
-    for key in ("k", "v"):
-        for layer in cache[key]:   # a layer at a time: an f8 cache has no normal_
+    step, cache = costrun.decode_cell(cfg, rows, spec.seq_len, params, dev, mesh)
+    for key in ("k", "v", "cross_k", "cross_v"):
+        for layer in cache.get(key, ()):   # a layer at a time: an f8 cache has no normal_
             layer.copy_(torch.empty(layer.shape, dtype=torch.bfloat16, device=dev)
                         .normal_(0.0, 0.3, generator=gen))
     return params, step, cache
@@ -182,14 +189,15 @@ def captured_train_step(cfg, params, opt_state, batch, mesh):
     return step
 
 
-def partitioned_count(cfg, shape: str) -> dict | None:
+def partitioned_count(cfg, shape: str, lanes: int | None = None) -> dict | None:
     """The partitioned rank cell's count on ``meta``: ``costrun.count``'s
-    totals of rank 0's step on the production mesh's ``fake`` group, with
-    its ``collectives`` (``dist.collectives.CollectiveCounter``, without the
-    ``_counts``) and their ``_counts`` under ``collective_calls``. None
-    where the cell has no partitioned rank: a shape other than decode or
-    train, or one the partitioned program does not run
-    (``dryrun.program_covers``)."""
+    totals of rank 0's step on the production mesh's ``fake`` group (at
+    ``lanes`` rows where the card's cell is cut to them, :func:`rank_cell`),
+    with its ``collectives`` (``dist.collectives.CollectiveCounter``,
+    without the ``_counts``) and their ``_counts`` under
+    ``collective_calls``. None where the cell has no partitioned rank: a
+    shape other than decode or train, or one the partitioned program does
+    not run (``dryrun.program_covers``)."""
     from repro_torch.dist.collectives import CollectiveCounter
 
     kind = SHAPES[shape].kind
@@ -199,7 +207,7 @@ def partitioned_count(cfg, shape: str) -> dict | None:
         if not dryrun.program_covers(cfg, shape, mesh):
             return None
         with CollectiveCounter() as coll:
-            out = costrun.count(costrun.build_cell(cfg, shape, batch=rank_batch(shape),
+            out = costrun.count(costrun.build_cell(cfg, shape, batch=lanes or rank_batch(shape),
                                                    mesh=mesh))
     out["collectives"] = coll.totals()
     out["collective_calls"] = out["collectives"].pop("_counts")

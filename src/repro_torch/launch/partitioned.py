@@ -5,7 +5,7 @@ prefill, and the train step.
 train_step``/``train_step_`` with ``mesh=`` are the programs; this module
 drives them as a user would, on whatever group is live:
 
-* :func:`shard_params` / :func:`shard_rows` cut a full params tree or batch
+* :func:`shard_params` / :func:`shard_batch` cut a full params tree or batch
   down to the calling rank's shards (``dist.sharding.local_shards``);
 * :func:`greedy` takes each row's greedy token from vocab-sharded logits;
 * :func:`generate`: a prefill, then greedy decode steps;
@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.device import torch_dtype
 from repro_torch.dist import sharding as shard_lib
 from repro_torch.dist.collectives import CollectiveCounter, all_gather
 from repro_torch.launch.mesh import coordinates, counting_mesh, make_mesh
@@ -64,31 +65,54 @@ def shard_params(params: dict, mesh) -> dict:
     return shard_lib.local_shards(params, shard_lib.param_shardings(params, mesh), mesh)
 
 
-def shard_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
-    """The calling rank's rows of a global batch (its share over the data
-    axes, or all of them where the batch does not split)."""
-    batch = {"tokens": tokens}
+def shard_batch(batch: dict, mesh) -> dict:
+    """The calling rank's rows of every input of a global batch (tokens,
+    labels, a vlm's ``prefix_embeds``, audio's ``src_frames``): its share
+    over the data axes, or all of them where the batch does not split."""
     return shard_lib.local_shards(batch, shard_lib.batch_shardings(None, None, mesh, batch),
-                                  mesh)["tokens"]
+                                  mesh)
+
+
+def batch_on(batch, dev) -> dict:
+    """A global batch of numpy arrays (or one array: the tokens) as tensors
+    on ``dev``: integer ids as int64, float inputs (``prefix_embeds``,
+    ``src_frames``) in their own dtype."""
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v), device=dev)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
+
+
+def _meta_inputs(cfg, extra: dict | None) -> dict:
+    """``meta`` stand-ins of a vlm's or audio's inputs beside the tokens:
+    ``extra`` maps each name to its global shape, in ``cfg.dtype``."""
+    return {k: torch.empty(shape, dtype=torch_dtype(cfg.dtype), device="meta")
+            for k, shape in (extra or {}).items()}
 
 
 def greedy(logits: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
     """(B, 1) greedy tokens from the last position of ``logits`` (B, T, V),
-    gathered over ``model`` first where they are vocab-sharded (ties go to
-    the lowest token, as ``torch.argmax`` gives them)."""
+    gathered over ``model`` first where they are vocab-sharded (a padded
+    vocab's logits come gathered already: ``models.model.logits_fn``; ties
+    go to the lowest token, as ``torch.argmax`` gives them)."""
     last = logits[:, -1]
     if mesh is not None and last.shape[-1] < cfg.vocab_size:
         last = all_gather(last, mesh, "model", dim=-1)
     return last.argmax(-1, keepdim=True)
 
 
-def generate(params: dict, tokens: torch.Tensor, cfg, max_len: int, steps: int, mesh=None):
-    """``prefill`` of ``tokens``, then ``steps`` greedy ``decode_step``s,
-    partitioned over ``mesh`` (params and tokens the rank's shards) or not.
+def generate(params: dict, tokens: torch.Tensor, cfg, max_len: int, steps: int, mesh=None,
+             **inputs):
+    """``prefill`` of ``tokens`` (and ``inputs``: a vlm's ``prefix_embeds``,
+    audio's ``src_frames``), then ``steps`` greedy ``decode_step``s,
+    partitioned over ``mesh`` (params and inputs the rank's shards) or not.
     Returns (the logits of the prefill and of each step, (B, 1, V) or the
     rank's (B_rank, 1, V / model); the greedy tokens (B, steps + 1); the
     cache)."""
-    logits, cache = M.prefill(params, tokens, cfg, max_len, mesh=mesh)
+    logits, cache = M.prefill(params, tokens, cfg, max_len, mesh=mesh, **inputs)
     outs, toks = [logits], [greedy(logits, cfg, mesh)]
     for _ in range(steps):
         logits, cache = M.decode_step(params, cache, toks[-1], cfg, mesh=mesh)
@@ -107,11 +131,14 @@ def rank_run(jobs, meshes, max_len: int, steps: int, device) -> list[list[dict]]
     each ``(data, model)`` shape of ``meshes`` (each over the whole group),
     :func:`generate` on the rank's shards of ``params`` (the JAX package's
     tree as numpy, carried over with ``params_from_numpy``; or an int seed
-    for ``init_params``) and of ``tokens`` (the global (B, S) prompts, numpy)
-    on ``device``. Returns, a job each, a mesh each: ``coords``, the rank's
-    ``logits`` (a list), ``tokens`` and ``k``/``v`` as numpy,
-    ``collectives`` (``CollectiveCounter`` totals of the whole drive) and
-    ``launches`` (its kernel launches)."""
+    for ``init_params``) and of ``tokens`` (the global (B, S) prompts, numpy;
+    or a dict of them beside a vlm's ``prefix_embeds`` or audio's
+    ``src_frames``, :func:`batch_on`) on ``device``. Returns, a job each, a
+    mesh each: ``coords``, the rank's ``logits`` (a list), ``tokens`` and
+    every cache leaf but ``pos`` (``k``/``v``, audio's
+    ``cross_k``/``cross_v``) as numpy, ``collectives``
+    (``CollectiveCounter`` totals of the whole drive) and ``launches`` (its
+    kernel launches)."""
     from repro_torch.kernels import launch_counts, reset_launches
 
     dev = torch.device(device)
@@ -123,19 +150,20 @@ def rank_run(jobs, meshes, max_len: int, steps: int, device) -> list[list[dict]]
                                  device=dev)
         else:
             full = M.params_from_numpy(params, device=dev)
-        prompts = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=dev)
+        prompts = batch_on(tokens, dev)
         runs = []
         for mesh in meshes:
             local = shard_params(full, mesh)
-            rows = shard_rows(prompts, mesh)
+            rows = shard_batch(prompts, mesh)
             reset_launches()
             with torch.no_grad(), CollectiveCounter() as counter:
-                logits, toks, cache = generate(local, rows, cfg, max_len, steps, mesh)
+                logits, toks, cache = generate(local, rows.pop("tokens"), cfg, max_len, steps,
+                                               mesh, **rows)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             runs.append({"mesh": tuple(mesh.mesh.shape), "coords": coordinates(mesh),
                          "logits": [_numpy(x) for x in logits], "tokens": _numpy(toks),
-                         "k": _numpy(cache["k"]), "v": _numpy(cache["v"]),
+                         **{k: _numpy(v) for k, v in cache.items() if k != "pos"},
                          "collectives": counter.totals(), "launches": launch_counts()})
             del local, cache
         del full
@@ -143,16 +171,19 @@ def rank_run(jobs, meshes, max_len: int, steps: int, device) -> list[list[dict]]
     return out
 
 
-def count_run(cfg, shape, batch: int, prompt_len: int, max_len: int, steps: int) -> dict:
+def count_run(cfg, shape, batch: int, prompt_len: int, max_len: int, steps: int,
+              extra: dict | None = None) -> dict:
     """The ``CollectiveCounter`` totals of :func:`rank_run`'s drive of one
     mesh ``shape``, on ``meta`` over a ``fake`` group of its size: any rank
-    counts the same, as the shapes are the same on every rank."""
+    counts the same, as the shapes are the same on every rank. ``extra``:
+    the global shapes of a vlm's or audio's inputs (:func:`_meta_inputs`)."""
     with counting_mesh(shape, AXES) as mesh:
         local = shard_params(M.init_params(cfg, None, device="meta"), mesh)
-        rows = shard_rows(torch.zeros((batch, prompt_len), dtype=torch.long, device="meta"),
-                          mesh)
+        rows = shard_batch({"tokens": torch.zeros((batch, prompt_len), dtype=torch.long,
+                                                  device="meta"),
+                            **_meta_inputs(cfg, extra)}, mesh)
         with torch.no_grad(), CollectiveCounter() as counter:
-            generate(local, rows, cfg, max_len, steps, mesh)
+            generate(local, rows.pop("tokens"), cfg, max_len, steps, mesh, **rows)
     return counter.totals()
 
 
@@ -176,10 +207,10 @@ def _metrics(m: dict) -> dict:
     return {k: float(v) for k, v in m.items()}
 
 
-def _unsharded(full: dict, batch: dict, cfg, steps: int, accum: int):
-    """The unsharded in-place step on a copy of ``full``: (its metrics a step;
-    its params, ``m`` and ``v`` after the steps by stacked path, on the host)."""
-    params = tree_map(lambda t: t.clone(), full)
+def _unsharded(params: dict, batch: dict, cfg, steps: int, accum: int):
+    """The unsharded in-place step on ``params`` (written): (its metrics a
+    step; its params, ``m`` and ``v`` after the steps by stacked path, on
+    the host)."""
     state = init_opt_state(params)
     metrics = [_metrics(train_step_(params, state, batch, cfg, TRAIN_OPT, accum))
                for _ in range(steps)]
@@ -215,7 +246,8 @@ def train_run(jobs, meshes, steps: int, accum: int, device, *, functional: bool 
     ``device``: the full params (the JAX package's tree as numpy, or an int
     seed for ``init_params``) cut to the rank's shards, zero moments made at
     its ZeRO-1 slices, its rows of ``batch`` (the global ``tokens`` and
-    ``labels``, numpy). Returns, a job each, a mesh each: ``coords``,
+    ``labels``, numpy, and a vlm's ``prefix_embeds`` or audio's
+    ``src_frames``). Returns, a job each, a mesh each: ``coords``,
     ``metrics`` (a dict of floats a step), ``collectives``
     (``CollectiveCounter`` totals of the steps), ``launches``,
     ``param_bytes`` / ``moment_bytes`` (what the rank holds), ``wall_s`` and
@@ -224,7 +256,8 @@ def train_run(jobs, meshes, steps: int, accum: int, device, *, functional: bool 
     gathered back (``dist.sharding.full_tree``)
     as numpy by stacked path (``params``, ``m``, ``v``) on rank 0, or with
     ``reference`` instead their ``errors`` against the unsharded step from
-    the same params and batch, which rank 0 runs first (``metrics_ref``):
+    the same params and batch, which rank 0 runs first (``metrics_ref``; the
+    other ranks make their params after it, as ranks may share one card):
     for each tree the max |err| and the max over leaves of |err| over the
     leaf's max |x|."""
     import torch.distributed as dist
@@ -236,9 +269,14 @@ def train_run(jobs, meshes, steps: int, accum: int, device, *, functional: bool 
     rank0 = dist.get_rank() == 0
     out = []
     for cfg, params, batch in jobs:
+        gbatch = batch_on(batch, dev)
+        ref = None
+        if reference:   # the other ranks make their params after it: ranks may share a card
+            if rank0:
+                ref = _unsharded(_full_params(cfg, params, dev), gbatch, cfg, steps, accum)
+            _free(dev)
+            dist.barrier()
         full = _full_params(cfg, params, dev)
-        gbatch = {k: torch.as_tensor(np.asarray(v), device=dev).long() for k, v in batch.items()}
-        ref = _unsharded(full, gbatch, cfg, steps, accum) if reference and rank0 else None
         _free(dev)
         specs = M.param_specs(cfg)
         runs = []
@@ -249,8 +287,7 @@ def train_run(jobs, meshes, steps: int, accum: int, device, *, functional: bool 
             else:
                 del full
             state = shard_lib.local_opt_state(cfg, mesh, dev)
-            rows = shard_lib.local_shards(
-                gbatch, shard_lib.batch_shardings(None, None, mesh, gbatch), mesh)
+            rows = shard_batch(gbatch, mesh)
             reset_launches()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -308,17 +345,17 @@ def train_run(jobs, meshes, steps: int, accum: int, device, *, functional: bool 
     return out
 
 
-def count_train_run(cfg, shape, batch: int, seq_len: int, steps: int, accum: int) -> dict:
+def count_train_run(cfg, shape, batch: int, seq_len: int, steps: int, accum: int,
+                    extra: dict | None = None) -> dict:
     """The ``CollectiveCounter`` totals of :func:`train_run`'s steps on one
     mesh ``shape``, on ``meta`` over a ``fake`` group of its size (any rank
-    counts the same)."""
+    counts the same); ``extra`` as :func:`count_run`'s."""
     with counting_mesh(shape, mesh_axes(shape)) as mesh:
         local = shard_params(M.init_params(cfg, None, device="meta"), mesh)
         state = shard_lib.local_opt_state(cfg, mesh, "meta")
         gbatch = {k: torch.zeros((batch, seq_len), dtype=torch.long, device="meta")
                   for k in ("tokens", "labels")}
-        rows = shard_lib.local_shards(gbatch, shard_lib.batch_shardings(None, None, mesh, gbatch),
-                                      mesh)
+        rows = shard_batch({**gbatch, **_meta_inputs(cfg, extra)}, mesh)
         with CollectiveCounter() as counter:
             for _ in range(steps):
                 train_step_(local, state, rows, cfg, TRAIN_OPT, accum, mesh=mesh)

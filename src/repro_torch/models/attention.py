@@ -29,7 +29,10 @@ heads, a view of the lanes (B4 reads it in place). The output projection
 then gives the rank's partial sum, which the block reduces. The training
 form (:func:`attention_dense` with ``tp``) attends the same way over the
 whole sequence, without a cache; the gather's backward is a
-reduce-scatter.
+reduce-scatter. The encoder-decoder's cross attention
+(:func:`attention_cross`, :func:`project_memory_kv`) takes ``tp`` the same
+way: the memory's K/V columns are gathered into every head, the rank's
+query heads read their window of them.
 """
 from __future__ import annotations
 
@@ -227,33 +230,44 @@ def attention_dense(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def attention_cross(p: dict, x: torch.Tensor, memory_kv: tuple[torch.Tensor, torch.Tensor],
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Cross attention of x (B, T, d) against the fixed encoder memory K/V
-    (B, Hkv, S, hd) each: no RoPE, no mask; float q/o weights."""
+    (B, Hkv, S, hd) each: no RoPE, no mask; float q/o weights. Under ``tp``
+    the memory K/V hold every head, the rank's query heads attend over
+    their window of them (:func:`kv_window`) and the output is the rank's
+    partial sum of ``wo``, which the block reduces."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     q = _dense_matmul(p["wq"], x)
     if cfg.qkv_bias:
-        q = q + p["bq"]
-    qg = q.reshape(b, t, cfg.n_heads, hd).transpose(1, 2).reshape(
-        b, cfg.n_kv_heads, cfg.q_per_kv, t, hd)
+        q = q + _own(p["bq"], q, tp)
+    hq = q.shape[-1] // hd
+    j0, j1 = kv_window(cfg, hq, tp)
     k, v = memory_kv
+    if j1 - j0 < cfg.n_kv_heads:
+        k, v = k[:, j0:j1], v[:, j0:j1]
+    qg = q.reshape(b, t, hq, hd).transpose(1, 2).reshape(b, j1 - j0, hq // (j1 - j0), t, hd)
     s = torch.einsum("bkgtd,bksd->bkgts", qg, k).float() * _scale(cfg)
     pr = torch.softmax(s, dim=-1).to(x.dtype)
     y = torch.einsum("bkgts,bksd->bkgtd", pr, v)
-    y = y.reshape(b, cfg.n_heads, t, hd).transpose(1, 2).reshape(b, t, -1)
+    y = y.reshape(b, hq, t, hd).transpose(1, 2).reshape(b, t, -1)
     return _dense_matmul(p["wo"], y)
 
 
-def project_memory_kv(p: dict, mem: torch.Tensor, cfg: ModelConfig):
+def project_memory_kv(p: dict, mem: torch.Tensor, cfg: ModelConfig, tp=None):
     """Encoder memory (B, S, d) -> cross-attention K/V (B, Hkv, S, hd) each,
-    computed once per request."""
+    computed once per request. Under ``tp`` the rank's K/V columns of the
+    column-parallel ``wk``/``wv`` are all-gathered over ``model``
+    (:func:`_gather_kv`), so every rank holds every head, as the cache's
+    ``cross_k``/``cross_v`` replicate them over ``model``."""
     b, s, _ = mem.shape
     hd = cfg.head_dim
     k = _dense_matmul(p["wk"], mem)
     v = _dense_matmul(p["wv"], mem)
     if cfg.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
+        k, v = k + _own(p["bk"], k, tp), v + _own(p["bv"], v, tp)
+    if tp is not None and k.shape[-1] < cfg.n_kv_heads * hd:
+        k, v = _gather_kv(k, v, tp)
     return (k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2),
             v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2))
 

@@ -39,9 +39,10 @@ post-block norms, tied embeddings and the embedding scale; with
 beside the global layers' full lanes.
 
 **Partitioned** (``mesh=`` on :func:`decode_step` and :func:`prefill`): the
-JAX dry run's decode and prefill programs for the dense llama-style configs
-(llama3-8b, yi-9b, codeqwen1.5-7b; float linears, contiguous caches) run
-partitioned over a ``torch.distributed`` mesh (``launch.mesh``), with
+JAX dry run's decode and prefill programs for the dense configs (llama3-8b,
+yi-9b, codeqwen1.5-7b, gemma2-27b), vlm (internvl2-2b) and audio
+(seamless-m4t-large-v2; float linears, contiguous caches) run partitioned
+over a ``torch.distributed`` mesh (``launch.mesh``), with
 explicit collectives (``dist.collectives``), as GSPMD partitions them under
 the JAX specs: every argument is the calling rank's local shard
 (``dist.sharding.local_shards``: its batch rows over ``data``, its columns
@@ -51,15 +52,23 @@ and vocab columns of the logits, the out-spec ``P(ba, None, "model")``).
 Megatron tensor parallelism: the vocab-sharded embedding looks up its rows
 and all-reduces; ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` are
 column-parallel, ``wo`` and ``w_down`` row-parallel, each block one
-all-reduce (``models.attention`` gathers the new K/V); the LM head gives
-vocab-sharded logits. Under ``cfg.seq_parallel`` (and T >= 16) the prefill's
-activations between blocks shard their sequence over ``model`` (the JAX
-package's ``_sp_constraint``): a block all-gathers its normed input and
-reduce-scatters its output. The arithmetic is the unsharded program's up to
-the order of the reductions. The paged cache, W8A8 and the other families
+all-reduce (``models.attention`` gathers the new K/V); the LM head (tied:
+the embedding's rows) gives vocab-sharded logits, or, where ``model`` does
+not divide the vocab (GSPMD's padded vocab, ``dist.sharding``), gathers
+them and drops the pad (:func:`logits_fn`). gemma2 keeps its softcaps, its
+post-norms (after each block's reduction) and its local layers' windows
+(a live range over full lanes); a vlm's image prefix goes before its
+tokens; the audio encoder runs its blocks the same way and each decoder
+layer's cross K/V gathers every head, its cross attention the rank's
+heads. Under ``cfg.seq_parallel`` (and T >= 16) the dense and vlm
+prefill's activations between blocks shard their sequence over ``model``
+(the JAX package's ``_sp_constraint``, on its dense block only): a block
+all-gathers its normed input and reduce-scatters its output. The
+arithmetic is the unsharded program's up to the order of the reductions.
+The paged cache, W8A8, gemma2's rings and the MoE, hybrid and ssm families
 raise under a mesh.
 
-The same family's training form (``mesh=`` on :func:`forward` and
+The same families' training form (``mesh=`` on :func:`forward` and
 :func:`loss_fn`, the loss of ``train.train_step.train_step`` with ``mesh=``)
 runs the full-sequence blocks over the rank's rows with the same split
 (:func:`train_parallel`), under autograd: every collective has its
@@ -80,7 +89,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, kv_mapping
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.dist.collectives import TensorParallel, all_reduce, reduce_from
+from repro_torch.dist.collectives import TensorParallel, all_gather, all_reduce, reduce_from
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -357,10 +366,21 @@ def decode_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 # ===========================================================================
 
 
-def logits_fn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def logits_fn(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    """f32 logits of x (the tied head: ``x @ embed.T``), the final-logit
+    softcap applied. With ``mesh`` the head is the rank's vocab shard (tied:
+    its embedding rows), so are the logits (B, T, V / model), the softcap
+    acting on the shard; where ``model`` does not divide the vocab (GSPMD's
+    padded vocab, ``dist.sharding``) the rank all-gathers the shards over
+    ``model`` and drops the pad columns (B, T, V): the dry run's replicated
+    out-spec, one all-gather a call."""
     if cfg.tie_embeddings:
-        return L.lm_head_tied(params["embed"], x, cfg.logit_softcap)
-    return L.lm_head(params["lm_head"], x, cfg.logit_softcap)
+        logits = L.lm_head_tied(params["embed"], x, cfg.logit_softcap)
+    else:
+        logits = L.lm_head(params["lm_head"], x, cfg.logit_softcap)
+    if mesh is not None and cfg.vocab_size % TensorParallel(mesh).size:
+        logits = all_gather(logits, mesh, "model", dim=-1).narrow(-1, 0, cfg.vocab_size)
+    return logits
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -368,8 +388,9 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     """Token embeddings; gemma scales them by sqrt(d_model) rounded to the
     activation dtype first, as the JAX package's ``jnp.asarray(d**0.5,
     x.dtype)`` does (bf16: 68.0 for gemma2-27b's 4608). Under ``tp`` a
-    vocab-sharded table looks up its own rows and all-reduces over
-    ``model``."""
+    vocab-sharded table looks up its own rows ``[index * rows, (index + 1) *
+    rows)`` (a padded vocab's pad rows, on the last rank, are never hit) and
+    all-reduces over ``model``; the scale acts on the sum."""
     w = params["embed"]["w"]
     if tp is not None and w.shape[0] < cfg.vocab_size:
         x = reduce_from(L.embed_rows(params["embed"], tokens, tp.offset(w.shape[0])), tp.mesh)
@@ -384,6 +405,18 @@ def _post_norm(lp: dict, name: str, y: torch.Tensor, cfg: ModelConfig) -> torch.
     return L.rmsnorm(lp[name], y, cfg.norm_eps) if cfg.post_block_norm else y
 
 
+def _column(tp: Optional[TensorParallel], h: torch.Tensor, split: bool) -> torch.Tensor:
+    """The input of a block's products under ``tp`` (``split``: the rank
+    holds a share of their columns; ``TensorParallel.column_input``)."""
+    return h if tp is None else tp.column_input(h, split)
+
+
+def _reduced(tp: Optional[TensorParallel], y: torch.Tensor, split: bool) -> torch.Tensor:
+    """A block's output under ``tp``: summed over ``model`` where it is the
+    rank's partial sum (``split``; ``TensorParallel.reduce``)."""
+    return y if tp is None else tp.reduce(y, split)
+
+
 def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False,
               tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x + the MLP (or MoE) half of a block. Under ``tp`` the normed input
@@ -391,23 +424,16 @@ def _mlp_tail(lp: dict, x: torch.Tensor, cfg: ModelConfig, gemm: bool = False,
     gathered over the sequence where it is sharded there), and the
     row-parallel ``w_down``'s partial sums reduced (``TensorParallel.reduce``)."""
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-    split = tp is not None and lp["mlp"]["w_down"].shape[0] < cfg.d_ff
-    if tp is not None:
-        h = tp.column_input(h, split)
+    split = tp is not None and _mlp_split(lp["mlp"], cfg)
+    h = _column(tp, h, split)
     if cfg.family == "moe":
         m = moe_lib.moe_einsum(lp["moe"], h, cfg)   # float experts in every form, as in JAX
     elif gemm:
         m = L.mlp(lp["mlp"], h, linear_fn=attn_lib._dense_matmul)
     else:
         m = dispatch.mlp(lp["mlp"], h, cfg)  # W8A8 GEMVs under quantized_decode
-    if tp is not None:
-        m = tp.reduce(m, split)
+    m = _reduced(tp, m, split)
     return x + _post_norm(lp, "post_mlp_norm", m, cfg)
-
-
-def _wo_split(lp: dict, cfg: ModelConfig) -> bool:
-    """Does the rank hold a share of ``wo``'s rows (its output a partial sum)?"""
-    return lp["attn"]["wo"].shape[0] < cfg.n_heads * cfg.head_dim
 
 
 def _attn_residual(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] = None,
@@ -417,8 +443,7 @@ def _attn_residual(lp, x, kc, vc, pos, cfg: ModelConfig, window: Optional[int] =
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     a = attn_lib.attention_decode(lp["attn"], h, kc, vc, pos, cfg, window=window, gemm=gemm,
                                   tp=tp)
-    if tp is not None:
-        a = tp.reduce(a, _wo_split(lp, cfg))
+    a = _reduced(tp, a, tp is not None and _heads_split(lp["attn"], cfg))
     return x + _post_norm(lp, "post_attn_norm", a, cfg)
 
 
@@ -441,20 +466,28 @@ def _dense_block_decode_paged(lp, x, kp, vp, table, pos, cfg: ModelConfig,
 # ===========================================================================
 
 
+PARTITIONED_FAMILIES = ("dense", "vlm", "audio")
+
+
 def check_partitioned(cfg: ModelConfig, mesh, cache: Optional[dict] = None) -> None:
     """Raise unless the partitioned program covers ``cfg`` (and ``cache``)
-    on ``mesh``: the dense llama-style family with float linears over
-    contiguous lanes, its query heads split evenly over ``model``."""
+    on ``mesh``: the dense family (llama-style and gemma2), vlm and audio,
+    with float linears over contiguous lanes (gemma2's local layers over
+    full lanes, their window a live range), its query heads split evenly
+    over ``model``."""
     from repro_torch.launch.mesh import axis_size
 
-    if (cfg.family != "dense" or cfg.sliding_window is not None or cfg.tie_embeddings
-            or cfg.post_block_norm or cfg.attn_softcap is not None
-            or cfg.logit_softcap is not None):
-        raise ValueError(f"{cfg.name}: the partitioned program covers the dense llama-style "
-                         f"family (llama3-8b, yi-9b, codeqwen1.5-7b); gemma2, MoE, the "
-                         f"hybrid, rwkv6, vlm and audio are later work")
+    if cfg.family not in PARTITIONED_FAMILIES:
+        raise ValueError(f"{cfg.name}: the partitioned program covers the dense family "
+                         f"(llama3-8b, yi-9b, codeqwen1.5-7b, gemma2-27b), vlm "
+                         f"(internvl2-2b) and audio (seamless-m4t-large-v2); the "
+                         f"{cfg.family} family (MoE, the hybrid, rwkv6's ssm) is later work")
     if cfg.quantized_decode:
         raise ValueError("W8A8 (quantized_decode) is not partitioned, as in the JAX package")
+    if windowed_cache_applicable(cfg) or (cache is not None and "k_loc" in cache):
+        raise ValueError(f"{cfg.name}: gemma2's W-slot rings (windowed_kv_cache) are not "
+                         f"partitioned: the JAX dry run never builds them (its gemma2 cells "
+                         f"keep full lanes, each local layer's window a live range)")
     if cache is not None and "k" not in cache:
         raise ValueError("the partitioned program takes contiguous lanes ('k'/'v'); the "
                          "paged cache is not partitioned, as in the JAX package")
@@ -479,10 +512,11 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
     ``gemm=True`` runs the batch-prefill form (float GEMMs, dense attention at
     any T); rwkv6 has no other form. With ``mesh`` it is the partitioned
     step (the module's docstring): params, cache and tokens are the rank's
-    shards, and so are the logits (B_rank, T, V / model) and the cache.
+    shards, and so are the logits (B_rank, T, V / model; a padded vocab's
+    gathered, :func:`logits_fn`) and the cache.
     """
     x, new_cache = _forward(params, cache, tokens, cfg, gemm=gemm, mesh=mesh)
-    return logits_fn(params, x, cfg), new_cache
+    return logits_fn(params, x, cfg, mesh), new_cache
 
 
 def _forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -491,14 +525,14 @@ def _forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     _check_family(cfg)
     tp = None
     if mesh is not None:
-        check_partitioned(cfg, mesh, cache)   # the dense family over contiguous lanes
+        check_partitioned(cfg, mesh, cache)   # dense, vlm, audio over contiguous lanes
         tp = TensorParallel(mesh)
     if cfg.family == "hybrid":
         return _hybrid_forward(params, cache, tokens, cfg, gemm=gemm)
     if cfg.family == "ssm":
         return _rwkv_forward(params, cache, tokens, cfg)
     if cfg.family == "audio":
-        return _audio_forward(params, cache, tokens, cfg, gemm=gemm)
+        return _audio_forward(params, cache, tokens, cfg, gemm=gemm, tp=tp)
     if "k_loc" in cache:
         return _windowed_forward(params, cache, tokens, cfg)
     pos = cache["pos"]
@@ -591,34 +625,63 @@ def _rwkv_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelCon
 
 
 def _audio_forward(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                   *, gemm: bool = False):
+                   *, gemm: bool = False, tp: Optional[TensorParallel] = None):
     """The audio decoder: per layer, self attention over its contiguous lanes
     (written in place; one token takes B4 and, under W8A8, the B3 GEMVs),
-    cross attention over the layer's encoder memory K/V, then the MLP."""
+    cross attention over the layer's encoder memory K/V, then the MLP. Under
+    ``tp`` each block is the rank's share, reduced over ``model``."""
     if cache["cross_k"].shape[-2] == 0:
         raise ValueError("the audio decoder's cache holds no encoder memory: it is "
                          "filled by prefill(..., src_frames=...), which takes the "
                          "source frames (the engine's admission passes none)")
     pos = cache["pos"]
-    x = L.embed(params["embed"], tokens)
+    x = _embed(params, tokens, cfg, tp)
     for i, lp in enumerate(params["dec_layers"]):
-        x = _attn_residual(lp, x, cache["k"][i], cache["v"][i], pos, cfg, gemm=gemm)
-        h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-        x = x + attn_lib.attention_cross(lp["cross_attn"], h,
-                                         (cache["cross_k"][i], cache["cross_v"][i]), cfg)
-        x = _mlp_tail(lp, x, cfg, gemm=gemm)
+        x = _attn_residual(lp, x, cache["k"][i], cache["v"][i], pos, cfg, gemm=gemm, tp=tp)
+        x = _cross_residual(lp, x, cache["cross_k"][i], cache["cross_v"][i], cfg, tp)
+        x = _mlp_tail(lp, x, cfg, gemm=gemm, tp=tp)
     new_cache = {k: cache[k] for k in ("k", "v", "cross_k", "cross_v")}
     new_cache["pos"] = pos + tokens.shape[1]
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache
 
 
-def _audio_encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The bidirectional encoder over stub frames (B, S, d) -> memory (B, S, d)."""
+def _heads_split(p: dict, cfg: ModelConfig) -> bool:
+    """Does the rank hold a share of an attention block's ``wo`` rows?"""
+    return p["wo"].shape[0] < cfg.n_heads * cfg.head_dim
+
+
+def _mlp_split(p: dict, cfg: ModelConfig) -> bool:
+    """Does the rank hold a share of an MLP's ``w_down`` rows?"""
+    return p["w_down"].shape[0] < cfg.d_ff
+
+
+def _cross_residual(lp: dict, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                    cfg: ModelConfig, tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """x + the cross-attention block over one layer's encoder-memory K/V
+    (under ``tp`` the rank's query heads over their window, its partial sum
+    of ``wo`` reduced over ``model``)."""
+    split = _heads_split(lp["cross_attn"], cfg)
+    h = _column(tp, L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps), split)
+    return x + _reduced(tp, attn_lib.attention_cross(lp["cross_attn"], h, (ck, cv), cfg, tp=tp),
+                        split)
+
+
+def _audio_encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+                  tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """The bidirectional encoder over stub frames (B, S, d) -> memory (B, S, d).
+    Under ``tp`` each layer's attention and MLP are the rank's share (its
+    heads, its MLP columns), each half reduced over ``model``; the JAX
+    package puts no sequence-parallel constraint on this stack, so neither
+    does the port."""
     def body(lp, h):
-        h = h + attn_lib.attention_dense(lp["attn"], L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps),
-                                         cfg, causal=False)
-        return h + L.mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps),
-                         linear_fn=attn_lib._dense_matmul)
+        sa, sm = _heads_split(lp["attn"], cfg), _mlp_split(lp["mlp"], cfg)
+        a = attn_lib.attention_dense(
+            lp["attn"], _column(tp, L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps), sa), cfg,
+            causal=False, tp=tp)
+        h = h + _reduced(tp, a, sa)
+        m = L.mlp(lp["mlp"], _column(tp, L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps), sm),
+                  linear_fn=attn_lib._dense_matmul)
+        return h + _reduced(tp, m, sm)
 
     h = frames
     for lp in params["enc_layers"]:
@@ -626,10 +689,15 @@ def _audio_encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch
     return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
-def project_cross_kv(params: dict, mem: torch.Tensor, cfg: ModelConfig):
+def project_cross_kv(params: dict, mem: torch.Tensor, cfg: ModelConfig,
+                     tp: Optional[TensorParallel] = None):
     """Every decoder layer's cross-attention K/V of the encoder memory:
-    (k, v), each (nL, B, Hkv, S, hd)."""
-    kvs = [attn_lib.project_memory_kv(lp["cross_attn"], mem, cfg)
+    (k, v), each (nL, B, Hkv, S, hd). Under ``tp`` every head too: each
+    layer's K/V columns gathered over ``model``
+    (``attention.project_memory_kv``); the memory is the input of all of
+    them, so its gradient is summed over ``model`` once."""
+    mem = _column(tp, mem, True)
+    kvs = [attn_lib.project_memory_kv(lp["cross_attn"], mem, cfg, tp)
            for lp in params["dec_layers"]]
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
@@ -669,14 +737,11 @@ def _dense_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, window: Optional[i
     columns, each half's partial sum reduced over ``model`` (under
     ``tp.seq`` x is the rank's share of the sequence, gathered for each
     half's products and scattered after)."""
-    h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    if tp is not None:
-        h = tp.column_input(h, True)
+    h = _column(tp, L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps), True)
     out = attn_lib.attention_dense(lp["attn"], h, cfg, window=window, return_kv=return_kv,
                                    tp=tp)
     a, kv = out if return_kv else (out, None)
-    if tp is not None:
-        a = tp.reduce(a, True)
+    a = _reduced(tp, a, True)
     x = _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=True, tp=tp)
     return (x, kv) if return_kv else x
 
@@ -746,18 +811,22 @@ def _hybrid_forward_seq(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return x, stacked, kv
 
 
-def _audio_decode_stack(params: dict, x: torch.Tensor, cross_kv, cfg: ModelConfig):
+def _audio_decode_stack(params: dict, x: torch.Tensor, cross_kv, cfg: ModelConfig,
+                        tp: Optional[TensorParallel] = None):
     """The audio decoder over the whole sequence: per layer causal self
     attention, cross attention over that layer's encoder-memory K/V
-    (``cross_kv``: (k, v), each (nL, B, Hkv, S_src, hd)), then the MLP."""
+    (``cross_kv``: (k, v), each (nL, B, Hkv, S_src, hd)), then the MLP.
+    Under ``tp`` each of the three is the rank's share, reduced over
+    ``model``."""
     def body(lp, ck, cv, h):
-        h = h + attn_lib.attention_dense(lp["attn"], L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps),
-                                         cfg)
-        h = h + attn_lib.attention_cross(lp["cross_attn"],
-                                         L.rmsnorm(lp["cross_norm"], h, cfg.norm_eps), (ck, cv),
-                                         cfg)
-        return h + L.mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps),
-                         linear_fn=attn_lib._dense_matmul)
+        sa, sm = _heads_split(lp["attn"], cfg), _mlp_split(lp["mlp"], cfg)
+        a = attn_lib.attention_dense(
+            lp["attn"], _column(tp, L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps), sa), cfg,
+            tp=tp)
+        h = _cross_residual(lp, h + _reduced(tp, a, sa), ck, cv, cfg, tp)
+        m = L.mlp(lp["mlp"], _column(tp, L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps), sm),
+                  linear_fn=attn_lib._dense_matmul)
+        return h + _reduced(tp, m, sm)
 
     for lp, ck, cv in zip(params["dec_layers"], *cross_kv):
         x = _remat(body, cfg)(lp, ck, cv, x)
@@ -772,41 +841,44 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *, mesh=None) -> torch.
     the prefix and the tokens and keeps the tokens' rows; audio encodes the
     frames, projects each decoder layer's cross K/V and runs the decoder.
 
-    With ``mesh`` it is the partitioned forward of the dense llama-style
-    family (:func:`train_parallel`): params and tokens the rank's shards,
+    With ``mesh`` it is the partitioned forward of the dense, vlm and audio
+    families (:func:`train_parallel`): params and inputs the rank's shards,
     the result its rows, under ``cfg.seq_parallel`` (S >= 16) its share of
-    the sequence."""
+    the sequence (a vlm with a prefix: the whole sequence, gathered, before
+    its tokens' rows are kept)."""
     _check_family(cfg)
     tokens = batch["tokens"]
-    if mesh is not None:
-        return _forward_partitioned(params, tokens, cfg, train_parallel(cfg, mesh,
-                                                                        tokens.shape[1]))
-    if cfg.family == "audio":
-        mem = _audio_encode(params, batch["src_frames"].to(torch_dtype(cfg.dtype)), cfg)
-        x = _audio_decode_stack(params, L.embed(params["embed"], tokens),
-                                project_cross_kv(params, mem, cfg), cfg)
-    elif cfg.family == "ssm":
+    n = stack_len(cfg, batch)
+    tp = None if mesh is None else train_parallel(cfg, mesh, n)
+    if cfg.family == "ssm":
         x = _rwkv_forward_seq(params, L.embed(params["embed"], tokens), cfg)
     elif cfg.family == "hybrid":
         x, _, _ = _hybrid_forward_seq(params, L.embed(params["embed"], tokens), cfg)
     else:
-        x = _embed(params, tokens, cfg)
-        prefix = batch.get("prefix_embeds") if cfg.family == "vlm" else None
-        if prefix is not None:
-            x = torch.cat([prefix.to(x.dtype), x], dim=1)
-        x = _scan_layers(params, x, cfg)
-        if prefix is not None:
-            x = x[:, prefix.shape[1]:, :]
+        x = _forward_stack(params, batch, cfg, tp)
+        if n == tokens.shape[1]:
+            return x
+        if tp is not None:
+            x = tp.gather_seq(x)
+        return x[:, n - tokens.shape[1]:]
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def stack_len(cfg: ModelConfig, batch: dict) -> int:
+    """The positions a batch runs through the decoder stack: its tokens, and
+    a vlm's prefix rows before them."""
+    prefix = batch.get("prefix_embeds") if cfg.family == "vlm" else None
+    return batch["tokens"].shape[1] + (0 if prefix is None else prefix.shape[1])
 
 
 def train_parallel(cfg: ModelConfig, mesh, seq_len: int) -> TensorParallel:
     """The rank's :class:`TensorParallel` for the partitioned forward and loss
-    of ``seq_len`` tokens: :func:`check_partitioned`, and every attention
-    and MLP width split over ``model`` (a product replicated there would
-    take a partial gradient that the step does not sum); sequence
-    parallelism under ``cfg.seq_parallel`` with ``seq_len`` >= 16, as the
-    prefill takes it."""
+    of ``seq_len`` positions (:func:`stack_len`): :func:`check_partitioned`,
+    and every attention and MLP width split over ``model`` (a product
+    replicated there would take a partial gradient that the step does not
+    sum); sequence parallelism under ``cfg.seq_parallel`` with ``seq_len``
+    >= 16, as the prefill takes it, for the dense and vlm stacks (the JAX
+    package constrains the dense block only, not the audio stacks)."""
     from repro_torch.launch.mesh import MODEL_SHARD
 
     check_partitioned(cfg, mesh)
@@ -817,9 +889,17 @@ def train_parallel(cfg: ModelConfig, mesh, seq_len: int) -> TensorParallel:
             raise ValueError(f"{cfg.name}: {name} = {n} is not split over 'model' (it does "
                              f"not divide by {MODEL_SHARD}); the partitioned train step "
                              f"takes split products only")
-    tp = TensorParallel(mesh, seq=cfg.seq_parallel and seq_len >= 16)
+    return _tensor_parallel(cfg, mesh, seq_len)
+
+
+def _tensor_parallel(cfg: ModelConfig, mesh, seq_len: int) -> TensorParallel:
+    """The rank's :class:`TensorParallel` over a stack of ``seq_len``
+    positions: sequence parallel under ``cfg.seq_parallel`` from 16
+    positions, the dense and vlm stacks only."""
+    seq = cfg.seq_parallel and seq_len >= 16 and cfg.family != "audio"
+    tp = TensorParallel(mesh, seq=seq)
     if tp.seq and seq_len % tp.size:
-        raise ValueError(f"sequence parallelism: {seq_len} tokens do not split over the "
+        raise ValueError(f"sequence parallelism: {seq_len} positions do not split over the "
                          f"{tp.size} ranks of 'model'")
     return tp
 
@@ -828,34 +908,65 @@ def partial_over_model(cfg: ModelConfig, mesh, seq_len: int) -> tuple[str, ...]:
     """The stacked paths of the params that :func:`loss_fn` with ``mesh``
     leaves replicated over ``model`` but gives each rank a partial gradient
     of, which sums over ``model`` to the whole: under sequence parallelism
-    every norm scale (each rank normalizes its share of the sequence).
-    Nothing else: a norm's input gradient comes whole from the column
-    input's reduction, and the q/k/v biases, stacked (nL, n), split over
-    ``model`` as their weights' columns do."""
+    every norm scale (each rank normalizes its share of the sequence;
+    gemma2's post-norms too, which act on the reduced, scattered block
+    output). Nothing else: a norm's input gradient comes whole from the
+    column input's reduction, and the q/k/v biases, stacked (nL, n), split
+    over ``model`` as their weights' columns do.
+
+    The tied embedding (gemma2) needs no path of its own: the rank's rows
+    take the lookup's part of their gradient (from the whole gradient of the
+    lookup's output, which its reduction passes unchanged) and the head's
+    part (its vocab columns against the whole final hidden state, which the
+    head's input gathers or sums over ``model``), both whole, on the same
+    shard."""
     if not train_parallel(cfg, mesh, seq_len).seq:
         return ()
-    return ("layers/attn_norm/scale", "layers/mlp_norm/scale", "final_norm/scale")
+    names = ("attn_norm", "mlp_norm")
+    if cfg.post_block_norm:
+        names += ("post_attn_norm", "post_mlp_norm")
+    return (*(f"layers/{n}/scale" for n in names), "final_norm/scale")
 
 
-def _forward_partitioned(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                         tp: TensorParallel) -> torch.Tensor:
-    x = tp.local_seq(_embed(params, tokens, cfg, tp))
-    x = _scan_layers(params, x, cfg, tp)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+def _forward_stack(params: dict, batch: dict, cfg: ModelConfig,
+                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """:func:`forward` of the dense, vlm, MoE and audio families through the
+    final norm, before a vlm's prefix rows are dropped; under ``tp`` the
+    rank's share (under ``tp.seq`` its share of the sequence, a vlm's prefix
+    included)."""
+    tokens = batch["tokens"]
+    if cfg.family == "audio":
+        mem = _audio_encode(params, batch["src_frames"].to(torch_dtype(cfg.dtype)), cfg, tp)
+        x = _audio_decode_stack(params, _embed(params, tokens, cfg, tp),
+                                project_cross_kv(params, mem, cfg, tp), cfg, tp)
+        return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _embed(params, tokens, cfg, tp)
+    prefix = batch.get("prefix_embeds") if cfg.family == "vlm" else None
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    if tp is not None:
+        x = tp.local_seq(x)
+    return L.rmsnorm(params["final_norm"], _scan_layers(params, x, cfg, tp), cfg.norm_eps)
 
 
-def _vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
-                         tp: TensorParallel) -> torch.Tensor:
+def _vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor, tp: TensorParallel,
+                         vocab: int) -> torch.Tensor:
     """The summed cross-entropy of f32 ``logits`` (B, C, V / model), the
-    rank's vocab columns, against ``labels`` (B, C), through two f32
-    all-reduces over ``model`` a chunk: (1) the max of each position's
-    logits (detached: the log-sum-exp does not depend on it), (2) the sum
-    of each position's exps beside its gold logit, which lives on one rank
-    and is zero elsewhere (one stacked reduction of the loss's two
-    statistics a token)."""
+    rank's vocab columns (the final-logit softcap already applied), against
+    ``labels`` (B, C), through two f32 all-reduces over ``model`` a chunk:
+    (1) the max of each position's logits (detached: the log-sum-exp does
+    not depend on it), (2) the sum of each position's exps beside its gold
+    logit, which lives on one rank and is zero elsewhere (one stacked
+    reduction of the loss's two statistics a token). A padded vocab's pad
+    columns (past ``vocab``, on the last rank) are masked out of both, so
+    the loss is the unpadded one and the pad takes no gradient."""
     n = logits.shape[-1]
+    lo = tp.offset(n)
+    if lo + n > vocab:
+        pad = torch.arange(lo, lo + n, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, float("-inf"))
     mx = all_reduce(logits.detach().amax(-1), tp.mesh, "model", op="max")
-    local = labels - tp.offset(n)
+    local = labels - lo
     hit = (local >= 0) & (local < n)
     gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
     gold = torch.where(hit, gold, torch.zeros((), dtype=gold.dtype, device=gold.device))
@@ -874,15 +985,17 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, chunk: int = 1024, *,
     layer 0's router over the first min(S, 512) final-normed hidden states,
     as the JAX package computes it.
 
-    With ``mesh`` it is the partitioned loss of the dense llama-style family
-    over the rank's rows (the mean over them, the same on every rank of
-    ``model``): the forward of :func:`forward` with ``mesh``, the final hidden
-    states gathered over the sequence under sequence parallelism, the head's
-    vocab columns and :func:`_vocab_parallel_xent` a chunk."""
+    With ``mesh`` it is the partitioned loss of the dense, vlm and audio
+    families over the rank's rows (the mean over them, the same on every
+    rank of ``model``): the forward of :func:`forward` with ``mesh``, the
+    final hidden states gathered over the sequence under sequence
+    parallelism (a vlm's prefix rows then dropped), the head's vocab columns
+    (tied: the embedding's rows) and :func:`_vocab_parallel_xent` a chunk."""
     labels = batch["labels"].long()
     if mesh is not None:
-        tp = train_parallel(cfg, mesh, batch["tokens"].shape[1])
-        x = tp.column_input(_forward_partitioned(params, batch["tokens"], cfg, tp), True)
+        tp = train_parallel(cfg, mesh, stack_len(cfg, batch))
+        x = tp.column_input(_forward_stack(params, batch, cfg, tp), True)
+        x = x[:, x.shape[1] - labels.shape[1]:]
     else:
         x = forward(params, batch, cfg)
     b, s, _ = x.shape
@@ -894,7 +1007,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, chunk: int = 1024, *,
     for lo in range(0, s, c):
         logits = L.softcap((x[:, lo:lo + c] @ w).float(), cfg.logit_softcap)
         if mesh is not None:
-            total = total + _vocab_parallel_xent(logits, labels[:, lo:lo + c], tp)
+            total = total + _vocab_parallel_xent(logits, labels[:, lo:lo + c], tp,
+                                                 cfg.vocab_size)
             continue
         gold = torch.gather(logits, -1, labels[:, lo:lo + c, None])[..., 0]
         total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
@@ -922,13 +1036,11 @@ def _prefill_forward(params: dict, cache: dict, x: torch.Tensor, cfg: ModelConfi
     result."""
     windows = layer_windows(cfg)
     for i, lp in enumerate(params["layers"]):
-        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        if tp is not None:
-            h = tp.column_input(h, _wo_split(lp, cfg))
+        split = tp is not None and _heads_split(lp["attn"], cfg)
+        h = _column(tp, L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps), split)
         a = attn_lib.attention_prefill(lp["attn"], h, cache["k"][i], cache["v"][i], cfg,
                                        step=step, window=windows[i], tp=tp)
-        if tp is not None:
-            a = tp.reduce(a, _wo_split(lp, cfg))
+        a = _reduced(tp, a, split)
         x = _mlp_tail(lp, x + _post_norm(lp, "post_attn_norm", a, cfg), cfg, gemm=True, tp=tp)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
@@ -940,26 +1052,6 @@ def _last_hidden(x: torch.Tensor, seq_lens) -> torch.Tensor:
         return x[:, -1:, :]
     idx = torch.as_tensor(seq_lens, device=x.device).long() - 1
     return x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
-
-
-def _prefill_partitioned(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
-                         seq_lens, mesh):
-    """:func:`prefill` with ``mesh``: the dense pass over the rank's rows
-    into fresh lanes of every KV head, its logits the rank's vocab columns."""
-    check_partitioned(cfg, mesh)
-    b, s = tokens.shape
-    dev = tokens.device
-    tp = TensorParallel(mesh, seq=cfg.seq_parallel and s >= 16)
-    if tp.seq and s % tp.size:
-        raise ValueError(f"sequence parallelism: {s} tokens do not split over the "
-                         f"{tp.size} ranks of 'model'")
-    full = init_decode_cache(cfg.replace(kv_dtype=""), b, max_len, device=dev)
-    x = tp.local_seq(_embed(params, tokens, cfg, tp))
-    x = tp.gather_seq(_prefill_forward(params, full, x, cfg, max(int(cfg.q_chunk), 1), tp))
-    kvd = kv_cache_dtype(cfg)
-    logits = logits_fn(params, _last_hidden(x, seq_lens), cfg)
-    return logits, {"k": full["k"].to(kvd), "v": full["v"].to(kvd),
-                    "pos": torch.tensor(s, dtype=torch.int32, device=dev)}
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
@@ -995,20 +1087,24 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     application's K/V, stored in the cache's dtype (pads included, as in
     the JAX package).
 
-    With ``mesh`` it is the partitioned prefill of the dense llama-style
-    family (the module's docstring): params and tokens (and ``seq_lens``)
-    are the rank's shards, and the logits (B_rank, 1, V / model) and the
-    cache its own."""
+    With ``mesh`` it is the partitioned prefill of the dense, vlm and audio
+    families (the module's docstring): params, tokens, ``prefix_embeds``,
+    ``src_frames`` (and ``seq_lens``) are the rank's shards, and the logits
+    (B_rank, 1, V / model; a padded vocab's gathered, (B_rank, 1, V)) and
+    the cache its own."""
     _check_family(cfg)
-    if mesh is not None:
-        return _prefill_partitioned(params, tokens, cfg, max_len, seq_lens, mesh)
     if prefix_embeds is not None and cfg.family != "vlm":
         raise ValueError(f"prefix_embeds is the vlm family's input, not {cfg.family!r}'s")
     if cfg.family == "audio" and src_frames is None:
         raise ValueError("the audio family's prefill needs src_frames (B, S, d_model): "
                          "the encoder's input")
+    if mesh is not None:
+        check_partitioned(cfg, mesh)
     b, s = tokens.shape
     dev = tokens.device
+    if prefix_embeds is not None:
+        s += prefix_embeds.shape[1]
+    tp = None if mesh is None else _tensor_parallel(cfg, mesh, s)
     if cfg.family == "ssm":
         x, cache = _rwkv_forward(params, init_decode_cache(cfg, b, max_len, device=dev),
                                  tokens, cfg)
@@ -1026,31 +1122,34 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
         cache["pos"] = torch.tensor(s, dtype=torch.int32, device=dev)
         return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
     if cfg.family == "audio":   # K/V in the compute dtype until stored, as below
-        mem = _audio_encode(params, src_frames.to(torch_dtype(cfg.dtype)), cfg)
+        mem = _audio_encode(params, src_frames.to(torch_dtype(cfg.dtype)), cfg, tp)
         cache = init_decode_cache(cfg.replace(kv_dtype=""), b, max_len, device=dev,
                                   src_len=mem.shape[1])
-        cross_k, cross_v = project_cross_kv(params, mem, cfg)
+        cross_k, cross_v = project_cross_kv(params, mem, cfg, tp)
         cache["cross_k"].copy_(cross_k)
         cache["cross_v"].copy_(cross_v)
-        x, cache = _audio_forward(params, cache, tokens, cfg, gemm=True)
+        x, cache = _audio_forward(params, cache, tokens, cfg, gemm=True, tp=tp)
         kvd = kv_cache_dtype(cfg)
         cache.update({k: cache[k].to(kvd) for k in ("k", "v", "cross_k", "cross_v")})
-        return logits_fn(params, _last_hidden(x, seq_lens), cfg), cache
-    x = _embed(params, tokens, cfg)
+        return logits_fn(params, _last_hidden(x, seq_lens), cfg, mesh), cache
+    x = _embed(params, tokens, cfg, tp)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         if seq_lens is not None:
             seq_lens = torch.as_tensor(seq_lens, device=dev) + prefix_embeds.shape[1]
-    s = x.shape[1]
     # the pass attends over K/V in the compute dtype, and the cache takes its own
     # dtype only when stored (an fp8 ``kv_dtype``), as the JAX prefill casts its
     # collected K/V; with kv_dtype == dtype the casts below return the tensors
     full = init_decode_cache(cfg.replace(windowed_kv_cache=False, kv_dtype=""), b, max_len,
                              device=dev)
-    x = _prefill_forward(params, full, x, cfg, max(int(cfg.q_chunk), 1))
+    if tp is not None:
+        x = tp.local_seq(x)
+    x = _prefill_forward(params, full, x, cfg, max(int(cfg.q_chunk), 1), tp)
+    if tp is not None:
+        x = tp.gather_seq(x)
     kvd = kv_cache_dtype(cfg)
     full = {"k": full["k"].to(kvd), "v": full["v"].to(kvd)}
-    logits = logits_fn(params, _last_hidden(x, seq_lens), cfg)
+    logits = logits_fn(params, _last_hidden(x, seq_lens), cfg, mesh)
     pos = torch.tensor(s, dtype=torch.int32, device=dev)
     if not windowed_cache_applicable(cfg):
         return logits, {"k": full["k"], "v": full["v"], "pos": pos}

@@ -17,10 +17,13 @@ capture that fails raises ``interleave.CaptureError`` naming the frame that
 broke it. On the CPU the step runs eagerly.
 
 **Partitioned** (``mesh=``: the JAX dry run's ``train_4k`` program for the
-dense llama-style family, ``models.model.check_partitioned``): each rank
-holds its ``model`` shard of the params (``launch.partitioned.
-shard_params``), its ZeRO-1 slice of the f32 moments in the stacked layout
-(``dist.sharding.local_opt_state``) and its rows of the batch. The step:
+dense family, gemma2 included, vlm and audio,
+``models.model.check_partitioned``): each rank holds its ``model`` shard of
+the params (``launch.partitioned.shard_params``; a padded vocab's pad rows
+or columns stay zero), its ZeRO-1 slice of the f32 moments in the stacked
+layout (``dist.sharding.local_opt_state``) and its rows of the batch (a
+vlm's ``prefix_embeds``, audio's ``src_frames`` beside the tokens). The
+step:
 
 1. the rank's rows in ``accum`` microbatches, each ``models.model.loss_fn``
    with ``mesh`` (Megatron tensor parallelism over ``model``, autograd
@@ -201,7 +204,7 @@ def _partitioned_step(params: dict, opt_state: OptState, batch: dict, cfg: Model
     nb = axis_size(mesh, ba)
     loss, acc = _partitioned_grads(params, batch, cfg, accum, mesh, plan)
     loss = all_reduce(loss / nb, mesh, ba)
-    partial = M.partial_over_model(cfg, mesh, batch["tokens"].shape[1])
+    partial = M.partial_over_model(cfg, mesh, M.stack_len(cfg, batch))
     if partial:
         flat = all_reduce(torch.cat([acc[p].reshape(-1) for p in partial]), mesh, "model")
         for p, piece in zip(partial, flat.split([acc[p].numel() for p in partial])):

@@ -15,8 +15,10 @@ unsharded ones, on the CPU over real ``gloo`` groups.
   the ``meta`` count of the same drive over a ``fake`` group of the mesh's
   size, kind by kind, and a formula written here from the config's widths.
 * The dry run reads the partitioned program's collectives for the three
-  archs at ``decode_32k`` and ``prefill_32k`` on both production meshes
-  (``"program"``), the specs' model elsewhere (``"specs"``).
+  archs at ``decode_32k`` and ``prefill_32k``, and for gemma2-27b,
+  internvl2-2b and seamless-m4t-large-v2 at those and ``train_4k``, on both
+  production meshes (``"program"``), the specs' model elsewhere
+  (``"specs"``: MoE, zamba2-7b, rwkv6-1.6b, every ``long_500k`` cell).
 * B4's head window: the plain version over a view ``cache[:, j0:j1]`` equals
   the whole cache's result for those heads, and the op reports the window's
   work; on the card (``cuda`` marker, skipped without one) the kernel over
@@ -192,8 +194,10 @@ def test_partitioned_refuses_what_it_does_not_cover():
     cfg = t_get_config("llama3-8b", smoke=True)
     with tmesh.counting_mesh((1, 2), ("data", "model")) as m:
         TM.check_partitioned(cfg, m)
-        for bad in (cfg.replace(quantized_decode=True), t_get_config("gemma2-27b", smoke=True),
-                    t_get_config("olmoe-1b-7b", smoke=True)):
+        rings = t_get_config("gemma2-27b", smoke=True).replace(windowed_kv_cache=True)
+        for bad in (cfg.replace(quantized_decode=True), rings,
+                    t_get_config("olmoe-1b-7b", smoke=True), t_get_config("zamba2-7b", smoke=True),
+                    t_get_config("rwkv6-1.6b", smoke=True)):
             with pytest.raises(ValueError):
                 TM.check_partitioned(bad, m)
         with pytest.raises(ValueError, match="paged"):
@@ -203,29 +207,106 @@ def test_partitioned_refuses_what_it_does_not_cover():
             TM.check_partitioned(cfg, m)       # 4 query heads over 8 ranks
 
 
+FAMILY_ARCHS = ["gemma2-27b", "internvl2-2b", "seamless-m4t-large-v2"]
+PROGRAM_CELLS = ([(a, s) for a in ARCHS for s in ("decode_32k", "prefill_32k")]
+                 + [(a, s) for a in FAMILY_ARCHS for s in ("decode_32k", "prefill_32k", "train_4k")])
+
+
+def _train_formula(cfg, multi_pod: bool) -> dict:
+    """Rank 0's ``train_4k`` collectives from the widths, as
+    ``test_torch_launch_tools.py`` writes llama3-8b's: the rank's 256 / dp
+    rows (dp 16, multi-pod 32) in 4 microbatches of b rows, remat on, bf16
+    activations (a) of T rows (t tokens; a vlm's stack also its prefix; audio
+    t = S frames = 2,048). A microbatch all-reduces (2x each): the embedding
+    lookup (t rows) and the head's input gradient; a layer's two block
+    reductions forward, their two conjugates backward and the attention's
+    again in the recompute (gemma2's post-norms read the MLP's reduced
+    output too, so it is recomputed as well: 6); an audio decoder layer adds
+    the cross attention's three, the encoder memory's gradient one; the
+    loss's three f32 statistics a token in two calls a 1,024-token chunk. A
+    step adds two f32 scalars. K/V: an all-gather a self attention layer
+    forward and in the recompute, one a cross K/V forward, a reduce-scatter
+    (kv / 16 columns) a forward gather backward. ZeRO-1: each leaf's f32
+    gradient reduce-scattered over dp, its bf16 update all-gathered (the
+    rank's shard whole; the vocab padded to 16)."""
+    dp, accum, a = 32 if multi_pod else 16, dryrun.TRAIN_ACCUM, 2
+    audio, tied = int(cfg.family == "audio"), cfg.tie_embeddings
+    b = 256 // dp // accum
+    t = 4096 // 2 if audio else 4096
+    big_t = t + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
+    d, n_l, n_e = cfg.d_model, cfg.n_layers, cfg.n_encoder_layers if audio else 0
+    kv, hq = cfg.n_kv_heads * cfg.head_dim, cfg.n_heads * cfg.head_dim
+    post = 2 if cfg.post_block_norm else 0
+    per_layer = 5 + post // 2 + 3 * audio
+    reduces = 1 + 5 * n_e + per_layer * n_l + audio        # at T rows, beside the lookup
+    chunks = t // 1024
+    gathers, scatters = 2 * n_l + 2 * n_e + audio * n_l, n_l + n_e + audio * n_l
+    vocab = -(-cfg.vocab_size // 16) * 16
+    attn, mlp = d * (2 * hq + 2 * kv), 3 * d * cfg.d_ff
+    sharded = vocab * d * (1 if tied else 2) + n_e * (attn + mlp) + n_l * (attn + mlp
+                                                                      + audio * attn)
+    norms = d * (n_l * (2 + post + audio) + 2 * n_e + 1 + audio)
+    shard = sharded // 16 + norms
+    leaves = (1 if tied else 2) + 1 + audio + (7 + 2 + post + 5 * audio) + audio * 9
+    kv_bytes = 2 * b * big_t * kv * a
+    return {"all-reduce": 2.0 * (accum * (b * t * d * a + reduces * b * big_t * d * a)
+                                 + accum * b * t * 3 * 4 + 2 * 4),
+            "all-gather": accum * gathers * kv_bytes + shard * a,
+            "reduce-scatter": accum * scatters * kv_bytes // 16 + shard // dp * 4,
+            "_counts": {"all-reduce": accum * (1 + reduces + 2 * chunks) + 2,
+                        "all-gather": accum * gathers + leaves,
+                        "reduce-scatter": accum * scatters + leaves}}
+
+
 @pytest.mark.parametrize("multi_pod", [False, True])
-@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,shape", PROGRAM_CELLS)
 def test_dryrun_counts_the_program(arch, shape, multi_pod):
-    """The covered cells read the program: the specs' all-reduces exactly,
-    plus one K/V all-gather a layer of b·T·2·Hkv·hd bf16."""
+    """The covered cells read the program. Decode and prefill: the specs'
+    all-reduce bytes exactly, one all-reduce a row-parallel product applied
+    (the embedding's; each decoder layer's attention, MLP and, audio, cross
+    attention; the audio encoder's two a layer in prefill), plus one
+    all-gather of b·T·2·Hkv·hd bf16 a K/V projection (each decoder layer's;
+    audio prefill also each encoder layer's and each cross K/V of the
+    S-frame memory) and, where 16 does not divide the vocab (GSPMD's padded
+    vocab), the f32 logits gathered over its padded width. Train: each
+    kind's calls and bytes from the widths (:func:`_train_formula`), fewer
+    all-reduce bytes than the specs' model (ZeRO-1 reduce-scatters and
+    all-gathers in place of the gradient all-reduce)."""
     cfg = t_get_config(arch)
     with tmesh.production_mesh_for_counting(multi_pod=multi_pod) as m:
         coll, source = dryrun.collectives_on(cfg, shape, m)
         specs = dryrun.collective_bytes_from_specs(cfg, shape, m)
-    b = 128 // (32 if multi_pod else 16) if shape == "decode_32k" else (1 if multi_pod else 2)
-    t = 1 if shape == "decode_32k" else 32768
     assert source == "program"
-    assert coll["_counts"] == {**specs["_counts"], "all-gather": cfg.n_layers}
+    if shape == "train_4k":
+        want = _train_formula(cfg, multi_pod)
+        assert coll.pop("_counts") == want.pop("_counts")
+        assert coll == pytest.approx(want, rel=1e-12)
+        assert coll["all-reduce"] < specs["all-reduce"]
+        return
+    b = 128 // (32 if multi_pod else 16) if shape == "decode_32k" else (1 if multi_pod else 2)
+    audio = cfg.family == "audio"
+    t = 1 if shape == "decode_32k" or audio else 32768 + cfg.n_prefix_tokens
+    kv = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    gathers, nbytes = cfg.n_layers, cfg.n_layers * b * t * kv
+    reduces = 1 + 2 * cfg.n_layers + (cfg.n_layers if audio else 0)
+    if audio and shape == "prefill_32k":
+        gathers += cfg.n_encoder_layers + cfg.n_layers
+        nbytes += (cfg.n_encoder_layers + cfg.n_layers) * b * 32768 * kv
+        reduces += 2 * cfg.n_encoder_layers
+    if cfg.vocab_size % 16:
+        gathers += 1
+        nbytes += b * 16 * -(-cfg.vocab_size // 16) * 4
+    assert coll["_counts"] == {"all-reduce": reduces, "all-gather": gathers}
     assert coll["all-reduce"] == specs["all-reduce"]
-    assert coll["all-gather"] == cfg.n_layers * b * t * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    assert coll["all-gather"] == nbytes
 
 
 def test_dryrun_moe_and_other_cells_stay_specs():
     res = dryrun.run_cell("olmoe-1b-7b", "decode_32k", False)
     assert res["status"] == "ok" and res["collectives_source"] == "specs"
-    for arch, shape in (("llama3-8b", "long_500k"), ("gemma2-27b", "train_4k"),
-                        ("gemma2-27b", "decode_32k")):
+    for arch, shape in (("llama3-8b", "long_500k"), ("zamba2-7b", "train_4k"),
+                        ("zamba2-7b", "decode_32k"), ("rwkv6-1.6b", "prefill_32k"),
+                        ("rwkv6-1.6b", "long_500k"), ("phi3.5-moe-42b-a6.6b", "train_4k")):
         with tmesh.production_mesh_for_counting() as m:
             assert dryrun.collectives_on(t_get_config(arch), shape, m)[1] == "specs"
 

@@ -237,14 +237,18 @@ def test_functional_and_in_place_partitioned_steps_are_bit_equal():
 
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_dryrun_covers_the_dense_train_cells(multi_pod):
-    """``train_4k`` reads the program for the three dense archs on both
-    production meshes (their count: ``test_torch_launch_tools.py``'s
-    full-size llama3-8b cell, and ``chip_smoke.py --cost``'s sweep); the
-    other families stay on the specs' model."""
+    """``train_4k`` reads the program for the three dense archs, gemma2-27b,
+    internvl2-2b and seamless-m4t-large-v2 on both production meshes (their
+    count: ``test_torch_launch_tools.py``'s full-size llama3-8b cell,
+    ``test_torch_partitioned.py``'s dry-run cells and ``chip_smoke.py
+    --cost``'s sweep); gemma2's rings, MoE, the hybrid and rwkv6 stay on the
+    specs' model."""
     with tmesh.production_mesh_for_counting(multi_pod=multi_pod) as m:
-        for arch in ARCHS:
+        for arch in ARCHS + ["gemma2-27b", "internvl2-2b", "seamless-m4t-large-v2"]:
             assert dryrun.program_covers(t_get_config(arch), "train_4k", m), arch
-        for arch in ("gemma2-27b", "olmoe-1b-7b", "zamba2-7b", "rwkv6-1.6b", "internvl2-2b"):
+        assert not dryrun.program_covers(
+            t_get_config("gemma2-27b").replace(windowed_kv_cache=True), "train_4k", m)
+        for arch in ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-7b", "rwkv6-1.6b"):
             assert not dryrun.program_covers(t_get_config(arch), "train_4k", m), arch
 
 
